@@ -1,0 +1,145 @@
+"""The plain PyTorch versions of the port's four kernels (A1-A4) against the
+JAX package's Pallas kernels, run in Pallas interpret mode on the CPU.
+
+Same inputs for both, drawn with numpy from a seed.  Weights are handed to
+the JAX kernels in flax layout ([in, out]) and to the port in torch layout
+([out, in]).  Tolerances:
+
+- fp32: rtol = atol = 2e-5, the JAX package's own kernel-vs-XLA bound
+  (the Pallas GELU uses a 1.5e-7-accurate erf polynomial, torch the exact
+  erf; sums run in another order);
+- bf16: 4 bf16 ulps at the scale of the JAX output.  Both sides round at
+  the same points; a different fp32 summation order can move a rounded
+  intermediate by one ulp, and the output by a few.
+
+The CUDA kernels themselves run only on a GPU: chip_smoke.py holds them
+against these plain versions on the card.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from vdn.ops.pallas import flash_attention as jfa
+from vdn.ops.pallas import geglu as jgeglu
+from vdn.ops.pallas import mlp as jmlp
+from vdn.ops.pallas import temporal_attention as jta
+from vdn_torch.kernels import flash_attention as tfa
+from vdn_torch.kernels import geglu as tgeglu
+from vdn_torch.kernels import mlp as tmlp
+from vdn_torch.kernels import temporal_attention as tta
+
+torch.set_num_threads(2)
+
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _close(got: torch.Tensor, want, dtype: str):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        scale = float(np.abs(want).max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        err = float(np.abs(got - want).max())
+        assert err <= 4 * ulp, (err, ulp)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,h", [(1, 150, 2), (2, 64, 4)])
+def test_flash_attention_fused_qkv(b, t, h, dtype):
+    # t = 150: a ragged tail against 64-row q blocks
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng.standard_normal((b, t, 3, h, 64), np.float32), dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention_fused_qkv(jq, None, 64)
+    _close(tfa.flash_attention_fused_qkv(tq), want, dtype)
+
+
+def _mlp_args(rng, c, f):
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return dict(ls=1 + 0.1 * r(c), lb=0.1 * r(c), w1=r(c, f) / np.sqrt(c),
+                b1=0.1 * r(f), w2=r(f, c) / np.sqrt(f), b2=0.1 * r(c),
+                g=0.5 * r(c))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 150, 128), (300, 128)])
+def test_fused_ln_mlp_residual(shape, dtype):
+    rng = np.random.default_rng(1)
+    c, f = shape[-1], 4 * shape[-1]
+    jx, tx = _pair(rng.standard_normal(shape, np.float32), dtype)
+    a = _mlp_args(rng, c, f)
+    with pltpu.force_tpu_interpret_mode():
+        want = jmlp.fused_ln_mlp_residual(
+            jx, *(jnp.asarray(a[k]) for k in
+                  ("ls", "lb", "w1", "b1", "w2", "b2", "g")), 1e-6)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = tmlp.fused_ln_mlp_residual(tx, t["ls"], t["lb"], t["w1"].T,
+                                     t["b1"], t["w2"].T, t["b2"], t["g"])
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("bn,t,c", [
+    (37, 32, 256),    # mm2/mm3 width (dh 32), token count not a block multiple
+    (9, 32, 1024),    # mm0/mm1 width (dh 128)
+    (20, 8, 256),     # short window
+])
+def test_temporal_attention_block(bn, t, c, dtype):
+    rng = np.random.default_rng(2)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    jx, tx = _pair(r(bn, t, c), dtype)
+    pe = r(t, c)
+    ws = [r(c, c) / np.sqrt(c) for _ in range(4)]
+    bo = 0.1 * r(c)
+    scale = (c // 8) ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = jta.temporal_attention_block(
+            jx, jnp.asarray(pe), *(jnp.asarray(w) for w in ws),
+            jnp.asarray(bo), 8, scale)
+    got = tta.temporal_attention_block(
+        tx, torch.from_numpy(pe), *(torch.from_numpy(w).T for w in ws),
+        torch.from_numpy(bo), 8, scale)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,c", [(300, 256), (64, 128)])
+def test_fused_ln_geglu_residual(n, c, dtype):
+    rng = np.random.default_rng(3)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    f = 4 * c
+    jx, tx = _pair(r(n, c), dtype)
+    a = dict(ls=1 + 0.1 * r(c), lb=0.1 * r(c), w0=r(c, 2 * f) / np.sqrt(c),
+             b0=0.1 * r(2 * f), w2=r(f, c) / np.sqrt(f), b2=0.1 * r(c))
+    with pltpu.force_tpu_interpret_mode():
+        want = jgeglu.fused_ln_geglu_residual(
+            jx, *(jnp.asarray(a[k]) for k in
+                  ("ls", "lb", "w0", "b0", "w2", "b2")))
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = tgeglu.fused_ln_geglu_residual(tx, t["ls"], t["lb"], t["w0"].T,
+                                         t["b0"], t["w2"].T, t["b2"])
+    _close(got, want, dtype)
+
+
+def test_dispatch_by_device():
+    """Dispatch is by device: only CPU tensors (or the explicit reference
+    context) take the plain version; other devices never fall back."""
+    from vdn_torch import kernels
+    x = torch.zeros(2, 3, device="meta")
+    with pytest.raises(ValueError):
+        kernels.use_kernel(x)
+    assert not kernels.use_kernel(torch.zeros(2))

@@ -1,0 +1,108 @@
+"""flax params -> torch state_dict, the inverse of vdn.core.convert.
+
+``state_dict_from_flax`` undoes ``vdn.core.convert.convert_torch_state``
+leaf by leaf, so one set of weights (made for the JAX package, or a
+released checkpoint converted for it) loads into the port's modules with
+``load_state_dict``:
+
+- ``name_N`` path components become ``name.N``;
+- a rank-2 ``kernel`` becomes ``weight`` transposed (Linear);
+- a rank-4 ``kernel`` goes HWIO -> OIHW (Conv2d), or is un-flipped back to
+  torch's IOHW for ConvTranspose2d keys;
+- ``scale`` becomes ``weight`` (LayerNorm / GroupNorm);
+- everything else (cls_token, pos_embed, gamma, ...) copies verbatim.
+
+These are the rules the clip-depth models use.  The SAM2 / Hiera leaves
+(``embedding``, ``in_proj``, NHWC pos-embed tables) come with their port;
+until then such a tree fails to load as unexpected keys.
+
+Registered buffers that vdn recomputes (the sinusoidal ``pe``) are not in
+the flax tree; the port's modules rebuild them.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterable, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_flax", "load_flax_params",
+           "DEFAULT_CONVT_PATTERNS"]
+
+# torch modules that are ConvTranspose2d (vdn.core.convert's defaults)
+DEFAULT_CONVT_PATTERNS = (
+    r"resize_layers\.0\.",
+    r"resize_layers\.1\.",
+    r"output_upscaling\.0\.",
+    r"output_upscaling\.3\.",
+)
+
+_INDEXED = re.compile(r"^(.*)_(\d+)$")
+
+
+def _flatten(tree: Mapping, prefix=()) -> Iterable:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _torch_key(path) -> str:
+    parts = []
+    for comp in path:
+        m = _INDEXED.match(comp)
+        parts.extend([m.group(1), m.group(2)] if m else [comp])
+    return ".".join(parts)
+
+
+def state_dict_from_flax(params: Mapping,
+                         convt_patterns: Iterable[str] = DEFAULT_CONVT_PATTERNS
+                         ) -> Dict[str, torch.Tensor]:
+    """params: a flax params tree of numpy arrays (a ``{"params": ...}``
+    wrapper is accepted).  Returns fp32-preserving torch tensors keyed by
+    the reference checkpoint's names."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    convt_re = [re.compile(p) for p in convt_patterns]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        value = np.asarray(value)
+        leaf = path[-1]
+        path = list(path)
+        if leaf == "kernel":
+            key = _torch_key(path[:-1] + ["weight"])
+            if value.ndim == 4:
+                if any(p.search(key) for p in convt_re):
+                    # flipped HWIO -> torch ConvTranspose2d (I, O, kh, kw)
+                    value = np.transpose(value, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+                else:
+                    value = np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
+            elif value.ndim == 2:
+                value = value.T
+            else:
+                raise ValueError(f"unhandled kernel rank for {key}: "
+                                 f"{value.shape}")
+        elif leaf == "scale":
+            key = _torch_key(path[:-1] + ["weight"])
+        else:
+            key = _torch_key(path)
+        out[key] = torch.tensor(np.ascontiguousarray(value))
+    return out
+
+
+def load_flax_params(module: torch.nn.Module, params: Mapping,
+                     convt_patterns: Iterable[str] = DEFAULT_CONVT_PATTERNS
+                     ) -> list:
+    """Load a vdn params tree into ``module``.  Every leaf must land on a
+    parameter; returns the parameter names the tree did not cover (those
+    flax never creates because vdn never calls them, e.g.
+    refinenet4.resConfUnit1), which keep their values.  The ``pe``
+    buffers are rebuilt by the modules and not listed."""
+    state = state_dict_from_flax(params, convt_patterns)
+    missing, unexpected = module.load_state_dict(state, strict=False)
+    if unexpected:
+        raise KeyError(f"flax params with no module parameter: {unexpected}")
+    return [k for k in missing if not k.endswith(".pe")]

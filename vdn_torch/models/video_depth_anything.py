@@ -1,0 +1,100 @@
+"""Video depth model: DINOv2 encoder + temporal DPT head
+(vdn/models/video_depth_anything.py), clip mode.
+
+- ``forward(x)``: x [B, T, H, W, 3] -> depth [B, T, H, W] fp32
+- ``forward_features(x)``: the ViT's four intermediate layers over the
+  flattened frames
+- ``forward_depth(features, x_shape)``: decode features of T frames
+- ``forward_window`` / ``forward_window_cached``: the window steps of
+  vdn_torch.pipelines.infer_video, which reuse the previous window's
+  encoder features for the seed frames (the encoder is per-frame, so the
+  reuse is exact).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from vdn_torch.core.dtypes import get_policy
+from vdn_torch.nn.dpt_temporal import DPTHeadTemporal
+from vdn_torch.nn.layers import init_parameters
+from vdn_torch.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
+from vdn_torch.ops.resize import resize2d
+
+
+class VideoDepthAnything(nn.Module):
+    def __init__(self, encoder: str = "vitl", features: int = 256,
+                 out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 num_frames: int = 32,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = encoder
+        self.compute_dtype = compute_dtype
+        self.pretrained = make_vit(encoder)
+        self.head = DPTHeadTemporal(self.pretrained.embed_dim, features,
+                                    out_channels, num_frames)
+
+    def forward_features(self, x: torch.Tensor):
+        """x [B, T, H, W, 3] -> 4 x (tokens [(B*T), N, C], cls)."""
+        b, t, h, w, c = x.shape
+        flat = x.reshape(b * t, h, w, c).to(self.compute_dtype)
+        return self.pretrained.get_intermediate_layers(
+            flat, INTERMEDIATE_LAYER_IDX[self.encoder])
+
+    def forward_depth(self, features, x_shape: Tuple[int, ...]
+                      ) -> torch.Tensor:
+        """Decode features of T frames into depth [B, T, H, W] (fp32, relu'd)."""
+        b, t, h, w, _ = x_shape
+        depth = self.head(features, h // 14, w // 14, t)
+        depth = resize2d(depth, (h, w), "bilinear", align_corners=True)
+        depth = torch.relu(depth.float())
+        return depth[..., 0].reshape(b, t, h, w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_depth(self.forward_features(x), x.shape)
+
+    def forward_window(self, x: torch.Tensor):
+        """x [B, T, H, W, 3] -> (depth [B, T, H, W], features)."""
+        features = self.forward_features(x)
+        return self.forward_depth(features, x.shape), features
+
+    def forward_window_cached(self, x_new: torch.Tensor, seed_features):
+        """Window forward over [seed ‖ new] frames; ``seed_features`` are
+        previous-window encoder features for the first frames of this
+        window (already gathered at the KEYFRAMES indices)."""
+        b, t_new, h, w, c = x_new.shape
+        t_seed = seed_features[0][0].shape[0] // b
+        t = t_seed + t_new
+        new_feats = self.forward_features(x_new)
+
+        def cat(s, n):
+            s = s.reshape(b, t_seed, *s.shape[1:])
+            n = n.reshape(b, t_new, *n.shape[1:])
+            return torch.cat([s, n], dim=1).reshape(b * t, *s.shape[2:])
+
+        features = [tuple(cat(s, n) for s, n in zip(sl, nl))
+                    for sl, nl in zip(seed_features, new_feats)]
+        return self.forward_depth(features, (b, t, h, w, c)), features
+
+
+def build_video_depth_anything(
+        encoder: str = "vitl",
+        compute_dtype: Union[torch.dtype, str] = torch.float32,
+        device: Union[torch.device, str] = "cpu",
+        generator: Optional[torch.Generator] = None,
+        **kw) -> VideoDepthAnything:
+    """A preset model with parameters drawn from ``generator`` (seed 0 by
+    default) with vdn's initializers, in eval mode on ``device``."""
+    from vdn_torch.models.presets import MODEL_CONFIGS
+    if isinstance(compute_dtype, str):
+        compute_dtype = get_policy(compute_dtype).compute_dtype
+    cfg = dict(MODEL_CONFIGS[encoder])
+    cfg.update(kw)
+    model = VideoDepthAnything(compute_dtype=compute_dtype, **cfg)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_parameters(model, generator)
+    return model.to(device).eval()

@@ -1,0 +1,120 @@
+"""DPT decoder head, NHWC (vdn/nn/dpt.py).
+
+Module names mirror the reference checkpoint keys (projects.i,
+resize_layers.i, scratch.layerN_rn, scratch.refinenetN,
+scratch.output_conv1, scratch.output_conv2.0/.2).  As in vdn, each fusion
+block's 1x1 out_conv runs before its align-corners upsample (the two
+commute exactly, at a quarter of the FLOPs).  The output island is the
+plain branch of vdn's ``output_head`` (what ``VDN_DISABLE_FUSED_ISLAND=1``
+computes): resize -> conv3x3 with compute-dtype operands and fp32
+accumulation and output -> ReLU -> conv1x1 in fp32 -> ReLU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from vdn_torch.nn.layers import Conv2d, ConvTranspose2d
+from vdn_torch.ops.resize import resize2d
+
+
+class ResidualConvUnit(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(torch.relu(x))
+        return self.conv2(torch.relu(y)) + x
+
+
+class FeatureFusionBlock(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.resConfUnit1 = ResidualConvUnit(features)
+        self.resConfUnit2 = ResidualConvUnit(features)
+        self.out_conv = Conv2d(features, features, 1)
+
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        out = x
+        if skip is not None:
+            out = out + self.resConfUnit1(skip)
+        out = self.resConfUnit2(out)
+        if size is None:
+            size = (out.shape[-3] * 2, out.shape[-2] * 2)
+        out = self.out_conv(out)
+        return resize2d(out, size, "bilinear", align_corners=True)
+
+
+class Scratch(nn.Module):
+    def __init__(self, features: int, out_channels: Sequence[int]):
+        super().__init__()
+        f = features
+        self.layer1_rn = Conv2d(out_channels[0], f, 3, padding=1, bias=False)
+        self.layer2_rn = Conv2d(out_channels[1], f, 3, padding=1, bias=False)
+        self.layer3_rn = Conv2d(out_channels[2], f, 3, padding=1, bias=False)
+        self.layer4_rn = Conv2d(out_channels[3], f, 3, padding=1, bias=False)
+        self.refinenet1 = FeatureFusionBlock(f)
+        self.refinenet2 = FeatureFusionBlock(f)
+        self.refinenet3 = FeatureFusionBlock(f)
+        self.refinenet4 = FeatureFusionBlock(f)
+        self.output_conv1 = Conv2d(f, f // 2, 3, padding=1)
+        # fp32 accumulation island (vdn/nn/dpt.py:112-121)
+        self.output_conv2 = nn.Sequential(
+            Conv2d(f // 2, 32, 3, padding=1, accum_dtype=torch.float32),
+            nn.ReLU(),
+            Conv2d(32, 1, 1))
+
+    def fuse(self, layers: Sequence[torch.Tensor]) -> torch.Tensor:
+        l1, l2, l3, l4 = layers
+        r1, r2 = self.layer1_rn(l1), self.layer2_rn(l2)
+        r3, r4 = self.layer3_rn(l3), self.layer4_rn(l4)
+        p4 = self.refinenet4(r4, None, tuple(r3.shape[-3:-1]))
+        p3 = self.refinenet3(p4, r3, tuple(r2.shape[-3:-1]))
+        p2 = self.refinenet2(p3, r2, tuple(r1.shape[-3:-1]))
+        return self.refinenet1(p2, r1, None)
+
+    def output_head(self, path_1: torch.Tensor, out_hw: Tuple[int, int]):
+        """Returns (depth [B, H, W, 1] fp32, the upscaled feature)."""
+        up = resize2d(self.output_conv1(path_1), out_hw, "bilinear",
+                      align_corners=True)
+        return torch.relu(self.output_conv2(up)), up
+
+
+class DPTHead(nn.Module):
+    """features: fused channel width; out_channels: pyramid widths."""
+
+    def __init__(self, in_channels: int, features: int = 256,
+                 out_channels: Sequence[int] = (256, 512, 1024, 1024)):
+        super().__init__()
+        oc = out_channels
+        self.projects = nn.ModuleList(
+            Conv2d(in_channels, o, 1) for o in oc)
+        self.resize_layers = nn.ModuleList([
+            ConvTranspose2d(oc[0], oc[0], 4, 4),
+            ConvTranspose2d(oc[1], oc[1], 2, 2),
+            nn.Identity(),
+            Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
+        ])
+        self.scratch = Scratch(features, oc)
+
+    def project_features(self, out_features, patch_h: int, patch_w: int):
+        """4 x tokens [B, ph * pw, C] (or (tokens, cls)) -> NHWC pyramid."""
+        maps = []
+        for item, project, resize in zip(out_features, self.projects,
+                                         self.resize_layers):
+            tokens = item[0] if isinstance(item, (tuple, list)) else item
+            x = tokens.reshape(tokens.shape[0], patch_h, patch_w,
+                               tokens.shape[-1])
+            maps.append(resize(project(x)))
+        return maps
+
+    def forward(self, out_features, patch_h: int, patch_w: int):
+        layers = self.project_features(out_features, patch_h, patch_w)
+        return self.scratch.output_head(self.scratch.fuse(layers),
+                                        (patch_h * 14, patch_w * 14))

@@ -1,0 +1,62 @@
+"""Temporal DPT head: the DPT decoder with four temporal mixers
+(vdn/nn/dpt_temporal.py), clip path.
+
+TemporalModules follow the layer_3 / layer_4 projections and refinenet4 /
+refinenet3.  The three stages mirror vdn's split (frame-independent head,
+frame-sequential middle, full-resolution tail); ``forward`` composes them.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from vdn_torch.nn.dpt import DPTHead
+from vdn_torch.nn.motion import TemporalModule
+
+NUM_MOTION_MODULES = 4
+
+
+class DPTHeadTemporal(DPTHead):
+    def __init__(self, in_channels: int, features: int = 256,
+                 out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 num_frames: int = 32):
+        super().__init__(in_channels, features, out_channels)
+        widths = (out_channels[2], out_channels[3], features, features)
+        self.motion_modules = nn.ModuleList(
+            TemporalModule(w, num_attention_heads=8, num_transformer_block=1,
+                           num_attention_blocks=2,
+                           temporal_max_len=num_frames)
+            for w in widths)
+
+    def forward(self, out_features, patch_h: int, patch_w: int,
+                frame_length: int) -> torch.Tensor:
+        """Returns depth [(B*T), 14 ph, 14 pw, 1] fp32."""
+        r1, r2, l3, l4 = self.decode_pre(out_features, patch_h, patch_w)
+        p3 = self.decode_temporal(l3, l4, tuple(r2.shape[-3:-1]),
+                                  frame_length)
+        return self.decode_post(p3, r1, r2, (patch_h * 14, patch_w * 14))
+
+    def decode_pre(self, out_features, patch_h: int, patch_w: int):
+        """Frame-independent head: projections + the l1/l2 RCU convs."""
+        l1, l2, l3, l4 = self.project_features(out_features, patch_h, patch_w)
+        return self.scratch.layer1_rn(l1), self.scratch.layer2_rn(l2), l3, l4
+
+    def decode_temporal(self, l3, l4, r2_hw: Tuple[int, int],
+                        frame_length: int) -> torch.Tensor:
+        """All four temporal mixers and the refinenet4/3 fusion between."""
+        t = frame_length
+        mm, s = self.motion_modules, self.scratch
+        r3 = s.layer3_rn(mm[0](l3, t))
+        r4 = s.layer4_rn(mm[1](l4, t))
+        p4 = mm[2](s.refinenet4(r4, None, tuple(r3.shape[-3:-1])), t)
+        return mm[3](s.refinenet3(p4, r3, tuple(r2_hw)), t)
+
+    def decode_post(self, p3, r1, r2, out_hw) -> torch.Tensor:
+        """Frame-independent full-resolution tail."""
+        p2 = self.scratch.refinenet2(p3, r2, tuple(r1.shape[-3:-1]))
+        p1 = self.scratch.refinenet1(p2, r1, None)
+        depth, _ = self.scratch.output_head(p1, out_hw)
+        return depth
