@@ -3,16 +3,27 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from vdn_torch/csrc, holds each one
-against its plain PyTorch version at the clip-depth path's own shapes,
-then drives the main path -- VideoDepthAnything vitl at 518 x 518, bf16,
-seeded random weights, ``infer_video_depth`` over a 54-frame synthetic
-clip (three 32-frame windows: one full, two with the cross-window encoder
-cache) -- and checks that every kernel of the path ran, that the depth is
-finite and not degenerate, and that it matches the same run through the
-plain versions.  Prints one line per phase; the line before the last is
-a JSON summary of the kernels, and the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits nonzero and prints
-no last line.  Needs a CUDA device; imports nothing of JAX.
+against its plain PyTorch version at the main paths' own shapes (and times
+it beside its bound and, where one exists, a single PyTorch call that
+computes the same function), then drives the two main paths at
+VideoDepthAnything vitl 518 x 518, bf16, seeded random weights:
+
+- the clip path, ``infer_video_depth`` over a 54-frame synthetic clip
+  (three 32-frame windows: one full, two with the cross-window encoder
+  cache);
+- the streaming path, ``VideoDepthStreamPipeline`` over 24 frames of the
+  same clip per frame (k = 1, past the gap-41 eviction at frame 11) and in
+  chunks of 8.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after, and fails if a kernel of the path never launched.  Depth must
+be finite and not degenerate, and sit no further from the same run through
+the plain versions in bf16 than twice bf16's own distance from fp32; the
+k = 8 stream is held to the k = 1 stream by the same gate.  Prints one line
+per phase; the line before the last is a JSON summary of the kernels, and
+the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
+nonzero and prints no last line.  Needs a CUDA device; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -27,15 +38,31 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 SEED = 0
 N_FRAMES = 54
+N_STREAM = 24        # frames of the streaming phase (eviction from frame 11)
+STREAM_CHUNK = 8     # the CLI's default chunk size
 SIZE = 518
 # (BN spatial tokens, C) of the four motion modules at vitl 518
 MOTION_SHAPES = [(1369, 1024), (361, 1024), (1369, 256), (5476, 256)]
 CACHED_FRAMES = 22   # new frames encoded per cached window
 VIT_TOKENS = 1370
+VIT_GRID = 37        # the pos-embed table's patch grid
+# the DPT fusion upsamples at 518: refinenet4, 3, 2, 1 (input -> output side)
+UPSAMPLES = [(19, 37), (37, 74), (74, 148), (148, 296)]
+# the streaming rings at vitl 518 (h * tokens, lane width): motion modules
+# 0 and 1 (C 1024, dh 128) and 2 and 3 (C 256, dh 32)
+RING_SHAPES = [(10952, 256), (2888, 256), (10952, 128), (43808, 128)]
+# the output island's input at 518: [32 frames, 296, 296, C 128]
+ISLAND_SHAPE = (32, 296, 128)
 KERNEL_ULPS = 4      # kernel vs plain: bf16 ulps at the output's scale
+FP32_RTOL = 1e-5     # kernel vs plain for the fp32 cases, at the output's scale
 E2E_DRIFT_FACTOR = 2.0
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12   # fp32 outside the tensor cores
 
 
 def log(phase: str, **fields) -> None:
@@ -103,87 +130,299 @@ def _rand(rng, shape, scale=1.0, offset=0.0):
         rng.standard_normal(shape, dtype=np.float32) * scale + offset)
 
 
-def kernel_cases(rng):
-    """(kernel name, shape label, kernel fn, plain fn) at the path's shapes;
-    inputs bf16 on the card, parameters fp32 as the model stores them."""
-    from vdn_torch.kernels import flash_attention as fa, geglu, mlp
-    from vdn_torch.kernels import temporal_attention as ta
-    from vdn_torch.nn.motion import sinusoidal_positional_encoding
-    dev, bf = "cuda", torch.bfloat16
-    cases = []
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    qkv = _rand(rng, (CACHED_FRAMES, VIT_TOKENS, 3, 16, 64)).to(dev, bf)
-    cases.append(("flash_attention_fused_qkv", "B22 T1370 H16 D64",
-                  lambda qkv=qkv: fa.flash_attention_fused_qkv(qkv),
-                  lambda qkv=qkv: fa.flash_attention_fused_qkv_plain(qkv)))
+
+def bound(work) -> tuple:
+    """(least ms, "bytes" or "operations"): the bytes the function must
+    move (each input read once, each output written once) over the memory
+    rate, against its operations over the peak rate for their type.  The
+    tensor cores and the fp32 FMA units run side by side, so the
+    operations take as long as the busiest of the two."""
+    nbytes, ops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    per_unit = {}
+    for flops, peak in ops:
+        per_unit[peak] = per_unit.get(peak, 0.0) + flops / peak
+    t_ops = max(per_unit.values(), default=0.0)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def case(name, label, kern, plain, work, path, library=None, tol="bf16"):
+    return dict(name=name, label=label, kern=kern, plain=plain, work=work,
+                path=path, library=library, tol=tol)
+
+
+def encoder_cases(rng, path, b):
+    """A1 and A2 at b frames of VIT_TOKENS tokens; inputs bf16 on the card,
+    parameters fp32 as the model stores them."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa, mlp
+    dev, bf = DEVICE, torch.bfloat16
+
+    t, h, d = VIT_TOKENS, 16, 64
+    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
+    out = torch.empty((b, t, h * d), dtype=bf, device=dev)
+    yield case(
+        "flash_attention_fused_qkv", f"B{b} T{t} H16 D64",
+        lambda qkv=qkv: fa.flash_attention_fused_qkv(qkv),
+        lambda qkv=qkv: fa.flash_attention_fused_qkv_plain(qkv),
+        (_nbytes(qkv, out), [(4 * b * h * t * t * d, BF16_TENSOR_FLOPS)]),
+        path, library=lambda qkv=qkv: F.scaled_dot_product_attention(
+            *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
 
     c, f = 1024, 4096
-    x = _rand(rng, (CACHED_FRAMES, VIT_TOKENS, c)).to(dev, bf)
-    p = [t.to(dev) for t in (
+    x = _rand(rng, (b, t, c)).to(dev, bf)
+    p = [a.to(dev) for a in (
         _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
         _rand(rng, (f, c), c ** -0.5), _rand(rng, (f,), 0.1),
         _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.1),
         _rand(rng, (c,), 0.5))]
-    cases.append(("fused_ln_mlp_residual", f"rows {CACHED_FRAMES}x1370 C1024",
-                  lambda x=x, p=p: mlp.fused_ln_mlp_residual(x, *p),
-                  lambda x=x, p=p: mlp.fused_ln_mlp_residual_plain(x, *p)))
+    rows = x.numel() // c
+    yield case(
+        "fused_ln_mlp_residual", f"rows {b}x{t} C1024",
+        lambda x=x, p=p: mlp.fused_ln_mlp_residual(x, *p),
+        lambda x=x, p=p: mlp.fused_ln_mlp_residual_plain(x, *p),
+        (2 * _nbytes(x) + _nbytes(*p), [(4 * rows * c * f,
+                                         BF16_TENSOR_FLOPS)]), path)
 
-    for bn, c in MOTION_SHAPES:
-        x = _rand(rng, (bn, 32, c)).to(dev, bf)
-        pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)).to(dev)
+
+def motion_cases(rng, path, t, with_a3=True):
+    """A3 (unless with_a3 is False) and A4 at the four motion modules'
+    shapes over t frames."""
+    from vdn_torch.kernels import geglu
+    from vdn_torch.kernels import temporal_attention as ta
+    from vdn_torch.nn.motion import sinusoidal_positional_encoding
+    dev, bf = DEVICE, torch.bfloat16
+
+    for bn, c in MOTION_SHAPES if with_a3 else ():
+        x = _rand(rng, (bn, t, c)).to(dev, bf)
+        pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:t]).to(
+            dev)
         w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
         bo = _rand(rng, (c,), 0.1).to(dev)
         scale = (c // 8) ** -0.5
-        cases.append((
-            "temporal_attention_block", f"BN{bn} T32 C{c}",
+        flops = 8 * bn * t * c * c + 4 * bn * t * t * c
+        yield case(
+            "temporal_attention_block", f"BN{bn} T{t} C{c}",
             lambda x=x, pe=pe, w=w, bo=bo, s=scale:
                 ta.temporal_attention_block(x, pe, *w, bo, 8, s),
             lambda x=x, pe=pe, w=w, bo=bo, s=scale:
-                ta.temporal_attention_block_plain(x, pe, *w, bo, 8, s)))
+                ta.temporal_attention_block_plain(x, pe, *w, bo, 8, s),
+            (2 * _nbytes(x) + _nbytes(pe, bo, *w),
+             [(flops, BF16_TENSOR_FLOPS)]), path)
 
     for bn, c in MOTION_SHAPES:
         f = 4 * c
-        x = _rand(rng, (bn, 32, c)).to(dev, bf)
-        p = [t.to(dev) for t in (
+        x = _rand(rng, (bn, t, c)).to(dev, bf)
+        p = [a.to(dev) for a in (
             _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
             _rand(rng, (2 * f, c), c ** -0.5), _rand(rng, (2 * f,), 0.1),
             _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.1))]
-        cases.append(("fused_ln_geglu_residual", f"BN{bn} T32 C{c}",
-                      lambda x=x, p=p: geglu.fused_ln_geglu_residual(x, *p),
-                      lambda x=x, p=p:
-                          geglu.fused_ln_geglu_residual_plain(x, *p)))
-    return cases
+        yield case(
+            "fused_ln_geglu_residual", f"BN{bn} T{t} C{c}",
+            lambda x=x, p=p: geglu.fused_ln_geglu_residual(x, *p),
+            lambda x=x, p=p: geglu.fused_ln_geglu_residual_plain(x, *p),
+            (2 * _nbytes(x) + _nbytes(*p),
+             [(6 * bn * t * c * f, BF16_TENSOR_FLOPS)]), path)
+
+
+def _taps(w) -> int:
+    """Nonzero weights of a resize plan: the multiply-adds per row."""
+    return int(np.count_nonzero(w))
+
+
+def upsample_cases(rng, path, n, pos_embed=False):
+    """A5a (H pass) and A5b (W pass) of the four DPT fusion upsamples over
+    n frames, and with pos_embed the ViT pos-embed bicubic in fp32.  The
+    H pass multiplies by fp32 weights (fp32 FMA units); the W pass by
+    weights rounded to the data's dtype (bf16 tensor cores for bf16)."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import resize as rz
+    from vdn_torch.ops.resize import plan_axis
+    dev, bf = DEVICE, torch.bfloat16
+
+    # (label, N, in, out, W, C, dtype, method, scale)
+    passes = [(f"refinenet{4 - i} {a}^2->{b}^2", n, a, b, a, 256, bf,
+               "bilinear", None)
+              for i, (a, b) in enumerate(UPSAMPLES)]
+    if pos_embed:
+        pos = VIT_GRID + 0.1
+        passes.append(("pos-embed 37^2->37^2 bicubic", 1, VIT_GRID,
+                       VIT_GRID, VIT_GRID, 1024, torch.float32, "bicubic",
+                       pos / VIT_GRID))
+    for label, n, r_in, r_out, wd, c, dt, method, scale in passes:
+        ac = method == "bilinear"
+        idx, w = plan_axis(r_out, r_in, method, ac, scale)
+        fp32 = dt == torch.float32
+        tol = "fp32" if fp32 else "bf16"
+        # H pass: [N, in, W, C] -> [N, out, W, C]
+        x = _rand(rng, (n, r_in, wd, c)).to(dev, dt)
+        y = torch.empty((n, r_out, wd, c), dtype=dt, device=dev)
+        mode = dict(mode=method, align_corners=ac)
+        size_h = dict(size=(r_out, wd)) if scale is None else dict(
+            scale_factor=(scale, 1.0))
+        pidx, pw = rz.rows_plan(idx, w, dev)
+        yield case(
+            "resize_rows", f"{label} N{n} C{c}",
+            lambda x=x, idx=idx, w=w, o=r_out: rz.resize_rows(x, idx, w, o),
+            lambda x=x, pidx=pidx, pw=pw: rz.resize_rows_plain(x, pidx, pw),
+            (_nbytes(x, y), [(2 * n * wd * c * _taps(w), FP32_FLOPS)]),
+            path, library=lambda x=x, kw={**size_h, **mode}: F.interpolate(
+                x.permute(0, 3, 1, 2), **kw),
+            tol=tol)
+        # W pass: [N * out, W_in, C] -> [N * out, W_out, C]
+        idx, w = plan_axis(r_out, wd, method, ac, scale)
+        x = _rand(rng, (n * r_out, wd, c)).to(dev, dt)
+        y = torch.empty((n * r_out, r_out, c), dtype=dt, device=dev)
+        dense = rz.dense_plan(idx, w, wd, dt, dev)
+        size_w = dict(size=(1, r_out)) if scale is None else dict(
+            scale_factor=(1.0, scale))
+        yield case(
+            "resize_mid_axis", f"{label} N{n * r_out} C{c}",
+            lambda x=x, idx=idx, w=w, o=r_out: rz.resize_mid_axis(x, idx, w,
+                                                                  o),
+            lambda x=x, dense=dense: rz.mix_rows_plain(x, dense),
+            (_nbytes(x, y, dense), [(2 * x.shape[0] * c * _taps(w),
+                                     FP32_FLOPS if fp32
+                                     else BF16_TENSOR_FLOPS)]),
+            path, library=lambda x=x, kw={**size_w, **mode}: F.interpolate(
+                x[:, None].permute(0, 3, 1, 2), **kw),
+            tol=tol)
+
+
+def island_cases(rng, path, n, h_pass=True):
+    """A6 over n frames at 518, and with h_pass its A5a H pass alone (296
+    rows into A6's zero-padded plan)."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import resize as rz
+    from vdn_torch.kernels import resize_island as ri
+    from vdn_torch.ops.resize import plan_axis
+    dev, bf = DEVICE, torch.bfloat16
+    (_, h, c), hw = ISLAND_SHAPE, SIZE
+    hp = -(-hw // ri.TILE_ROWS) * ri.TILE_ROWS + 2
+    idx, w = ri.padded_h_plan(*plan_axis(hw, h, "bilinear", True, None), hw,
+                               hp)
+    if h_pass:
+        pidx, pw = rz.rows_plan(idx, w, dev)
+        x = _rand(rng, (n, h, h, c)).to(dev, bf)
+        y = torch.empty((n, hp, h, c), dtype=bf, device=dev)
+        yield case(
+            "resize_rows", f"island H pass {h} -> {hp} padded rows N{n} C{c}",
+            lambda x=x, idx=idx, w=w, o=hp: rz.resize_rows(x, idx, w, o),
+            lambda x=x, pidx=pidx, pw=pw: rz.resize_rows_plain(x, pidx, pw),
+            (_nbytes(x, y), [(2 * n * h * c * _taps(w), FP32_FLOPS)]), path,
+            # the same rows without the padding
+            library=lambda x=x: F.interpolate(x.permute(0, 3, 1, 2),
+                                              size=(hw, h), mode="bilinear",
+                                              align_corners=True))
+
+    o = 32
+    feat = _rand(rng, (n, h, h, c)).to(dev, bf)
+    w1 = _rand(rng, (3, 3, c, o), (9 * c) ** -0.5).to(dev)
+    b1 = _rand(rng, (o,), 0.1).to(dev)
+    w2 = _rand(rng, (o, 1), o ** -0.5).to(dev)
+    b2 = _rand(rng, (1,), 0.1).to(dev)
+    out = torch.empty((n, hw, hw), dtype=torch.float32, device=dev)
+    # conv3x3 and 1x1 on bf16 operands, the W resize with bf16-rounded
+    # weights (tensor cores); the H resize with fp32 weights (FMA units)
+    ops = [(2 * n * hw * hw * 9 * c * o + 2 * n * hw * hw * o
+            + 2 * n * hw * hw * c * 2, BF16_TENSOR_FLOPS),
+           (2 * n * hw * h * c * 2, FP32_FLOPS)]
+    yield case(
+        "fused_resize_island", f"[{n}, {h}, {h}, {c}] -> [{n}, {hw}, {hw}, 1]",
+        lambda a=(feat, w1, b1, w2, b2): ri.fused_resize_island(*a, (hw, hw)),
+        lambda a=(feat, w1, b1, w2, b2): ri.fused_resize_island_plain(
+            *a, (hw, hw)),
+        (_nbytes(feat, w1, b1, w2, b2, out), ops), path)
+
+
+def ring_cases(rng, path):
+    """B1 at the per-frame stream's rings: 31 of 43 rows by a one-hot."""
+    from vdn_torch.kernels import resize as rz
+    dev, bf = DEVICE, torch.bfloat16
+    for n_rows, m in RING_SHAPES:
+        ring = _rand(rng, (n_rows, 43, m)).to(dev, bf)
+        sel = torch.from_numpy(rng.permutation(43)[:31]).to(dev)
+        onehot = torch.eye(43, dtype=bf, device=dev)[sel]
+        y = torch.empty((n_rows, 31, m), dtype=bf, device=dev)
+        yield case(
+            "select_rows", f"ring [{n_rows}, 43, {m}] -> 31 rows",
+            lambda ring=ring, oh=onehot: rz.select_rows(ring, oh),
+            lambda ring=ring, oh=onehot: rz.mix_rows_plain(ring, oh),
+            # the one-hot needs 31 of the 43 rows read and one bf16
+            # multiply-add per output element
+            (2 * _nbytes(y), [(2 * y.numel(), BF16_TENSOR_FLOPS)]), path,
+            library=lambda ring=ring, sel=sel: ring.index_select(1, sel))
+
+
+def kernel_cases(rng):
+    """Every kernel at the shapes its main paths give it.  "clip": one
+    32-frame window (A1, A2 at the cached window's 22 frames); "stream":
+    the per-frame step (k = 1, batch 1 and T = 1, A3 on the first frame
+    only) and the chunk of STREAM_CHUNK frames."""
+    yield from encoder_cases(rng, "clip", CACHED_FRAMES)
+    yield from motion_cases(rng, "clip", 32)
+    yield from upsample_cases(rng, "clip", 32, pos_embed=True)
+    yield from island_cases(rng, "clip", ISLAND_SHAPE[0])
+    yield from ring_cases(rng, "stream")
+    for k in (1, STREAM_CHUNK):
+        yield from encoder_cases(rng, "stream", k)
+        yield from motion_cases(rng, "stream", k, with_a3=k == 1)
+    yield from upsample_cases(rng, "stream", 1)
+    yield from island_cases(rng, "stream", 1, h_pass=False)
 
 
 def check_kernels() -> dict:
     """Kernel vs plain on the card.  Tolerance: KERNEL_ULPS bf16 ulps at
-    the scale of the plain output.  Both versions round at the same points;
-    they differ in the order of the fp32 sums (and, for A1, in the online
-    softmax rounding p against the running max), which can move a rounded
-    intermediate by one ulp and the output by a few."""
+    the scale of the plain output for bf16 work (both versions round at
+    the same points and differ in the order of the fp32 sums, which can
+    move a rounded intermediate by one ulp and the output by a few; A1
+    also rounds p against the running max), FP32_RTOL of that scale for
+    the fp32 pos-embed resize.  Returns, per kernel, the largest error
+    over all its shapes and the times summed over each path's shapes."""
     rng = np.random.default_rng(SEED)
     summary = {}
-    for name, label, kern, plain in kernel_cases(rng):
-        got = kern().float()
-        want = plain().float()
+    for c in kernel_cases(rng):
+        got = c["kern"]().float()
+        want = c["plain"]().float()
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        tol = KERNEL_ULPS * bf16_ulp(scale)
+        tol = (KERNEL_ULPS * bf16_ulp(scale) if c["tol"] == "bf16"
+               else FP32_RTOL * scale)
         finite = bool(torch.isfinite(got).all())
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        log("kernel", name=name, shape=repr(label),
-            max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
-            tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-        if not finite or not err <= tol:
-            fail(f"{name} {label}: max abs err {err} > tol {tol}")
-        s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                      "plain_ms": 0.0})
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
         del got, want
-    torch.cuda.empty_cache()
+        ms, plain_ms = time_ms(c["kern"]), time_ms(c["plain"])
+        lib_ms = time_ms(c["library"]) if c["library"] else None
+        bound_ms, bound_by = bound(c["work"])
+        log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
+            max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
+            tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+        if not finite or not err <= tol:
+            fail(f"{c['name']} {c['label']}: max abs err {err} > tol {tol}")
+        s = summary.setdefault(c["name"], {"max_abs_err": 0.0})
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        p = s.setdefault(c["path"], {"ms": 0.0, "plain_ms": 0.0,
+                                     "bound_ms": 0.0, "library_ms": 0.0,
+                                     "_by": {}})
+        p["ms"] += ms
+        p["plain_ms"] += plain_ms
+        p["bound_ms"] += bound_ms
+        p["_by"][bound_by] = p["_by"].get(bound_by, 0.0) + bound_ms
+        p["library_ms"] = (None if lib_ms is None or p["library_ms"] is None
+                           else p["library_ms"] + lib_ms)
+        del c
+        torch.cuda.empty_cache()
+    for s in summary.values():
+        for k, p in s.items():
+            if k != "max_abs_err":
+                by = p.pop("_by")
+                p["bound_by"] = max(by, key=by.get)
     return summary
 
 
@@ -200,30 +439,36 @@ def build_model():
         for mm in model.head.motion_modules:
             w = mm.temporal_transformer.proj_out.weight
             w.copy_(torch.randn(w.shape, generator=gen) * 0.5 * w.shape[1] ** -0.5)
-    return model.to("cuda")
+    return model.to(DEVICE)
 
 
 def window_input(frames) -> torch.Tensor:
     from vdn_torch.pipelines.infer_video import INFER_LEN
     from vdn_torch.pipelines.transform import preprocess_frame
-    return torch.from_numpy(np.stack([preprocess_frame(f, SIZE)
-                                      for f in frames[:INFER_LEN]])[None]).cuda()
+    x = np.stack([preprocess_frame(f, SIZE) for f in frames[:INFER_LEN]])
+    return torch.from_numpy(x[None]).to(DEVICE)
 
 
 def calibrate_output_bias(model, frames) -> float:
     """Set the last conv's bias so that a quarter of the first window's
     pixels fall below zero: the final ReLU then neither zeroes the map nor
-    lets a constant offset hide the relative error of the depth."""
-    conv = model.head.scratch.output_conv2
+    lets a constant offset hide the relative error of the depth.  The
+    island (A6) never forms the pre-activation, so it is recomputed with
+    the plain convs from output_conv1's output, on every 8th frame."""
+    from vdn_torch.ops.resize import resize2d
+    scratch = model.head.scratch
     seen = []
-    hook = conv.register_forward_hook(lambda m, i, o: seen.append(o))
+    hook = scratch.output_conv1.register_forward_hook(
+        lambda m, i, o: seen.append(o[::8]))
     try:
         with torch.no_grad():
             model.forward_window(window_input(frames))
     finally:
         hook.remove()
-    z = seen[0].flatten()[::97].float()
+    conv = scratch.output_conv2
     with torch.no_grad():
+        up = resize2d(seen[0], (SIZE, SIZE), "bilinear", align_corners=True)
+        z = conv[2](conv[1](conv[0](up))).flatten()[::97].float()
         conv[2].bias.sub_(torch.quantile(z, 0.25))
     return conv[2].bias.item()
 
@@ -240,6 +485,13 @@ def synthetic_clip() -> np.ndarray:
         img = 127.5 * (1 + 0.8 * base) + rng.normal(0, 12, base.shape)
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return np.stack(frames)
+
+
+def check_launches(path: str, counts: dict, names) -> None:
+    missing = [n for n in names if counts.get(n, 0) < 1]
+    if missing:
+        fail(f"{path}: kernels of the path never launched: {missing} "
+             f"({counts})")
 
 
 def run_main_path(model, frames):
@@ -261,8 +513,7 @@ def run_main_path(model, frames):
     std, pos = float(depth.std()), float((depth > 0).mean())
     if not (std > 0 and pos > 0.01):
         fail(f"degenerate depth: std {std}, positive share {pos}")
-    if min(counts.values()) < 1:
-        fail(f"a kernel of the path never launched: {counts}")
+    check_launches("clip", counts, CLIP_KERNELS)
     log("main", shape=list(depth.shape), mean=f"{depth.mean():.5g}",
         std=f"{std:.5g}", positive_share=f"{pos:.4f}",
         wall_s=f"{wall:.3f}", peak_mem_gib=f"{peak / 2 ** 30:.3f}",
@@ -279,7 +530,7 @@ def time_windows(model, frames) -> None:
     with torch.no_grad():
         _, feats = model.forward_window(x)
         seed = gather_seed_features(
-            feats, torch.tensor(KEYFRAMES, device="cuda"))
+            feats, torch.tensor(KEYFRAMES, device=DEVICE))
         x_new = x[:, OVERLAP:]
         full_ms = time_ms(lambda: model.forward_window(x), reps=5, warmup=1)
         cached_ms = time_ms(lambda: model.forward_window_cached(x_new, seed),
@@ -338,6 +589,97 @@ def reference_runs(model, frames, depth) -> None:
              f"> {tol}")
 
 
+# ---------------------------------------------------------------- phase 6
+def run_stream(model, frames, chunk: int):
+    """The streaming pipeline over ``frames`` in chunks of ``chunk`` (the
+    first chunk holds the first-frame path).  Returns (depth [n, H, W],
+    wall ms of each chunk, the pipeline); fetching the depth to the host
+    ends each chunk's wall."""
+    from vdn_torch.pipelines.stream import VideoDepthStreamPipeline
+    pipe = VideoDepthStreamPipeline(model, input_size=SIZE)
+    out, walls = [], []
+    for i in range(0, len(frames), chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out += pipe.infer_video_depth_chunk(list(frames[i:i + chunk]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return np.stack(out), walls, pipe
+
+
+def check_depth(name: str, depth: np.ndarray, n: int) -> None:
+    if depth.shape != (n, SIZE, SIZE) or not np.isfinite(depth).all():
+        fail(f"{name}: depth {depth.shape}, finite {np.isfinite(depth).all()}")
+    if not (depth.std() > 0 and (depth > 0).mean() > 0.01):
+        fail(f"{name}: degenerate depth")
+
+
+def stream_phase(model, frames) -> dict:
+    """The streaming main path per frame (k = 1) and in chunks of
+    STREAM_CHUNK, each with the launch counts set to 0 just before it and
+    read just after; then the k = 1 stream through the plain versions in
+    bf16 and fp32.  Gates, as the clip's: the kernels' k = 1 stream and
+    the k = STREAM_CHUNK stream may each sit no further from the plain
+    bf16 (resp. the k = 1) stream than E2E_DRIFT_FACTOR times bf16's own
+    distance from fp32."""
+    from vdn_torch import kernels
+    frames = frames[:N_STREAM]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    d1, walls1, pipe1 = run_stream(model, frames, 1)
+    counts1 = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("stream k=1", counts1, STREAM_KERNELS)
+    check_depth("stream k=1", d1, N_STREAM)
+    if not len(pipe1.slots) < N_STREAM + 32:
+        fail(f"stream: no eviction ({len(pipe1.slots)} logical entries)")
+    kernels.reset_launches()
+    dk, walls_k, pipe_k = run_stream(model, frames, STREAM_CHUNK)
+    counts_k = dict(kernels.launches)
+    check_launches(f"stream k={STREAM_CHUNK}", counts_k, CLIP_KERNELS)
+    check_depth(f"stream k={STREAM_CHUNK}", dk, N_STREAM)
+    if (pipe_k.slots, pipe_k.free) != (pipe1.slots, pipe1.free):
+        fail("stream: chunked bookkeeping differs from per-frame")
+    ms_1 = statistics.median(walls1[1:])
+    ms_k = sum(walls_k[1:]) / (N_STREAM - STREAM_CHUNK)
+    log("stream", frames=N_STREAM, mean=f"{d1.mean():.5g}",
+        std=f"{d1.std():.5g}", positive_share=f"{(d1 > 0).mean():.4f}",
+        ms_per_frame_k1=f"{ms_1:.3f}",
+        **{f"ms_per_frame_k{STREAM_CHUNK}": f"{ms_k:.3f}"},
+        first_frame_ms=f"{walls1[0]:.3f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        ring_gib=f"{sum(_nbytes(b) for b in pipe1.buffers) / 2 ** 30:.3f}",
+        launches_k1=json.dumps(counts1, separators=(",", ":")),
+        **{f"launches_k{STREAM_CHUNK}": json.dumps(counts_k,
+                                                  separators=(",", ":"))})
+    kernels.reset_launches()
+    with kernels.plain_reference():
+        plain_bf16, _, _ = run_stream(model, frames, 1)
+        model.compute_dtype = torch.float32
+        try:
+            plain_fp32, _, _ = run_stream(model, frames, 1)
+        finally:
+            model.compute_dtype = torch.bfloat16
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    check_depth("stream plain fp32", plain_fp32, N_STREAM)
+    vs_plain = drift(plain_bf16, d1)
+    bf16_drift = drift(plain_fp32, plain_bf16)
+    k_vs_1 = drift(d1, dk)
+    tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
+    log("stream_reference", kernels_vs_plain_bf16=json.dumps(vs_plain),
+        plain_bf16_vs_fp32=json.dumps(bf16_drift),
+        kernels_vs_fp32=json.dumps(drift(plain_fp32, d1)),
+        **{f"k{STREAM_CHUNK}_vs_k1": json.dumps(k_vs_1)},
+        rel_l2_tol=f"{tol:.3e}")
+    if not vs_plain["rel_l2"] <= tol:
+        fail(f"stream k=1 vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
+    if not k_vs_1["rel_l2"] <= tol:
+        fail(f"stream k={STREAM_CHUNK} vs k=1: rel_l2 {k_vs_1['rel_l2']} "
+             f"> {tol}")
+    return counts1, counts_k
+
+
 # ---------------------------------------------------------------- main
 SOURCES = {
     "flash_attention_fused_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
@@ -348,7 +690,19 @@ SOURCES = {
                                  "vdn/ops/pallas/temporal_attention.py:264"),
     "fused_ln_geglu_residual": ("vdn_torch/csrc/ln_geglu.cu",
                                 "vdn/ops/pallas/geglu.py:122"),
+    "resize_rows": ("vdn_torch/csrc/resize_rows.cu",
+                    "vdn/ops/pallas/resize.py:182"),
+    "resize_mid_axis": ("vdn_torch/csrc/resize_mid_axis.cu",
+                        "vdn/ops/pallas/resize.py:120"),
+    "select_rows": ("vdn_torch/csrc/resize_mid_axis.cu",
+                    "vdn/ops/pallas/resize.py:218"),
+    "fused_resize_island": ("vdn_torch/csrc/resize_island.cu",
+                            "vdn/ops/pallas/resize_island.py:244"),
 }
+# the kernels of each main path: the clip path (and the chunked stream)
+# never gathers a window; the per-frame stream runs all eight
+CLIP_KERNELS = [n for n in SOURCES if n != "select_rows"]
+STREAM_KERNELS = list(SOURCES)
 
 
 def main() -> None:
@@ -361,13 +715,30 @@ def main() -> None:
     depth, counts = run_main_path(model, frames)
     time_windows(model, frames)
     reference_runs(model, frames, depth)
-    # ms / plain_ms: summed over the kernel's shapes in check_kernels
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": counts[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
-        for name, (src, tpu) in SOURCES.items()]}), flush=True)
+    counts_k1, counts_k8 = stream_phase(model, frames)
+    launches = {"clip": counts, "stream_k1": counts_k1,
+                f"stream_k{STREAM_CHUNK}": counts_k8}
+    # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
+    # plain_ms, library_ms and bound_ms summed over the shapes of its
+    # headline path (one clip window; B1: one streamed frame's rings), and
+    # stream_ms / stream_bound_ms over the stream's shapes; launches from
+    # the run of the headline path, and from every path's run.
+    rows = []
+    for name, (src, tpu) in SOURCES.items():
+        path = "stream_k1" if name == "select_rows" else "clip"
+        head = summary[name][path.split("_")[0]]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[path].get(name, 0), "path": path,
+            "max_abs_err": summary[name]["max_abs_err"],
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            **({"stream_ms": summary[name]["stream"]["ms"],
+                "stream_bound_ms": summary[name]["stream"]["bound_ms"]}
+               if path == "clip" and "stream" in summary[name] else {}),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in launches.items()}})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

@@ -185,6 +185,88 @@ def test_temporal_module_matches_vdn(c, t):
                                rtol=1e-4, atol=1e-4)
 
 
+def _stream_caches(rng, mode, heads, n_tok, c):
+    """Random caches of vdn's packed contract for one TemporalModule (two
+    attention blocks): gathered windows [h * N, 31, dpad] for the
+    per-frame path, (ring [h * N, 43, dpad], one-hot [k, 32, 43 + k]) for
+    the chunk path with k = 4."""
+    from vdn.nn.motion import ring_lane_width
+    dpad = ring_lane_width(c // heads)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    if mode == "first":
+        return None
+    if mode == "cached_local":
+        return [r(heads * n_tok, 31, dpad) for _ in range(2)]
+    k, cap = 4, 43
+    onehot = np.zeros((k, 32, cap + k), np.float32)
+    for j in range(k):
+        cols = rng.permutation(cap + j)[:31]   # ring slots or earlier frames
+        onehot[j, np.arange(31), cols] = 1.0
+        onehot[j, 31, cap + j] = 1.0           # the frame's own entry
+    return [(r(heads * n_tok, cap, dpad), onehot) for _ in range(2)]
+
+
+@pytest.mark.parametrize("mode", ["first", "cached_local", "chunk_window"])
+@pytest.mark.parametrize("c", [256, 64])
+def test_temporal_module_stream_matches_vdn(c, mode):
+    """The streaming paths -- the first frame's generic path (here A3's
+    plain version at T = 1), ``_cached_local`` and ``_chunk_window`` --
+    and their cache entries, held to vdn's packed K/V contract."""
+    from vdn.nn.motion import TemporalModule as JTM
+    from vdn_torch.nn.motion import TemporalModule as TTM
+    rng = np.random.default_rng(8)
+    t = 4 if mode == "chunk_window" else 1
+    x = rng.standard_normal((t, 3, 5, c)).astype(np.float32)
+    caches = _stream_caches(rng, mode, 8, 15, c)
+    jm = JTM(c, temporal_max_len=32)
+    params = jax.tree_util.tree_map(
+        np.array, jm.init(jax.random.PRNGKey(3), jnp.asarray(x), t))
+    proj_out = params["params"]["temporal_transformer"]["proj_out"]
+    proj_out["kernel"] = rng.standard_normal(
+        proj_out["kernel"].shape).astype(np.float32) / np.sqrt(c)
+    jcaches = None if caches is None else [
+        jax.tree_util.tree_map(jnp.asarray, e) for e in caches]
+    want, want_entries = jm.apply(params, jnp.asarray(x), t, jcaches)
+    tm = TTM(c, temporal_max_len=32)
+    assert load_flax_params(tm, params) == []
+    tcaches = None if caches is None else [
+        tuple(map(torch.from_numpy, e)) if isinstance(e, tuple)
+        else torch.from_numpy(e) for e in caches]
+    with torch.no_grad():
+        got, entries = tm.forward_stream(torch.from_numpy(x), t, tcaches)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    assert len(entries) == len(want_entries) == 2
+    for g, w in zip(entries, want_entries):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_constants_follow_weight_updates(dtype):
+    """The streaming paths' cached weight-only tensors are rebuilt when the
+    weights are loaded in place after a first call, and per dtype."""
+    from vdn_torch.nn.layers import init_parameters
+    from vdn_torch.nn.motion import TemporalAttention
+    rng = np.random.default_rng(5)
+    c, n = 64, 6
+    x = torch.from_numpy(rng.standard_normal((n, 1, c)).astype(np.float32))
+    cache = torch.from_numpy(
+        rng.standard_normal((8 * n, 31, 128)).astype(np.float32))
+    a, b = TemporalAttention(c), TemporalAttention(c)
+    init_parameters(a, torch.Generator().manual_seed(1))
+    init_parameters(b, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        before, _ = a._cached_local(x, cache)     # fp32 constants of a
+        a.load_state_dict(b.state_dict())
+        got, got_e = a._cached_local(x.to(dtype), cache.to(dtype))
+        want, want_e = b._cached_local(x.to(dtype), cache.to(dtype))
+        other, _ = b._cached_local(x, cache)
+    assert not torch.equal(before, other)
+    assert torch.equal(got, want) and torch.equal(got_e, want_e)
+
+
 # ---------------------------------------------------------------- host side
 @pytest.mark.parametrize("hw", [(300, 400), (700, 900), (518, 518)])
 def test_preprocess_frame_matches_cv2(hw):
@@ -207,11 +289,11 @@ def test_port_imports_no_jax_flax_or_cv2():
         "import vdn_torch, vdn_torch.kernels\n"
         "from vdn_torch.core import convert, dtypes\n"
         "from vdn_torch.kernels import flash_attention, geglu, mlp, "
-        "temporal_attention\n"
+        "resize, resize_island, temporal_attention\n"
         "from vdn_torch.nn import dpt, dpt_temporal, layers, motion, vit\n"
         "from vdn_torch.ops import attention, resize, scale_shift\n"
         "from vdn_torch.models import presets, video_depth_anything\n"
-        "from vdn_torch.pipelines import infer_video, transform\n"
+        "from vdn_torch.pipelines import infer_video, stream, transform\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'cv2', 'vdn'))\n"
         "print(','.join(bad))\n")

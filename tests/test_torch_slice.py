@@ -49,7 +49,7 @@ def models():
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 2, SIZE, SIZE, 3)))
     params = _numpy_params(shapes, np.random.default_rng(0))
-    tm = tbuild(**CFG)
+    tm = tbuild(**CFG, device="cpu")
     missing = load_flax_params(tm, params)
     # flax never creates the reference's unused refinenet4.resConfUnit1
     assert all(".refinenet4.resConfUnit1." in k for k in missing)

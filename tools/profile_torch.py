@@ -1,0 +1,151 @@
+"""Where the device time goes in the PyTorch / CUDA port on one GPU.
+
+    python3 tools/profile_torch.py [--out build/profile]
+
+Builds VideoDepthAnything vitl at 518, bf16, seeded random weights (as
+chip_smoke.py does), warms up, then traces with ``torch.profiler``:
+
+- ``cached``: three cached clip windows (22 new frames + 10 reused);
+- ``stream_k1``: four per-frame streaming steps after 12 warm frames
+  (past the gap-41 eviction);
+- ``stream_k8``: two chunks of 8 streaming frames after a warm chunk.
+
+For each, device time is summed from the exported chrome trace (events of
+category "kernel"), grouped by kernel name, and printed per unit (window,
+frame) beside the span of host wall time and the union of kernel intervals
+(busy time; idle share = 1 - busy / span).  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+# kernel-name patterns -> readable group (the first match wins)
+GROUPS = [
+    (r"flash_qkv_kernel", "A1 flash attention"),
+    (r"EpiBiasGelu", "A2 fc1 GEMM (LN prologue, GELU epilogue)"),
+    (r"EpiBiasScaleResidual", "A2 fc2 GEMM (+ b2, x gamma, + x)"),
+    (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
+    (r"temporal_core", "A3 attention core"),
+    (r"EpiBias\b", "A3 out-proj GEMM"),
+    (r"EpiGeglu", "A4 GEGLU GEMM"),
+    (r"EpiResidualBias", "A4 net_2 GEMM"),
+    (r"row_stats", "LayerNorm row statistics (A2, A4)"),
+    (r"resize_island", "A6 fused resize island"),
+    (r"resize_rows", "A5a resize_rows"),
+    (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),
+    (r"conv|Conv|cudnn|implicit|winograd|fprop|xmma_fprop",
+     "cuDNN convs"),
+    (r"nvjet|cutlass|cublas|gemm|Gemm|sm90_xmma|sm80_xmma",
+     "cuBLAS GEMMs (ViT qkv / proj, DPT, cached attention)"),
+    (r"elementwise|vectorized|unrolled|Reduce|reduce|copy|Copy|cat|"
+     r"index|fill|softmax|Softmax|norm|where|arange",
+     "elementwise, copies, reductions"),
+]
+
+
+def group_of(name: str) -> str:
+    for pat, label in GROUPS:
+        if re.search(pat, name):
+            return label
+    return "other: " + name[:60]
+
+
+def trace(fn, steps: int, path: str) -> dict:
+    """Run fn() ``steps`` times under the profiler; sum kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by = defaultdict(lambda: [0.0, 0])
+    spans = []
+    for e in kernels:
+        by[group_of(e["name"])][0] += e["dur"] / 1e3
+        by[group_of(e["name"])][1] += 1
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "groups": {k: v for k, v in sorted(by.items(),
+                                               key=lambda kv: -kv[1][0])}}
+
+
+def report(name: str, res: dict, units: int, unit: str) -> None:
+    span, busy = res["wall_ms"] / units, res["busy_ms"] / units
+    print(f"[{name}] per {unit}: span_ms={span:.3f} busy_ms={busy:.3f} "
+          f"idle_share={1 - busy / span:.4f}", flush=True)
+    for label, (ms, n) in res["groups"].items():
+        print(f"[{name}]   {ms / units:9.3f} ms  {n / units:7.1f} launches  "
+              f"{label}", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/profile",
+                    help="directory for the chrome traces")
+    args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    cs.environment()
+    cs.build_kernels()
+    from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
+                                                 gather_seed_features)
+    from vdn_torch.pipelines.stream import VideoDepthStreamPipeline
+    model = cs.build_model()
+    frames = cs.synthetic_clip()
+    x = cs.window_input(frames)
+    with torch.no_grad():
+        _, feats = model.forward_window(x)
+        seed = gather_seed_features(
+            feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
+        x_new = x[:, OVERLAP:]
+        model.forward_window_cached(x_new, seed)
+        res = trace(lambda: model.forward_window_cached(x_new, seed), 3,
+                    os.path.join(args.out, "cached.json"))
+    report("cached", res, 3, "window")
+
+    pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
+    for f in frames[:12]:
+        pipe.infer_video_depth_one(f)
+    it = iter(frames[12:16])
+    res = trace(lambda: pipe.infer_video_depth_one(next(it)), 4,
+                os.path.join(args.out, "stream_k1.json"))
+    report("stream_k1", res, 4, "frame")
+
+    pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
+    pipe.infer_video_depth_chunk(list(frames[:8]))
+    chunks = iter([list(frames[8:16]), list(frames[16:24])])
+    res = trace(lambda: pipe.infer_video_depth_chunk(next(chunks)), 2,
+                os.path.join(args.out, "stream_k8.json"))
+    report("stream_k8", res, 16, "frame")
+
+
+if __name__ == "__main__":
+    main()

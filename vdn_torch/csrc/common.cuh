@@ -73,6 +73,50 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// bf16 / fp32 element <-> fp32, and VEC consecutive elements at once: one
+// 16-byte access where VEC * sizeof(T) == 16 (address 16-byte aligned),
+// else element by element.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* src, float (&f)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[i] = to_f(v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[i] = to_f(src[i]);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* dst, const float (&f)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    uint4 raw;
+    T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = from_f<T>(f[i]);
+    *reinterpret_cast<uint4*>(dst) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = from_f<T>(f[i]);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
-The four kernels of the clip-depth path (A1-A4) live in
+The kernels (A1-A6 of the clip-depth path, B1 of streaming) live in
 ``vdn_torch/csrc/*.cu`` with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
 ``build/vdn_torch/`` (named by a hash of the sources and flags, so a
@@ -45,6 +45,10 @@ launches = {
     "fused_ln_mlp_residual": 0,
     "temporal_attention_block": 0,
     "fused_ln_geglu_residual": 0,
+    "resize_rows": 0,
+    "resize_mid_axis": 0,
+    "select_rows": 0,
+    "fused_resize_island": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -56,6 +60,10 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P),
     "vdn_temporal_attention": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
                                _P, _P, _P),
+    "vdn_resize_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
+    "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
+    "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _I, _F, _P, _P),
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)
@@ -147,15 +155,18 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
 
 
-def check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
+def check_kernel_args(name: str, *tensors: torch.Tensor,
+                      aligned: bool = True) -> None:
+    """Raise unless every tensor is a contiguous bf16, fp32 or int32 CUDA
+    tensor, 16-byte aligned where the kernel needs ``aligned``."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
-        if t.dtype not in (torch.bfloat16, torch.float32):
+        if t.dtype not in (torch.bfloat16, torch.float32, torch.int32):
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor not contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
 
 

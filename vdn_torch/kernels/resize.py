@@ -1,0 +1,201 @@
+"""A5a, A5b and B1: one-axis interpolation and row mixing.
+
+Replace vdn/ops/pallas/resize.py:
+
+- ``resize_rows`` (A5a, ``_rows_kernel``): x [N, R_in, W, C] -> [N, out, W,
+  C], each output row a blend of at most 4 input rows with fp32 weights,
+  summed in fp32 and rounded once to x's dtype (csrc/resize_rows.cu);
+- ``resize_mid_axis`` (A5b, ``_resize_kernel``): x [N, R, M] -> [N, S, M],
+  out[n, s, m] = sum_r W[s, r] x[n, r, m] with the dense weights rounded to
+  x's dtype first and fp32 sums (csrc/resize_mid_axis.cu);
+- ``select_rows`` (B1, the same ``_resize_kernel`` with a runtime weight
+  slab): the streaming K/V window gather, weights a device tensor [S, R].
+
+The interpolation plans are host numpy (vdn_torch.ops.resize.plan_axis);
+their device copies are cached per device.  ``select_rows`` and
+``resize_mid_axis`` share one CUDA kernel but keep separate launch counts.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from vdn_torch.kernels import check_kernel_args, launch, launches, use_kernel
+
+MAX_TAPS = 4
+_device_plans: Dict[tuple, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _rows_plan(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """vdn's per-row tap list: nonzero taps merged per source row (weights
+    summed in float64, then fp32) and sorted by source row.  An all-zero
+    row keeps its first tap at weight 0, as vdn does.  Rows are padded to
+    the longest with zero-weight taps (which add exact zeros)."""
+    idx = np.frombuffer(idx_bytes, np.int32).reshape(shape)
+    w = np.frombuffer(w_bytes, np.float32).reshape(shape)
+    rows = []
+    for o in range(shape[0]):
+        taps: Dict[int, float] = {}
+        for t in range(shape[1]):
+            if w[o, t] != 0.0:
+                i = int(idx[o, t])
+                taps[i] = taps.get(i, 0.0) + float(w[o, t])
+        rows.append(sorted(taps.items()) or [(int(idx[o, 0]), 0.0)])
+    width = max(len(r) for r in rows)
+    if width > MAX_TAPS:
+        raise ValueError(f"resize_rows: {width} taps, at most {MAX_TAPS}")
+    pidx = np.zeros((shape[0], width), np.int32)
+    pw = np.zeros((shape[0], width), np.float32)
+    for o, taps in enumerate(rows):
+        pidx[o] = taps[0][0]
+        for t, (i, wt) in enumerate(taps):
+            pidx[o, t], pw[o, t] = i, wt
+    return pidx, pw
+
+
+@functools.lru_cache(maxsize=256)
+def dense_matrix(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int],
+                in_size: int) -> np.ndarray:
+    """[out, in] dense interpolation matrix (vdn's ``_dense_weights``)."""
+    idx = np.frombuffer(idx_bytes, np.int32).reshape(shape)
+    w = np.frombuffer(w_bytes, np.float32).reshape(shape)
+    dense = np.zeros((shape[0], in_size), np.float32)
+    o = np.arange(shape[0])
+    for tap in range(shape[1]):
+        np.add.at(dense, (o, idx[:, tap]), w[:, tap])
+    return dense
+
+
+def plan_key(idx: np.ndarray, w: np.ndarray, *extra) -> tuple:
+    """A hashable key of a host plan: the arguments of the cached plan
+    functions above."""
+    idx = np.ascontiguousarray(idx, np.int32)
+    w = np.ascontiguousarray(w, np.float32)
+    return (idx.tobytes(), w.tobytes(), idx.shape) + extra
+
+
+def cached_on_device(key: tuple, make, device) -> Tuple[torch.Tensor, ...]:
+    """The tensors ``make()`` returns, moved to ``device`` once per key."""
+    k = key + (str(device),)
+    if k not in _device_plans:
+        _device_plans[k] = tuple(t.to(device) for t in make())
+    return _device_plans[k]
+
+
+def rows_plan(idx: np.ndarray, w: np.ndarray, device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tap rows [out, taps] int32, tap weights [out, taps] fp32), taps <=
+    4, on ``device``."""
+    key = plan_key(idx, w)
+    return cached_on_device(
+        ("rows",) + key, lambda: map(torch.from_numpy, _rows_plan(*key)),
+        device)
+
+
+def dense_plan(idx: np.ndarray, w: np.ndarray, in_size: int,
+               dtype: torch.dtype, device) -> torch.Tensor:
+    """The dense [out, in] weights rounded to ``dtype``, on ``device``."""
+    key = plan_key(idx, w, in_size)
+    return cached_on_device(
+        ("dense", dtype) + key,
+        lambda: [torch.from_numpy(dense_matrix(*key)).to(dtype)], device)[0]
+
+
+# ------------------------------------------------------------- plain versions
+def resize_rows_plain(x: torch.Tensor, pidx: torch.Tensor,
+                      pw: torch.Tensor) -> torch.Tensor:
+    """x [N, R_in, W, C] with the padded tap plan -> [N, out, W, C]: taps
+    summed in order in fp32 (fp32 weights), rounded once to x's dtype."""
+    acc = None
+    for t in range(pidx.shape[1]):
+        term = x.index_select(1, pidx[:, t]).float() * pw[:, t].view(
+            1, -1, 1, 1)
+        acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def mix_rows_plain(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """x [N, R, M], weights [S, R] already in x's dtype -> [N, S, M]:
+    fp32 sums, rounded once to x's dtype."""
+    return torch.matmul(weights.float(), x.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------- wrappers
+def _check_dtype(name: str, x: torch.Tensor) -> None:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: kernel takes bf16 or fp32, got {x.dtype}")
+
+
+def _vec(x: torch.Tensor, row_elems: int, *ptrs: torch.Tensor) -> int:
+    """Elements per 16-byte access where rows and pointers allow it."""
+    vec = 16 // x.element_size()
+    if row_elems % vec or any(t.data_ptr() % 16 for t in ptrs):
+        return 1
+    return vec
+
+
+def resize_rows(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
+                out_size: int) -> torch.Tensor:
+    """x [N, R_in, W, C] -> [N, out_size, W, C]: per output row o,
+    sum_t w[o, t] * x[:, idx[o, t]] (the H axis of an NHWC resize)."""
+    pidx, pw = rows_plan(idx, w, x.device)
+    if pidx.shape[0] != out_size:
+        raise ValueError("resize_rows: plan rows != out_size")
+    if not use_kernel(x):
+        return resize_rows_plain(x, pidx, pw)
+    _check_dtype("resize_rows", x)
+    x = x.contiguous()
+    n, r_in, wd, c = x.shape
+    out = torch.empty((n, out_size, wd, c), dtype=x.dtype, device=x.device)
+    check_kernel_args("resize_rows", x, pidx, pw, out, aligned=False)
+    if n > 65535:
+        raise ValueError(f"resize_rows: N = {n} > 65535")
+    row = wd * c
+    launch("vdn_resize_rows", x.data_ptr(), n, r_in, row, out_size,
+           pidx.shape[1], pidx.data_ptr(), pw.data_ptr(), out.data_ptr(),
+           int(x.dtype == torch.bfloat16), _vec(x, row, x, out))
+    launches["resize_rows"] += 1
+    return out
+
+
+def _mix_rows(name: str, x: torch.Tensor, weights: torch.Tensor
+              ) -> torch.Tensor:
+    if not use_kernel(x):
+        return mix_rows_plain(x, weights)
+    _check_dtype(name, x)
+    x = x.contiguous()
+    weights = weights.contiguous()
+    n, r, m = x.shape
+    s = weights.shape[0]
+    if weights.shape[1] != r:
+        raise ValueError(f"{name}: weights {tuple(weights.shape)} vs x "
+                         f"rows {r}")
+    out = torch.empty((n, s, m), dtype=x.dtype, device=x.device)
+    check_kernel_args(name, x, weights, out, aligned=False)
+    launch("vdn_resize_mid_axis", x.data_ptr(), n, r, m, s,
+           weights.data_ptr(), out.data_ptr(),
+           int(x.dtype == torch.bfloat16), _vec(x, m, x, out))
+    launches[name] += 1
+    return out
+
+
+def resize_mid_axis(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
+                    out_size: int) -> torch.Tensor:
+    """x [N, R_in, M] -> [N, out_size, M] with out[:, o] = sum_t w[o, t] *
+    x[:, idx[o, t]], through the dense weights rounded to x's dtype."""
+    weights = dense_plan(idx, w, x.shape[1], x.dtype, x.device)
+    if weights.shape[0] != out_size:
+        raise ValueError("resize_mid_axis: plan rows != out_size")
+    return _mix_rows("resize_mid_axis", x, weights)
+
+
+def select_rows(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """x [N, R, M] x runtime weights [S, R] -> [N, S, M] (the streaming
+    window gather with a one-hot slab: exact, one 1.0 term per row)."""
+    return _mix_rows("select_rows", x, weights.to(x.dtype))

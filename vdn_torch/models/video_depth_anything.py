@@ -1,10 +1,11 @@
 """Video depth model: DINOv2 encoder + temporal DPT head
-(vdn/models/video_depth_anything.py), clip mode.
+(vdn/models/video_depth_anything.py).
 
 - ``forward(x)``: x [B, T, H, W, 3] -> depth [B, T, H, W] fp32
 - ``forward_features(x)``: the ViT's four intermediate layers over the
   flattened frames
-- ``forward_depth(features, x_shape)``: decode features of T frames
+- ``forward_depth(features, x_shape, caches, want_entries)``: decode
+  features of T frames, with the streaming cache entries when asked
 - ``forward_window`` / ``forward_window_cached``: the window steps of
   vdn_torch.pipelines.infer_video, which reuse the previous window's
   encoder features for the seed frames (the encoder is per-frame, so the
@@ -44,22 +45,30 @@ class VideoDepthAnything(nn.Module):
         return self.pretrained.get_intermediate_layers(
             flat, INTERMEDIATE_LAYER_IDX[self.encoder])
 
-    def forward_depth(self, features, x_shape: Tuple[int, ...]
-                      ) -> torch.Tensor:
-        """Decode features of T frames into depth [B, T, H, W] (fp32, relu'd)."""
+    def forward_depth(self, features, x_shape: Tuple[int, ...], caches=None,
+                      want_entries: bool = False):
+        """Decode features of T frames into (depth [B, T, H, W] fp32
+        relu'd, cache entries).  Entries (tuple of 8) come back when
+        ``caches`` is given or ``want_entries`` is set, else None; see
+        DPTHeadTemporal.decode_temporal."""
         b, t, h, w, _ = x_shape
-        depth = self.head(features, h // 14, w // 14, t)
+        head = self.head
+        ph, pw = h // 14, w // 14
+        r1, r2, l3, l4 = head.decode_pre(features, ph, pw)
+        p3, entries = head.decode_temporal(l3, l4, tuple(r2.shape[-3:-1]), t,
+                                           caches, want_entries)
+        depth = head.decode_post(p3, r1, r2, (ph * 14, pw * 14))
         depth = resize2d(depth, (h, w), "bilinear", align_corners=True)
         depth = torch.relu(depth.float())
-        return depth[..., 0].reshape(b, t, h, w)
+        return depth[..., 0].reshape(b, t, h, w), entries
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_depth(self.forward_features(x), x.shape)
+        return self.forward_depth(self.forward_features(x), x.shape)[0]
 
     def forward_window(self, x: torch.Tensor):
         """x [B, T, H, W, 3] -> (depth [B, T, H, W], features)."""
         features = self.forward_features(x)
-        return self.forward_depth(features, x.shape), features
+        return self.forward_depth(features, x.shape)[0], features
 
     def forward_window_cached(self, x_new: torch.Tensor, seed_features):
         """Window forward over [seed ‖ new] frames; ``seed_features`` are
@@ -77,18 +86,23 @@ class VideoDepthAnything(nn.Module):
 
         features = [tuple(cat(s, n) for s, n in zip(sl, nl))
                     for sl, nl in zip(seed_features, new_feats)]
-        return self.forward_depth(features, (b, t, h, w, c)), features
+        return self.forward_depth(features, (b, t, h, w, c))[0], features
 
 
 def build_video_depth_anything(
         encoder: str = "vitl",
         compute_dtype: Union[torch.dtype, str] = torch.float32,
-        device: Union[torch.device, str] = "cpu",
+        device: Union[torch.device, str] = "cuda",
         generator: Optional[torch.Generator] = None,
         **kw) -> VideoDepthAnything:
     """A preset model with parameters drawn from ``generator`` (seed 0 by
-    default) with vdn's initializers, in eval mode on ``device``."""
+    default) with vdn's initializers, in eval mode on ``device``: the card
+    unless the caller asks for the CPU."""
     from vdn_torch.models.presets import MODEL_CONFIGS
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_video_depth_anything: no CUDA device; pass "
+                           "device='cpu' to build on the CPU")
     if isinstance(compute_dtype, str):
         compute_dtype = get_policy(compute_dtype).compute_dtype
     cfg = dict(MODEL_CONFIGS[encoder])

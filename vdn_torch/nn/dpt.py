@@ -4,10 +4,9 @@ Module names mirror the reference checkpoint keys (projects.i,
 resize_layers.i, scratch.layerN_rn, scratch.refinenetN,
 scratch.output_conv1, scratch.output_conv2.0/.2).  As in vdn, each fusion
 block's 1x1 out_conv runs before its align-corners upsample (the two
-commute exactly, at a quarter of the FLOPs).  The output island is the
-plain branch of vdn's ``output_head`` (what ``VDN_DISABLE_FUSED_ISLAND=1``
-computes): resize -> conv3x3 with compute-dtype operands and fp32
-accumulation and output -> ReLU -> conv1x1 in fp32 -> ReLU.
+commute exactly, at a quarter of the FLOPs).  The upsamples run through
+A5a/A5b (vdn_torch.ops.resize) and the upsampling output island through
+A6, as vdn's TPU path routes them.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from vdn_torch.kernels.resize_island import fused_resize_island
 from vdn_torch.nn.layers import Conv2d, ConvTranspose2d
 from vdn_torch.ops.resize import resize2d
 
@@ -80,10 +80,21 @@ class Scratch(nn.Module):
         return self.refinenet1(p2, r1, None)
 
     def output_head(self, path_1: torch.Tensor, out_hw: Tuple[int, int]):
-        """Returns (depth [B, H, W, 1] fp32, the upscaled feature)."""
-        up = resize2d(self.output_conv1(path_1), out_hw, "bilinear",
-                      align_corners=True)
-        return torch.relu(self.output_conv2(up)), up
+        """Returns (depth [B, H, W, 1] fp32, the upscaled feature or None).
+
+        Routed as vdn's (vdn/nn/dpt.py:136-177): when the head upsamples,
+        A6 (fused_resize_island) takes the resize and both island convs
+        and the upscaled feature is never formed (None); otherwise the
+        plain composite runs."""
+        out = self.output_conv1(path_1)
+        if not (out.shape[-3] < out_hw[0] and out.shape[-2] < out_hw[1]):
+            up = resize2d(out, out_hw, "bilinear", align_corners=True)
+            return torch.relu(self.output_conv2(up)), up
+        conv1, conv2 = self.output_conv2[0], self.output_conv2[2]
+        depth = fused_resize_island(
+            out, conv1.weight.permute(2, 3, 1, 0), conv1.bias,
+            conv2.weight[:, :, 0, 0].t(), conv2.bias, tuple(out_hw))
+        return depth, None
 
 
 class DPTHead(nn.Module):
@@ -115,6 +126,12 @@ class DPTHead(nn.Module):
         return maps
 
     def forward(self, out_features, patch_h: int, patch_w: int):
+        """Returns (depth, the upscaled feature), as the reference head."""
         layers = self.project_features(out_features, patch_h, patch_w)
-        return self.scratch.output_head(self.scratch.fuse(layers),
-                                        (patch_h * 14, patch_w * 14))
+        path_1 = self.scratch.fuse(layers)
+        out_hw = (patch_h * 14, patch_w * 14)
+        depth, up = self.scratch.output_head(path_1, out_hw)
+        if up is None:
+            up = resize2d(self.scratch.output_conv1(path_1), out_hw,
+                          "bilinear", align_corners=True)
+        return depth, up

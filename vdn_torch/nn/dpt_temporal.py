@@ -1,9 +1,10 @@
 """Temporal DPT head: the DPT decoder with four temporal mixers
-(vdn/nn/dpt_temporal.py), clip path.
+(vdn/nn/dpt_temporal.py).
 
 TemporalModules follow the layer_3 / layer_4 projections and refinenet4 /
 refinenet3.  The three stages mirror vdn's split (frame-independent head,
-frame-sequential middle, full-resolution tail); ``forward`` composes them.
+frame-sequential middle, full-resolution tail); ``forward`` composes them
+for the clip path, and the streaming pipeline calls them one by one.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from vdn_torch.nn.dpt import DPTHead
 from vdn_torch.nn.motion import TemporalModule
 
 NUM_MOTION_MODULES = 4
+CACHE_ENTRIES_PER_MODULE = 2
 
 
 class DPTHeadTemporal(DPTHead):
@@ -35,8 +37,8 @@ class DPTHeadTemporal(DPTHead):
                 frame_length: int) -> torch.Tensor:
         """Returns depth [(B*T), 14 ph, 14 pw, 1] fp32."""
         r1, r2, l3, l4 = self.decode_pre(out_features, patch_h, patch_w)
-        p3 = self.decode_temporal(l3, l4, tuple(r2.shape[-3:-1]),
-                                  frame_length)
+        p3, _ = self.decode_temporal(l3, l4, tuple(r2.shape[-3:-1]),
+                                     frame_length)
         return self.decode_post(p3, r1, r2, (patch_h * 14, patch_w * 14))
 
     def decode_pre(self, out_features, patch_h: int, patch_w: int):
@@ -45,14 +47,34 @@ class DPTHeadTemporal(DPTHead):
         return self.scratch.layer1_rn(l1), self.scratch.layer2_rn(l2), l3, l4
 
     def decode_temporal(self, l3, l4, r2_hw: Tuple[int, int],
-                        frame_length: int) -> torch.Tensor:
-        """All four temporal mixers and the refinenet4/3 fusion between."""
+                        frame_length: int, caches=None,
+                        want_entries: bool = False):
+        """All four temporal mixers and the refinenet4/3 fusion between.
+
+        Returns (p3 at r2's resolution, entries): ``entries`` is the tuple of
+        8 new cache entries when ``caches`` is given (8 gathered windows,
+        or 8 (ring, one-hot) pairs) or ``want_entries`` is set (the
+        stream's first frame), else None -- the clip path pays nothing for
+        them."""
         t = frame_length
         mm, s = self.motion_modules, self.scratch
-        r3 = s.layer3_rn(mm[0](l3, t))
-        r4 = s.layer4_rn(mm[1](l4, t))
-        p4 = mm[2](s.refinenet4(r4, None, tuple(r3.shape[-3:-1])), t)
-        return mm[3](s.refinenet3(p4, r3, tuple(r2_hw)), t)
+        stream = caches is not None or want_entries
+        entries = []
+
+        def mix(i, x):
+            if not stream:
+                return mm[i](x, t)
+            k = CACHE_ENTRIES_PER_MODULE
+            sub = None if caches is None else list(caches[k * i:k * (i + 1)])
+            y, e = mm[i].forward_stream(x, t, sub)
+            entries.extend(e)
+            return y
+
+        r3 = s.layer3_rn(mix(0, l3))
+        r4 = s.layer4_rn(mix(1, l4))
+        p4 = mix(2, s.refinenet4(r4, None, tuple(r3.shape[-3:-1])))
+        p3 = mix(3, s.refinenet3(p4, r3, tuple(r2_hw)))
+        return p3, (tuple(entries) if stream else None)
 
     def decode_post(self, p3, r1, r2, out_hw) -> torch.Tensor:
         """Frame-independent full-resolution tail."""

@@ -1,4 +1,4 @@
-"""Temporal motion modules, clip path (vdn/nn/motion.py).
+"""Temporal motion modules (vdn/nn/motion.py).
 
 AnimateDiff-style self-attention across the frame axis, one spatial token
 at a time.  Feature maps come in and go out as [(B*T), H, W, C]; inside,
@@ -6,10 +6,23 @@ tokens are relaid once to token-major [(B*N), T, C].  Two kernels carry
 each transformer block: A3, the APE + q/k/v + T x T attention + out-proj
 block, and A4, the LN -> GEGLU -> residual feed-forward.
 
-The clip path computes no cache entries: vdn's clip path drops them and
-XLA deletes their projections, which eager torch would pay for.  The
-cached decode paths (_cached_local, _chunk_window, _cached_cp) belong to
-the streaming port.
+``forward`` is the clip path and computes no cache entries (vdn's clip
+path drops them and XLA deletes their projections, which eager torch
+would pay for).  ``forward_stream`` is the streaming path; it returns the
+entries, in vdn's contract: position-free packed K/V
+[heads * B*N, T, max(2 * dh, 128)], lanes [K(dh) | V(dh) | zeros],
+head-major rows (vdn/nn/motion.py:19-30).  Its cache argument is
+
+- None: the stream's first frame (A3, plus the two entry projections);
+- a tensor [h * B*N, 31, dpad], the frame's gathered window
+  (``_cached_local``, the per-frame path);
+- a pair (ring [h * B*N, CAP, dpad], one-hot [k, 32, CAP + k]), the
+  batched chunk path (``_chunk_window``).
+
+The window APE attaches by linearity: K at window position p is
+to_k(raw) + to_k(pe[p]).  Every product of the cached paths sums in fp32
+and is rounded to the compute dtype where vdn's einsums round; logits stay
+fp32.  The context-parallel path (``_cached_cp``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +47,35 @@ def sinusoidal_positional_encoding(d_model: int, max_len: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)
     return pe.astype(np.float32)
+
+
+def ring_lane_width(dh: int) -> int:
+    """Packed K/V ring lane width: 2 * dh, padded up to 128 lanes."""
+    return max(2 * dh, 128)
+
+
+def pack_ring_entry(k: torch.Tensor, v: torch.Tensor,
+                    dpad: int) -> torch.Tensor:
+    """k, v [h, n, t, dh] head-major -> [h * n, t, dpad] packed ring entry
+    (lanes [K | V | zero pad])."""
+    h, n, t, dh = k.shape
+    parts = [k, v]
+    if dpad > 2 * dh:
+        parts.append(k.new_zeros(k.shape[:-1] + (dpad - 2 * dh,)))
+    return torch.cat(parts, dim=-1).reshape(h * n, t, dpad)
+
+
+def _ein(eq: str, *ops: torch.Tensor, dt=None) -> torch.Tensor:
+    """einsum with fp32 sums over the operands' values; rounded to ``dt``
+    (the compute dtype) unless dt is None (fp32 logits)."""
+    y = torch.einsum(eq, *(o.float() for o in ops))
+    return y if dt is None else y.to(dt)
+
+
+def _hview(w: torch.Tensor, heads: int, dt) -> torch.Tensor:
+    """Linear weight [C_out, C_in] -> [h, C_in, dh] in dt (vdn's
+    ``_weights_hview``)."""
+    return w.to(dt).reshape(heads, -1, w.shape[1]).transpose(1, 2)
 
 
 class PositionalEncoding(nn.Module):
@@ -74,6 +116,7 @@ class TemporalAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(query_dim, query_dim),
                                      nn.Identity()])
         self.pos_encoder = PositionalEncoding(query_dim, temporal_max_len)
+        self._consts = None   # (key, tensors) of _stream_consts
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t, c = x.shape[1], x.shape[2]
@@ -82,6 +125,132 @@ class TemporalAttention(nn.Module):
             x, self.pos_encoder.pe[0, :t], self.to_q.weight, self.to_k.weight,
             self.to_v.weight, out.weight, out.bias, self.heads,
             float((c // self.heads) ** -0.5))
+
+    def forward_stream(self, x: torch.Tensor, cache=None):
+        """Streaming decode: (out [(B*N), T_new, C], cache entry)."""
+        if cache is None:
+            return self.forward(x), self._entry(x)
+        if isinstance(cache, tuple):
+            return self._chunk_window(x, *cache)
+        return self._cached_local(x, cache)
+
+    def _stream_consts(self, dt):
+        """The streaming paths' weight-only tensors, made once per compute
+        dtype and weight version rather than in every block of every frame
+        (XLA folds them in vdn; eager torch would pay the casts and
+        projections each call): the head views of to_q/k/v [h, C, dh] and
+        of to_out [h, dh, C], held in fp32 with their values rounded to dt
+        (as _ein reads them), the out bias and the APE table in dt, and the
+        table's K/V projections pe_k, pe_v [h, max_len, dh] in dt."""
+        wo = self.to_out[0]
+        params = (self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                  wo.weight, wo.bias, self.pos_encoder.pe)
+        key = (dt,) + tuple((p.device, p.data_ptr(), p._version)
+                            for p in params)
+        if self._consts is None or self._consts[0] != key:
+            h = self.heads
+            wq, wk, wv = (_hview(m.weight, h, dt).float().contiguous()
+                          for m in (self.to_q, self.to_k, self.to_v))
+            # out-projection [C_out, h * dh] -> [h, dh, C_out]
+            wo_h = wo.weight.to(dt).t().reshape(
+                h, -1, wo.weight.shape[0]).float().contiguous()
+            pe = self.pos_encoder.pe[0].to(dt)
+            pe_k = _ein("pc,hcd->hpd", pe, wk, dt=dt)
+            pe_v = _ein("pc,hcd->hpd", pe, wv, dt=dt)
+            self._consts = (key, (wq, wk, wv, wo_h, wo.bias.to(dt), pe,
+                                  pe_k, pe_v))
+        return self._consts[1]
+
+    def _entry(self, x: torch.Tensor) -> torch.Tensor:
+        """Position-free packed K/V of the raw (pre-PE) inputs."""
+        dt = x.dtype
+        _, wk, wv, _, _, _, _, _ = self._stream_consts(dt)
+        k_e = _ein("ntc,hcd->hntd", x, wk, dt=dt)
+        v_e = _ein("ntc,hcd->hntd", x, wv, dt=dt)
+        return pack_ring_entry(k_e, v_e, ring_lane_width(k_e.shape[-1]))
+
+    def _cached_local(self, x_new: torch.Tensor, cache: torch.Tensor):
+        """Per-frame cached decode over the gathered window
+        cache [h * B*N, d_in, dpad] (vdn/nn/motion.py:299-354): the
+        window's K/V were projected once when each entry was written; the
+        cache-side APE attaches on the logits (q . to_k(pe[p])) and on the
+        output (probs . to_v(pe[p])) by linearity."""
+        bn, t_new, c = x_new.shape
+        h = self.heads
+        dh = c // h
+        d_in = cache.shape[1]
+        t_total = d_in + t_new
+        dt = x_new.dtype
+        wq, wk, wv, wo_h, bo, pe, pe_k, pe_v = self._stream_consts(dt)
+        q = _ein("ntc,hcd->hntd", x_new + pe[d_in:t_total][None], wq, dt=dt)
+        k_e = _ein("ntc,hcd->hntd", x_new, wk, dt=dt)         # position-free
+        v_e = _ein("ntc,hcd->hntd", x_new, wv, dt=dt)
+        k_n = k_e + pe_k[:, None, d_in:t_total]
+        v_n = v_e + pe_v[:, None, d_in:t_total]
+        dpad = cache.shape[-1]
+        kv = cache.reshape(h, bn, d_in, dpad).to(dt)
+
+        qz = torch.cat([q, q.new_zeros(q.shape[:-1] + (dpad - dh,))], -1)
+        qpe_c = _ein("hntd,hpd->hntp", q, pe_k[:, :d_in])
+        logits = torch.cat([_ein("hntd,hnkd->hntk", qz, kv) + qpe_c,
+                            _ein("hntd,hnkd->hntk", q, k_n)], -1) * dh ** -0.5
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        out = (_ein("hntk,hnkd->hntd", probs[..., :d_in], kv,
+                    dt=dt)[..., dh:2 * dh]
+               + _ein("hntk,hkd->hntd", probs[..., :d_in], pe_v[:, :d_in],
+                      dt=dt)
+               + _ein("hntk,hnkd->hntd", probs[..., d_in:], v_n, dt=dt))
+        out = _ein("hntd,hdc->ntc", out, wo_h, dt=dt) + bo
+        return out, pack_ring_entry(k_e, v_e, ring_lane_width(dh))
+
+    def _chunk_window(self, x: torch.Tensor, buf: torch.Tensor,
+                      onehot: torch.Tensor):
+        """Batched streaming decode of k frames in one window attention
+        (vdn/nn/motion.py:356-489, without the context-parallel branch).
+
+        x [N, k, C]: this block's inputs for all k frames; buf
+        [h * N, CAP, dpad]: the ring of position-free packed K/V; onehot
+        [k, W, CAP + k]: onehot[j, p] selects the column (ring slot, or
+        CAP + i for in-chunk frame i) at window position p of frame j's
+        window, position W - 1 being the frame's own entry.  Queries sit at
+        position W - 1.  Returns (out [N, k, C], entry [h * N, k, dpad])."""
+        n, kf, c = x.shape
+        cap = buf.shape[1]
+        w = self.pos_encoder.pe.shape[1]
+        h = self.heads
+        dh = c // h
+        dt = x.dtype
+        wq, wk, wv, wo_h, bo, pe, pe_k, pe_v = self._stream_consts(dt)
+
+        qh = _ein("njc,hcd->hnjd", x + pe[w - 1], wq, dt=dt)   # [h, n, k, dh]
+        k_n = _ein("njc,hcd->hnjd", x, wk, dt=dt)              # position-free
+        v_n = _ein("njc,hcd->hnjd", x, wv, dt=dt)
+        r = h * n
+        dpad = ring_lane_width(dh)
+        kv3 = buf.to(dt)
+        entry = pack_ring_entry(k_n, v_n, dpad)
+        qz = torch.cat([qh, qh.new_zeros(qh.shape[:-1] + (dpad - dh,))],
+                       -1).reshape(r, kf, dpad)
+
+        lg_ring = _ein("rjd,rcd->rjc", qz, kv3)
+        lg_new = _ein("hnjd,hncd->hnjc", qh, k_n)
+        logits_cols = torch.cat([lg_ring, lg_new.reshape(r, kf, kf)], -1)
+        qpe = _ein("hnjd,hpd->hnjp", qh, pe_k)
+        # each frame's W window logits out of the CAP + k columns (exact:
+        # one 1.0 term per position)
+        logits_win = _ein("rjc,jpc->rjp", logits_cols, onehot)
+        logits_win = logits_win + qpe.reshape(r, kf, w)
+        pd = torch.softmax(logits_win * dh ** -0.5, dim=-1).to(dt)
+        # probs scattered back to columns for the shared-column value sums
+        p_cols = _ein("rjp,jpc->rjc", pd, onehot.to(dt), dt=dt)
+        out = (_ein("rjc,rcd->rjd", p_cols[..., :cap], kv3,
+                    dt=dt)[..., dh:2 * dh].reshape(h, n, kf, dh)
+               + _ein("hnjc,hncd->hnjd", p_cols[..., cap:].reshape(
+                   h, n, kf, kf), v_n, dt=dt))
+        out = out + _ein("hnjp,hpd->hnjd", pd.reshape(h, n, kf, w), pe_v,
+                         dt=dt)
+        out = _ein("hnjd,hdc->njc", out, wo_h, dt=dt) + bo
+        return out, entry
 
 
 class TemporalTransformerBlock(nn.Module):
@@ -97,12 +266,26 @@ class TemporalTransformerBlock(nn.Module):
         self.ff_norm = LayerNorm(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for norm, attn in zip(self.norms, self.attention_blocks):
-            x = attn(norm(x)) + x
+        return self._run(x, None)[0]
+
+    def forward_stream(self, x: torch.Tensor, caches=None):
+        """(out, one cache entry per attention block)."""
+        return self._run(x, caches or [None] * len(self.attention_blocks))
+
+    def _run(self, x, caches):
+        entries = []
+        for i, (norm, attn) in enumerate(zip(self.norms,
+                                             self.attention_blocks)):
+            if caches is None:
+                y = attn(norm(x))
+            else:
+                y, entry = attn.forward_stream(norm(x), caches[i])
+                entries.append(entry)
+            x = y + x
         net_0, net_2 = self.ff.net[0].proj, self.ff.net[2]
         return fused_ln_geglu_residual(
             x, self.ff_norm.weight, self.ff_norm.bias, net_0.weight,
-            net_0.bias, net_2.weight, net_2.bias, self.ff_norm.eps)
+            net_0.bias, net_2.weight, net_2.bias, self.ff_norm.eps), entries
 
 
 class TemporalTransformer3D(nn.Module):
@@ -123,17 +306,34 @@ class TemporalTransformer3D(nn.Module):
         self.proj_out = Linear(in_channels, in_channels, zero_init=True)
 
     def forward(self, x: torch.Tensor, video_length: int) -> torch.Tensor:
+        return self._run(x, video_length, None)[0]
+
+    def forward_stream(self, x: torch.Tensor, video_length: int,
+                       caches=None):
+        """(out, the blocks' cache entries in order)."""
+        n_per = len(self.transformer_blocks[0].attention_blocks)
+        n_all = n_per * len(self.transformer_blocks)
+        return self._run(x, video_length, caches or [None] * n_all)
+
+    def _run(self, x, video_length, caches):
         bt, hh, ww, c = x.shape
         t = video_length
         b, n = bt // t, hh * ww
         y = self.norm(x)
         y = y.reshape(b, t, n, c).transpose(1, 2).reshape(b * n, t, c)
         y = self.proj_in(y)
-        for blk in self.transformer_blocks:
-            y = blk(y)
+        entries = []
+        for i, blk in enumerate(self.transformer_blocks):
+            if caches is None:
+                y = blk(y)
+            else:
+                n_per = len(blk.attention_blocks)
+                y, e = blk.forward_stream(
+                    y, caches[i * n_per:(i + 1) * n_per])
+                entries.extend(e)
         y = self.proj_out(y)
         y = y.reshape(b, n, t, c).transpose(1, 2).reshape(bt, hh, ww, c)
-        return y + x
+        return y + x, entries
 
 
 class TemporalModule(nn.Module):
@@ -149,3 +349,10 @@ class TemporalModule(nn.Module):
 
     def forward(self, x: torch.Tensor, video_length: int) -> torch.Tensor:
         return self.temporal_transformer(x, video_length)
+
+    def forward_stream(self, x: torch.Tensor, video_length: int,
+                       caches=None):
+        """(out, cache entries); caches as TemporalAttention.forward_stream
+        takes them, one per attention block, or None for the first frame."""
+        return self.temporal_transformer.forward_stream(x, video_length,
+                                                        caches)
