@@ -5,8 +5,8 @@
 Builds the hand-written CUDA kernels from vdn_torch/csrc, holds each one
 against its plain PyTorch version at the main paths' own shapes (and times
 it beside its bound and, where one exists, a single PyTorch call that
-computes the same function), then drives the two main paths at
-VideoDepthAnything vitl 518 x 518, bf16, seeded random weights:
+computes the same function), then drives the main paths at vitl, 518 x
+518, bf16, seeded random weights.  VideoDepthAnything:
 
 - the clip path, ``infer_video_depth`` over a 54-frame synthetic clip
   (three 32-frame windows: one full, two with the cross-window encoder
@@ -14,6 +14,15 @@ VideoDepthAnything vitl 518 x 518, bf16, seeded random weights:
 - the streaming path, ``VideoDepthStreamPipeline`` over 24 frames of the
   same clip per frame (k = 1, past the gap-41 eviction at frame 11) and in
   chunks of 8.
+
+DepthAnythingV2 with its six-slot memory bank and MetricDepthAnythingV2:
+
+- the single-image path, ``DepthAnythingV2Pipeline.infer_image`` over 10
+  frames of the clip (the bank fills at frame 6 and shifts from frame 7),
+  then ``clear_memory()`` and 3 frames of a 480 x 640 image (a 37 x 49
+  token grid and a final resize to the image's size); the bank must change
+  the depth;
+- metric depth, one 518 x 518 batch through the sigmoid head.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of the path never launched.  Depth must
@@ -49,13 +58,31 @@ MOTION_SHAPES = [(1369, 1024), (361, 1024), (1369, 256), (5476, 256)]
 CACHED_FRAMES = 22   # new frames encoded per cached window
 VIT_TOKENS = 1370
 VIT_GRID = 37        # the pos-embed table's patch grid
-# the DPT fusion upsamples at 518: refinenet4, 3, 2, 1 (input -> output side)
-UPSAMPLES = [(19, 37), (37, 74), (74, 148), (148, 296)]
 # the streaming rings at vitl 518 (h * tokens, lane width): motion modules
 # 0 and 1 (C 1024, dh 128) and 2 and 3 (C 256, dh 32)
 RING_SHAPES = [(10952, 256), (2888, 256), (10952, 128), (43808, 128)]
-# the output island's input at 518: [32 frames, 296, 296, C 128]
-ISLAND_SHAPE = (32, 296, 128)
+# the output island's input: [32 frames, 8 x the token grid, C 128]
+ISLAND_FRAMES, ISLAND_C = 32, 128
+# the single-image path: frames through the memory bank, then a raw image
+# that is not square (480 x 640 -> 518 x 686: a 37 x 49 token grid)
+N_IMAGE = 10
+N_NONSQUARE = 3
+NONSQUARE_HW = (480, 640)
+NONSQUARE_GRID = (37, 49)
+MEM_CAPACITY = 6
+MEM_HEADS = 16
+# launches per frame at vitl: steady state (a state is carried), and what
+# differs on the first frame (no state: both attentions of a layer are C2)
+# and at the non-square image (pos-embed bicubic and the final resize)
+IMAGE_LAUNCHES = {"flash_attention_colbias": 4, "flash_attention": 4,
+                  "flash_attention_fused_qkv": 24,
+                  "fused_ln_mlp_residual": 24, "fused_resize_island": 1,
+                  "resize_rows": 5, "resize_mid_axis": 4}
+IMAGE_FIRST = {"flash_attention_colbias": 0, "flash_attention": 8}
+IMAGE_NONSQUARE = {"resize_rows": 7, "resize_mid_axis": 6}
+METRIC_LAUNCHES = {**IMAGE_LAUNCHES, "flash_attention_colbias": 0,
+                   "flash_attention": 0}
+MEMORY_PROBE = 7     # the 8th frame: the bank is full and has shifted once
 KERNEL_ULPS = 4      # kernel vs plain: bf16 ulps at the output's scale
 FP32_RTOL = 1e-5     # kernel vs plain for the fp32 cases, at the output's scale
 E2E_DRIFT_FACTOR = 2.0
@@ -155,14 +182,14 @@ def case(name, label, kern, plain, work, path, library=None, tol="bf16"):
                 path=path, library=library, tol=tol)
 
 
-def encoder_cases(rng, path, b):
-    """A1 and A2 at b frames of VIT_TOKENS tokens; inputs bf16 on the card,
+def encoder_cases(rng, path, b, t=VIT_TOKENS):
+    """A1 and A2 at b frames of t tokens; inputs bf16 on the card,
     parameters fp32 as the model stores them."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa, mlp
     dev, bf = DEVICE, torch.bfloat16
 
-    t, h, d = VIT_TOKENS, 16, 64
+    h, d = 16, 64
     qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
     out = torch.empty((b, t, h * d), dtype=bf, device=dev)
     yield case(
@@ -234,28 +261,49 @@ def _taps(w) -> int:
     return int(np.count_nonzero(w))
 
 
-def upsample_cases(rng, path, n, pos_embed=False):
-    """A5a (H pass) and A5b (W pass) of the four DPT fusion upsamples over
-    n frames, and with pos_embed the ViT pos-embed bicubic in fp32.  The
-    H pass multiplies by fp32 weights (fp32 FMA units); the W pass by
-    weights rounded to the data's dtype (bf16 tensor cores for bf16)."""
+def fusion_passes(n, grid=None):
+    """The four DPT fusion upsamples (refinenet4, 3, 2, 1) over n frames of
+    a ``grid`` of tokens (the square VIT_GRID by default), bf16, C = 256:
+    from the stride-2 layer's half grid up to 8 x the grid.  A pass is (label, N, H in, H out, W in,
+    W out, C, dtype, method, (H scale, W scale) or None)."""
+    h, w = ([(g + 1) // 2, g, 2 * g, 4 * g, 8 * g]
+            for g in grid or (VIT_GRID, VIT_GRID))
+    return [(f"refinenet{4 - i} {h[i]}x{w[i]}->{h[i + 1]}x{w[i + 1]}", n,
+             h[i], h[i + 1], w[i], w[i + 1], 256, torch.bfloat16, "bilinear",
+             None) for i in range(4)]
+
+
+def pos_embed_pass(grid=None):
+    """The ViT pos-embed bicubic (fp32) from the table's grid to ``grid``
+    (the same grid by default), with the offset-0.1 scale factors."""
+    gh, gw = grid or (VIT_GRID, VIT_GRID)
+    return (f"pos-embed {VIT_GRID}x{VIT_GRID}->{gh}x{gw} bicubic", 1,
+            VIT_GRID, gh, VIT_GRID, gw, 1024, torch.float32, "bicubic",
+            ((gh + 0.1) / VIT_GRID, (gw + 0.1) / VIT_GRID))
+
+
+# the single-image pipeline's resize of the depth to a 480 x 640 image
+# (fp32, C = 1)
+FINAL_RESIZE_PASS = (
+    f"depth {14 * NONSQUARE_GRID[0]}x{14 * NONSQUARE_GRID[1]}->"
+    f"{NONSQUARE_HW[0]}x{NONSQUARE_HW[1]}", 1, 14 * NONSQUARE_GRID[0],
+    NONSQUARE_HW[0], 14 * NONSQUARE_GRID[1], NONSQUARE_HW[1], 1,
+    torch.float32, "bilinear", None)
+
+
+def upsample_cases(rng, path, passes):
+    """A5a (H pass) and A5b (W pass) of each resize in ``passes``.  The H
+    pass multiplies by fp32 weights (fp32 FMA units); the W pass by weights
+    rounded to the data's dtype (bf16 tensor cores for bf16)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import resize as rz
     from vdn_torch.ops.resize import plan_axis
-    dev, bf = DEVICE, torch.bfloat16
+    dev = DEVICE
 
-    # (label, N, in, out, W, C, dtype, method, scale)
-    passes = [(f"refinenet{4 - i} {a}^2->{b}^2", n, a, b, a, 256, bf,
-               "bilinear", None)
-              for i, (a, b) in enumerate(UPSAMPLES)]
-    if pos_embed:
-        pos = VIT_GRID + 0.1
-        passes.append(("pos-embed 37^2->37^2 bicubic", 1, VIT_GRID,
-                       VIT_GRID, VIT_GRID, 1024, torch.float32, "bicubic",
-                       pos / VIT_GRID))
-    for label, n, r_in, r_out, wd, c, dt, method, scale in passes:
+    for label, n, r_in, r_out, wd, w_out, c, dt, method, scale in passes:
         ac = method == "bilinear"
-        idx, w = plan_axis(r_out, r_in, method, ac, scale)
+        sh, sw = (None, None) if scale is None else scale
+        idx, w = plan_axis(r_out, r_in, method, ac, sh)
         fp32 = dt == torch.float32
         tol = "fp32" if fp32 else "bf16"
         # H pass: [N, in, W, C] -> [N, out, W, C]
@@ -263,7 +311,7 @@ def upsample_cases(rng, path, n, pos_embed=False):
         y = torch.empty((n, r_out, wd, c), dtype=dt, device=dev)
         mode = dict(mode=method, align_corners=ac)
         size_h = dict(size=(r_out, wd)) if scale is None else dict(
-            scale_factor=(scale, 1.0))
+            scale_factor=(sh, 1.0))
         pidx, pw = rz.rows_plan(idx, w, dev)
         yield case(
             "resize_rows", f"{label} N{n} C{c}",
@@ -274,15 +322,15 @@ def upsample_cases(rng, path, n, pos_embed=False):
                 x.permute(0, 3, 1, 2), **kw),
             tol=tol)
         # W pass: [N * out, W_in, C] -> [N * out, W_out, C]
-        idx, w = plan_axis(r_out, wd, method, ac, scale)
+        idx, w = plan_axis(w_out, wd, method, ac, sw)
         x = _rand(rng, (n * r_out, wd, c)).to(dev, dt)
-        y = torch.empty((n * r_out, r_out, c), dtype=dt, device=dev)
+        y = torch.empty((n * r_out, w_out, c), dtype=dt, device=dev)
         dense = rz.dense_plan(idx, w, wd, dt, dev)
-        size_w = dict(size=(1, r_out)) if scale is None else dict(
-            scale_factor=(1.0, scale))
+        size_w = dict(size=(1, w_out)) if scale is None else dict(
+            scale_factor=(1.0, sw))
         yield case(
             "resize_mid_axis", f"{label} N{n * r_out} C{c}",
-            lambda x=x, idx=idx, w=w, o=r_out: rz.resize_mid_axis(x, idx, w,
+            lambda x=x, idx=idx, w=w, o=w_out: rz.resize_mid_axis(x, idx, w,
                                                                   o),
             lambda x=x, dense=dense: rz.mix_rows_plain(x, dense),
             (_nbytes(x, y, dense), [(2 * x.shape[0] * c * _taps(w),
@@ -293,50 +341,100 @@ def upsample_cases(rng, path, n, pos_embed=False):
             tol=tol)
 
 
-def island_cases(rng, path, n, h_pass=True):
-    """A6 over n frames at 518, and with h_pass its A5a H pass alone (296
-    rows into A6's zero-padded plan)."""
+def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None):
+    """A6 over n frames of a ``grid`` of tokens (the square VIT_GRID by
+    default), 8 x the grid in and 14 x out (with sigmoid: the metric head's activation in place of the ReLU),
+    and with h_pass its A5a H pass alone (the input's rows into A6's
+    zero-padded plan)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import resize as rz
     from vdn_torch.kernels import resize_island as ri
     from vdn_torch.ops.resize import plan_axis
     dev, bf = DEVICE, torch.bfloat16
-    (_, h, c), hw = ISLAND_SHAPE, SIZE
-    hp = -(-hw // ri.TILE_ROWS) * ri.TILE_ROWS + 2
-    idx, w = ri.padded_h_plan(*plan_axis(hw, h, "bilinear", True, None), hw,
-                               hp)
+    c = ISLAND_C
+    grid = grid or (VIT_GRID, VIT_GRID)
+    (h, wd), (h_out, w_out) = ([8 * g for g in grid], [14 * g for g in grid])
+    hp = -(-h_out // ri.TILE_ROWS) * ri.TILE_ROWS + 2
+    idx, w = ri.padded_h_plan(*plan_axis(h_out, h, "bilinear", True, None),
+                               h_out, hp)
     if h_pass:
         pidx, pw = rz.rows_plan(idx, w, dev)
-        x = _rand(rng, (n, h, h, c)).to(dev, bf)
-        y = torch.empty((n, hp, h, c), dtype=bf, device=dev)
+        x = _rand(rng, (n, h, wd, c)).to(dev, bf)
+        y = torch.empty((n, hp, wd, c), dtype=bf, device=dev)
         yield case(
-            "resize_rows", f"island H pass {h} -> {hp} padded rows N{n} C{c}",
+            "resize_rows",
+            f"island H pass {h} -> {hp} padded rows W{wd} N{n} C{c}",
             lambda x=x, idx=idx, w=w, o=hp: rz.resize_rows(x, idx, w, o),
             lambda x=x, pidx=pidx, pw=pw: rz.resize_rows_plain(x, pidx, pw),
-            (_nbytes(x, y), [(2 * n * h * c * _taps(w), FP32_FLOPS)]), path,
+            (_nbytes(x, y), [(2 * n * wd * c * _taps(w), FP32_FLOPS)]), path,
             # the same rows without the padding
             library=lambda x=x: F.interpolate(x.permute(0, 3, 1, 2),
-                                              size=(hw, h), mode="bilinear",
+                                              size=(h_out, wd),
+                                              mode="bilinear",
                                               align_corners=True))
 
     o = 32
-    feat = _rand(rng, (n, h, h, c)).to(dev, bf)
+    feat = _rand(rng, (n, h, wd, c)).to(dev, bf)
     w1 = _rand(rng, (3, 3, c, o), (9 * c) ** -0.5).to(dev)
     b1 = _rand(rng, (o,), 0.1).to(dev)
     w2 = _rand(rng, (o, 1), o ** -0.5).to(dev)
     b2 = _rand(rng, (1,), 0.1).to(dev)
-    out = torch.empty((n, hw, hw), dtype=torch.float32, device=dev)
+    out = torch.empty((n, h_out, w_out), dtype=torch.float32, device=dev)
     # conv3x3 and 1x1 on bf16 operands, the W resize with bf16-rounded
     # weights (tensor cores); the H resize with fp32 weights (FMA units)
-    ops = [(2 * n * hw * hw * 9 * c * o + 2 * n * hw * hw * o
-            + 2 * n * hw * hw * c * 2, BF16_TENSOR_FLOPS),
-           (2 * n * hw * h * c * 2, FP32_FLOPS)]
+    px = n * h_out * w_out
+    ops = [(2 * px * 9 * c * o + 2 * px * o + 2 * px * c * 2,
+            BF16_TENSOR_FLOPS),
+           (2 * n * h_out * wd * c * 2, FP32_FLOPS)]
+    args = (feat, w1, b1, w2, b2, (h_out, w_out), sigmoid, 1.0)
     yield case(
-        "fused_resize_island", f"[{n}, {h}, {h}, {c}] -> [{n}, {hw}, {hw}, 1]",
-        lambda a=(feat, w1, b1, w2, b2): ri.fused_resize_island(*a, (hw, hw)),
-        lambda a=(feat, w1, b1, w2, b2): ri.fused_resize_island_plain(
-            *a, (hw, hw)),
+        "fused_resize_island",
+        f"[{n}, {h}, {wd}, {c}] -> [{n}, {h_out}, {w_out}, 1]"
+        + (" sigmoid" if sigmoid else ""),
+        lambda a=args: ri.fused_resize_island(*a),
+        lambda a=args: ri.fused_resize_island_plain(*a),
         (_nbytes(feat, w1, b1, w2, b2, out), ops), path)
+
+
+def memory_cases(rng, path):
+    """C2 and C1 at the memory attention's shapes: the square 37 x 37 token
+    grid with the bank's masks of 1, 3 and 6 written slots, and the 37 x 49
+    grid of the non-square image with 2.  The bound counts what the mask
+    leaves: the live slots' keys and values, and their products."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    from vdn_torch.nn.memory import slot_bias
+    dev, bf = DEVICE, torch.bfloat16
+    h, d, cap = MEM_HEADS, 64, MEM_CAPACITY
+    grids = [(VIT_GRID * VIT_GRID, (1, 3, 6)),
+             (NONSQUARE_GRID[0] * NONSQUARE_GRID[1], (2,))]
+    for hw, counts in grids:
+        q = _rand(rng, (1, hw, h, d)).to(dev, bf)
+        k, v = (_rand(rng, (1, cap * hw, h, d)).to(dev, bf) for _ in "kv")
+        ks, vs = k[:, :hw].contiguous(), v[:, :hw].contiguous()
+        yield case(
+            "flash_attention", f"Tq{hw} Tk{hw} H{h} D{d}",
+            lambda a=(q, ks, vs): fa.flash_attention(*a),
+            lambda a=(q, ks, vs): fa.flash_attention_plain(*a),
+            (_nbytes(q, ks, vs, q), [(4 * h * hw * hw * d,
+                                      BF16_TENSOR_FLOPS)]), path,
+            library=lambda a=(q, ks, vs): F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in a)))
+        for count in counts:
+            bias = slot_bias(cap, hw, count, torch.device(dev)).reshape(-1)
+            mask = bias.to(bf).reshape(1, 1, 1, -1)
+            live = count * hw
+            yield case(
+                "flash_attention_colbias",
+                f"Tq{hw} Tk{cap * hw} H{h} D{d} slots {count}/{cap}",
+                lambda a=(q, k, v, bias): fa.flash_attention_colbias(*a),
+                lambda a=(q, k, v, bias): fa.flash_attention_colbias_plain(
+                    *a),
+                (2 * _nbytes(q) + 2 * _nbytes(ks) * count + _nbytes(bias),
+                 [(4 * h * hw * live * d, BF16_TENSOR_FLOPS)]), path,
+                library=lambda a=(q, k, v), m=mask:
+                    F.scaled_dot_product_attention(
+                        *(t.transpose(1, 2) for t in a), attn_mask=m))
 
 
 def ring_cases(rng, path):
@@ -362,30 +460,47 @@ def kernel_cases(rng):
     """Every kernel at the shapes its main paths give it.  "clip": one
     32-frame window (A1, A2 at the cached window's 22 frames); "stream":
     the per-frame step (k = 1, batch 1 and T = 1, A3 on the first frame
-    only) and the chunk of STREAM_CHUNK frames."""
+    only) and the chunk of STREAM_CHUNK frames; "image" and "metric": one
+    image through DepthAnythingV2 and MetricDepthAnythingV2."""
     yield from encoder_cases(rng, "clip", CACHED_FRAMES)
     yield from motion_cases(rng, "clip", 32)
-    yield from upsample_cases(rng, "clip", 32, pos_embed=True)
-    yield from island_cases(rng, "clip", ISLAND_SHAPE[0])
+    yield from upsample_cases(rng, "clip",
+                              fusion_passes(32) + [pos_embed_pass()])
+    yield from island_cases(rng, "clip", ISLAND_FRAMES)
     yield from ring_cases(rng, "stream")
     for k in (1, STREAM_CHUNK):
         yield from encoder_cases(rng, "stream", k)
         yield from motion_cases(rng, "stream", k, with_a3=k == 1)
-    yield from upsample_cases(rng, "stream", 1)
+    yield from upsample_cases(rng, "stream", fusion_passes(1))
     yield from island_cases(rng, "stream", 1, h_pass=False)
+    # the single-image path: at 518 x 518 its encoder, upsamples and island
+    # are the stream's batch-1 shapes above; new are the memory attention,
+    # every shape of the non-square image (pos-embed, encoder, the fusion
+    # upsamples, the island with its H pass, the final resize), and metric
+    # depth's sigmoid island
+    yield from memory_cases(rng, "image")
+    yield from encoder_cases(rng, "image", 1,
+                             NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)
+    yield from upsample_cases(
+        rng, "image", [pos_embed_pass(NONSQUARE_GRID)]
+        + fusion_passes(1, NONSQUARE_GRID) + [FINAL_RESIZE_PASS])
+    yield from island_cases(rng, "image", 1, grid=NONSQUARE_GRID)
+    yield from island_cases(rng, "metric", 1, h_pass=False, sigmoid=True)
 
 
-def check_kernels() -> dict:
-    """Kernel vs plain on the card.  Tolerance: KERNEL_ULPS bf16 ulps at
+def check_kernels(cases=None) -> dict:
+    """Kernel vs plain on the card, over ``cases`` (all of kernel_cases
+    by default).  Tolerance: KERNEL_ULPS bf16 ulps at
     the scale of the plain output for bf16 work (both versions round at
     the same points and differ in the order of the fp32 sums, which can
     move a rounded intermediate by one ulp and the output by a few; A1
     also rounds p against the running max), FP32_RTOL of that scale for
     the fp32 pos-embed resize.  Returns, per kernel, the largest error
     over all its shapes and the times summed over each path's shapes."""
-    rng = np.random.default_rng(SEED)
+    if cases is None:
+        cases = kernel_cases(np.random.default_rng(SEED))
     summary = {}
-    for c in kernel_cases(rng):
+    for c in cases:
         got = c["kern"]().float()
         want = c["plain"]().float()
         torch.cuda.synchronize()
@@ -449,27 +564,36 @@ def window_input(frames) -> torch.Tensor:
     return torch.from_numpy(x[None]).to(DEVICE)
 
 
-def calibrate_output_bias(model, frames) -> float:
-    """Set the last conv's bias so that a quarter of the first window's
-    pixels fall below zero: the final ReLU then neither zeroes the map nor
-    lets a constant offset hide the relative error of the depth.  The
-    island (A6) never forms the pre-activation, so it is recomputed with
-    the plain convs from output_conv1's output, on every 8th frame."""
+def calibrate_output_bias(scratch, run, quantile: float = 0.25,
+                          unit_scale: bool = False) -> float:
+    """Set the last conv's bias of the DPT head ``scratch`` so that
+    ``quantile`` of the pixels of ``run()``'s forward fall below zero: the
+    final ReLU then neither zeroes the map nor lets a constant offset hide
+    the relative error of the depth.  With ``unit_scale`` the last conv is
+    first scaled so that the pre-activation has unit spread (the metric
+    head: its sigmoid is then neither flat nor saturated).  The island (A6)
+    never forms
+    the pre-activation, so it is recomputed with the plain convs from
+    output_conv1's output, on every 8th frame."""
     from vdn_torch.ops.resize import resize2d
-    scratch = model.head.scratch
     seen = []
     hook = scratch.output_conv1.register_forward_hook(
         lambda m, i, o: seen.append(o[::8]))
     try:
         with torch.no_grad():
-            model.forward_window(window_input(frames))
+            run()
     finally:
         hook.remove()
     conv = scratch.output_conv2
     with torch.no_grad():
         up = resize2d(seen[0], (SIZE, SIZE), "bilinear", align_corners=True)
         z = conv[2](conv[1](conv[0](up))).flatten()[::97].float()
-        conv[2].bias.sub_(torch.quantile(z, 0.25))
+        if unit_scale:
+            spread = z.std()
+            conv[2].weight.div_(spread)
+            conv[2].bias.div_(spread)
+            z = z / spread
+        conv[2].bias.sub_(torch.quantile(z, quantile))
     return conv[2].bias.item()
 
 
@@ -606,8 +730,9 @@ def run_stream(model, frames, chunk: int):
     return np.stack(out), walls, pipe
 
 
-def check_depth(name: str, depth: np.ndarray, n: int) -> None:
-    if depth.shape != (n, SIZE, SIZE) or not np.isfinite(depth).all():
+def check_depth(name: str, depth: np.ndarray, n: int, hw=None) -> None:
+    hw = (SIZE, SIZE) if hw is None else hw
+    if depth.shape != (n, *hw) or not np.isfinite(depth).all():
         fail(f"{name}: depth {depth.shape}, finite {np.isfinite(depth).all()}")
     if not (depth.std() > 0 and (depth > 0).mean() > 0.01):
         fail(f"{name}: degenerate depth")
@@ -680,6 +805,205 @@ def stream_phase(model, frames) -> dict:
     return counts1, counts_k
 
 
+# ---------------------------------------------------------------- phase 7
+def build_image_model():
+    """DepthAnythingV2 vitl, bf16.  With the stock initial values the
+    memory hardly reaches the depth (CXBlock.gamma is 1e-6 and the three
+    embeddings are 0.02-normal), so a broken bank could pass unnoticed:
+    gamma is set to 1 and the embeddings to 0.5-normal.  The attention
+    out-projections are lecun-normal, not zero, as initialized."""
+    from vdn_torch.models.depth_anything_v2 import build_depth_anything_v2
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = build_depth_anything_v2("vitl", compute_dtype=torch.bfloat16,
+                                    device="cpu", generator=gen)
+    block = model.memory_block
+    with torch.no_grad():
+        for layer in block.memory_encoder.fuser.layers:
+            layer.gamma.fill_(1.0)
+        for p in (block.curr_pos_enc, block.maskmem_tpos_enc,
+                  block.no_mem_embed):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    return model.to(DEVICE)
+
+
+def nonsquare_images(frames) -> list:
+    """N_NONSQUARE BGR images of NONSQUARE_HW cut from the clip's frames."""
+    h, w = NONSQUARE_HW
+    return [np.ascontiguousarray(
+        np.concatenate([f, f[:, :w - SIZE]], axis=1)[:h, :, ::-1])
+        for f in frames[:N_NONSQUARE]]
+
+
+def run_images(pipe, images):
+    """``infer_image`` over BGR images.  Returns (depths, wall ms of each
+    call, the launches of each call); fetching the depth ends a call."""
+    from vdn_torch import kernels
+    out, walls, per_call = [], [], []
+    before = dict(kernels.launches)
+    for img in images:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(pipe.infer_image(img, SIZE))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = dict(kernels.launches)
+        per_call.append({k: after[k] - before[k] for k in after})
+        before = after
+    return np.stack(out), walls, per_call
+
+
+def check_frame_launches(name: str, got: dict, want: dict) -> None:
+    diff = {k: (got.get(k, 0), v) for k, v in want.items()
+            if got.get(k, 0) != v}
+    if diff:
+        fail(f"{name}: launches (got, expected) {diff}")
+
+
+def image_phase(model, frames) -> dict:
+    """The single-image main path: N_IMAGE frames through the memory bank,
+    then clear_memory() and N_NONSQUARE images that are not square, with
+    the launch counts set to 0 just before and read just after; then the
+    same through the plain versions in bf16 and fp32.  Gates: the launches
+    of every frame; the clip's drift gate on both sets of images; and the
+    bank must matter: frame MEMORY_PROBE's depth with the bank differs from
+    the same frame after clear_memory() by more than E2E_DRIFT_FACTOR times
+    its distance to the plain bf16 run's (the bf16 noise between two
+    runs)."""
+    from vdn_torch import kernels
+    from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
+    images = [np.ascontiguousarray(f[..., ::-1]) for f in frames[:N_IMAGE]]
+    wide = nonsquare_images(frames)
+    probe = MEMORY_PROBE
+
+    def run(pipe):
+        square = run_images(pipe, images)
+        pipe.clear_memory()
+        alone = run_images(pipe, images[probe:probe + 1])
+        pipe.clear_memory()
+        return square, alone, run_images(pipe, wide)
+
+    pipe = DepthAnythingV2Pipeline(model, capacity=MEM_CAPACITY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    (d, walls, per), (d_alone, _, _), (dw, walls_w, per_w) = run(pipe)
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("image", counts, IMAGE_LAUNCHES)
+    check_depth("image", d, N_IMAGE)
+    check_depth("image non-square", dw, N_NONSQUARE, NONSQUARE_HW)
+    if pipe.state["count"] != N_NONSQUARE or any(
+            t.shape[1:3] != (MEM_CAPACITY,
+                             NONSQUARE_GRID[0] * NONSQUARE_GRID[1])
+            for t in (pipe.state["features"], pipe.state["pos"])):
+        fail(f"image: bank after the non-square images: count "
+             f"{pipe.state['count']}, {pipe.state['features'].shape}")
+    for i, c in enumerate(per):
+        check_frame_launches(f"image frame {i}", c, {
+            **IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {})})
+    for i, c in enumerate(per_w):
+        check_frame_launches(f"image non-square frame {i}", c, {
+            **IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {}),
+            **IMAGE_NONSQUARE})
+    log("image", frames=N_IMAGE, mean=f"{d.mean():.5g}",
+        std=f"{d.std():.5g}", positive_share=f"{(d > 0).mean():.4f}",
+        first_frame_ms=f"{walls[0]:.3f}",
+        steady_ms_per_frame=f"{statistics.median(walls[probe:]):.3f}",
+        frame_ms=json.dumps([round(w, 2) for w in walls]),
+        nonsquare_frame_ms=json.dumps([round(w, 2) for w in walls_w]),
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        launches_first=json.dumps(per[0], separators=(",", ":")),
+        launches_steady=json.dumps(per[-1], separators=(",", ":")),
+        launches_nonsquare=json.dumps(per_w[-1], separators=(",", ":")))
+
+    kernels.reset_launches()
+    with kernels.plain_reference():
+        (p16, _, _), _, (p16w, _, _) = run(
+            DepthAnythingV2Pipeline(model, capacity=MEM_CAPACITY))
+        model.compute_dtype = torch.float32
+        try:
+            (p32, _, _), _, (p32w, _, _) = run(
+                DepthAnythingV2Pipeline(model, capacity=MEM_CAPACITY))
+        finally:
+            model.compute_dtype = torch.bfloat16
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    check_depth("image plain fp32", p32, N_IMAGE)
+    for name, got, b16, f32 in (("image", d, p16, p32),
+                                ("image non-square", dw, p16w, p32w)):
+        vs_plain, bf16_drift = drift(b16, got), drift(f32, b16)
+        tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
+        log("image_reference", images=repr(name),
+            kernels_vs_plain_bf16=json.dumps(vs_plain),
+            plain_bf16_vs_fp32=json.dumps(bf16_drift),
+            kernels_vs_fp32=json.dumps(drift(f32, got)),
+            rel_l2_tol=f"{tol:.3e}")
+        if not vs_plain["rel_l2"] <= tol:
+            fail(f"{name} vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
+    effect = drift(d[probe], d_alone[0])["rel_l2"]
+    noise = drift(p16[probe], d[probe])["rel_l2"]
+    log("image_memory", frame=probe, with_vs_without_bank=f"{effect:.4e}",
+        kernels_vs_plain_bf16=f"{noise:.4e}")
+    if not effect > E2E_DRIFT_FACTOR * noise:
+        fail(f"image: the memory bank does not reach the depth: frame "
+             f"{probe} moves {effect} without it, bf16 noise {noise}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 8
+def metric_phase(frames) -> dict:
+    """MetricDepthAnythingV2 vitl, bf16, one 518 x 518 image: A6 runs with
+    the sigmoid; the depth lies in (0, max_depth]; gated as the others
+    against the plain bf16 and fp32 runs."""
+    from vdn_torch import kernels
+    from vdn_torch.models.metric_depth import build_metric_depth_anything_v2
+    from vdn_torch.pipelines.transform import preprocess_frame
+    model = build_metric_depth_anything_v2(
+        "vitl", compute_dtype=torch.bfloat16, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 2)).to(DEVICE)
+    x = torch.from_numpy(preprocess_frame(frames[0], SIZE)[None]).to(DEVICE)
+    bias = calibrate_output_bias(model.depth_head.scratch, lambda: model(x),
+                                 quantile=0.5, unit_scale=True)
+
+    def run():
+        with torch.no_grad():
+            return model(x).cpu().numpy()
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    depth = run()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    check_frame_launches("metric", counts, METRIC_LAUNCHES)
+    if (depth.shape != (1, SIZE, SIZE) or not np.isfinite(depth).all()
+            or not (depth.min() > 0 and depth.max() <= model.max_depth
+                    and depth.std() > 0)):
+        fail(f"metric: depth {depth.shape} in [{depth.min()}, {depth.max()}]")
+    kernels.reset_launches()
+    with kernels.plain_reference():
+        plain_bf16 = run()
+        model.compute_dtype = torch.float32
+        try:
+            plain_fp32 = run()
+        finally:
+            model.compute_dtype = torch.bfloat16
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    vs_plain, bf16_drift = drift(plain_bf16, depth), drift(plain_fp32,
+                                                           plain_bf16)
+    tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
+    log("metric", output_bias=f"{bias:.6g}", max_depth=model.max_depth,
+        min=f"{depth.min():.5g}", mean=f"{depth.mean():.5g}",
+        max=f"{depth.max():.5g}", std=f"{depth.std():.5g}",
+        wall_ms=f"{wall:.3f}",
+        kernels_vs_plain_bf16=json.dumps(vs_plain),
+        plain_bf16_vs_fp32=json.dumps(bf16_drift), rel_l2_tol=f"{tol:.3e}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    if not vs_plain["rel_l2"] <= tol:
+        fail(f"metric vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
+    return counts
+
+
 # ---------------------------------------------------------------- main
 SOURCES = {
     "flash_attention_fused_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
@@ -698,11 +1022,20 @@ SOURCES = {
                     "vdn/ops/pallas/resize.py:218"),
     "fused_resize_island": ("vdn_torch/csrc/resize_island.cu",
                             "vdn/ops/pallas/resize_island.py:244"),
+    "flash_attention": ("vdn_torch/csrc/flash_attn_bthd.cu",
+                        "vdn/ops/pallas/flash_attention.py:270"),
+    "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_bthd.cu",
+                                "vdn/ops/pallas/flash_attention.py:157"),
 }
+# each kernel's headline path: the one whose run gives its ``launches`` and
+# whose shapes its times are summed over
+HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
+            "flash_attention_colbias": "image"}
 # the kernels of each main path: the clip path (and the chunked stream)
-# never gathers a window; the per-frame stream runs all eight
-CLIP_KERNELS = [n for n in SOURCES if n != "select_rows"]
-STREAM_KERNELS = list(SOURCES)
+# never gathers a window; the per-frame stream does; the image path's are
+# the keys of IMAGE_LAUNCHES
+STREAM_KERNELS = [n for n in SOURCES if HEADLINE.get(n) != "image"]
+CLIP_KERNELS = [n for n in STREAM_KERNELS if n != "select_rows"]
 
 
 def main() -> None:
@@ -711,21 +1044,36 @@ def main() -> None:
     summary = check_kernels()
     model = build_model()
     frames = synthetic_clip()
-    log("model", output_bias=f"{calibrate_output_bias(model, frames):.6g}")
+    bias = calibrate_output_bias(
+        model.head.scratch, lambda: model.forward_window(window_input(frames)))
+    log("model", output_bias=f"{bias:.6g}")
     depth, counts = run_main_path(model, frames)
     time_windows(model, frames)
     reference_runs(model, frames, depth)
     counts_k1, counts_k8 = stream_phase(model, frames)
+    del model
+    torch.cuda.empty_cache()
+    image_model = build_image_model()
+    x0 = window_input(frames[:1])[0]
+    bias = calibrate_output_bias(image_model.depth_head.scratch,
+                                 lambda: image_model(x0))
+    log("image_model", output_bias=f"{bias:.6g}")
+    counts_image = image_phase(image_model, frames)
+    del image_model
+    torch.cuda.empty_cache()
+    counts_metric = metric_phase(frames)
     launches = {"clip": counts, "stream_k1": counts_k1,
-                f"stream_k{STREAM_CHUNK}": counts_k8}
+                f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
+                "metric": counts_metric}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
-    # headline path (one clip window; B1: one streamed frame's rings), and
-    # stream_ms / stream_bound_ms over the stream's shapes; launches from
-    # the run of the headline path, and from every path's run.
+    # headline path (one clip window; B1: one streamed frame's rings; C1 and
+    # C2: the memory attention's shapes at both token grids), and stream_ms /
+    # stream_bound_ms over the stream's shapes; launches from the run of the
+    # headline path, and from every path's run.
     rows = []
     for name, (src, tpu) in SOURCES.items():
-        path = "stream_k1" if name == "select_rows" else "clip"
+        path = HEADLINE.get(name, "clip")
         head = summary[name][path.split("_")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

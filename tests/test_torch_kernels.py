@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's kernels (A1-A6, B1) against the
+"""The plain PyTorch versions of the port's kernels (A1-A6, B1, C1, C2) against the
 JAX package's Pallas kernels, run in Pallas interpret mode on the CPU.
 
 Same inputs for both, drawn with numpy from a seed.  Weights are handed to
@@ -73,6 +73,49 @@ def test_flash_attention_fused_qkv(b, t, h, dtype):
     with pltpu.force_tpu_interpret_mode():
         want = jfa.flash_attention_fused_qkv(jq, None, 64)
     _close(tfa.flash_attention_fused_qkv(tq), want, dtype)
+
+
+def _slot_mask(cap, hw, count):
+    """The memory bank's bias: -inf over the leading cap - count slots."""
+    bias = np.zeros((cap, hw), np.float32)
+    bias[:cap - count] = -np.inf
+    return bias.reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("count", [1, 3, 6])
+def test_flash_attention_colbias(count, dtype):
+    """C1 at 150 queries against a bank of 6 x 150 keys (both ragged
+    against 64-wide tiles; slot boundaries fall inside tiles), with the
+    masks of 1, 3 and 6 written slots."""
+    rng = np.random.default_rng(10)
+    b, hw, cap, h, d = 1, 150, 6, 2, 64
+    jq, tq = _pair(rng.standard_normal((b, hw, h, d), np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((b, cap * hw, h, d), np.float32),
+                   dtype)
+    jv, tv = _pair(rng.standard_normal((b, cap * hw, h, d), np.float32),
+                   dtype)
+    bias = _slot_mask(cap, hw, count)
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention_colbias(jq, jk, jv, jnp.asarray(bias))
+    got = tfa.flash_attention_colbias(tq, tk, tv, torch.from_numpy(bias))
+    assert got.dtype == tq.dtype and bool(torch.isfinite(got).all())
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,tq,tk,h", [(1, 150, 150, 2), (2, 277, 300, 3)])
+def test_flash_attention(b, tq, tk, h, dtype):
+    """C2, square and cross shapes with ragged tails."""
+    rng = np.random.default_rng(11)
+    jq, q = _pair(rng.standard_normal((b, tq, h, 64), np.float32), dtype)
+    jk, k = _pair(rng.standard_normal((b, tk, h, 64), np.float32), dtype)
+    jv, v = _pair(rng.standard_normal((b, tk, h, 64), np.float32), dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention(jq, jk, jv)
+    got = tfa.flash_attention(q, k, v)
+    assert got.dtype == q.dtype
+    _close(got, want, dtype)
 
 
 def _mlp_args(rng, c, f):

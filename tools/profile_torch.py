@@ -1,14 +1,20 @@
 """Where the device time goes in the PyTorch / CUDA port on one GPU.
 
-    python3 tools/profile_torch.py [--out build/profile]
+    python3 tools/profile_torch.py [--out build/profile] [--units ...]
 
-Builds VideoDepthAnything vitl at 518, bf16, seeded random weights (as
-chip_smoke.py does), warms up, then traces with ``torch.profiler``:
+Builds the models of chip_smoke.py (vitl at 518, bf16, seeded random
+weights), warms up, then traces each unit with ``torch.profiler``.
+VideoDepthAnything:
 
 - ``cached``: three cached clip windows (22 new frames + 10 reused);
 - ``stream_k1``: four per-frame streaming steps after 12 warm frames
   (past the gap-41 eviction);
 - ``stream_k8``: two chunks of 8 streaming frames after a warm chunk.
+
+DepthAnythingV2 with its memory bank:
+
+- ``image``: four ``infer_image`` calls after 8 warm frames (the six-slot
+  bank is full and shifting).
 
 For each, device time is summed from the exported chrome trace (events of
 category "kernel"), grouped by kernel name, and printed per unit (window,
@@ -35,6 +41,9 @@ import chip_smoke as cs  # noqa: E402
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
     (r"flash_qkv_kernel", "A1 flash attention"),
+    (r"flash_bthd_kernel<(\(bool\))?(1|true)>",
+     "C1 memory cross-attention (column bias)"),
+    (r"flash_bthd_kernel", "C2 memory self-attention"),
     (r"EpiBiasGelu", "A2 fc1 GEMM (LN prologue, GELU epilogue)"),
     (r"EpiBiasScaleResidual", "A2 fc2 GEMM (+ b2, x gamma, + x)"),
     (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
@@ -107,44 +116,72 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="build/profile",
-                    help="directory for the chrome traces")
-    args = ap.parse_args()
-    os.makedirs(args.out, exist_ok=True)
-    cs.environment()
-    cs.build_kernels()
+UNITS = ("cached", "stream_k1", "stream_k8", "image")
+
+
+def profile_video(units, out: str) -> None:
     from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
                                                  gather_seed_features)
     from vdn_torch.pipelines.stream import VideoDepthStreamPipeline
     model = cs.build_model()
     frames = cs.synthetic_clip()
-    x = cs.window_input(frames)
-    with torch.no_grad():
-        _, feats = model.forward_window(x)
-        seed = gather_seed_features(
-            feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
-        x_new = x[:, OVERLAP:]
-        model.forward_window_cached(x_new, seed)
-        res = trace(lambda: model.forward_window_cached(x_new, seed), 3,
-                    os.path.join(args.out, "cached.json"))
-    report("cached", res, 3, "window")
+    if "cached" in units:
+        x = cs.window_input(frames)
+        with torch.no_grad():
+            _, feats = model.forward_window(x)
+            seed = gather_seed_features(
+                feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
+            x_new = x[:, OVERLAP:]
+            model.forward_window_cached(x_new, seed)
+            res = trace(lambda: model.forward_window_cached(x_new, seed), 3,
+                        os.path.join(out, "cached.json"))
+        report("cached", res, 3, "window")
 
-    pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
-    for f in frames[:12]:
-        pipe.infer_video_depth_one(f)
-    it = iter(frames[12:16])
-    res = trace(lambda: pipe.infer_video_depth_one(next(it)), 4,
-                os.path.join(args.out, "stream_k1.json"))
-    report("stream_k1", res, 4, "frame")
+    if "stream_k1" in units:
+        pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
+        for f in frames[:12]:
+            pipe.infer_video_depth_one(f)
+        it = iter(frames[12:16])
+        res = trace(lambda: pipe.infer_video_depth_one(next(it)), 4,
+                    os.path.join(out, "stream_k1.json"))
+        report("stream_k1", res, 4, "frame")
 
-    pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
-    pipe.infer_video_depth_chunk(list(frames[:8]))
-    chunks = iter([list(frames[8:16]), list(frames[16:24])])
-    res = trace(lambda: pipe.infer_video_depth_chunk(next(chunks)), 2,
-                os.path.join(args.out, "stream_k8.json"))
-    report("stream_k8", res, 16, "frame")
+    if "stream_k8" in units:
+        pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
+        pipe.infer_video_depth_chunk(list(frames[:8]))
+        chunks = iter([list(frames[8:16]), list(frames[16:24])])
+        res = trace(lambda: pipe.infer_video_depth_chunk(next(chunks)), 2,
+                    os.path.join(out, "stream_k8.json"))
+        report("stream_k8", res, 16, "frame")
+
+
+def profile_image(out: str) -> None:
+    from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
+    model = cs.build_image_model()
+    images = [f[..., ::-1].copy() for f in cs.synthetic_clip()[:12]]
+    pipe = DepthAnythingV2Pipeline(model, capacity=cs.MEM_CAPACITY)
+    for img in images[:8]:
+        pipe.infer_image(img, cs.SIZE)
+    it = iter(images[8:])
+    res = trace(lambda: pipe.infer_image(next(it), cs.SIZE), 4,
+                os.path.join(out, "image.json"))
+    report("image", res, 4, "frame")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/profile",
+                    help="directory for the chrome traces")
+    ap.add_argument("--units", nargs="+", choices=UNITS, default=UNITS,
+                    help="what to trace (default: everything)")
+    args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    cs.environment()
+    cs.build_kernels()
+    if set(args.units) - {"image"}:
+        profile_video(args.units, args.out)
+    if "image" in args.units:
+        profile_image(args.out)
 
 
 if __name__ == "__main__":

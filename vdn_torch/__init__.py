@@ -1,9 +1,19 @@
 """vdn_torch: the PyTorch / CUDA (H100) port of vdn.
 
-Imports torch and numpy only (never jax, flax or cv2).  Entry points:
-``vdn_torch.models.video_depth_anything.build_video_depth_anything`` (on
-the card unless ``device="cpu"``), ``vdn_torch.pipelines.infer_video.
-infer_video_depth`` (clips) and ``vdn_torch.pipelines.stream.
-VideoDepthStreamPipeline`` (streaming).  The hand-written CUDA kernels and
-their build live in ``vdn_torch.kernels``.
+Imports torch and numpy only (never jax, flax or cv2).  Entry points, each
+on the card unless the caller passes ``device="cpu"``:
+
+- clips: ``vdn_torch.models.video_depth_anything.
+  build_video_depth_anything`` with ``vdn_torch.pipelines.infer_video.
+  infer_video_depth``;
+- streaming: the same model with ``vdn_torch.pipelines.stream.
+  VideoDepthStreamPipeline``;
+- single images with the cross-frame memory bank: ``vdn_torch.models.
+  depth_anything_v2.build_depth_anything_v2`` with ``vdn_torch.pipelines.
+  infer_image.DepthAnythingV2Pipeline``;
+- metric depth: ``vdn_torch.models.metric_depth.
+  build_metric_depth_anything_v2``.
+
+The hand-written CUDA kernels and their build live in
+``vdn_torch.kernels``.
 """

@@ -12,7 +12,9 @@ released checkpoint converted for it) loads into the port's modules with
 - ``scale`` becomes ``weight`` (LayerNorm / GroupNorm);
 - everything else (cls_token, pos_embed, gamma, ...) copies verbatim.
 
-These are the rules the clip-depth models use.  The SAM2 / Hiera leaves
+These are the rules the clip-depth, single-image and metric-depth models
+use (the memory block's ``gamma`` and (1, ., C) embeddings copy verbatim,
+its depthwise and stride convs are plain rank-4 kernels).  The SAM2 / Hiera leaves
 (``embedding``, ``in_proj``, NHWC pos-embed tables) come with their port;
 until then such a tree fails to load as unexpected keys.
 

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
-The kernels (A1-A6 of the clip-depth path, B1 of streaming) live in
-``vdn_torch/csrc/*.cu`` with a plain C interface.  ``build()`` compiles
+The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
+the single-image path's memory attention) live in ``vdn_torch/csrc/*.cu``
+with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
 ``build/vdn_torch/`` (named by a hash of the sources and flags, so a
 rebuilt checkout never loads a stale library) and loads it with ctypes.
@@ -49,11 +50,16 @@ launches = {
     "resize_mid_axis": 0,
     "select_rows": 0,
     "fused_resize_island": 0,
+    "flash_attention": 0,
+    "flash_attention_colbias": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _P),
+    "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+    "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+                                    _P),
     "vdn_ln_mlp_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
                             _P, _P, _P, _P, _P),
     "vdn_ln_geglu_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,

@@ -19,6 +19,7 @@ their device copies are cached per device.  ``select_rows`` and
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
@@ -27,7 +28,8 @@ import torch
 from vdn_torch.kernels import check_kernel_args, launch, launches, use_kernel
 
 MAX_TAPS = 4
-_device_plans: Dict[tuple, torch.Tensor] = {}
+MAX_DEVICE_PLANS = 256   # about ten image sizes' worth of axis plans
+_device_plans: "OrderedDict[tuple, Tuple[torch.Tensor, ...]]" = OrderedDict()
 
 
 @functools.lru_cache(maxsize=256)
@@ -81,10 +83,15 @@ def plan_key(idx: np.ndarray, w: np.ndarray, *extra) -> tuple:
 
 
 def cached_on_device(key: tuple, make, device) -> Tuple[torch.Tensor, ...]:
-    """The tensors ``make()`` returns, moved to ``device`` once per key."""
+    """The tensors ``make()`` returns, moved to ``device`` once per key;
+    the MAX_DEVICE_PLANS most recently used stay there."""
     k = key + (str(device),)
-    if k not in _device_plans:
+    if k in _device_plans:
+        _device_plans.move_to_end(k)
+    else:
         _device_plans[k] = tuple(t.to(device) for t in make())
+        if len(_device_plans) > MAX_DEVICE_PLANS:
+            _device_plans.popitem(last=False)
     return _device_plans[k]
 
 

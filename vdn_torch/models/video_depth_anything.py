@@ -19,9 +19,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from vdn_torch.core.dtypes import get_policy
+from vdn_torch.models.presets import build_preset
 from vdn_torch.nn.dpt_temporal import DPTHeadTemporal
-from vdn_torch.nn.layers import init_parameters
 from vdn_torch.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
 from vdn_torch.ops.resize import resize2d
 
@@ -97,18 +96,12 @@ def build_video_depth_anything(
         **kw) -> VideoDepthAnything:
     """A preset model with parameters drawn from ``generator`` (seed 0 by
     default) with vdn's initializers, in eval mode on ``device``: the card
-    unless the caller asks for the CPU."""
-    from vdn_torch.models.presets import MODEL_CONFIGS
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_video_depth_anything: no CUDA device; pass "
-                           "device='cpu' to build on the CPU")
-    if isinstance(compute_dtype, str):
-        compute_dtype = get_policy(compute_dtype).compute_dtype
-    cfg = dict(MODEL_CONFIGS[encoder])
-    cfg.update(kw)
-    model = VideoDepthAnything(compute_dtype=compute_dtype, **cfg)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    init_parameters(model, generator)
-    return model.to(device).eval()
+    unless the caller asks for the CPU.
+
+    On the card pass ``compute_dtype="bf16"``: the attention kernels take
+    bf16 only, and from 256 tokens on (any image of 224 x 224 or more) a
+    forward in the default fp32 raises ValueError at its first attention.
+    fp32 on the card is for reference runs inside
+    ``kernels.plain_reference()``."""
+    return build_preset(VideoDepthAnything, encoder, compute_dtype, device,
+                        generator, **kw)

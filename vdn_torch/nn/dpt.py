@@ -52,9 +52,15 @@ class FeatureFusionBlock(nn.Module):
 
 
 class Scratch(nn.Module):
-    def __init__(self, features: int, out_channels: Sequence[int]):
+    """The reference's ``scratch`` namespace.  ``sigmoid_output`` selects
+    the metric-depth head: the final activation is a sigmoid, scaled by
+    max_depth at the model level."""
+
+    def __init__(self, features: int, out_channels: Sequence[int],
+                 sigmoid_output: bool = False):
         super().__init__()
         f = features
+        self.sigmoid_output = sigmoid_output
         self.layer1_rn = Conv2d(out_channels[0], f, 3, padding=1, bias=False)
         self.layer2_rn = Conv2d(out_channels[1], f, 3, padding=1, bias=False)
         self.layer3_rn = Conv2d(out_channels[2], f, 3, padding=1, bias=False)
@@ -85,15 +91,18 @@ class Scratch(nn.Module):
         Routed as vdn's (vdn/nn/dpt.py:136-177): when the head upsamples,
         A6 (fused_resize_island) takes the resize and both island convs
         and the upscaled feature is never formed (None); otherwise the
-        plain composite runs."""
+        plain composite runs.  The last activation is a ReLU, or with
+        ``sigmoid_output`` a sigmoid."""
         out = self.output_conv1(path_1)
         if not (out.shape[-3] < out_hw[0] and out.shape[-2] < out_hw[1]):
+            act = torch.sigmoid if self.sigmoid_output else torch.relu
             up = resize2d(out, out_hw, "bilinear", align_corners=True)
-            return torch.relu(self.output_conv2(up)), up
+            return act(self.output_conv2(up)), up
         conv1, conv2 = self.output_conv2[0], self.output_conv2[2]
         depth = fused_resize_island(
             out, conv1.weight.permute(2, 3, 1, 0), conv1.bias,
-            conv2.weight[:, :, 0, 0].t(), conv2.bias, tuple(out_hw))
+            conv2.weight[:, :, 0, 0].t(), conv2.bias, tuple(out_hw),
+            self.sigmoid_output, 1.0)
         return depth, None
 
 
@@ -101,7 +110,8 @@ class DPTHead(nn.Module):
     """features: fused channel width; out_channels: pyramid widths."""
 
     def __init__(self, in_channels: int, features: int = 256,
-                 out_channels: Sequence[int] = (256, 512, 1024, 1024)):
+                 out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 sigmoid_output: bool = False):
         super().__init__()
         oc = out_channels
         self.projects = nn.ModuleList(
@@ -112,7 +122,7 @@ class DPTHead(nn.Module):
             nn.Identity(),
             Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
-        self.scratch = Scratch(features, oc)
+        self.scratch = Scratch(features, oc, sigmoid_output)
 
     def project_features(self, out_features, patch_h: int, patch_w: int):
         """4 x tokens [B, ph * pw, C] (or (tokens, cls)) -> NHWC pyramid."""
@@ -124,6 +134,14 @@ class DPTHead(nn.Module):
                                tokens.shape[-1])
             maps.append(resize(project(x)))
         return maps
+
+    def depth(self, out_features, patch_h: int, patch_w: int) -> torch.Tensor:
+        """Depth [B, 14 ph, 14 pw, 1] fp32 alone: the upscaled feature is
+        not formed where A6 takes the output island."""
+        layers = self.project_features(out_features, patch_h, patch_w)
+        path_1 = self.scratch.fuse(layers)
+        return self.scratch.output_head(
+            path_1, (patch_h * 14, patch_w * 14))[0]
 
     def forward(self, out_features, patch_h: int, patch_w: int):
         """Returns (depth, the upscaled feature), as the reference head."""

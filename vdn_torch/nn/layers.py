@@ -44,17 +44,21 @@ def _uniform_fan_in(w: torch.Tensor, fan_in: int, g: torch.Generator):
 class Conv2d(nn.Module):
     """NHWC conv.  ``accum_dtype`` sets the accumulator and output dtype
     apart from the input's: bf16 operands with fp32 accumulation and output
-    for the DPT output island (vdn/nn/dpt.py:112-121)."""
+    for the DPT output island (vdn/nn/dpt.py:112-121).  ``groups`` is
+    vdn's ``feature_group_count`` (the memory encoder's depthwise 7x7)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair,
                  stride: IntPair = 1, padding: IntPair = 0,
                  bias: bool = True,
-                 accum_dtype: Optional[torch.dtype] = None):
+                 accum_dtype: Optional[torch.dtype] = None,
+                 groups: int = 1):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.accum_dtype = accum_dtype
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def _init(self, g):
@@ -70,7 +74,7 @@ class Conv2d(nn.Module):
             # the accumulator dtype
             x, w = x.to(self.accum_dtype), w.to(self.accum_dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, None, self.stride,
-                     self.padding).permute(0, 2, 3, 1)
+                     self.padding, 1, self.groups).permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["compute_resize_hw", "adjust_input_size_for_ratio",
-           "preprocess_frame", "IMAGENET_MEAN", "IMAGENET_STD"]
+           "preprocess_frame", "image2tensor_bgr", "IMAGENET_MEAN",
+           "IMAGENET_STD"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -58,3 +59,11 @@ def preprocess_frame(frame_rgb: np.ndarray, input_size: int = 518
         t = F.interpolate(t, size=new_hw, mode="bicubic", align_corners=False)
         img = t[0].permute(1, 2, 0).numpy()
     return (img - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def image2tensor_bgr(raw_bgr: np.ndarray, input_size: int = 518
+                     ) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """BGR image (the cv2.imread convention) -> ([1, h, w, 3] network
+    input, the image's own (H, W))."""
+    h, w = raw_bgr.shape[:2]
+    return preprocess_frame(raw_bgr[..., ::-1], input_size)[None], (h, w)
