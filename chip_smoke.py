@@ -177,9 +177,15 @@ def bound(work) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def case(name, label, kern, plain, work, path, library=None, tol="bf16"):
+def case(name, label, kern, plain, work, path, library=None, tol="bf16",
+         library_base=None):
+    """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
+    tuple of tensors (each held to the tolerance at its own scale); the
+    library time is ``library``'s, less ``library_base``'s where given (a
+    backward timed as forward + backward minus forward)."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
-                path=path, library=library, tol=tol)
+                path=path, library=library, tol=tol,
+                library_base=library_base)
 
 
 def encoder_cases(rng, path, b, t=VIT_TOKENS):
@@ -488,6 +494,107 @@ def kernel_cases(rng):
     yield from island_cases(rng, "metric", 1, h_pass=False, sigmoid=True)
 
 
+TRAIN_B, TRAIN_T = 2, 8          # the v4 recipe's batch: 2 clips of 8 frames
+TRAIN_FRAMES = TRAIN_B * TRAIN_T
+
+
+def train_cases(rng, path="train"):
+    """The training step's kernels at vitl 518, b2 t8 (16 frames of 1370
+    tokens; the motion modules at 2 x their tokens, T = 8): A1's training
+    forward (its log-sum-exp), D1, D3 (every output) and D4, inputs bf16,
+    parameters fp32 as the model stores them.  D1's library call is SDPA's
+    backward at the same shape, timed as forward + backward less forward."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa, mlp
+    from vdn_torch.kernels import temporal_attention as ta
+    from vdn_torch.nn.motion import sinusoidal_positional_encoding
+    dev, bf = DEVICE, torch.bfloat16
+    b, t, h, d = TRAIN_FRAMES, VIT_TOKENS, 16, 64
+    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
+    out = torch.empty((b, t, h, d), dtype=bf, device=dev)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    yield case(
+        "flash_attention_fused_qkv_train", f"B{b} T{t} H16 D64 (lse)",
+        lambda qkv=qkv: fa._fused_qkv_forward(qkv, None, True),
+        lambda qkv=qkv: fa.flash_attention_fused_qkv_lse_plain(qkv),
+        (_nbytes(qkv, out, lse), [(4 * b * h * t * t * d,
+                                   BF16_TENSOR_FLOPS)]), path,
+        library=lambda qkv=qkv: F.scaled_dot_product_attention(
+            *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
+    with torch.no_grad():
+        o, lse = fa._fused_qkv_forward(qkv, None, True)
+    dout = _rand(rng, (b, t, h, d)).to(dev, bf)
+    sdpa_in = [qkv[:, :, i].transpose(1, 2).detach().requires_grad_()
+               for i in range(3)]
+    g_sdpa = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd(a=sdpa_in, g=g_sdpa):
+        torch.autograd.grad(F.scaled_dot_product_attention(*a), a, g)
+
+    def sdpa_fwd(a=sdpa_in):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*a)
+
+    yield case(
+        "flash_attention_fused_qkv_bwd", f"B{b} T{t} H16 D64",
+        lambda a=(qkv, o, lse, dout): fa.flash_attention_fused_qkv_bwd(*a),
+        lambda a=(qkv, o, lse, dout):
+            fa.flash_attention_fused_qkv_bwd_plain(*a),
+        (_nbytes(qkv, o, lse, dout, qkv), [(10 * b * h * t * t * d,
+                                            BF16_TENSOR_FLOPS)]), path,
+        library=sdpa_fwd_bwd, library_base=sdpa_fwd)
+
+    c, f = 1024, 4096
+    x = _rand(rng, (b, t, c)).to(dev, bf)
+    g = _rand(rng, (b, t, c)).to(dev, bf)
+    p = [a.to(dev) for a in (
+        _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
+        _rand(rng, (f, c), c ** -0.5), _rand(rng, (f,), 0.1),
+        _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.5))]
+    rows = b * t
+    # out: dx, y [rows, C]; h, dhpre [rows, F] bf16; dls, dlb, db1 fp32
+    out_bytes = 2 * (2 * rows * c + 2 * rows * f) + 4 * (2 * c + f)
+    yield case(
+        "fused_ln_mlp_residual_bwd", f"rows {b}x{t} C1024 F4096",
+        lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd(*a),
+        lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd_plain(*a),
+        (_nbytes(x, g, *p) + out_bytes, [(6 * rows * c * f,
+                                          BF16_TENSOR_FLOPS)]), path)
+
+    for bn, c in MOTION_SHAPES:
+        bn *= TRAIN_B
+        tt = TRAIN_T
+        x = _rand(rng, (bn, tt, c)).to(dev, bf)
+        g = _rand(rng, (bn, tt, c)).to(dev, bf)
+        pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:tt]).to(
+            dev)
+        w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
+        scale = (c // 8) ** -0.5
+        flops = bn * tt * c * (14 * c + 10 * tt)
+        yield case(
+            "temporal_attention_block_bwd", f"BN{bn} T{tt} C{c}",
+            lambda a=(x, pe, g, *w), s=scale: ta.temporal_attention_bwd_dx(
+                *a, 8, s),
+            lambda a=(x, pe, g, *w), s=scale:
+                ta.temporal_attention_bwd_dx_plain(*a, 8, s),
+            (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
+            path)
+
+
+def _compare(got, want, kind: str):
+    """(max abs error, tolerance, scale, finite) of one output, or of the
+    worst (by error / tolerance) of a tuple's."""
+    if isinstance(got, (tuple, list)):
+        parts = [_compare(a, b, kind) for a, b in zip(got, want)]
+        return max(parts, key=lambda r: (not r[3], r[0] / max(r[1], 1e-30)))
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = (KERNEL_ULPS * bf16_ulp(scale) if kind == "bf16"
+           else FP32_RTOL * scale)
+    return err, tol, scale, bool(torch.isfinite(got).all())
+
+
 def check_kernels(cases=None) -> dict:
     """Kernel vs plain on the card, over ``cases`` (all of kernel_cases
     by default).  Tolerance: KERNEL_ULPS bf16 ulps at
@@ -501,17 +608,15 @@ def check_kernels(cases=None) -> dict:
         cases = kernel_cases(np.random.default_rng(SEED))
     summary = {}
     for c in cases:
-        got = c["kern"]().float()
-        want = c["plain"]().float()
+        got = c["kern"]()
+        want = c["plain"]()
         torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        tol = (KERNEL_ULPS * bf16_ulp(scale) if c["tol"] == "bf16"
-               else FP32_RTOL * scale)
-        finite = bool(torch.isfinite(got).all())
+        err, tol, scale, finite = _compare(got, want, c["tol"])
         del got, want
         ms, plain_ms = time_ms(c["kern"]), time_ms(c["plain"])
         lib_ms = time_ms(c["library"]) if c["library"] else None
+        if lib_ms is not None and c["library_base"]:
+            lib_ms -= time_ms(c["library_base"])
         bound_ms, bound_by = bound(c["work"])
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
@@ -567,14 +672,14 @@ def window_input(frames) -> torch.Tensor:
 def calibrate_output_bias(scratch, run, quantile: float = 0.25,
                           unit_scale: bool = False) -> float:
     """Set the last conv's bias of the DPT head ``scratch`` so that
-    ``quantile`` of the pixels of ``run()``'s forward fall below zero: the
+    ``quantile`` of the pixels of ``run()``'s forwards fall below zero: the
     final ReLU then neither zeroes the map nor lets a constant offset hide
     the relative error of the depth.  With ``unit_scale`` the last conv is
     first scaled so that the pre-activation has unit spread (the metric
     head: its sigmoid is then neither flat nor saturated).  The island (A6)
     never forms
     the pre-activation, so it is recomputed with the plain convs from
-    output_conv1's output, on every 8th frame."""
+    output_conv1's output, on every 8th frame of each forward."""
     from vdn_torch.ops.resize import resize2d
     seen = []
     hook = scratch.output_conv1.register_forward_hook(
@@ -586,8 +691,9 @@ def calibrate_output_bias(scratch, run, quantile: float = 0.25,
         hook.remove()
     conv = scratch.output_conv2
     with torch.no_grad():
-        up = resize2d(seen[0], (SIZE, SIZE), "bilinear", align_corners=True)
-        z = conv[2](conv[1](conv[0](up))).flatten()[::97].float()
+        z = torch.cat([conv[2](conv[1](conv[0](resize2d(
+            o, (SIZE, SIZE), "bilinear", align_corners=True)))).flatten()[
+                ::97].float() for o in seen])
         if unit_scale:
             spread = z.std()
             conv[2].weight.div_(spread)
@@ -1004,6 +1110,346 @@ def metric_phase(frames) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 9
+# launches per training step (v4, vitl 518, b2 t8): the encoder's 24
+# layers through A1's training forward, D1, A2 and D3; the four motion
+# modules' A3, D4 (two attention blocks each) and A4 (recompute backward);
+# A6 (composite-recompute backward); A5a / A5b forward at the four fusion
+# upsamples and A6's H pass (5 / 4), again in A6's recomputed composite
+# (1 / 1), and backward on the transposed plans there (1 / 1) and at the
+# four upsamples (4 / 4)
+TRAIN_LAUNCHES = {"flash_attention_fused_qkv_train": 24,
+                  "flash_attention_fused_qkv_bwd": 24,
+                  "fused_ln_mlp_residual": 24,
+                  "fused_ln_mlp_residual_bwd": 24,
+                  "temporal_attention_block": 8,
+                  "temporal_attention_block_bwd": 8,
+                  "fused_ln_geglu_residual": 4, "fused_resize_island": 1,
+                  "resize_rows": 11, "resize_mid_axis": 10,
+                  "flash_attention_fused_qkv": 0, "flash_attention": 0,
+                  "flash_attention_colbias": 0, "select_rows": 0}
+METRIC_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "temporal_attention_block": 0,
+                         "temporal_attention_block_bwd": 0,
+                         "fused_ln_geglu_residual": 0}
+TRAIN_WARMUP, TRAIN_STEPS = 1, 5
+# The v4 recipe's initial LR is 1e-5.  On random weights its first AdamW
+# step learns to silence the frozen head's noise: the head's ReLU output
+# goes from two thirds positive to none (a CPU run of this phase at 42 px),
+# and no gradient reaches the encoder after it.  At 1e-7 the output stays
+# alive over the steps; the step's work does not depend on the LR.
+TRAIN_LR = 1e-7
+METRIC_TRAIN_STEPS = 3
+GRAD_FRAMES = 4      # clip length of the gradient-fidelity step (b1)
+
+
+def smooth_field(rng, n, hw=None, waves=4) -> np.ndarray:
+    """n smooth random maps in [0, 1] (SIZE x SIZE by default): a few
+    low-frequency waves each."""
+    hw = hw or (SIZE, SIZE)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32) / max(hw)
+    out = np.zeros((n, *hw), np.float32)
+    for i in range(n):
+        for _ in range(waves):
+            fy, fx, ph = rng.uniform(0.5, 3.0, 3)
+            out[i] += np.sin(2 * np.pi * (fy * yy + fx * xx) + 6 * ph)
+    out -= out.min(axis=(1, 2), keepdims=True)
+    return out / out.max(axis=(1, 2), keepdims=True)
+
+
+def train_batch(rng) -> dict:
+    """The refinement batch contract, synthetic: input depths in 0-65,535
+    (smooth, drifting over the clip), GT depths in 0.5-10.5 that follow
+    them with their own smooth error, masks with 5% invalid pixels and an
+    invalid band per clip."""
+    b, t = TRAIN_B, TRAIN_T
+    base = smooth_field(rng, b).repeat(t, 0).reshape(b, t, SIZE, SIZE)
+    drift = smooth_field(rng, b * t).reshape(b, t, SIZE, SIZE)
+    da = 65535.0 * np.clip(0.8 * base + 0.2 * drift, 0, 1)
+    gt = 0.5 + 10.0 * (1.0 - base) * (0.9 + 0.2 * smooth_field(
+        rng, b * t).reshape(b, t, SIZE, SIZE))
+    mask = (rng.random((b, t, SIZE, SIZE)) > 0.05).astype(np.float32)
+    mask[:, :, :, :20] = 0.0
+    return {"depth_anything_v2": da.astype(np.float32),
+            "depth": gt.astype(np.float32), "mask": mask}
+
+
+def positive_share(model, head, clips) -> list:
+    """The share of positive outputs of ``head`` in ``model``'s forward
+    of each clip: 0 would leave the ReLU nothing to pass back."""
+    shares = []
+    hook = head.register_forward_hook(
+        lambda m, i, o: shares.append(round(float((o > 0).float().mean()),
+                                            4)))
+    try:
+        with torch.no_grad():
+            for clip in clips:
+                model(clip)
+    finally:
+        hook.remove()
+    return shares
+
+
+def build_refine_model(batch):
+    """RefineVideoDepth v4 vitl, bf16: (model, output bias, the head's
+    positive share on each calibration clip).  The zero convs start at
+    zero (shift_head, scale_head.feat.1: the cotangent to everything before
+    them would be exactly 0) and so do the motion modules' proj_out (A3
+    and A4 would not reach the output): all get small random weights.  The
+    output bias is calibrated on one clip of ``batch`` at the step's length
+    and at the gradient check's shorter one: with fewer frames the motion
+    modules shift the head's pre-activation by more than its spread on
+    random weights."""
+    from vdn_torch.models.refine import build_refine_video_depth
+    gen = torch.Generator().manual_seed(SEED + 3)
+    model = build_refine_video_depth(4, "vitl", compute_dtype=torch.bfloat16,
+                                     device="cpu", generator=gen)
+    with torch.no_grad():
+        for conv in (model.shift_head[0], model.scale_head.feat[1]):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                              * 0.5)
+        for mm in model.temporal_head.motion_modules:
+            w = mm.temporal_transformer.proj_out.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.5
+                    * w.shape[1] ** -0.5)
+    model = model.to(DEVICE)
+    clips = [torch.from_numpy(batch["depth_anything_v2"][:1, :t]).to(DEVICE)
+             for t in (TRAIN_T, GRAD_FRAMES)]
+    bias = calibrate_output_bias(model.temporal_head.scratch,
+                                 lambda: [model(c) for c in clips])
+    return model, bias, positive_share(model, model.temporal_head, clips)
+
+
+def grad_vector(params) -> torch.Tensor:
+    return torch.cat([p.grad.float().reshape(-1) for p in params])
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def gradient_fidelity(name, model, params, loss_fn) -> dict:
+    """One step's gradients (every tensor that gets one, concatenated) with
+    the kernels, then through the plain versions in bf16 and in fp32.
+    Gates: the kernels' gradient sits no further from the plain bf16 one,
+    and no further from the fp32 one, than E2E_DRIFT_FACTOR times plain
+    bf16's own distance from fp32, and that distance is not 0 (a gradient
+    that depends on no compute path compares nothing)."""
+    from vdn_torch import kernels
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss_fn().backward()
+        with_grad = [p for p in params if p.grad is not None]
+        g = grad_vector(with_grad)
+        model.zero_grad(set_to_none=True)
+        return g, len(with_grad)
+
+    kernels.reset_launches()
+    g_kern, n_kern = grads()
+    if not kernels.launches["flash_attention_fused_qkv_bwd"]:
+        fail(f"{name}: the kernels' gradient step launched no D1")
+    kernels.reset_launches()
+    with kernels.plain_reference():
+        g16, n16 = grads()
+        model.compute_dtype = torch.float32
+        try:
+            g32, n32 = grads()
+        finally:
+            model.compute_dtype = torch.bfloat16
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    if not n_kern == n16 == n32 or not bool(torch.isfinite(g32).all()):
+        fail(f"{name}: gradient tensors {n_kern}, {n16}, {n32}")
+    res = {"kernels_vs_plain_bf16": rel_l2(g_kern, g16),
+           "kernels_vs_fp32": rel_l2(g_kern, g32),
+           "plain_bf16_vs_fp32": rel_l2(g16, g32), "tensors": n_kern,
+           "grad_norm_fp32": float(g32.norm())}
+    tol = E2E_DRIFT_FACTOR * res["plain_bf16_vs_fp32"]
+    log(f"{name}_grads", **{k: (f"{v:.4e}" if isinstance(v, float) else v)
+                            for k, v in res.items()}, rel_l2_tol=f"{tol:.4e}")
+    if not tol > 0:
+        fail(f"{name}: the plain bf16 and fp32 gradients are identical: no "
+             f"gradient passes through the compute dtype")
+    if not (res["kernels_vs_plain_bf16"] <= tol
+            and res["kernels_vs_fp32"] <= tol):
+        fail(f"{name}: kernels' gradient vs plain bf16 "
+             f"{res['kernels_vs_plain_bf16']}, vs fp32 "
+             f"{res['kernels_vs_fp32']}, tolerance {tol}")
+    return res
+
+
+def timed_steps(step, n: int):
+    """n steps of ``step()``, each ended by a synchronize: (results, wall
+    ms per step, peak device memory in bytes, launches of the n steps)."""
+    from vdn_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out.append(step())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(kernels.launches)
+    return out, walls, torch.cuda.max_memory_allocated(), counts
+
+
+def check_updates(name: str, named, before) -> list:
+    """Every trainable tensor that got a gradient in the last step got a
+    nonzero one and changed over the steps, and only those: the rest
+    (tensors no forward reads, as the ViT's mask_token) are returned."""
+    no_grad = sorted(n for n, p in named if p.grad is None)
+    zero = sorted(n for n, p in named
+                  if p.grad is not None and not bool(p.grad.any()))
+    if zero:
+        fail(f"{name}: zero gradient in the last step: {zero[:6]}")
+    stuck = sorted(n for (n, p), b in zip(named, before)
+                   if torch.equal(p.detach(), b))
+    if stuck != no_grad:
+        fail(f"{name}: unchanged {stuck[:6]}, without gradient "
+             f"{no_grad[:6]}")
+    return no_grad
+
+
+def check_no_backward_raises() -> None:
+    """B1, C1 and C2 have no backward: on the card each raises when an
+    input requires grad, rather than return an output that cuts the graph
+    (the training phases show that the wrappers with a backward keep it:
+    every trainable tensor upstream of them gets a nonzero gradient)."""
+    from vdn_torch.kernels import flash_attention as fa, resize
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=DEVICE,
+                    requires_grad=True)
+    x = torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=DEVICE,
+                    requires_grad=True)
+    calls = {"select_rows": lambda: resize.select_rows(
+                 x, torch.eye(4, device=DEVICE)),
+             "flash_attention": lambda: fa.flash_attention(q, q, q),
+             "flash_attention_colbias": lambda: fa.flash_attention_colbias(
+                 q, q, q, torch.zeros(64, device=DEVICE))}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError:
+            continue
+        fail(f"{name} returned an output for an input that requires grad")
+    log("no_backward", raised=json.dumps(sorted(calls)))
+
+
+def check_step_launches(name: str, counts: dict, steps: int,
+                        want: dict) -> dict:
+    check_launches(name, counts, [k for k, v in want.items() if v])
+    per_step = {k: v / steps for k, v in counts.items()}
+    check_frame_launches(f"{name} per step", per_step, want)
+    return {k: int(v) for k, v in per_step.items()}
+
+
+def train_phase() -> dict:
+    """RefineTrainer (v4, vitl 518, b2 t8, bf16, frozen temporal head):
+    TRAIN_WARMUP + TRAIN_STEPS steps on a synthetic batch, the launch
+    counts set to 0 just before the timed steps and read just after.
+    First the gradient fidelity at b1 t GRAD_FRAMES, of the loss and of
+    the model under a fixed output cotangent.  Gates: those, the per-step
+    launches, finite losses, the frozen head bit-identical, every tensor
+    that gets a gradient gets a nonzero one and changes."""
+    from vdn_torch.train.trainer import RefineTrainer
+    rng = np.random.default_rng(SEED)
+    batch = train_batch(rng)
+    model, bias, alive = build_refine_model(batch)
+    trainer = RefineTrainer(model, initial_lr=TRAIN_LR)
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k.startswith("temporal_head.")}
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    x1, gt1, mask1 = trainer._batch(
+        {k: v[:1, :GRAD_FRAMES] for k, v in batch.items()})
+    params = [p for _, p in named]
+    gradient_fidelity("train", model, params,
+                      lambda: trainer.loss(x1, gt1, mask1)["total_loss"])
+    # The loss sends each frame's median and MAD cotangent to the one pixel
+    # that holds the value, and rounding moves that pixel, so the loss's
+    # gradient is dominated by where the medians fall.  A fixed smooth
+    # cotangent on the output holds the model's backward alone.
+    cot = torch.from_numpy(smooth_field(rng, GRAD_FRAMES) - 0.5)[None].to(
+        DEVICE)
+    gradient_fidelity("train_vjp", model, params,
+                      lambda: (model(x1) * cot).sum())
+    del x1, gt1, mask1, cot
+    before = [p.detach().clone() for _, p in named]
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    losses, walls, peak, counts = timed_steps(
+        lambda: trainer.train_step(batch), TRAIN_STEPS)
+    per_step = check_step_launches("train", counts, TRAIN_STEPS,
+                                   TRAIN_LAUNCHES)
+    total = [float(l["total_loss"]) for l in losses]
+    if not np.isfinite(total).all():
+        fail(f"train: losses {total}")
+    changed_head = [k for k, v in model.state_dict().items()
+                    if k in frozen and not torch.equal(v, frozen[k])]
+    if changed_head:
+        fail(f"train: the frozen head changed: {changed_head[:5]}")
+    no_grad = check_updates("train", named, before)
+    del before
+    log("train", batch=f"b{TRAIN_B}xt{TRAIN_T}", steps=TRAIN_STEPS,
+        output_bias=f"{bias:.6g}", head_positive_share=json.dumps(alive),
+        ms_per_step=f"{statistics.median(walls):.3f}",
+        step_ms=json.dumps([round(w, 2) for w in walls]),
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        losses=json.dumps([float(f"{x:.9g}") for x in total]),
+        trainable_tensors=len(trainer.params),
+        without_gradient=json.dumps(no_grad),
+        launches_per_step=json.dumps(per_step, separators=(",", ":")))
+    return counts
+
+
+def metric_train_phase(frames) -> dict:
+    """MetricDepthTrainer (vitl 518, b2, bf16): METRIC_TRAIN_STEPS steps
+    after one warm-up, the launch counts set to 0 just before and read just
+    after; the per-step launches, finite losses and changed weights are
+    gated, then the gradient fidelity of one b1 step."""
+    from vdn_torch.models.metric_depth import build_metric_depth_anything_v2
+    from vdn_torch.pipelines.transform import preprocess_frame
+    from vdn_torch.train.metric_depth import MetricDepthTrainer
+    model = build_metric_depth_anything_v2(
+        "vitl", compute_dtype=torch.bfloat16, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 4)).to(DEVICE)
+    rng = np.random.default_rng(SEED + 1)
+    img = np.stack([preprocess_frame(f, SIZE) for f in frames[:TRAIN_B]])
+    depth = 0.5 + 15.0 * smooth_field(rng, TRAIN_B)
+    mask = (rng.random(depth.shape) > 0.05).astype(np.float32)
+    batch = {"image": img, "depth": depth.astype(np.float32),
+             "valid_mask": mask}
+    x = torch.from_numpy(img[:1]).to(DEVICE)
+    bias = calibrate_output_bias(model.depth_head.scratch, lambda: model(x),
+                                 quantile=0.5, unit_scale=True)
+    trainer = MetricDepthTrainer(model)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    before = [p.detach().clone() for _, p in named]
+    flips = np.random.default_rng(SEED)
+    trainer.train_step(batch, flips)
+    losses, walls, peak, counts = timed_steps(
+        lambda: trainer.train_step(batch, flips), METRIC_TRAIN_STEPS)
+    per_step = check_step_launches("metric_train", counts,
+                                   METRIC_TRAIN_STEPS, METRIC_TRAIN_LAUNCHES)
+    if not np.isfinite(losses).all():
+        fail(f"metric_train: losses {losses}")
+    no_grad = check_updates("metric_train", named, before)
+    del before
+    log("metric_train", batch=f"b{TRAIN_B}", steps=METRIC_TRAIN_STEPS,
+        output_bias=f"{bias:.6g}",
+        ms_per_step=f"{statistics.median(walls):.3f}",
+        step_ms=json.dumps([round(w, 2) for w in walls]),
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        losses=json.dumps([round(x, 6) for x in losses]),
+        without_gradient=json.dumps(no_grad),
+        launches_per_step=json.dumps(per_step, separators=(",", ":")))
+    small = [torch.from_numpy(a[:1]).to(DEVICE)
+             for a in (img, batch["depth"], mask)]
+    gradient_fidelity("metric_train", model, [p for _, p in named],
+                      lambda: trainer.loss(*small))
+    return counts
+
+
 # ---------------------------------------------------------------- main
 SOURCES = {
     "flash_attention_fused_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
@@ -1026,15 +1472,31 @@ SOURCES = {
                         "vdn/ops/pallas/flash_attention.py:270"),
     "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_bthd.cu",
                                 "vdn/ops/pallas/flash_attention.py:157"),
+    "flash_attention_fused_qkv_train": (
+        "vdn_torch/csrc/flash_attn_qkv.cu",
+        "vdn/ops/pallas/flash_attention.py:528"),
+    "flash_attention_fused_qkv_bwd": ("vdn_torch/csrc/flash_attn_qkv_bwd.cu",
+                                      "vdn/ops/pallas/flash_attention.py:668"),
+    "fused_ln_mlp_residual_bwd": ("vdn_torch/csrc/ln_mlp_bwd.cu",
+                                  "vdn/ops/pallas/mlp.py:339"),
+    "temporal_attention_block_bwd": (
+        "vdn_torch/csrc/temporal_attn_bwd.cu",
+        "vdn/ops/pallas/temporal_attention.py:209"),
 }
 # each kernel's headline path: the one whose run gives its ``launches`` and
 # whose shapes its times are summed over
 HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
-            "flash_attention_colbias": "image"}
+            "flash_attention_colbias": "image",
+            "flash_attention_fused_qkv_train": "train",
+            "flash_attention_fused_qkv_bwd": "train",
+            "fused_ln_mlp_residual_bwd": "train",
+            "temporal_attention_block_bwd": "train"}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
-# the keys of IMAGE_LAUNCHES
-STREAM_KERNELS = [n for n in SOURCES if HEADLINE.get(n) != "image"]
+# the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES
+# and METRIC_TRAIN_LAUNCHES
+STREAM_KERNELS = [n for n in SOURCES
+                  if HEADLINE.get(n, "clip") in ("clip", "stream_k1")]
 CLIP_KERNELS = [n for n in STREAM_KERNELS if n != "select_rows"]
 
 
@@ -1042,6 +1504,8 @@ def main() -> None:
     device = environment()
     build_kernels()
     summary = check_kernels()
+    summary.update(check_kernels(train_cases(np.random.default_rng(SEED))))
+    check_no_backward_raises()
     model = build_model()
     frames = synthetic_clip()
     bias = calibrate_output_bias(
@@ -1062,13 +1526,20 @@ def main() -> None:
     del image_model
     torch.cuda.empty_cache()
     counts_metric = metric_phase(frames)
+    torch.cuda.empty_cache()
+    counts_train = train_phase()
+    torch.cuda.empty_cache()
+    counts_metric_train = metric_train_phase(frames)
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
-                "metric": counts_metric}
+                "metric": counts_metric, "train": counts_train,
+                "metric_train": counts_metric_train}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
-    # C2: the memory attention's shapes at both token grids), and stream_ms /
+    # C2: the memory attention's shapes at both token grids; the training
+    # kernels: one b2 t8 step's shapes, D4 at the four motion modules),
+    # launches over the training phase's TRAIN_STEPS steps, and stream_ms /
     # stream_bound_ms over the stream's shapes; launches from the run of the
     # headline path, and from every path's run.
     rows = []

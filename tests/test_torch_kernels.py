@@ -15,18 +15,27 @@ the JAX kernels in flax layout ([in, out]) and to the port in torch layout
   output sums two taps (bf16 x bf16 products are exact in fp32, and so is
   a two-term sum in either order), else 1 ulp.
 
+The backwards (D1, D3, D4, and A4-A6's recompute and transposed-plan
+backwards) through their autograd Functions against vdn's custom_vjps, the
+Pallas backward kernels in interpret mode: fp32 ``2e-5`` of the
+cotangent's scale, bf16 4 ulps at the output's scale, as above; bf16
+resize backwards 1 ulp (at most 8 taps, two-term sums exact).  Each
+Function against autograd of its plain forward: fp32 ``1e-5`` of scale.
+
 The CUDA kernels themselves run only on a GPU: chip_smoke.py holds them
 against these plain versions on the card.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import vdn.ops.resize as jops_resize
 from vdn.ops.pallas import flash_attention as jfa
 from vdn.ops.pallas import geglu as jgeglu
 from vdn.ops.pallas import mlp as jmlp
@@ -39,6 +48,7 @@ from vdn_torch.kernels import mlp as tmlp
 from vdn_torch.kernels import resize as tresize
 from vdn_torch.kernels import resize_island as tisland
 from vdn_torch.kernels import temporal_attention as tta
+from vdn_torch.ops.resize import plan_axis, resize2d
 
 torch.set_num_threads(2)
 
@@ -59,7 +69,7 @@ def _close(got: torch.Tensor, want, dtype: str):
         assert err <= 4 * ulp, (err, ulp)
 
 
-def _pair(a: np.ndarray, dtype: str):
+def _pair(a: np.ndarray, dtype: str = "fp32"):
     jd, td = DTYPES[dtype]
     return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
 
@@ -319,3 +329,340 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError):
         kernels.use_kernel(x)
     assert not kernels.use_kernel(torch.zeros(2))
+
+
+def _close_scaled(got, want, dtype="fp32", ulps=4, rtol=2e-5):
+    """Max abs error within ``rtol`` of the reference's scale (fp32) or
+    ``ulps`` bf16 ulps at that scale (bf16)."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    tol = (rtol * scale if dtype == "fp32"
+           else ulps * 2.0 ** (math.floor(math.log2(scale)) - 7))
+    assert err <= tol, (err, tol, scale)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+# ------------------------------------------------- D1 (A1's backward)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_attention_fused_qkv_backward_matches_vdn(dtype):
+    """D1's plain version through the Function against jax.grad of vdn's
+    custom_vjp (the cols backward kernel in interpret mode) at two column
+    blocks (h = 4), b = 2 and a ragged T = 150 against 64-row q blocks."""
+    rng = np.random.default_rng(5)
+    jq, tq = _pair(rng.standard_normal((2, 150, 3, 4, 64), np.float32),
+                   dtype)
+    jg, tg = _pair(rng.standard_normal((2, 150, 4, 64), np.float32), dtype)
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(lambda q: jfa.flash_attention_fused_qkv(
+            q, None, 64), jq)
+        (want,) = vjp(jg)
+    tq = _leaf(tq)
+    got = tfa.flash_attention_fused_qkv(tq)
+    _close_scaled(got, out, dtype)
+    got.backward(tg)
+    assert tq.grad.dtype == tq.dtype
+    _close_scaled(tq.grad, want, dtype)
+
+
+def test_flash_attention_lse_matches_vdn():
+    """A1's training forward writes vdn's base-2 log-sum-exp."""
+    rng = np.random.default_rng(6)
+    jq, tq = _pair(rng.standard_normal((2, 150, 3, 4, 64), np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        _, want = jfa._flash_cols_call(jq, 64 ** -0.5, 64, 2, save_lse=True)
+    # vdn: [B, n_colblocks, hb, T]; the port: [B, H, T]
+    _, got = tfa.flash_attention_fused_qkv_lse_plain(tq)
+    _close_scaled(got, np.asarray(want).reshape(2, 4, 150))
+
+
+# ------------------------------------------------- D3 (A2's backward)
+def _mlp_inputs(rng, shape, c, f):
+    x = rng.standard_normal(shape, np.float32)
+    p = [rng.standard_normal((c,), np.float32) * 0.1 + 1.0,
+         rng.standard_normal((c,), np.float32) * 0.1,
+         rng.standard_normal((c, f), np.float32) * c ** -0.5,
+         rng.standard_normal((f,), np.float32) * 0.1,
+         rng.standard_normal((f, c), np.float32) * f ** -0.5,
+         rng.standard_normal((c,), np.float32) * 0.1,
+         rng.standard_normal((c,), np.float32) * 0.5]
+    g = rng.standard_normal(shape, np.float32)
+    return x, p, g
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(300, 64), (2, 150, 64)])
+def test_ln_mlp_backward_matches_vdn(shape, dtype):
+    """All eight grads of A2's Function (D3's plain version and the weight
+    products) against vdn's _bwd_via_kernel (the dx kernel in interpret
+    mode) at n 300, C 64, F 256; flat and frame-major."""
+    rng = np.random.default_rng(7)
+    c, f = 64, 256
+    x, p, g = _mlp_inputs(rng, shape, c, f)
+    jx, tx = _pair(x, dtype)
+    jg, tg = _pair(g, dtype)
+    jp = [jnp.asarray(a) for a in p]
+    with pltpu.force_tpu_interpret_mode():
+        want = jmlp._bwd_via_kernel(1e-6, (jx, *jp), jg)
+    # torch layout: w1 [F, C], w2 [C, F]
+    tp = [_leaf(torch.from_numpy(a.T.copy() if a.ndim == 2 else a))
+          for a in p]
+    tx = _leaf(tx)
+    out = tmlp.fused_ln_mlp_residual(tx, *tp)
+    out.backward(tg)
+    got = [tx.grad] + [t.grad.t() if t.ndim == 2 else t.grad for t in tp]
+    # bf16: the weight grads are bf16 products (or fp32 sums of them), held
+    # at their own scale like every bf16 output
+    for a, b in zip(got, want):
+        _close_scaled(a, b, dtype)
+
+
+# ------------------------------------------------- D4 (A3's dx)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("bn,t,c,heads", [(40, 8, 64, 2), (9, 32, 256, 8)])
+def test_temporal_attention_backward_matches_vdn(bn, t, c, heads, dtype):
+    """D4's plain version through the Function (dx only: the frozen-head
+    case) against vdn's _fused_bwd_dx_impl in interpret mode."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((bn, t, c), np.float32)
+    pe = rng.standard_normal((t, c), np.float32) * 0.5
+    w = [rng.standard_normal((c, c), np.float32) * c ** -0.5
+         for _ in range(4)]
+    bo = rng.standard_normal((c,), np.float32) * 0.1
+    g = rng.standard_normal((bn, t, c), np.float32)
+    scale = (c // heads) ** -0.5
+    jx, tx = _pair(x, dtype)
+    jg, tg = _pair(g, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jta._fused_bwd_dx_impl(jx, jnp.asarray(pe), jg,
+                                      *map(jnp.asarray, w), heads, scale)
+    tw = [torch.from_numpy(a.T.copy()) for a in w]
+    tx = _leaf(tx)
+    out = tta.temporal_attention_block(tx, torch.from_numpy(pe), *tw,
+                                       torch.from_numpy(bo), heads, scale)
+    out.backward(tg)
+    assert all(w.grad is None for w in tw)
+    _close_scaled(tx.grad, want, dtype)
+
+
+def test_temporal_attention_weight_grads_match_vdn():
+    """With the head trainable, the weight and pe cotangents come from
+    autograd of the plain version, as vdn's from jax.vjp of its XLA
+    reference."""
+    rng = np.random.default_rng(9)
+    bn, t, c, heads = 12, 8, 64, 4
+    scale = (c // heads) ** -0.5
+    x = rng.standard_normal((bn, t, c), np.float32)
+    pe = rng.standard_normal((t, c), np.float32)
+    w = [rng.standard_normal((c, c), np.float32) * c ** -0.5
+         for _ in range(4)]
+    bo = rng.standard_normal((c,), np.float32) * 0.1
+    g = rng.standard_normal((bn, t, c), np.float32)
+    _, vjp = jax.vjp(lambda *a: jta.xla_temporal_attention_block(
+        *a, heads, scale), *map(jnp.asarray, (x, pe, *w, bo)))
+    want = vjp(jnp.asarray(g))
+    args = [_leaf(torch.from_numpy(a)) for a in (x, pe)] + [
+        _leaf(torch.from_numpy(a.T.copy())) for a in w] + [
+        _leaf(torch.from_numpy(bo))]
+    tta.temporal_attention_block(*args, heads, scale).backward(
+        torch.from_numpy(g))
+    for i, (a, b) in enumerate(zip(args, want)):
+        _close_scaled(a.grad.t() if 2 <= i < 6 else a.grad, b)
+
+
+# ------------------------------------------------- A4, A5, A6 backwards
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_geglu_backward_matches_vdn(dtype):
+    """A4's recompute backward against jax.grad of vdn's custom_vjp (the
+    forward kernel in interpret mode, the hand-written vjp)."""
+    rng = np.random.default_rng(10)
+    n, c = 96, 64
+    f = 4 * c
+    x = rng.standard_normal((n, c), np.float32)
+    p = [rng.standard_normal((c,), np.float32) * 0.1 + 1.0,
+         rng.standard_normal((c,), np.float32) * 0.1,
+         rng.standard_normal((c, 2 * f), np.float32) * c ** -0.5,
+         rng.standard_normal((2 * f,), np.float32) * 0.1,
+         rng.standard_normal((f, c), np.float32) * f ** -0.5,
+         rng.standard_normal((c,), np.float32) * 0.1]
+    g = rng.standard_normal((n, c), np.float32)
+    jx, tx = _pair(x, dtype)
+    jg, tg = _pair(g, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda *a: jgeglu.fused_ln_geglu_residual(*a),
+                         jx, *map(jnp.asarray, p))
+        want = vjp(jg)
+    tp = [_leaf(torch.from_numpy(a.T.copy() if a.ndim == 2 else a))
+          for a in p]
+    tx = _leaf(tx)
+    tgeglu.fused_ln_geglu_residual(tx, *tp).backward(tg)
+    got = [tx.grad] + [t.grad.t() if t.ndim == 2 else t.grad for t in tp]
+    for a, b in zip(got, want):
+        _close_scaled(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("in_hw,out_hw", [((21, 24), (37, 40)),
+                                          ((19, 19), (37, 37))])
+def test_resize_backward_matches_vdn(in_hw, out_hw, dtype, monkeypatch):
+    """A5a (H) and A5b (W) backwards on the transposed plans against
+    jax.grad of vdn's resize2d through its Pallas kernels (_FORCE_PALLAS,
+    interpret mode).  Each output sums at most 4 taps, so bf16 is held to
+    1 ulp as the forward resize kernels are."""
+    monkeypatch.setattr(jops_resize, "_FORCE_PALLAS", True)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, *in_hw, 128), np.float32)
+    g = rng.standard_normal((2, *out_hw, 128), np.float32)
+    jx, tx = _pair(x, dtype)
+    jg, tg = _pair(g, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a: jops_resize.resize2d(a, out_hw, "bilinear",
+                                                    True), jx)
+        (want,) = vjp(jg)
+    tx = _leaf(tx)
+    resize2d(tx, out_hw, "bilinear", align_corners=True).backward(tg)
+    _close_scaled(tx.grad, want, dtype, ulps=1)
+
+
+def test_transposed_plans_fit_the_rows_kernel():
+    """Every resize a vitl-518 training step differentiates (the four
+    fusion upsamples and the island's 296 -> 518) has a transposed plan of
+    at most MAX_TAPS taps per row."""
+    for n_in, n_out in ((19, 37), (37, 74), (74, 148), (148, 296),
+                        (296, 518)):
+        idx, w = plan_axis(n_out, n_in, "bilinear", True, None)
+        idx_t, w_t = tresize.transpose_plan(idx, w, n_in)
+        pidx, _ = tresize.rows_plan(idx_t, w_t, "cpu")
+        assert pidx.shape == (n_in, pidx.shape[1])
+        assert pidx.shape[1] <= tresize.MAX_TAPS, (n_in, n_out, pidx.shape)
+
+
+def test_resize_island_backward_matches_vdn(monkeypatch):
+    """A6's composite-recompute backward against jax.grad of vdn's
+    custom_vjp (forward kernel in interpret mode), all five inputs, ReLU
+    and sigmoid heads, fp32."""
+    monkeypatch.setattr(jops_resize, "_FORCE_PALLAS", True)
+    rng = np.random.default_rng(12)
+    n, h, w, c, o = 1, 16, 16, 128, 32
+    args = [rng.standard_normal((n, h, w, c), np.float32),
+            rng.standard_normal((3, 3, c, o), np.float32) * (9 * c) ** -0.5,
+            rng.standard_normal((o,), np.float32) * 0.1,
+            rng.standard_normal((o, 1), np.float32) * o ** -0.5,
+            rng.standard_normal((1,), np.float32) * 0.1]
+    g = rng.standard_normal((n, 29, 29, 1), np.float32)
+    for sigmoid, max_depth in ((False, 1.0), (True, 1.0)):
+        with pltpu.force_tpu_interpret_mode():
+            _, vjp = jax.vjp(lambda *a: jisland.fused_resize_island(
+                *a, (29, 29), sigmoid, max_depth), *map(jnp.asarray, args))
+            want = vjp(jnp.asarray(g))
+        targs = [_leaf(torch.from_numpy(a)) for a in args]
+        tisland.fused_resize_island(*targs, (29, 29), sigmoid,
+                                    max_depth).backward(torch.from_numpy(g))
+        for a, b in zip(targs, want):
+            _close_scaled(a.grad, b, rtol=2e-4)
+
+
+# ------------------------------------------------- Function vs plain autograd
+def _function_cases(rng):
+    """(name, wrapper, plain forward, inputs) for every kernel with a
+    backward, fp32."""
+    f32 = lambda *s, sc=1.0, off=0.0: torch.from_numpy(
+        rng.standard_normal(s, np.float32) * sc + off)
+    qkv = f32(2, 70, 3, 2, 64)
+    yield ("A1", tfa.flash_attention_fused_qkv,
+           tfa.flash_attention_fused_qkv_plain, [qkv])
+    c, f = 32, 128
+    mlp = [f32(3, 40, c), f32(c, sc=0.1, off=1.0), f32(c, sc=0.1),
+           f32(f, c, sc=c ** -0.5), f32(f, sc=0.1), f32(c, f, sc=f ** -0.5),
+           f32(c, sc=0.1), f32(c, sc=0.5)]
+    yield ("A2", tmlp.fused_ln_mlp_residual, tmlp.fused_ln_mlp_residual_plain,
+           mlp)
+    ta = [f32(6, 8, c), f32(8, c)] + [f32(c, c, sc=c ** -0.5)
+                                       for _ in range(4)] + [f32(c, sc=0.1)]
+    yield ("A3", lambda *a: tta.temporal_attention_block(*a, 4, 0.25),
+           lambda *a: tta.temporal_attention_block_plain(*a, 4, 0.25), ta)
+    ge = [f32(30, c), f32(c, sc=0.1, off=1.0), f32(c, sc=0.1),
+          f32(2 * f, c, sc=c ** -0.5), f32(2 * f, sc=0.1),
+          f32(c, f, sc=f ** -0.5), f32(c, sc=0.1)]
+    yield ("A4", tgeglu.fused_ln_geglu_residual,
+           tgeglu.fused_ln_geglu_residual_plain, ge)
+    idx, w = plan_axis(23, 9, "bilinear", True, None)
+    pidx, pw = tresize.rows_plan(idx, w, "cpu")
+    yield ("A5a", lambda x: tresize.resize_rows(x, idx, w, 23),
+           lambda x: tresize.resize_rows_plain(x, pidx, pw), [f32(2, 9, 5, 8)])
+    dense = tresize.dense_plan(idx, w, 9, torch.float32, "cpu")
+    yield ("A5b", lambda x: tresize.resize_mid_axis(x, idx, w, 23),
+           lambda x: tresize.mix_rows_plain(x, dense), [f32(4, 9, 16)])
+    isl = [f32(1, 8, 8, 16), f32(3, 3, 16, 32, sc=1 / 12), f32(32, sc=0.1),
+           f32(32, 1, sc=32 ** -0.5), f32(1, sc=0.1)]
+    yield ("A6", lambda *a: tisland.fused_resize_island(*a, (14, 14)),
+           lambda *a: tisland.fused_resize_island_plain(*a, (14, 14)), isl)
+
+
+@pytest.mark.parametrize("which", ["A1", "A2", "A3", "A4", "A5a", "A5b",
+                                   "A6"])
+def test_function_backward_equals_plain_autograd(which):
+    """The autograd Function of each kernel with a backward gives the
+    gradients of autograd through its plain forward (fp32, every input)."""
+    rng = np.random.default_rng(13)
+    name, wrapper, plain, inputs = next(
+        c for c in _function_cases(rng) if c[0] == which)
+    a = [_leaf(t) for t in inputs]
+    b = [_leaf(t) for t in inputs]
+    out = wrapper(*a)
+    ref = plain(*b)
+    _close_scaled(out, ref.detach(), rtol=1e-5)
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape), np.float32))
+    out.backward(g)
+    ref.backward(g)
+    for x, y in zip(a, b):
+        _close_scaled(x.grad, y.grad.numpy(), rtol=1e-5)
+
+
+def test_kernel_inference_calls_record_no_graph():
+    """Under no_grad (or with no input requiring grad) the wrappers return
+    plain tensors, as before: the serving paths pay for no graph."""
+    rng = np.random.default_rng(14)
+    qkv = _leaf(torch.from_numpy(rng.standard_normal((1, 20, 3, 2, 64),
+                                                     np.float32)))
+    with torch.no_grad():
+        assert tfa.flash_attention_fused_qkv(qkv).grad_fn is None
+    assert tfa.flash_attention_fused_qkv(qkv.detach()).grad_fn is None
+    assert tfa.flash_attention_fused_qkv(qkv).grad_fn is not None
+
+
+@pytest.mark.parametrize("which", ["A1", "A2", "A3", "A5a", "A5b", "A6"])
+def test_backward_dispatches_as_its_forward(which, monkeypatch):
+    """A graph recorded inside plain_reference() is differentiated through
+    the plain versions even where autograd runs the backward on a thread
+    of its own (as it does for CUDA tensors), where the context variable
+    is unset: every dispatch of the backward sees the forward's flag.  (A4's
+    backward recomputes its plain version and dispatches nothing.)"""
+    import threading
+    from vdn_torch import kernels
+    seen = []
+
+    def spy(x):
+        seen.append(kernels._PLAIN.get())
+        return False
+
+    for mod in (tfa, tgeglu, tmlp, tresize, tisland, tta):
+        monkeypatch.setattr(mod, "use_kernel", spy)
+    rng = np.random.default_rng(15)
+    _, wrapper, _, inputs = next(
+        c for c in _function_cases(rng) if c[0] == which)
+    a = [_leaf(t) for t in inputs]
+    with kernels.plain_reference():
+        out = wrapper(*a)
+    n_forward = len(seen)
+    worker = threading.Thread(target=lambda: out.sum().backward())
+    worker.start()
+    worker.join()
+    assert all(x.grad is not None for x in a)
+    assert len(seen) > n_forward and all(seen), seen

@@ -285,8 +285,8 @@ def test_preprocess_frame_matches_cv2(hw):
 
 def test_port_imports_no_jax_flax_or_cv2():
     """Every module of vdn_torch, chip_smoke.py and tools/profile_torch.py,
-    imported in a fresh interpreter, pull in nothing of jax, flax, cv2 or
-    vdn."""
+    imported in a fresh interpreter, pull in nothing of jax, flax, optax,
+    orbax, cv2 or vdn."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vdn_torch\n"
@@ -296,7 +296,8 @@ def test_port_imports_no_jax_flax_or_cv2():
         "for name in names + ['chip_smoke', 'tools.profile_torch']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'cv2', 'vdn'))\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
+        "                                    'cv2', 'vdn'))\n"
         "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -16,6 +16,11 @@ DepthAnythingV2 with its memory bank:
 - ``image``: four ``infer_image`` calls after 8 warm frames (the six-slot
   bank is full and shifting).
 
+RefineVideoDepth v4 (chip_smoke.py's training phase):
+
+- ``train``: two RefineTrainer steps (b2 t8, frozen temporal head) after a
+  warm-up step.
+
 For each, device time is summed from the exported chrome trace (events of
 category "kernel"), grouped by kernel name, and printed per unit (window,
 frame) beside the span of host wall time and the union of kernel intervals
@@ -40,7 +45,19 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
+    (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
+     "A1-train flash attention (+ log-sum-exp)"),
     (r"flash_qkv_kernel", "A1 flash attention"),
+    (r"flash_bwd_dkdv", "D1 dK / dV"),
+    (r"flash_bwd_dq", "D1 dQ"),
+    (r"flash_bwd_delta", "D1 delta"),
+    (r"EpiHpreGelu", "D3 GEMM y W1^T (hpre, h)"),
+    (r"EpiDhpre", "D3 GEMM (g gamma) W2 (dhpre)"),
+    (r"EpiStoreDy", "D3 GEMM dhpre W1 (dy)"),
+    (r"ln_bwd_rows|ln_apply|colsum", "D3 LayerNorm rows and column sums"),
+    (r"ProAddPe.*EpiStoreTemporalBwd", "D4 q / k / v recompute GEMM"),
+    (r"EpiStoreTemporalBwd", "D4 doh and dx GEMMs"),
+    (r"temporal_bwd_core", "D4 attention core"),
     (r"flash_bthd_kernel<(\(bool\))?(1|true)>",
      "C1 memory cross-attention (column bias)"),
     (r"flash_bthd_kernel", "C2 memory self-attention"),
@@ -51,11 +68,14 @@ GROUPS = [
     (r"EpiBias\b", "A3 out-proj GEMM"),
     (r"EpiGeglu", "A4 GEGLU GEMM"),
     (r"EpiResidualBias", "A4 net_2 GEMM"),
-    (r"row_stats", "LayerNorm row statistics (A2, A4)"),
+    (r"row_stats", "LayerNorm row statistics (A2, A4, D3)"),
     (r"resize_island", "A6 fused resize island"),
     (r"resize_rows", "A5a resize_rows"),
     (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),
-    (r"conv|Conv|cudnn|implicit|winograd|fprop|xmma_fprop",
+    (r"multi_tensor|[Aa]dam", "AdamW (multi-tensor)"),
+    (r"[Ss]ort|radix|kthvalue|TopK|bitonic",
+     "sorts and order statistics (losses, medians)"),
+    (r"conv|Conv|cudnn|implicit|winograd|fprop|dgrad|wgrad",
      "cuDNN convs"),
     (r"nvjet|cutlass|cublas|gemm|Gemm|sm90_xmma|sm80_xmma",
      "cuBLAS GEMMs (ViT qkv / proj, DPT, cached attention)"),
@@ -116,7 +136,7 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-UNITS = ("cached", "stream_k1", "stream_k8", "image")
+UNITS = ("cached", "stream_k1", "stream_k8", "image", "train")
 
 
 def profile_video(units, out: str) -> None:
@@ -168,6 +188,18 @@ def profile_image(out: str) -> None:
     report("image", res, 4, "frame")
 
 
+def profile_train(out: str) -> None:
+    import numpy as np
+    from vdn_torch.train.trainer import RefineTrainer
+    batch = cs.train_batch(np.random.default_rng(cs.SEED))
+    model = cs.build_refine_model(batch)[0]
+    trainer = RefineTrainer(model, initial_lr=cs.TRAIN_LR)
+    trainer.train_step(batch)
+    res = trace(lambda: trainer.train_step(batch), 2,
+                os.path.join(out, "train.json"))
+    report("train", res, 2, "step")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/profile",
@@ -178,10 +210,12 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     cs.environment()
     cs.build_kernels()
-    if set(args.units) - {"image"}:
+    if set(args.units) - {"image", "train"}:
         profile_video(args.units, args.out)
     if "image" in args.units:
         profile_image(args.out)
+    if "train" in args.units:
+        profile_train(args.out)
 
 
 if __name__ == "__main__":

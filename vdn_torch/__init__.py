@@ -1,6 +1,6 @@
 """vdn_torch: the PyTorch / CUDA (H100) port of vdn.
 
-Imports torch and numpy only (never jax, flax or cv2).  Entry points, each
+Imports torch and numpy only (never jax, flax, optax, orbax or cv2).  Entry points, each
 on the card unless the caller passes ``device="cpu"``:
 
 - clips: ``vdn_torch.models.video_depth_anything.
@@ -12,7 +12,10 @@ on the card unless the caller passes ``device="cpu"``:
   depth_anything_v2.build_depth_anything_v2`` with ``vdn_torch.pipelines.
   infer_image.DepthAnythingV2Pipeline``;
 - metric depth: ``vdn_torch.models.metric_depth.
-  build_metric_depth_anything_v2``.
+  build_metric_depth_anything_v2``;
+- training: ``vdn_torch.models.refine.build_refine_video_depth`` with
+  ``vdn_torch.train.trainer.RefineTrainer``, and the metric-depth model
+  with ``vdn_torch.train.metric_depth.MetricDepthTrainer``.
 
 The hand-written CUDA kernels and their build live in
 ``vdn_torch.kernels``.

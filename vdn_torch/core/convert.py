@@ -14,7 +14,14 @@ released checkpoint converted for it) loads into the port's modules with
 
 These are the rules the clip-depth, single-image and metric-depth models
 use (the memory block's ``gamma`` and (1, ., C) embeddings copy verbatim,
-its depthwise and stride convs are plain rank-4 kernels).  The SAM2 / Hiera leaves
+its depthwise and stride convs are plain rank-4 kernels), and the
+refinement models v2-v5 (vdn_torch.models.refine): their zero convs
+(``shift_head_0``, ``scale_head/feat_1``) are rank-4 kernels, the v2
+BatchNorm's ``scale`` becomes ``weight`` and its running statistics copy
+verbatim.  A reference torch checkpoint of the older layout (``head.*``,
+``final_res2.*``, ``final_scale2.*``) takes the v4 names key by key
+through vdn_torch.train.trainer.rename_with_map with ``V4_RENAME_MAP``, as
+vdn's training CLI renames it.  The SAM2 / Hiera leaves
 (``embedding``, ``in_proj``, NHWC pos-embed tables) come with their port;
 until then such a tree fails to load as unexpected keys.
 

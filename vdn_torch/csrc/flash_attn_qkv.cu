@@ -25,6 +25,12 @@
 //     zero and never stored, key columns >= T get -inf logits and zero V.
 // Online rescaling rounds p against the running max instead of the final
 // one, so results differ from the TPU kernel by a few bf16 ulps at most.
+//
+// The training forward (_flash_cols_call(save_lse=True)) is the same kernel
+// with kLse: it also writes each row's base-2 log-sum-exp m + log2(l) in
+// fp32 from the final running max and sum, laid out [B, H, T] (vdn's
+// [B, n_colblocks, hb, T] is a TPU lane constraint).  The backward (D1,
+// flash_attn_qkv_bwd.cu) recomputes the normalized softmax from it.
 #include <math.h>
 
 #include "common.cuh"
@@ -36,9 +42,11 @@ constexpr int kTile = 64;      // q rows and keys per tile
 constexpr int kLd = kD + 8;    // 144-byte rows: conflict-free loads
 constexpr int kThreads = 128;  // four warps of 16 q rows
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_qkv_kernel(const __nv_bfloat16* __restrict__ qkv, int T, int H,
-                 float qscale, __nv_bfloat16* __restrict__ out) {
+                 float qscale, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse) {
   __shared__ __align__(16) __nv_bfloat16 Qs[kTile * kLd];
   __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kLd];
   __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kLd];
@@ -202,6 +210,9 @@ flash_qkv_kernel(const __nv_bfloat16* __restrict__ qkv, int T, int H,
     const int row = q0 + warp * 16 + g + r * 8;
     if (row >= T) continue;
     const float l = l_run[r];
+    if constexpr (kLse) {
+      if (t == 0) lse[((size_t)b * H + h) * T + row] = m_run[r] + log2f(l);
+    }
     __nv_bfloat16* dst = out + ((size_t)b * T + row) * C + h * kD + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < kD / 8; ++nd)
@@ -218,8 +229,22 @@ extern "C" int vdn_flash_attention_qkv(const void* qkv, int B, int T, int H,
                                        float qscale, void* out,
                                        void* stream) {
   dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_qkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), T, H, qscale,
-      static_cast<__nv_bfloat16*>(out));
+  flash_qkv_kernel<false>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(qkv), T, H, qscale,
+          static_cast<__nv_bfloat16*>(out), nullptr);
+  return cudaGetLastError();
+}
+
+// The training forward: as above, and lse [B, H, T] fp32, the base-2
+// log-sum-exp of each row's logits (scaled by qscale).
+extern "C" int vdn_flash_attention_qkv_lse(const void* qkv, int B, int T,
+                                           int H, float qscale, void* out,
+                                           void* lse, void* stream) {
+  dim3 grid((T + kTile - 1) / kTile, H, B);
+  flash_qkv_kernel<true>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(qkv), T, H, qscale,
+          static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse));
   return cudaGetLastError();
 }

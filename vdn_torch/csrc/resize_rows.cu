@@ -7,12 +7,13 @@
 // pos-embed bicubic (37 -> 37 at C 1024, fp32) and the output island's H pass
 // into its zero-padded plan (296 -> padded 518 rows, W 296, C 128).
 //
-// Bound on the H100 by device memory: at most 4 multiply-adds per output
-// element, so each input row read and output row written once is the whole
-// cost (an input row feeds about two output rows; the second read comes from
-// the 50 MB L2, as blocks of neighbouring output rows run together).  The
+// Bound on the H100 by device memory: a few multiply-adds per output
+// element (at most 4 forward, up to 8 in a backward's transposed plan), so
+// each input row read and output row written once is the whole cost (an
+// input row feeds about two output rows; the second read comes from the
+// 50 MB L2, as blocks of neighbouring output rows run together).  The
 // TPU kernel unrolled the plan into immediates; here the plan is a small
-// device table [out, taps] (taps <= 4) that every block reads, and one
+// device table [out, taps] (taps <= 8) that every block reads, and one
 // thread covers 16 bytes of a row (8 bf16 or 4 fp32), so each warp moves
 // 512 contiguous bytes.  Weights and sums stay fp32 and the result is
 // rounded once; products and sums use __fmul_rn / __fadd_rn in tap order,
@@ -66,14 +67,14 @@ cudaError_t launch_rows(const void* x, int n, int r_in, int row, int out_size,
 
 // x [n, r_in, row], out [n, out_size, row] (row = W * C) in bf16 (is_bf16)
 // or fp32; idx [out_size, taps] int32 and w [out_size, taps] fp32 with
-// taps <= 4.  vec is 16 / sizeof(element) where row and pointers allow
+// taps <= 8.  vec is 16 / sizeof(element) where row and pointers allow
 // 16-byte accesses, else 1.
 extern "C" int vdn_resize_rows(const void* x, int n, int r_in, int row,
                                int out_size, int taps, const void* idx,
                                const void* w, void* out, int is_bf16, int vec,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (taps < 1 || taps > 4 || n > 65535 || out_size > 65535)
+  if (taps < 1 || taps > 8 || n > 65535 || out_size > 65535)
     return cudaErrorInvalidValue;
   const int* ip = static_cast<const int*>(idx);
   const float* wp = static_cast<const float*>(w);

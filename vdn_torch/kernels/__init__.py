@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
-the single-image path's memory attention) live in ``vdn_torch/csrc/*.cu``
+the single-image path's memory attention, and the training backwards D1,
+D3 and D4 with A1's training forward) live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
 ``build/vdn_torch/`` (named by a hash of the sources and flags, so a
@@ -15,6 +16,16 @@ Dispatch, used by every wrapper in this package:
 - inside ``plain_reference()`` CUDA tensors take the plain version too.
   Only reference runs enter it (chip_smoke.py's end-to-end comparison);
   the model's own path never does.
+
+Autograd: a wrapper that a training path reaches (A1-A6) runs, when grad
+is enabled and an input requires it, through a ``torch.autograd.Function``
+whose forward dispatches as above and whose backward is the backward
+kernel (D1, D3, D4), the same kernel on the transposed plan (A5a, A5b) or
+a recompute of the plain version (A4, A6), as vdn computes it; on the CPU
+the backward takes the kernel's plain version.  A backward dispatches as
+its forward did, on whatever thread autograd runs it (``save_dispatch``,
+``same_dispatch``).  B1, C1 and C2 have no
+backward: on a CUDA tensor that requires grad they raise.
 
 ``launches`` counts, per wrapper, the calls that launched the kernel.
 """
@@ -34,7 +45,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "launches", "reset_launches", "plain_reference",
-           "use_kernel", "layer_norm_f32", "linear_f32acc"]
+           "use_kernel", "wants_grad", "save_dispatch", "same_dispatch",
+           "grads_of_plain", "layer_norm_f32", "linear_f32acc"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vdn_torch"
@@ -52,20 +64,31 @@ launches = {
     "fused_resize_island": 0,
     "flash_attention": 0,
     "flash_attention_colbias": 0,
+    "flash_attention_fused_qkv_train": 0,
+    "flash_attention_fused_qkv_bwd": 0,
+    "fused_ln_mlp_residual_bwd": 0,
+    "temporal_attention_block_bwd": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _P),
+    "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _P),
+    "vdn_flash_attention_qkv_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
+                                    _P, _P),
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _P),
     "vdn_ln_mlp_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
                             _P, _P, _P, _P, _P),
+    "vdn_ln_mlp_residual_bwd": (_P, _P, _I, _I, _I) + (_P,) * 7 + (_F,)
+    + (_P,) * 13,
     "vdn_ln_geglu_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
                               _P, _P, _P, _P, _P),
     "vdn_temporal_attention": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
                                _P, _P, _P),
+    "vdn_temporal_attention_bwd": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                   _F, _P, _P, _P, _P, _P),
     "vdn_resize_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -89,6 +112,45 @@ def plain_reference():
         yield
     finally:
         _PLAIN.reset(token)
+
+
+def save_dispatch(ctx) -> None:
+    """In an autograd Function's forward: record whether it ran inside
+    ``plain_reference()``.  Autograd runs a CUDA backward on a thread of
+    its own, where the context variable is unset; the backward re-enters
+    it through ``same_dispatch(ctx)``."""
+    ctx.plain = _PLAIN.get()
+
+
+def same_dispatch(ctx):
+    """In an autograd Function's backward: dispatch as its forward did."""
+    return plain_reference() if ctx.plain else contextlib.nullcontext()
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True where a call must record a backward: grad mode is on and an
+    input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def grads_of_plain(fn, inputs, needs, grad_out) -> list:
+    """The cotangents of ``fn(*inputs)`` for the inputs flagged in
+    ``needs`` (None for the others): a recompute of a plain version under
+    autograd, the backward of the kernels vdn gives none (A4, A6) and of
+    A3's weights."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(bool(n))
+                if isinstance(t, torch.Tensor) else t
+                for t, n in zip(inputs, needs)]
+        wanted = [a for a, n in zip(args, needs) if n]
+        if not wanted:
+            return [None] * len(inputs)
+        got = torch.autograd.grad(fn(*args), wanted, grad_out,
+                                  allow_unused=True)
+    got = iter(torch.zeros_like(a) if d is None else d
+               for a, d in zip(wanted, got))
+    return [next(got) if n else None for n in needs]
 
 
 def use_kernel(x: torch.Tensor) -> bool:

@@ -14,8 +14,15 @@ separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
 Both run csrc/flash_attn_bthd.cu, A1's arithmetic read through the
 [B, T, H, D] strides, with whole -inf key tiles skipped.  They are
-inference kernels: a tensor that requires grad raises (the backward kernels
-are not ported yet).
+inference kernels: on the card a tensor that requires grad raises (their
+backward, D2, comes with the paths that train through them).
+
+Training: with grad enabled and qkv requiring it, A1 runs as an autograd
+Function.  Its forward is A1's training variant (the same kernel with
+``save_lse``), which also writes the base-2 row log-sum-exp [B, H, T]; its
+backward is D1 (csrc/flash_attn_qkv_bwd.cu), vdn's ``_flash_bwd_cols``:
+the normalized softmax recomputed from the saved log-sum-exp, delta =
+rowsum(dO * O), dqkv in qkv's layout.
 """
 
 from __future__ import annotations
@@ -25,9 +32,43 @@ from typing import Optional
 import torch
 
 from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
-                               use_kernel)
+                               same_dispatch, save_dispatch, use_kernel,
+                               wants_grad)
 
 MAX_KEY_TILES = 2560  # csrc/flash_attn_bthd.cu: live-tile flags in shared memory
+
+
+def _qscale(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * log2(e) rounded to q's dtype: the factor the kernels fold
+    into q."""
+    return torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+
+
+def _kernel_qscale(scale: float) -> float:
+    """The kernels' q factor, scale * log2(e) rounded to bf16 (on the host:
+    no device round trip)."""
+    return float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+
+
+def _attention_lse_plain(q, k, v, col_bias, scale):
+    """(out [B, Tq, H, D], lse [B, H, Tq] fp32): the TPU kernels' math step
+    by step, an exact full-K softmax in fp32, base 2; q * (scale * log2 e)
+    in the input dtype, logits summed in fp32, + bias * log2 e in fp32, p =
+    exp2(s - rowmax) rounded to the value dtype, the row sum l taken from
+    the rounded p, o / l rounded to the output dtype; lse = rowmax +
+    log2(l), as the training forward writes it."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dt = v.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * _qscale(q, scale)).float(),
+                     k.float())
+    if col_bias is not None:
+        s = s + col_bias.reshape(-1).float() * LOG2E
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m).to(dt).float()
+    l = p.sum(-1)                                       # [B, H, Tq]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.permute(
+        0, 2, 1)[..., None]
+    return out.to(q.dtype), m[..., 0] + torch.log2(l)
 
 
 def flash_attention_colbias_plain(q: torch.Tensor, k: torch.Tensor,
@@ -36,20 +77,8 @@ def flash_attention_colbias_plain(q: torch.Tensor, k: torch.Tensor,
                                   scale: Optional[float] = None
                                   ) -> torch.Tensor:
     """q [B, Tq, H, D], k / v [B, Tk, H, D], col_bias [Tk] or None ->
-    [B, Tq, H, D], the TPU kernels' math step by step: an exact full-K
-    softmax in fp32, base 2; q * (scale * log2 e) in the input dtype,
-    logits summed in fp32, + bias * log2 e in fp32, p = exp2(s - rowmax)
-    rounded to the value dtype, the row sum taken from the rounded p,
-    o / l rounded to the output dtype."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    dt = v.dtype
-    c2 = torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", (q * c2).float(), k.float())
-    if col_bias is not None:
-        s = s + col_bias.reshape(-1).float() * LOG2E
-    p = torch.exp2(s - s.amax(-1, keepdim=True)).to(dt).float()
-    l = p.sum(-1).permute(0, 2, 1)[..., None]          # [B, Tq, H, 1]
-    return (torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l).to(q.dtype)
+    [B, Tq, H, D] (see ``_attention_lse_plain``)."""
+    return _attention_lse_plain(q, k, v, col_bias, scale)[0]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,25 +95,132 @@ def flash_attention_fused_qkv_plain(qkv: torch.Tensor,
                                          qkv[:, :, 2], None, scale)
 
 
-def flash_attention_fused_qkv(qkv: torch.Tensor,
-                              scale: Optional[float] = None) -> torch.Tensor:
-    """qkv [B, T, 3, H, D] -> out [B, T, H, D]; kernel for bf16, D = 64."""
-    if not use_kernel(qkv):
-        return flash_attention_fused_qkv_plain(qkv, scale)
+def flash_attention_fused_qkv_lse_plain(qkv: torch.Tensor,
+                                        scale: Optional[float] = None):
+    """The training forward: (out [B, T, H, D], lse [B, H, T] fp32)."""
+    return _attention_lse_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                None, scale)
+
+
+def flash_attention_fused_qkv_bwd_plain(qkv: torch.Tensor, out: torch.Tensor,
+                                        lse: torch.Tensor, dout: torch.Tensor,
+                                        scale: Optional[float] = None
+                                        ) -> torch.Tensor:
+    """D1's function: dqkv [B, T, 3, H, D] from the forward's out and lse,
+    with vdn's rounding points (flash_attention.py:578-663): p = exp2(s -
+    lse) in fp32, dV from bf16(p), dS = p (dP - delta) rounded to qkv's
+    dtype, dQ = dS K * scale and dK = dS^T q * scale (the unscaled q; scale,
+    not scale * log2 e), each summed in fp32 and rounded."""
+    d = qkv.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    dt = qkv.dtype
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * _qscale(q, scale)).float(),
+                     k.float())
+    p = torch.exp2(s - lse.float()[..., None])
+    g = dout.to(dt).float()
+    delta = (g * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
+    ds = (p * (dp - delta)).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), g)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)], dim=2)
+
+
+def _check_fused_qkv(name: str, qkv: torch.Tensor) -> None:
     b, t, three, h, d = qkv.shape
     if three != 3 or d != 64 or qkv.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_fused_qkv: kernel takes bf16 "
-                         f"[B, T, 3, H, 64], got {tuple(qkv.shape)} "
-                         f"{qkv.dtype}")
+        raise ValueError(f"{name}: kernel takes bf16 [B, T, 3, H, 64], got "
+                         f"{tuple(qkv.shape)} {qkv.dtype}")
+
+
+def _fused_qkv_forward(qkv: torch.Tensor, scale: Optional[float],
+                       save_lse: bool):
+    """A1 on the card, or its plain version: out, or (out, lse) with
+    ``save_lse`` (the training variant)."""
+    if not use_kernel(qkv):
+        if save_lse:
+            return flash_attention_fused_qkv_lse_plain(qkv, scale)
+        return flash_attention_fused_qkv_plain(qkv, scale)
+    _check_fused_qkv("flash_attention_fused_qkv", qkv)
+    qkv = qkv.contiguous()
+    b, t, _, h, d = qkv.shape
     check_kernel_args("flash_attention_fused_qkv", qkv)
     scale = d ** -0.5 if scale is None else scale
     # scale * log2(e) rounded to bf16, as the plain version folds it
-    qscale = float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+    qscale = _kernel_qscale(scale)
     out = torch.empty((b, t, h, d), dtype=qkv.dtype, device=qkv.device)
-    launch("vdn_flash_attention_qkv", qkv.data_ptr(), b, t, h, qscale,
-           out.data_ptr())
-    launches["flash_attention_fused_qkv"] += 1
-    return out
+    if not save_lse:
+        launch("vdn_flash_attention_qkv", qkv.data_ptr(), b, t, h, qscale,
+               out.data_ptr())
+        launches["flash_attention_fused_qkv"] += 1
+        return out
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=qkv.device)
+    launch("vdn_flash_attention_qkv_lse", qkv.data_ptr(), b, t, h, qscale,
+           out.data_ptr(), lse.data_ptr())
+    launches["flash_attention_fused_qkv_train"] += 1
+    return out, lse
+
+
+def flash_attention_fused_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, dout: torch.Tensor,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """D1: dqkv [B, T, 3, H, D]; kernel for bf16, D = 64."""
+    if not use_kernel(qkv):
+        return flash_attention_fused_qkv_bwd_plain(qkv, out, lse, dout,
+                                                   scale)
+    name = "flash_attention_fused_qkv_bwd"
+    _check_fused_qkv(name, qkv)
+    b, t, _, h, d = qkv.shape
+    qkv, out, lse = qkv.contiguous(), out.contiguous(), lse.contiguous()
+    dout = dout.to(qkv.dtype).contiguous()
+    if out.shape != (b, t, h, d) or dout.shape != out.shape or (
+            lse.shape != (b, h, t) or lse.dtype != torch.float32):
+        raise ValueError(f"{name}: out / dout [B, T, H, 64] and lse fp32 "
+                         f"[B, H, T], got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    scale = d ** -0.5 if scale is None else scale
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    check_kernel_args(name, qkv, out, dout, lse, delta, dqkv)
+    launch("vdn_flash_attention_qkv_bwd", qkv.data_ptr(), out.data_ptr(),
+           dout.data_ptr(), lse.data_ptr(), b, t, h,
+           _kernel_qscale(scale), float(scale), delta.data_ptr(),
+           dqkv.data_ptr())
+    launches[name] += 1
+    return dqkv
+
+
+class _FusedQKVAttention(torch.autograd.Function):
+    """A1's training forward (with the log-sum-exp) and D1 as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        out, lse = _fused_qkv_forward(qkv, scale, save_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        save_dispatch(ctx)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        with same_dispatch(ctx):
+            return flash_attention_fused_qkv_bwd(qkv, out, lse, dout,
+                                                 ctx.scale), None
+
+
+def flash_attention_fused_qkv(qkv: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """qkv [B, T, 3, H, D] -> out [B, T, H, D]; kernel for bf16, D = 64.
+    Differentiable (D1) where grad is enabled and qkv requires it."""
+    if wants_grad(qkv):
+        return _FusedQKVAttention.apply(qkv, scale)
+    return _fused_qkv_forward(qkv, scale, save_lse=False)
 
 
 def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
@@ -98,12 +234,12 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
             f"[B, Tk, H, 64] with Tk <= {64 * MAX_KEY_TILES}, got q "
             f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, v "
             f"{tuple(v.shape)} {v.dtype}")
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+    if wants_grad(q, k, v):
         raise RuntimeError(f"{name}: the kernel has no backward; run under "
                            f"torch.no_grad()")
     scale = d ** -0.5 if scale is None else scale
     # scale * log2(e) rounded to bf16, as the plain version folds it
-    qscale = float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+    qscale = _kernel_qscale(scale)
     out = torch.empty_like(q)
     if col_bias is None:
         check_kernel_args(name, q, k, v, out)

@@ -7,14 +7,21 @@ statistics + a dual-B GEMM whose blocks multiply matching column tiles of
 the hidden and gate halves of w0 (so the GEGLU gating is an epilogue) +
 a GEMM with a residual epilogue.  Weights are torch Linear layout:
 w0 [2F, C] (hidden rows first, then gate rows), w2 [C, F].
+
+Training: vdn gives A4 no backward kernel (its vjp recomputes the plain
+math, geglu.py:136-199).  With grad enabled and an input requiring it, A4
+runs as an autograd Function whose backward is autograd of the plain
+version, recomputed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vdn_torch.kernels import (check_kernel_args, launch, launches,
-                               layer_norm_f32, linear_f32acc, use_kernel)
+from vdn_torch.kernels import (check_kernel_args, grads_of_plain, launch,
+                               launches, layer_norm_f32, linear_f32acc,
+                               same_dispatch, save_dispatch, use_kernel,
+                               wants_grad)
 from vdn_torch.kernels.mlp import gelu_f32
 
 
@@ -31,8 +38,35 @@ def fused_ln_geglu_residual_plain(x, ln_w, ln_b, w0, b0, w2, b2,
     return x + linear_f32acc(h, w2) + b2.to(dt)
 
 
+class _FusedLnGeglu(torch.autograd.Function):
+    """A4 forward; autograd of the recomputed plain version backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w0, b0, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w0, b0, w2, b2)
+        ctx.eps = eps
+        save_dispatch(ctx)
+        return _forward(x, ln_w, ln_b, w0, b0, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        with same_dispatch(ctx):
+            return (*grads_of_plain(
+                lambda *a: fused_ln_geglu_residual_plain(*a, eps),
+                ctx.saved_tensors, ctx.needs_input_grad[:7], g), None)
+
+
 def fused_ln_geglu_residual(x, ln_w, ln_b, w0, b0, w2, b2,
                             eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable (plain recompute) where grad is enabled and an input
+    requires it."""
+    if wants_grad(x, ln_w, ln_b, w0, b0, w2, b2):
+        return _FusedLnGeglu.apply(x, ln_w, ln_b, w0, b0, w2, b2, eps)
+    return _forward(x, ln_w, ln_b, w0, b0, w2, b2, eps)
+
+
+def _forward(x, ln_w, ln_b, w0, b0, w2, b2, eps) -> torch.Tensor:
     if not use_kernel(x):
         return fused_ln_geglu_residual_plain(x, ln_w, ln_b, w0, b0, w2, b2,
                                              eps)

@@ -3,7 +3,8 @@
 Replace vdn/ops/pallas/resize.py:
 
 - ``resize_rows`` (A5a, ``_rows_kernel``): x [N, R_in, W, C] -> [N, out, W,
-  C], each output row a blend of at most 4 input rows with fp32 weights,
+  C], each output row a blend of at most MAX_TAPS input rows (4 in a
+  forward plan, up to 8 in a backward's transposed one) with fp32 weights,
   summed in fp32 and rounded once to x's dtype (csrc/resize_rows.cu);
 - ``resize_mid_axis`` (A5b, ``_resize_kernel``): x [N, R, M] -> [N, S, M],
   out[n, s, m] = sum_r W[s, r] x[n, r, m] with the dense weights rounded to
@@ -14,6 +15,14 @@ Replace vdn/ops/pallas/resize.py:
 The interpolation plans are host numpy (vdn_torch.ops.resize.plan_axis);
 their device copies are cached per device.  ``select_rows`` and
 ``resize_mid_axis`` share one CUDA kernel but keep separate launch counts.
+
+Training: the VJP of a banded interpolation matmul is another one, so
+with grad enabled and x requiring it, ``resize_rows`` and
+``resize_mid_axis`` run as autograd Functions whose backward is the same
+kernel on the transposed plan (``transpose_plan``, vdn/ops/resize.py:
+132-199): per input row, the output rows that read it and their weights.
+B1 (``select_rows``) has no backward: on the card it raises when grad is
+required.
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from vdn_torch.kernels import check_kernel_args, launch, launches, use_kernel
+from vdn_torch.kernels import (check_kernel_args, launch, launches,
+                               same_dispatch, save_dispatch, use_kernel,
+                               wants_grad)
 
-MAX_TAPS = 4
+MAX_TAPS = 8   # csrc/resize_rows.cu; 4 forward, up to 8 in a transposed plan
 MAX_DEVICE_PLANS = 256   # about ten image sizes' worth of axis plans
 _device_plans: "OrderedDict[tuple, Tuple[torch.Tensor, ...]]" = OrderedDict()
 
@@ -74,6 +85,36 @@ def dense_matrix(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int],
     return dense
 
 
+@functools.lru_cache(maxsize=256)
+def _transpose_plan(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int],
+                    in_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """vdn/ops/resize.py ``_transpose_plan``: per INPUT row, the output
+    rows that read it and their weights (a tap per (output, tap) entry, in
+    output order; zero-width rows keep one zero-weight tap)."""
+    idx = np.frombuffer(idx_bytes, np.int32).reshape(shape)
+    w = np.frombuffer(w_bytes, np.float32).reshape(shape)
+    out_size, taps = shape
+    buckets = [[] for _ in range(in_size)]
+    for o in range(out_size):
+        for t in range(taps):
+            buckets[int(idx[o, t])].append((o, float(w[o, t])))
+    taps_t = max(1, max(len(b) for b in buckets))
+    idx_t = np.zeros((in_size, taps_t), np.int32)
+    w_t = np.zeros((in_size, taps_t), np.float32)
+    for i, b in enumerate(buckets):
+        for j, (o, wt) in enumerate(b):
+            idx_t[i, j] = o
+            w_t[i, j] += wt
+    return idx_t, w_t
+
+
+def transpose_plan(idx: np.ndarray, w: np.ndarray, in_size: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The plan of the VJP of the interpolation ``(idx, w)`` from
+    ``in_size`` rows."""
+    return _transpose_plan(*plan_key(idx, w), in_size)
+
+
 def plan_key(idx: np.ndarray, w: np.ndarray, *extra) -> tuple:
     """A hashable key of a host plan: the arguments of the cached plan
     functions above."""
@@ -98,7 +139,7 @@ def cached_on_device(key: tuple, make, device) -> Tuple[torch.Tensor, ...]:
 def rows_plan(idx: np.ndarray, w: np.ndarray, device
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(tap rows [out, taps] int32, tap weights [out, taps] fp32), taps <=
-    4, on ``device``."""
+    MAX_TAPS, on ``device``."""
     key = plan_key(idx, w)
     return cached_on_device(
         ("rows",) + key, lambda: map(torch.from_numpy, _rows_plan(*key)),
@@ -147,10 +188,37 @@ def _vec(x: torch.Tensor, row_elems: int, *ptrs: torch.Tensor) -> int:
     return vec
 
 
+class _Resize(torch.autograd.Function):
+    """A resize along one axis (``impl`` = _resize_rows or _resize_mid);
+    its backward is the same kernel on the transposed plan."""
+
+    @staticmethod
+    def forward(ctx, x, impl, idx, w, out_size):
+        ctx.impl, ctx.plan, ctx.in_size = impl, (idx, w), x.shape[1]
+        save_dispatch(ctx)
+        return impl(x, idx, w, out_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx_t, w_t = transpose_plan(*ctx.plan, ctx.in_size)
+        with same_dispatch(ctx):
+            return (ctx.impl(g.contiguous(), idx_t, w_t, ctx.in_size),
+                    None, None, None, None)
+
+
 def resize_rows(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
                 out_size: int) -> torch.Tensor:
     """x [N, R_in, W, C] -> [N, out_size, W, C]: per output row o,
-    sum_t w[o, t] * x[:, idx[o, t]] (the H axis of an NHWC resize)."""
+    sum_t w[o, t] * x[:, idx[o, t]] (the H axis of an NHWC resize).
+    Differentiable (the transposed plan) where grad is enabled and x
+    requires it."""
+    if wants_grad(x):
+        return _Resize.apply(x, _resize_rows, idx, w, out_size)
+    return _resize_rows(x, idx, w, out_size)
+
+
+def _resize_rows(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
+                 out_size: int) -> torch.Tensor:
     pidx, pw = rows_plan(idx, w, x.device)
     if pidx.shape[0] != out_size:
         raise ValueError("resize_rows: plan rows != out_size")
@@ -175,6 +243,9 @@ def _mix_rows(name: str, x: torch.Tensor, weights: torch.Tensor
               ) -> torch.Tensor:
     if not use_kernel(x):
         return mix_rows_plain(x, weights)
+    if name == "select_rows" and wants_grad(x, weights):
+        raise RuntimeError("select_rows: the kernel has no backward; run "
+                           "under torch.no_grad()")
     _check_dtype(name, x)
     x = x.contiguous()
     weights = weights.contiguous()
@@ -195,7 +266,16 @@ def _mix_rows(name: str, x: torch.Tensor, weights: torch.Tensor
 def resize_mid_axis(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
                     out_size: int) -> torch.Tensor:
     """x [N, R_in, M] -> [N, out_size, M] with out[:, o] = sum_t w[o, t] *
-    x[:, idx[o, t]], through the dense weights rounded to x's dtype."""
+    x[:, idx[o, t]], through the dense weights rounded to x's dtype.
+    Differentiable (the transposed plan) where grad is enabled and x
+    requires it."""
+    if wants_grad(x):
+        return _Resize.apply(x, _resize_mid, idx, w, out_size)
+    return _resize_mid(x, idx, w, out_size)
+
+
+def _resize_mid(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
+                out_size: int) -> torch.Tensor:
     weights = dense_plan(idx, w, x.shape[1], x.dtype, x.device)
     if weights.shape[0] != out_size:
         raise ValueError("resize_mid_axis: plan rows != out_size")

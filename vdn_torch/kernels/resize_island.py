@@ -16,6 +16,14 @@ fp32 sum, + b2, then ReLU (or sigmoid * max_depth).  The TPU's lane packing
 (4 output columns per 128 lanes) does not carry over: the conv runs on the
 resized image with zero padding 1.  Weights in vdn's layout: w1 [3, 3, C,
 O], b1 [O], w2 [O, 1], b2 [1].
+
+Training: vdn's backward recomputes the composite the kernel replaces
+(resize_island.py:233-282): with grad enabled and an input requiring it,
+A6 runs as an autograd Function whose backward is autograd of
+``island_composite`` -- the bilinear resize through A5a / A5b (their
+transposed-plan backwards included), then the 3x3 and 1x1 convs in fp32
+-- for the inputs that require grad.  It forms the full-resolution
+C-channel feature once more, vdn's own memory trade.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vdn_torch.kernels import check_kernel_args, launch, launches, use_kernel
+from vdn_torch.kernels import (check_kernel_args, grads_of_plain, launch,
+                               launches, same_dispatch, save_dispatch,
+                               use_kernel, wants_grad)
 from vdn_torch.kernels.resize import (cached_on_device, dense_matrix,
                                       dense_plan, plan_key, resize_rows,
                                       resize_rows_plain, rows_plan)
@@ -107,10 +117,57 @@ def island_weights(w1, b1, w2, dt) -> Tuple[torch.Tensor, torch.Tensor,
             w2.reshape(-1).to(dt).float().contiguous())
 
 
+def island_composite(feat, w1, b1, w2, b2, out_hw: Sequence[int],
+                     sigmoid: bool = False,
+                     max_depth: float = 1.0) -> torch.Tensor:
+    """The unfused path A6 replaces (vdn's _composite_reference with
+    packed_island_head): the align-corners bilinear resize in feat's dtype
+    (vdn_torch.ops.resize), conv3x3 on operands in that dtype summed in
+    fp32, + b1, ReLU, the 1x1 in fp32, + b2, the activation."""
+    from vdn_torch.ops.resize import resize2d
+    dt = feat.dtype
+    up = resize2d(feat, out_hw, "bilinear", align_corners=True)
+    y = F.conv2d(up.permute(0, 3, 1, 2).float(),
+                 w1.to(dt).float().permute(3, 2, 0, 1), padding=1)
+    y = torch.relu(y + b1.float().view(1, -1, 1, 1))
+    z = torch.einsum("nohw,o->nhw", y, w2.reshape(-1).float())
+    z = z + b2.float().reshape(())
+    z = torch.sigmoid(z) * max_depth if sigmoid else torch.relu(z)
+    return z[..., None]
+
+
+class _ResizeIsland(torch.autograd.Function):
+    """A6 forward; autograd of the recomputed composite backward."""
+
+    @staticmethod
+    def forward(ctx, feat, w1, b1, w2, b2, out_hw, sigmoid, max_depth):
+        ctx.save_for_backward(feat, w1, b1, w2, b2)
+        ctx.args = (tuple(out_hw), sigmoid, max_depth)
+        save_dispatch(ctx)
+        return _forward(feat, w1, b1, w2, b2, out_hw, sigmoid, max_depth)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.args
+        with same_dispatch(ctx):
+            return (*grads_of_plain(
+                lambda *a: island_composite(*a, *args), ctx.saved_tensors,
+                ctx.needs_input_grad[:5], g), None, None, None)
+
+
 def fused_resize_island(feat, w1, b1, w2, b2, out_hw: Sequence[int],
                         sigmoid: bool = False,
                         max_depth: float = 1.0) -> torch.Tensor:
-    """feat [N, h, w, C] -> [N, H, W, 1] fp32 (see the module docstring)."""
+    """feat [N, h, w, C] -> [N, H, W, 1] fp32 (see the module docstring).
+    Differentiable (composite recompute) where grad is enabled and an
+    input requires it."""
+    if wants_grad(feat, w1, b1, w2, b2):
+        return _ResizeIsland.apply(feat, w1, b1, w2, b2, out_hw, sigmoid,
+                                   max_depth)
+    return _forward(feat, w1, b1, w2, b2, out_hw, sigmoid, max_depth)
+
+
+def _forward(feat, w1, b1, w2, b2, out_hw, sigmoid, max_depth):
     if not use_kernel(feat):
         return fused_resize_island_plain(feat, w1, b1, w2, b2, out_hw,
                                          sigmoid, max_depth)
