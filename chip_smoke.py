@@ -24,11 +24,21 @@ DepthAnythingV2 with its six-slot memory bank and MetricDepthAnythingV2:
   the depth;
 - metric depth, one 518 x 518 batch through the sigmoid head.
 
+The int8 serving mode, ``quantize="int8_static"`` and ``"int8"``, on the
+same weights: the clip (54 frames; ms per cached and full window), 12
+streamed frames at k = 1 and k = 8, and 8 images through the bank, each
+with the launches per encoder pass (F1, F3, F4 and A1, no A2 and no float
+encoder Linear) and the int8 convs the gate predicts.
+
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of the path never launched.  Depth must
 be finite and not degenerate, and sit no further from the same run through
 the plain versions in bf16 than twice bf16's own distance from fp32; the
-k = 8 stream is held to the k = 1 stream by the same gate.  Prints one line
+k = 8 stream is held to the k = 1 stream by the same gate; an int8 run
+sits no further from the plain int8 bf16 run than twice plain bf16's
+distance from fp32, measured both on the float path and on the int8 path.
+F1-F4 are held to their plain versions with a gate of their own
+(int8_check: operands equal but at ties).  Prints one line
 per phase; the line before the last is a JSON summary of the kernels, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero and prints no last line.  Needs a CUDA device; imports nothing of
@@ -89,7 +99,14 @@ E2E_DRIFT_FACTOR = 2.0
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12   # fp32 outside the tensor cores
+# the int8 kernels (F1-F4): int8 operands may differ from the plain
+# version's at quantization ties only, on at most this share, by one; the
+# output within KERNEL_ULPS outside the rows with a tie and INT8_REL_L2 of
+# the plain output overall
+INT8_TIE_SHARE = 1e-3
+INT8_REL_L2 = 1e-3
 
 
 def log(phase: str, **fields) -> None:
@@ -178,14 +195,16 @@ def bound(work) -> tuple:
 
 
 def case(name, label, kern, plain, work, path, library=None, tol="bf16",
-         library_base=None):
+         library_base=None, check=None, bf16=None):
     """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
     tuple of tensors (each held to the tolerance at its own scale); the
     library time is ``library``'s, less ``library_base``'s where given (a
-    backward timed as forward + backward minus forward)."""
+    backward timed as forward + backward minus forward).  ``check``, where
+    given, replaces that comparison (the int8 kernels' gate, int8_check);
+    ``bf16`` is the bf16 counterpart timed beside an int8 kernel."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
                 path=path, library=library, tol=tol,
-                library_base=library_base)
+                library_base=library_base, check=check, bf16=bf16)
 
 
 def encoder_cases(rng, path, b, t=VIT_TOKENS):
@@ -462,6 +481,111 @@ def ring_cases(rng, path):
             library=lambda ring=ring, sel=sel: ring.index_select(1, sel))
 
 
+def int8_check(kern, plain, keys):
+    """The int8 kernels' gate: ``kern(ops)`` and ``plain(ops)`` fill an
+    operands dict each.  The int8 operands under ``keys`` may differ at
+    quantization ties only (at most INT8_TIE_SHARE of them, by one); the
+    output is held within KERNEL_ULPS bf16 ulps of the plain output's scale
+    on the rows with no tie, and to INT8_REL_L2 overall."""
+    def check():
+        ko, po = {}, {}
+        got, want = kern(ko), plain(po)
+        torch.cuda.synchronize()
+        rows = got.numel() // got.shape[-1]
+        tie_rows = torch.zeros(rows, dtype=torch.bool, device=got.device)
+        n_diff, n_all, worst = 0, 0, 0
+        for k in keys:
+            d = (ko[k].int() - po[k].int()).abs()
+            worst = max(worst, int(d.max()))
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+            tie_rows |= (d > 0).any(1)
+        g = got.reshape(rows, -1).float()
+        w = want.reshape(rows, -1).float()
+        scale = w.abs().max().item()
+        keep = ~tie_rows
+        err = (g[keep] - w[keep]).abs().max().item() if keep.any() else 0.0
+        rel = ((g - w).norm() / w.norm()).item()
+        tol = KERNEL_ULPS * bf16_ulp(scale)
+        share = n_diff / n_all
+        ok = (worst <= 1 and share <= INT8_TIE_SHARE and err <= tol
+              and rel <= INT8_REL_L2)
+        return err, tol, scale, bool(torch.isfinite(g).all()), ok, {
+            "tie_share": f"{share:.3e}",
+            "tie_rows": f"{float(tie_rows.float().mean()):.3e}",
+            "rel_l2": f"{rel:.3e}"}
+    return check
+
+
+def int8_cases(rng, path, rows):
+    """F1-F4 over ``rows`` tokens of vitl (C 1024; qkv F 3072, MLP F 4096),
+    the weights pre-quantized as the model caches them.  Library: one
+    ``torch._int_mm`` on the same pre-quantized operands (the product
+    alone; F4's two).  bf16 counterpart: the float path's cuBLAS qkv and
+    proj GEMMs for F1 / F2 and F3, A2 for F4."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import int8, layer_norm_f32, mlp
+    dev, bf = DEVICE, torch.bfloat16
+    c, fq, fm = 1024, 3072, 4096
+    x = _rand(rng, (1, rows, c)).to(dev, bf)
+    att = _rand(rng, (1, rows, c)).to(dev, bf)
+    ln = [_rand(rng, (c,), 0.1, 1.0).to(dev), _rand(rng, (c,), 0.1).to(dev)]
+
+    def linear(f, k):
+        return (_rand(rng, (f, k), k ** -0.5).to(dev),
+                _rand(rng, (f,), 0.1).to(dev))
+
+    (wqkv, bqkv), (wp, bp) = linear(fq, c), linear(c, c)
+    (w1, b1), (w2, b2) = linear(fm, c), linear(c, fm)
+    g1, g2 = (_rand(rng, (c,), 0.5).to(dev) for _ in range(2))
+    qkv, proj, fc1, fc2 = (int8.quantize_weight_cols(w)
+                           for w in (wqkv, wp, w1, w2))
+    vec = lambda *v: _nbytes(*v)
+    out_q = rows * fq * 2
+    y16 = layer_norm_f32(x, *ln, 1e-6).to(bf)
+    specs = [
+        ("int8_ln_linear", ["xq"],
+         lambda o=None: int8.int8_ln_linear(x, *ln, qkv, bqkv, operands=o),
+         lambda o=None: int8.int8_ln_linear_plain(x, *ln, qkv, bqkv,
+                                                  operands=o),
+         (_nbytes(x, qkv[0]) + vec(*ln, qkv[1], bqkv) + out_q,
+          [(2 * rows * c * fq, INT8_TENSOR_OPS)]), [qkv],
+         lambda: F.linear(y16, wqkv.to(bf))),
+        ("int8_linear", ["xq"],
+         lambda o=None: int8.int8_linear(x, qkv, bqkv, operands=o),
+         lambda o=None: int8.int8_linear_plain(x, qkv, bqkv, operands=o),
+         (_nbytes(x, qkv[0]) + vec(qkv[1], bqkv) + out_q,
+          [(2 * rows * c * fq, INT8_TENSOR_OPS)]), [qkv],
+         lambda: F.linear(x, wqkv.to(bf))),
+        ("int8_proj_residual", ["xq"],
+         lambda o=None: int8.int8_proj_residual(att, x, proj, bp, g1,
+                                                operands=o),
+         lambda o=None: int8.int8_proj_residual_plain(att, x, proj, bp, g1,
+                                                      operands=o),
+         (_nbytes(att, x, x, proj[0]) + vec(proj[1], bp, g1),
+          [(2 * rows * c * c, INT8_TENSOR_OPS)]), [proj],
+         lambda: F.linear(att, wp.to(bf))),
+        ("fused_ln_mlp_residual_int8", ["yq", "hq"],
+         lambda o=None: int8.fused_ln_mlp_residual_int8(
+             x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+         lambda o=None: int8.fused_ln_mlp_residual_int8_plain(
+             x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+         (_nbytes(x, x, fc1[0], fc2[0]) + vec(*ln, fc1[1], b1, fc2[1], b2,
+                                               g2),
+          [(4 * rows * c * fm, INT8_TENSOR_OPS)]), [fc1, fc2],
+         lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)),
+    ]
+    for name, keys, kern, plain, work, weights, bf16 in specs:
+        ops = {}
+        plain(ops)
+        acts = [ops[k] for k in keys]
+        yield case(
+            name, f"rows {rows} C{c}", kern, plain, work, path,
+            library=lambda a=acts, w=weights: [
+                torch._int_mm(q, wq.t()) for q, (wq, _) in zip(a, w)],
+            check=int8_check(kern, plain, keys), bf16=bf16)
+
+
 def kernel_cases(rng):
     """Every kernel at the shapes its main paths give it.  "clip": one
     32-frame window (A1, A2 at the cached window's 22 frames); "stream":
@@ -492,6 +616,12 @@ def kernel_cases(rng):
         + fusion_passes(1, NONSQUARE_GRID) + [FINAL_RESIZE_PASS])
     yield from island_cases(rng, "image", 1, grid=NONSQUARE_GRID)
     yield from island_cases(rng, "metric", 1, h_pass=False, sigmoid=True)
+    # the int8 serving mode's encoder: the cached and the full window, one
+    # streamed frame, the 480 x 640 image
+    for path, rows in (("clip", CACHED_FRAMES * VIT_TOKENS),
+                       ("clip_full", 32 * VIT_TOKENS), ("stream", VIT_TOKENS),
+                       ("image", NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)):
+        yield from int8_cases(rng, path, rows)
 
 
 TRAIN_B, TRAIN_T = 2, 8          # the v4 recipe's batch: 2 clips of 8 frames
@@ -608,23 +738,32 @@ def check_kernels(cases=None) -> dict:
         cases = kernel_cases(np.random.default_rng(SEED))
     summary = {}
     for c in cases:
-        got = c["kern"]()
-        want = c["plain"]()
-        torch.cuda.synchronize()
-        err, tol, scale, finite = _compare(got, want, c["tol"])
-        del got, want
+        extra = {}
+        if c["check"] is not None:
+            err, tol, scale, finite, ok, extra = c["check"]()
+        else:
+            got = c["kern"]()
+            want = c["plain"]()
+            torch.cuda.synchronize()
+            err, tol, scale, finite = _compare(got, want, c["tol"])
+            ok = err <= tol
+            del got, want
         ms, plain_ms = time_ms(c["kern"]), time_ms(c["plain"])
         lib_ms = time_ms(c["library"]) if c["library"] else None
         if lib_ms is not None and c["library_base"]:
             lib_ms -= time_ms(c["library_base"])
+        bf16_ms = time_ms(c["bf16"]) if c["bf16"] else None
         bound_ms, bound_by = bound(c["work"])
+        if bf16_ms is not None:
+            extra["bf16_ms"] = f"{bf16_ms:.4f}"
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-        if not finite or not err <= tol:
-            fail(f"{c['name']} {c['label']}: max abs err {err} > tol {tol}")
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **extra)
+        if not finite or not ok:
+            fail(f"{c['name']} {c['label']}: max abs err {err} (tol {tol}) "
+                 f"{extra}")
         s = summary.setdefault(c["name"], {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         p = s.setdefault(c["path"], {"ms": 0.0, "plain_ms": 0.0,
@@ -636,6 +775,8 @@ def check_kernels(cases=None) -> dict:
         p["_by"][bound_by] = p["_by"].get(bound_by, 0.0) + bound_ms
         p["library_ms"] = (None if lib_ms is None or p["library_ms"] is None
                            else p["library_ms"] + lib_ms)
+        if bf16_ms is not None:
+            p["bf16_ms"] = p.get("bf16_ms", 0.0) + bf16_ms
         del c
         torch.cuda.empty_cache()
     for s in summary.values():
@@ -751,7 +892,7 @@ def run_main_path(model, frames):
     return depth, counts
 
 
-def time_windows(model, frames) -> None:
+def time_windows(model, frames, label: str = "windows") -> None:
     """ms per full and per cached window (CUDA events, median of 5)."""
     from vdn_torch.pipelines.infer_video import (INFER_LEN, KEYFRAMES,
                                                  OVERLAP,
@@ -765,7 +906,7 @@ def time_windows(model, frames) -> None:
         full_ms = time_ms(lambda: model.forward_window(x), reps=5, warmup=1)
         cached_ms = time_ms(lambda: model.forward_window_cached(x_new, seed),
                             reps=5, warmup=1)
-    log("windows", full_window_ms=f"{full_ms:.2f}",
+    log(label, full_window_ms=f"{full_ms:.2f}",
         cached_window_ms=f"{cached_ms:.2f}",
         cached_fps_32_per_window=f"{INFER_LEN / cached_ms * 1e3:.3f}",
         new_frames_per_s=f"{(INFER_LEN - OVERLAP) / cached_ms * 1e3:.3f}")
@@ -789,7 +930,7 @@ def drift(ref: np.ndarray, out: np.ndarray) -> dict:
             "rel_l2": float(np.linalg.norm(a - b) / np.linalg.norm(a))}
 
 
-def reference_runs(model, frames, depth) -> None:
+def reference_runs(model, frames, depth):
     """The same clip and weights through the plain versions on the card,
     in bf16 and in fp32.  Gate: the kernels' run may sit no further from
     the plain bf16 run than E2E_DRIFT_FACTOR times bf16's own distance
@@ -817,6 +958,7 @@ def reference_runs(model, frames, depth) -> None:
     if not np.isfinite(plain_fp32).all() or not vs_plain["rel_l2"] <= tol:
         fail(f"kernels' depth vs plain bf16: rel_l2 {vs_plain['rel_l2']} "
              f"> {tol}")
+    return plain_bf16, plain_fp32
 
 
 # ---------------------------------------------------------------- phase 6
@@ -908,7 +1050,7 @@ def stream_phase(model, frames) -> dict:
     if not k_vs_1["rel_l2"] <= tol:
         fail(f"stream k={STREAM_CHUNK} vs k=1: rel_l2 {k_vs_1['rel_l2']} "
              f"> {tol}")
-    return counts1, counts_k
+    return counts1, counts_k, (plain_bf16, plain_fp32)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1052,7 +1194,7 @@ def image_phase(model, frames) -> dict:
     if not effect > E2E_DRIFT_FACTOR * noise:
         fail(f"image: the memory bank does not reach the depth: frame "
              f"{probe} moves {effect} without it, bf16 noise {noise}")
-    return counts
+    return counts, (p16, p32)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1107,6 +1249,306 @@ def metric_phase(frames) -> dict:
         launches=json.dumps(counts, separators=(",", ":")))
     if not vs_plain["rel_l2"] <= tol:
         fail(f"metric vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 8b
+# The int8 serving mode (quantize="int8_static" and "int8") on the clip,
+# stream and image paths: the encoder's projections and MLP through F1, F3
+# and F4 (A1 stays the attention, A2 and the cuBLAS qkv / proj GEMMs are
+# not run), the DPT head's convs int8 where vdn's gate passes.
+INT8_MODES = ("int8_static", "int8")
+N_INT8_STREAM = 12
+N_INT8_IMAGE = 8
+# launches per encoder pass (one window, one streamed chunk, one image)
+INT8_ENCODER = {"int8_ln_linear": 24, "int8_proj_residual": 24,
+                "fused_ln_mlp_residual_int8": 24,
+                "flash_attention_fused_qkv": 24, "fused_ln_mlp_residual": 0,
+                "int8_linear": 0}
+INT8_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, **INT8_ENCODER}
+
+
+# the head's quantized convs at the clip window (N 32): (name, H = W, Cin,
+# Cout, kernel, static); the gate sends each to int8 (output_conv1 only
+# with calibrated scales)
+INT8_CONVS = [("layer3_rn", 37, 1024, 256, 3, False),
+              ("layer2_rn", 74, 512, 256, 3, False),
+              ("refinenet2 RCU", 74, 256, 256, 3, False),
+              ("refinenet1 RCU / layer1_rn", 148, 256, 256, 3, False),
+              ("output_conv1", 296, 256, 128, 3, True),
+              ("projects_2 / 3", 37, 1024, 1024, 1, False),
+              ("projects_1", 37, 1024, 512, 1, False)]
+
+
+def int8_conv_phase(frames: int = 32) -> None:
+    """The int8 conv (vdn's XLA-level op: ``torch._int_mm`` on im2col rows,
+    not a kernel of the port) at the head's shapes: on two frames its
+    output on the card equals the same function on the CPU (exact int32
+    sums, the same fp32 dequantization); over ``frames`` frames its time
+    beside the float conv's in bf16 (cuDNN, as the float path runs it)."""
+    import torch.nn.functional as F
+    from vdn_torch.nn.layers import Conv2d
+    from vdn_torch.ops.int8_conv import int8_conv
+    rng = np.random.default_rng(SEED)
+    for name, hw, cin, cout, k, static in INT8_CONVS:
+        conv = Conv2d(cin, cout, k, padding=k // 2)
+        with torch.no_grad():
+            conv.weight.copy_(_rand(rng, conv.weight.shape,
+                                    (cin * k * k) ** -0.5))
+        amax = torch.tensor(3.0) if static else None
+        args = ((1, 1), (k // 2, k // 2))
+        x2 = _rand(rng, (2, hw, hw, cin)).to(torch.bfloat16)
+        want = int8_conv(x2, conv.int8_weight(), *args, amax)
+        conv = conv.to(DEVICE)
+        amax = None if amax is None else amax.to(DEVICE)
+        got = int8_conv(x2.to(DEVICE), conv.int8_weight(), *args, amax)
+        if not torch.equal(got.cpu(), want):
+            fail(f"int8 conv {name}: the card's output differs from the "
+                 f"CPU's")
+        x = _rand(rng, (frames, hw, hw, cin)).to(DEVICE, torch.bfloat16)
+        w = conv.weight.to(torch.bfloat16)
+        ms = time_ms(lambda: int8_conv(x, conv.int8_weight(), *args, amax),
+                     reps=5)
+        float_ms = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w, None,
+                                            1, k // 2), reps=5)
+        log("int8_conv", conv=repr(name), shape=f"N{frames} {hw}x{hw} "
+            f"{cin}->{cout} {k}x{k}", static=static, equal_to_cpu=True,
+            ms=f"{ms:.4f}", bf16_cudnn_ms=f"{float_ms:.4f}")
+        del x, got
+        torch.cuda.empty_cache()
+
+
+def quantized_model(build, model, mode):
+    """``build``'s vitl model in the int8 serving ``mode`` with ``model``'s
+    weights (the calibrated output bias and the adjusted weights included):
+    a state_dict loads with strict=True whatever the mode."""
+    q = build("vitl", compute_dtype=torch.bfloat16, device="cpu",
+              quantize=mode)
+    q.load_state_dict(model.state_dict())
+    return q.to(DEVICE)
+
+
+class Int8Watch:
+    """Forward hooks on a quantized model: ``predicted`` counts the calls of
+    its quantized convs that vdn's gate sends to int8 (outside calibration
+    passes), ``encoder_linear`` the calls of the encoder's float qkv / proj
+    / fc1 / fc2 Linears (none on the int8 path)."""
+
+    def __init__(self, model):
+        from vdn_torch.nn.layers import Conv2d, calibrating
+        from vdn_torch.ops.int8_conv import int8_conv_enabled
+        self.predicted = self.encoder_linear = 0
+
+        def conv_hook(m, args):
+            static = m.quantize == "int8_static"
+            if not (static and calibrating()) and m.groups == 1 \
+                    and int8_conv_enabled(args[0], m.weight.shape, m.stride,
+                                          static):
+                self.predicted += 1
+
+        def linear_hook(m, args):
+            self.encoder_linear += 1
+
+        self.handles = [m.register_forward_pre_hook(conv_hook)
+                        for m in model.modules()
+                        if isinstance(m, Conv2d) and m.quantize
+                        and m.accum_dtype is None]
+        for blk in model.pretrained.blocks:
+            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
+                        blk.mlp.fc2):
+                self.handles.append(lin.register_forward_pre_hook(
+                    linear_hook))
+
+    def reset(self):
+        from vdn_torch.ops.int8_conv import reset_counts
+        self.predicted = self.encoder_linear = 0
+        reset_counts()
+
+    def check(self, name: str, some: bool = True) -> int:
+        """The int8 convs of the run: as many as the gate predicts, and
+        with ``some`` at least one; no float encoder Linear."""
+        from vdn_torch.ops.int8_conv import counts
+        got = counts["int8_conv"]
+        if got != self.predicted or (some and got < 1):
+            fail(f"{name}: {got} int8 convs, the gate predicts "
+                 f"{self.predicted}")
+        if self.encoder_linear:
+            fail(f"{name}: {self.encoder_linear} float encoder Linear calls")
+        return got
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def int8_fidelity(name, run, model, got, refs):
+    """The plain int8 runs (bf16 and fp32, no kernel launched) of
+    ``run()``.  Gate: the kernels' int8 depth ``got`` sits no further from
+    the plain int8 bf16 run than E2E_DRIFT_FACTOR times plain bf16's
+    distance from fp32, both as the float path's plain runs ``refs`` =
+    (bf16, fp32) of the same frames measure it and as the plain int8 runs
+    do (two bf16 paths that round at the same points are two draws of one
+    rounding noise, int8 ties included).  Printed: delta1 and AbsRel
+    against the float fp32 run.  Returns the tolerance."""
+    from vdn_torch import kernels
+    kernels.reset_launches()
+    with kernels.plain_reference():
+        p16 = run()
+        model.compute_dtype = torch.float32
+        try:
+            p32 = run()
+        finally:
+            model.compute_dtype = torch.bfloat16
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    ref16, ref32 = refs
+    vs_plain, noise = drift(p16, got), drift(p32, p16)
+    tol = E2E_DRIFT_FACTOR * min(noise["rel_l2"],
+                                 drift(ref32, ref16)["rel_l2"])
+    log(f"{name}_reference", kernels_vs_plain_int8_bf16=json.dumps(vs_plain),
+        plain_int8_bf16_vs_fp32=json.dumps(noise),
+        int8_vs_float_fp32=json.dumps(drift(ref32, got)),
+        plain_int8_fp32_vs_float_fp32=json.dumps(drift(ref32, p32)),
+        rel_l2_tol=f"{tol:.3e}")
+    if not np.isfinite(p32).all() or not vs_plain["rel_l2"] <= tol:
+        fail(f"{name}: kernels' int8 depth vs plain int8 bf16: rel_l2 "
+             f"{vs_plain['rel_l2']} > {tol}")
+    return tol
+
+
+def int8_clip_phase(q, frames, refs, mode) -> dict:
+    """The clip path of ``q`` (quantized in ``mode``): infer_video_depth
+    over the clip (for int8_static the first window calibrates), launches
+    per window and int8 convs asserted; ms per window; fidelity against the
+    plain int8 runs."""
+    from vdn_torch import kernels
+    from vdn_torch.pipelines.infer_video import INFER_LEN, OVERLAP
+    from vdn_torch.pipelines.infer_video import infer_video_depth
+    watch = Int8Watch(q)
+    run = lambda: infer_video_depth(q, frames, 30.0, SIZE)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    watch.reset()
+    t0 = time.perf_counter()
+    depth = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_conv = watch.check(f"clip {mode}")
+    check_depth(f"clip {mode}", depth, N_FRAMES)
+    windows = -(-N_FRAMES // (INFER_LEN - OVERLAP))
+    check_launches(f"clip {mode}", counts,
+                   [n for n in CLIP_KERNELS if n != "fused_ln_mlp_residual"])
+    check_frame_launches(f"clip {mode} per window",
+                         {k: v / windows for k, v in counts.items()},
+                         INT8_ENCODER)
+    log(f"clip_{mode}", windows=windows, wall_s=f"{wall:.3f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}", int8_convs=n_conv,
+        int8_convs_per_window=f"{n_conv / windows:.1f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    watch.remove()
+    time_windows(q, frames, f"windows_{mode}")
+    int8_fidelity(f"clip_{mode}", run, q, depth, refs)
+    return counts
+
+
+def int8_stream_phase(q, frames, refs, mode):
+    """The stream of ``q`` over N_INT8_STREAM frames per frame (k = 1;
+    for int8_static the first frame calibrates) and in chunks of
+    STREAM_CHUNK; launches per encoder pass and int8 convs asserted for
+    each; the k = 1 stream held to the plain int8 runs and the chunked one
+    to the k = 1 stream."""
+    from vdn_torch import kernels
+    frames = frames[:N_INT8_STREAM]
+    watch = Int8Watch(q)
+    out = {}
+    for k in (1, STREAM_CHUNK):
+        kernels.reset_launches()
+        watch.reset()
+        d, walls, _ = run_stream(q, frames, k)
+        counts = dict(kernels.launches)
+        # vdn's gate sends no conv of a single 518 x 518 frame to int8
+        # with per-frame scales (N * oh * ow < 32768 below 296 x 296,
+        # and 296 x 296 is excluded); the calibrated mode takes 296 x 296
+        n_conv = watch.check(f"stream {mode} k={k}",
+                             some=mode == "int8_static" or k > 1)
+        check_depth(f"stream {mode} k={k}", d, N_INT8_STREAM)
+        # encoder passes: one per frame at k = 1; per chunk, one for the
+        # first frame and one for the rest of its chunk, then one a chunk
+        passes = (N_INT8_STREAM if k == 1
+                  else 1 + -(-(N_INT8_STREAM - 1) // k))
+        check_frame_launches(f"stream {mode} k={k} per encoder pass",
+                             {n: counts.get(n, 0) / passes
+                              for n in INT8_ENCODER}, INT8_ENCODER)
+        log(f"stream_{mode}_k{k}", frames=N_INT8_STREAM,
+            ms_per_frame=f"{statistics.median(walls[1:]) / k:.3f}"
+            if k == 1 else f"{sum(walls[1:]) / (N_INT8_STREAM - k):.3f}",
+            first_frame_ms=f"{walls[0]:.3f}", int8_convs=n_conv,
+            launches=json.dumps(counts, separators=(",", ":")))
+        out[k] = (d, counts)
+    watch.remove()
+    d1, dk = out[1][0], out[STREAM_CHUNK][0]
+    tol = int8_fidelity(f"stream_{mode}", lambda: run_stream(q, frames, 1)[0],
+                        q, d1, [r[:N_INT8_STREAM] for r in refs])
+    k_vs_1 = drift(d1, dk)
+    log(f"stream_{mode}_chunked", **{f"k{STREAM_CHUNK}_vs_k1":
+                                     json.dumps(k_vs_1)},
+        rel_l2_tol=f"{tol:.3e}")
+    if not k_vs_1["rel_l2"] <= tol:
+        fail(f"stream {mode} k={STREAM_CHUNK} vs k=1: rel_l2 "
+             f"{k_vs_1['rel_l2']} > {tol}")
+    return out[1][1], out[STREAM_CHUNK][1]
+
+
+def int8_video_phases(model, frames, clip_refs, stream_refs) -> dict:
+    """For each mode, ``model``'s weights in a quantized VideoDepthAnything
+    through the clip and the stream, held with the float path's plain runs
+    (bf16, fp32) of each; returns the launches by path."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    out = {}
+    for mode in INT8_MODES:
+        q = quantized_model(build_video_depth_anything, model, mode)
+        out[f"clip_{mode}"] = int8_clip_phase(q, frames, clip_refs, mode)
+        k1, kc = int8_stream_phase(q, frames, stream_refs, mode)
+        out[f"stream_{mode}_k1"] = k1
+        out[f"stream_{mode}_k{STREAM_CHUNK}"] = kc
+        del q
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_image_phase(model, frames, refs, mode) -> dict:
+    """The image pipeline in ``mode`` over N_INT8_IMAGE frames through the
+    bank (for int8_static the first calibrates); launches per image and
+    int8 convs asserted; fidelity against the plain int8 runs."""
+    from vdn_torch import kernels
+    from vdn_torch.models.depth_anything_v2 import build_depth_anything_v2
+    from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
+    q = quantized_model(build_depth_anything_v2, model, mode)
+    images = [np.ascontiguousarray(f[..., ::-1])
+              for f in frames[:N_INT8_IMAGE]]
+    run = lambda: run_images(DepthAnythingV2Pipeline(
+        q, capacity=MEM_CAPACITY), images)
+    watch = Int8Watch(q)
+    kernels.reset_launches()
+    watch.reset()
+    d, walls, per = run()
+    counts = dict(kernels.launches)
+    n_conv = watch.check(f"image {mode}", some=mode == "int8_static")
+    watch.remove()
+    check_depth(f"image {mode}", d, N_INT8_IMAGE)
+    for i, c in enumerate(per):
+        check_frame_launches(f"image {mode} frame {i}", c, {
+            **INT8_IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {})})
+    log(f"image_{mode}", images=N_INT8_IMAGE, first_frame_ms=f"{walls[0]:.3f}",
+        steady_ms_per_frame=f"{statistics.median(walls[MEMORY_PROBE - 1:]):.3f}",
+        int8_convs=n_conv,
+        launches_steady=json.dumps(per[-1], separators=(",", ":")))
+    int8_fidelity(f"image_{mode}", lambda: run()[0], q, d,
+                  [r[:N_INT8_IMAGE] for r in refs])
     return counts
 
 
@@ -1313,20 +1755,34 @@ def check_updates(name: str, named, before) -> list:
 
 
 def check_no_backward_raises() -> None:
-    """B1, C1 and C2 have no backward: on the card each raises when an
-    input requires grad, rather than return an output that cuts the graph
-    (the training phases show that the wrappers with a backward keep it:
-    every trainable tensor upstream of them gets a nonzero gradient)."""
-    from vdn_torch.kernels import flash_attention as fa, resize
+    """B1, C1, C2 and F1-F4 have no backward: on the card each raises when
+    an input requires grad, rather than return an output that cuts the
+    graph (the training phases show that the wrappers with a backward keep
+    it: every trainable tensor upstream of them gets a nonzero gradient)."""
+    from vdn_torch.kernels import flash_attention as fa, int8, resize
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=DEVICE,
                     requires_grad=True)
     x = torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=DEVICE,
                     requires_grad=True)
+    t = torch.zeros((1, 32, 64), dtype=torch.bfloat16, device=DEVICE,
+                    requires_grad=True)
+    v64 = torch.zeros(64, device=DEVICE)
+    w = lambda f, k: (torch.zeros((f, k), dtype=torch.int8, device=DEVICE),
+                      torch.ones(f, device=DEVICE))
     calls = {"select_rows": lambda: resize.select_rows(
                  x, torch.eye(4, device=DEVICE)),
              "flash_attention": lambda: fa.flash_attention(q, q, q),
              "flash_attention_colbias": lambda: fa.flash_attention_colbias(
-                 q, q, q, torch.zeros(64, device=DEVICE))}
+                 q, q, q, torch.zeros(64, device=DEVICE)),
+             "int8_ln_linear": lambda: int8.int8_ln_linear(
+                 t, v64, v64, w(64, 64), v64),
+             "int8_linear": lambda: int8.int8_linear(t, w(64, 64), v64),
+             "int8_proj_residual": lambda: int8.int8_proj_residual(
+                 t, t, w(64, 64), v64, v64),
+             "fused_ln_mlp_residual_int8":
+                 lambda: int8.fused_ln_mlp_residual_int8(
+                     t, v64, v64, w(128, 64), torch.zeros(128, device=DEVICE),
+                     w(64, 128), v64, v64)}
     for name, call in calls.items():
         try:
             call()
@@ -1482,7 +1938,17 @@ SOURCES = {
     "temporal_attention_block_bwd": (
         "vdn_torch/csrc/temporal_attn_bwd.cu",
         "vdn/ops/pallas/temporal_attention.py:209"),
+    "int8_ln_linear": ("vdn_torch/csrc/int8_linear.cu",
+                       "vdn/ops/pallas/int8.py:259"),
+    "int8_linear": ("vdn_torch/csrc/int8_linear.cu",
+                    "vdn/ops/pallas/int8.py:274"),
+    "int8_proj_residual": ("vdn_torch/csrc/int8_linear.cu",
+                           "vdn/ops/pallas/int8.py:293"),
+    "fused_ln_mlp_residual_int8": ("vdn_torch/csrc/ln_mlp_int8.cu",
+                                   "vdn/ops/pallas/int8.py:357"),
 }
+INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
+                "fused_ln_mlp_residual_int8"]
 # each kernel's headline path: the one whose run gives its ``launches`` and
 # whose shapes its times are summed over
 HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
@@ -1490,13 +1956,16 @@ HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             "flash_attention_fused_qkv_train": "train",
             "flash_attention_fused_qkv_bwd": "train",
             "fused_ln_mlp_residual_bwd": "train",
-            "temporal_attention_block_bwd": "train"}
+            "temporal_attention_block_bwd": "train",
+            **{n: "clip_int8_static" for n in INT8_KERNELS}}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
 # the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES
 # and METRIC_TRAIN_LAUNCHES
 STREAM_KERNELS = [n for n in SOURCES
                   if HEADLINE.get(n, "clip") in ("clip", "stream_k1")]
+# (the int8 paths' kernels: the clip's less A2, with F1, F3 and F4;
+# INT8_ENCODER gives their launches)
 CLIP_KERNELS = [n for n in STREAM_KERNELS if n != "select_rows"]
 
 
@@ -1513,8 +1982,11 @@ def main() -> None:
     log("model", output_bias=f"{bias:.6g}")
     depth, counts = run_main_path(model, frames)
     time_windows(model, frames)
-    reference_runs(model, frames, depth)
-    counts_k1, counts_k8 = stream_phase(model, frames)
+    clip_plain = reference_runs(model, frames, depth)
+    counts_k1, counts_k8, stream_plain = stream_phase(model, frames)
+    int8_conv_phase()
+    launches_int8 = int8_video_phases(model, frames, clip_plain,
+                                      stream_plain)
     del model
     torch.cuda.empty_cache()
     image_model = build_image_model()
@@ -1522,7 +1994,11 @@ def main() -> None:
     bias = calibrate_output_bias(image_model.depth_head.scratch,
                                  lambda: image_model(x0))
     log("image_model", output_bias=f"{bias:.6g}")
-    counts_image = image_phase(image_model, frames)
+    counts_image, image_plain = image_phase(image_model, frames)
+    for mode in INT8_MODES:
+        launches_int8[f"image_{mode}"] = int8_image_phase(
+            image_model, frames, image_plain, mode)
+        torch.cuda.empty_cache()
     del image_model
     torch.cuda.empty_cache()
     counts_metric = metric_phase(frames)
@@ -1533,15 +2009,18 @@ def main() -> None:
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
-                "metric_train": counts_metric_train}
+                "metric_train": counts_metric_train, **launches_int8}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
     # C2: the memory attention's shapes at both token grids; the training
-    # kernels: one b2 t8 step's shapes, D4 at the four motion modules),
-    # launches over the training phase's TRAIN_STEPS steps, and stream_ms /
-    # stream_bound_ms over the stream's shapes; launches from the run of the
-    # headline path, and from every path's run.
+    # kernels: one b2 t8 step's shapes, D4 at the four motion modules;
+    # F1-F4: the cached window's rows, their bf16 counterpart's time in
+    # bf16_ms, every shape's numbers in by_shape), launches over the
+    # training phase's TRAIN_STEPS steps (F1-F4: the int8_static clip's
+    # three windows), and stream_ms / stream_bound_ms over the stream's
+    # shapes; launches from the run of the headline path, and from every
+    # path's run.
     rows = []
     for name, (src, tpu) in SOURCES.items():
         path = HEADLINE.get(name, "clip")
@@ -1555,6 +2034,10 @@ def main() -> None:
             **({"stream_ms": summary[name]["stream"]["ms"],
                 "stream_bound_ms": summary[name]["stream"]["bound_ms"]}
                if path == "clip" and "stream" in summary[name] else {}),
+            **({"bf16_ms": head["bf16_ms"],
+                "by_shape": {p: v for p, v in summary[name].items()
+                             if p != "max_abs_err"}}
+               if name in INT8_KERNELS else {}),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in launches.items()}})
     print(json.dumps({"kernels": rows}), flush=True)

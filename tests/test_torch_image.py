@@ -445,5 +445,17 @@ def test_build_functions_default_to_the_card(build):
 
 @pytest.mark.parametrize("quantize", ["int8", "int8_static"])
 def test_quantize_is_not_ported(quantize):
-    with pytest.raises(NotImplementedError, match="quantize"):
-        build_depth_anything_v2("vits", device="cpu", quantize=quantize)
+    """The int8 serving mode is ported (tests/test_torch_int8.py holds it to
+    vdn): the build takes the flag as vdn's model does, the encoder dynamic
+    int8 in both modes and the DPT head's convs in the given mode, the fp32
+    output island and the memory block float."""
+    from vdn_torch.nn.layers import Conv2d
+    model = build_depth_anything_v2("vits", device="cpu", quantize=quantize)
+    assert model.quantize == quantize
+    assert all(b.quantize == "int8" for b in model.pretrained.blocks)
+    head = {m.quantize for m in model.depth_head.modules()
+            if isinstance(m, Conv2d) and m.accum_dtype is None}
+    assert head == {quantize, None}
+    assert model.depth_head.scratch.output_conv2[0].quantize is None
+    assert all(m.quantize is None for m in model.memory_block.modules()
+               if isinstance(m, Conv2d))

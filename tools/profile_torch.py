@@ -11,6 +11,13 @@ VideoDepthAnything:
   (past the gap-41 eviction);
 - ``stream_k8``: two chunks of 8 streaming frames after a warm chunk.
 
+- ``int8``: three cached clip windows of the same weights in the int8
+  serving mode (``quantize="int8_static"``, calibrated on one full
+  window); its split names F1-F4 and the int8 convs (``torch._int_mm``
+  apart from their quantize, im2col and dequantize passes, which are told
+  by the ``int8_conv`` range each call is traced in), beside the
+  ``cached`` unit's bf16 split.
+
 DepthAnythingV2 with its memory bank:
 
 - ``image``: four ``infer_image`` calls after 8 warm frames (the six-slot
@@ -30,6 +37,7 @@ frame) beside the span of host wall time and the union of kernel intervals
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import re
@@ -45,6 +53,14 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
+    (r"quant_rows_kernel<float", "F4 hidden quantize (per row and F / 2)"),
+    (r"quant_rows_kernel<[^,]*, (true|\(bool\)1)>",
+     "F1 / F4 LayerNorm + quantize rows"),
+    (r"quant_rows_kernel", "F3 quantize rows"),
+    (r"EpiI8Bias", "F1 qkv int8 GEMM"),
+    (r"EpiI8ProjResidual", "F3 proj int8 GEMM (+ b, x gamma, + residual)"),
+    (r"EpiI8Gelu", "F4 fc1 int8 GEMM (GELU epilogue)"),
+    (r"EpiI8MlpResidual", "F4 fc2 int8 GEMM (two chunks, + b2, x gamma, + x)"),
     (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
      "A1-train flash attention (+ log-sum-exp)"),
     (r"flash_qkv_kernel", "A1 flash attention"),
@@ -92,8 +108,20 @@ def group_of(name: str) -> str:
     return "other: " + name[:60]
 
 
+INT8_CONV = "int8_conv"
+GEMM = r"nvjet|cutlass|cublas|gemm|Gemm|xmma|imma"
+
+
+def int8_conv_group(name: str) -> str:
+    return ("int8 convs: torch._int_mm products" if re.search(GEMM, name)
+            else "int8 convs: quantize, im2col and dequantize passes")
+
+
 def trace(fn, steps: int, path: str) -> dict:
-    """Run fn() ``steps`` times under the profiler; sum kernel time."""
+    """Run fn() ``steps`` times under the profiler; sum kernel time.  A
+    kernel launched inside a ``record_function(INT8_CONV)`` range (its
+    launch's correlation id on the host's clock) counts as the int8 conv's;
+    there is one only where the caller wraps int8_conv (``int8`` unit)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -107,11 +135,26 @@ def trace(fn, steps: int, path: str) -> dict:
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") == INT8_CONV)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def in_int8_conv(e) -> bool:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(ranges, (t, float("inf"))) - 1 \
+            if t is not None else -1
+        return i >= 0 and ranges[i][0] <= t <= ranges[i][1]
+
     by = defaultdict(lambda: [0.0, 0])
     spans = []
     for e in kernels:
-        by[group_of(e["name"])][0] += e["dur"] / 1e3
-        by[group_of(e["name"])][1] += 1
+        label = (int8_conv_group(e["name"]) if ranges and in_int8_conv(e)
+                 else group_of(e["name"]))
+        by[label][0] += e["dur"] / 1e3
+        by[label][1] += 1
         spans.append((e["ts"], e["ts"] + e["dur"]))
     spans.sort()
     busy, end = 0.0, None
@@ -136,7 +179,7 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-UNITS = ("cached", "stream_k1", "stream_k8", "image", "train")
+UNITS = ("cached", "int8", "stream_k1", "stream_k8", "image", "train")
 
 
 def profile_video(units, out: str) -> None:
@@ -157,6 +200,9 @@ def profile_video(units, out: str) -> None:
                         os.path.join(out, "cached.json"))
         report("cached", res, 3, "window")
 
+    if "int8" in units:
+        profile_int8(model, frames, out)
+
     if "stream_k1" in units:
         pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
         for f in frames[:12]:
@@ -173,6 +219,38 @@ def profile_video(units, out: str) -> None:
         res = trace(lambda: pipe.infer_video_depth_chunk(next(chunks)), 2,
                     os.path.join(out, "stream_k8.json"))
         report("stream_k8", res, 16, "frame")
+
+
+def profile_int8(model, frames, out: str) -> None:
+    """The cached window of ``model``'s weights in int8_static, calibrated
+    on one full window; each int8 conv call inside an INT8_CONV range."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    from vdn_torch.nn import layers
+    from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
+                                                 gather_seed_features)
+    q = cs.quantized_model(build_video_depth_anything, model, "int8_static")
+    x = cs.window_input(frames)
+    conv = layers.int8_conv
+
+    def traced_conv(*args, **kw):
+        with torch.profiler.record_function(INT8_CONV):
+            return conv(*args, **kw)
+
+    layers.int8_conv = traced_conv
+    try:
+        with torch.no_grad():
+            with layers.quant_calibration(q):
+                _, feats = q.forward_window(x)
+            seed = gather_seed_features(
+                feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
+            x_new = x[:, OVERLAP:]
+            q.forward_window_cached(x_new, seed)
+            res = trace(lambda: q.forward_window_cached(x_new, seed), 3,
+                        os.path.join(out, "int8.json"))
+    finally:
+        layers.int8_conv = conv
+    report("int8", res, 3, "window")
 
 
 def profile_image(out: str) -> None:

@@ -27,6 +27,11 @@ until then such a tree fails to load as unexpected keys.
 
 Registered buffers that vdn recomputes (the sinusoidal ``pe``) are not in
 the flax tree; the port's modules rebuild them.
+
+vdn's ``quant_stats`` collection (one ``act_amax`` per conv of an
+``int8_static`` model, recorded by its calibration pass) maps by the same
+path rules onto the port's ``Conv2d.act_amax`` buffers
+(``load_quant_stats``), which stay out of the state_dict.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "load_flax_params",
+__all__ = ["state_dict_from_flax", "load_flax_params", "load_quant_stats",
            "DEFAULT_CONVT_PATTERNS"]
 
 # torch modules that are ConvTranspose2d (vdn.core.convert's defaults)
@@ -115,3 +120,21 @@ def load_flax_params(module: torch.nn.Module, params: Mapping,
     if unexpected:
         raise KeyError(f"flax params with no module parameter: {unexpected}")
     return [k for k in missing if not k.endswith(".pe")]
+
+
+def load_quant_stats(module: torch.nn.Module, stats: Mapping) -> int:
+    """Set each conv's calibrated ``act_amax`` from vdn's ``quant_stats``
+    tree (a ``{"quant_stats": ...}`` wrapper is accepted), on the conv's
+    device.  Returns the number of convs set; a path with no conv of the
+    module raises."""
+    if set(stats) == {"quant_stats"}:
+        stats = stats["quant_stats"]
+    n = 0
+    for path, value in _flatten(stats):
+        if path[-1] != "act_amax":
+            raise KeyError(f"unexpected quant_stats leaf {path}")
+        conv = module.get_submodule(_torch_key(path[:-1]))
+        conv.act_amax = torch.tensor(np.asarray(value, np.float32),
+                                     device=conv.weight.device)
+        n += 1
+    return n

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
-the single-image path's memory attention, and the training backwards D1,
-D3 and D4 with A1's training forward) live in ``vdn_torch/csrc/*.cu``
+the single-image path's memory attention, the training backwards D1,
+D3 and D4 with A1's training forward, and F1-F4 of the int8 serving mode)
+live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
 ``build/vdn_torch/`` (named by a hash of the sources and flags, so a
@@ -24,8 +25,8 @@ kernel (D1, D3, D4), the same kernel on the transposed plan (A5a, A5b) or
 a recompute of the plain version (A4, A6), as vdn computes it; on the CPU
 the backward takes the kernel's plain version.  A backward dispatches as
 its forward did, on whatever thread autograd runs it (``save_dispatch``,
-``same_dispatch``).  B1, C1 and C2 have no
-backward: on a CUDA tensor that requires grad they raise.
+``same_dispatch``).  B1, C1, C2 and F1-F4 have no backward: on a CUDA
+tensor that requires grad they raise.
 
 ``launches`` counts, per wrapper, the calls that launched the kernel.
 """
@@ -68,6 +69,10 @@ launches = {
     "flash_attention_fused_qkv_bwd": 0,
     "fused_ln_mlp_residual_bwd": 0,
     "temporal_attention_block_bwd": 0,
+    "int8_ln_linear": 0,
+    "int8_linear": 0,
+    "int8_proj_residual": 0,
+    "fused_ln_mlp_residual_int8": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -93,6 +98,9 @@ _SIGNATURES = {
     "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _F, _P, _P),
+    "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 7,
+    "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
+    "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)
@@ -225,12 +233,13 @@ def launch(name: str, *args) -> None:
 
 def check_kernel_args(name: str, *tensors: torch.Tensor,
                       aligned: bool = True) -> None:
-    """Raise unless every tensor is a contiguous bf16, fp32 or int32 CUDA
-    tensor, 16-byte aligned where the kernel needs ``aligned``."""
+    """Raise unless every tensor is a contiguous bf16, fp32, int32 or int8
+    CUDA tensor, 16-byte aligned where the kernel needs ``aligned``."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
-        if t.dtype not in (torch.bfloat16, torch.float32, torch.int32):
+        if t.dtype not in (torch.bfloat16, torch.float32, torch.int32,
+                           torch.int8):
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor not contiguous")

@@ -8,7 +8,11 @@ head.  The memory is a functional carry, as in vdn:
     entry = model.encode_memory(mem_feat, depth)
     state = update_memory_state(state, *entry)
 
-The host-side wrapper is vdn_torch.pipelines.infer_image.
+The host-side wrapper is vdn_torch.pipelines.infer_image.  ``quantize``
+is the serving mode as in VideoDepthAnything (vdn/models/
+depth_anything_v2.py:44-57): the encoder dynamic int8, the DPT head's convs
+int8 with per-frame (``"int8"``) or calibrated (``"int8_static"``)
+scales; the memory block stays float.
 """
 
 from __future__ import annotations
@@ -29,16 +33,19 @@ class DepthAnythingV2(nn.Module):
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  max_memory_length: int = 6,
                  num_mem_attention_layers: int = 4,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.encoder = encoder
         self.compute_dtype = compute_dtype
-        self.pretrained = make_vit(encoder)
+        self.quantize = quantize
+        enc_q = "int8" if quantize == "int8_static" else quantize
+        self.pretrained = make_vit(encoder, enc_q)
         self.memory_block = MemoryBlock(
             self.pretrained.embed_dim, max_memory_length,
             num_mem_attention_layers)
         self.depth_head = DPTHead(self.pretrained.embed_dim, features,
-                                  out_channels)
+                                  out_channels, quantize=quantize)
 
     def forward(self, x: torch.Tensor, state: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,10 +84,7 @@ def build_depth_anything_v2(
     bf16 only, and from 256 tokens on (any image of 224 x 224 or more) a
     forward in the default fp32 raises ValueError at its first attention.
     fp32 on the card is for reference runs inside
-    ``kernels.plain_reference()``."""
-    if quantize is not None:
-        raise NotImplementedError(
-            f"build_depth_anything_v2: quantize={quantize!r} needs the int8 "
-            f"kernels, which are not ported yet")
+    ``kernels.plain_reference()``.  ``quantize``: None, ``"int8"`` or
+    ``"int8_static"`` (serving only)."""
     return build_preset(DepthAnythingV2, encoder, compute_dtype, device,
-                        generator, **kw)
+                        generator, quantize=quantize, **kw)

@@ -10,6 +10,13 @@
   vdn_torch.pipelines.infer_video, which reuse the previous window's
   encoder features for the seed frames (the encoder is per-frame, so the
   reuse is exact).
+
+``quantize`` is the serving mode (vdn/models/video_depth_anything.py:
+45-59): ``"int8"`` quantizes the encoder's projections and MLP (dynamic,
+F1-F4) and the head's convs with per-frame scales; ``"int8_static"``
+keeps the encoder dynamic and gives the head convs calibrated scales
+(vdn_torch.nn.layers.quant_calibration; the pipelines calibrate on their
+first window or frame).  Inference only.
 """
 
 from __future__ import annotations
@@ -29,13 +36,18 @@ class VideoDepthAnything(nn.Module):
     def __init__(self, encoder: str = "vitl", features: int = 256,
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  num_frames: int = 32,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.encoder = encoder
         self.compute_dtype = compute_dtype
-        self.pretrained = make_vit(encoder)
+        self.quantize = quantize
+        # the encoder's int8 kernels quantize per row at every call, so they
+        # stay dynamic under the calibrated head mode
+        enc_q = "int8" if quantize == "int8_static" else quantize
+        self.pretrained = make_vit(encoder, enc_q)
         self.head = DPTHeadTemporal(self.pretrained.embed_dim, features,
-                                    out_channels, num_frames)
+                                    out_channels, num_frames, quantize)
 
     def forward_features(self, x: torch.Tensor):
         """x [B, T, H, W, 3] -> 4 x (tokens [(B*T), N, C], cls)."""
@@ -102,6 +114,7 @@ def build_video_depth_anything(
     bf16 only, and from 256 tokens on (any image of 224 x 224 or more) a
     forward in the default fp32 raises ValueError at its first attention.
     fp32 on the card is for reference runs inside
-    ``kernels.plain_reference()``."""
+    ``kernels.plain_reference()``.  ``quantize="int8"`` or
+    ``"int8_static"`` in ``kw`` builds the serving mode."""
     return build_preset(VideoDepthAnything, encoder, compute_dtype, device,
                         generator, **kw)

@@ -7,6 +7,11 @@ block's 1x1 out_conv runs before its align-corners upsample (the two
 commute exactly, at a quarter of the FLOPs).  The upsamples run through
 A5a/A5b (vdn_torch.ops.resize) and the upsampling output island through
 A6, as vdn's TPU path routes them.
+
+``quantize`` ("int8" or "int8_static", vdn/nn/dpt.py:34-111, 192-204)
+goes to the convs vdn quantizes: the projections, the layerN_rn convs,
+every refinenet conv and output_conv1; never resize_layers.3, the
+transposed convs or the fp32 output island.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ from vdn_torch.ops.resize import resize2d
 
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, quantize: Optional[str] = None):
         super().__init__()
-        self.conv1 = Conv2d(features, features, 3, padding=1)
-        self.conv2 = Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1,
+                            quantize=quantize)
+        self.conv2 = Conv2d(features, features, 3, padding=1,
+                            quantize=quantize)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(torch.relu(x))
@@ -33,11 +40,11 @@ class ResidualConvUnit(nn.Module):
 
 
 class FeatureFusionBlock(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, quantize: Optional[str] = None):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
-        self.out_conv = Conv2d(features, features, 1)
+        self.resConfUnit1 = ResidualConvUnit(features, quantize)
+        self.resConfUnit2 = ResidualConvUnit(features, quantize)
+        self.out_conv = Conv2d(features, features, 1, quantize=quantize)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
                 size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -57,19 +64,24 @@ class Scratch(nn.Module):
     max_depth at the model level."""
 
     def __init__(self, features: int, out_channels: Sequence[int],
-                 sigmoid_output: bool = False):
+                 sigmoid_output: bool = False,
+                 quantize: Optional[str] = None):
         super().__init__()
-        f = features
+        f, qz = features, quantize
         self.sigmoid_output = sigmoid_output
-        self.layer1_rn = Conv2d(out_channels[0], f, 3, padding=1, bias=False)
-        self.layer2_rn = Conv2d(out_channels[1], f, 3, padding=1, bias=False)
-        self.layer3_rn = Conv2d(out_channels[2], f, 3, padding=1, bias=False)
-        self.layer4_rn = Conv2d(out_channels[3], f, 3, padding=1, bias=False)
-        self.refinenet1 = FeatureFusionBlock(f)
-        self.refinenet2 = FeatureFusionBlock(f)
-        self.refinenet3 = FeatureFusionBlock(f)
-        self.refinenet4 = FeatureFusionBlock(f)
-        self.output_conv1 = Conv2d(f, f // 2, 3, padding=1)
+        self.layer1_rn = Conv2d(out_channels[0], f, 3, padding=1, bias=False,
+                                quantize=qz)
+        self.layer2_rn = Conv2d(out_channels[1], f, 3, padding=1, bias=False,
+                                quantize=qz)
+        self.layer3_rn = Conv2d(out_channels[2], f, 3, padding=1, bias=False,
+                                quantize=qz)
+        self.layer4_rn = Conv2d(out_channels[3], f, 3, padding=1, bias=False,
+                                quantize=qz)
+        self.refinenet1 = FeatureFusionBlock(f, qz)
+        self.refinenet2 = FeatureFusionBlock(f, qz)
+        self.refinenet3 = FeatureFusionBlock(f, qz)
+        self.refinenet4 = FeatureFusionBlock(f, qz)
+        self.output_conv1 = Conv2d(f, f // 2, 3, padding=1, quantize=qz)
         # fp32 accumulation island (vdn/nn/dpt.py:112-121)
         self.output_conv2 = nn.Sequential(
             Conv2d(f // 2, 32, 3, padding=1, accum_dtype=torch.float32),
@@ -111,18 +123,19 @@ class DPTHead(nn.Module):
 
     def __init__(self, in_channels: int, features: int = 256,
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
-                 sigmoid_output: bool = False):
+                 sigmoid_output: bool = False,
+                 quantize: Optional[str] = None):
         super().__init__()
         oc = out_channels
         self.projects = nn.ModuleList(
-            Conv2d(in_channels, o, 1) for o in oc)
+            Conv2d(in_channels, o, 1, quantize=quantize) for o in oc)
         self.resize_layers = nn.ModuleList([
             ConvTranspose2d(oc[0], oc[0], 4, 4),
             ConvTranspose2d(oc[1], oc[1], 2, 2),
             nn.Identity(),
             Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
-        self.scratch = Scratch(features, oc, sigmoid_output)
+        self.scratch = Scratch(features, oc, sigmoid_output, quantize)
 
     def project_features(self, out_features, patch_h: int, patch_w: int):
         """4 x tokens [B, ph * pw, C] (or (tokens, cls)) -> NHWC pyramid."""

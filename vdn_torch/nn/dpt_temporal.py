@@ -5,11 +5,13 @@ TemporalModules follow the layer_3 / layer_4 projections and refinenet4 /
 refinenet3.  The three stages mirror vdn's split (frame-independent head,
 frame-sequential middle, full-resolution tail); ``forward`` composes them
 for the clip path, and the streaming pipeline calls them one by one.
+``quantize`` reaches the DPT convs only; the temporal mixers stay float,
+as in vdn.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,8 +26,9 @@ CACHE_ENTRIES_PER_MODULE = 2
 class DPTHeadTemporal(DPTHead):
     def __init__(self, in_channels: int, features: int = 256,
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
-                 num_frames: int = 32):
-        super().__init__(in_channels, features, out_channels)
+                 num_frames: int = 32, quantize: Optional[str] = None):
+        super().__init__(in_channels, features, out_channels,
+                         quantize=quantize)
         widths = (out_channels[2], out_channels[3], features, features)
         self.motion_modules = nn.ModuleList(
             TemporalModule(w, num_attention_heads=8, num_transformer_block=1,

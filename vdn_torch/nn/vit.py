@@ -7,6 +7,12 @@ self-attention straight off the fused qkv projection for N >= 256 tokens,
 and A2 runs the LN2 -> MLP -> LayerScale -> residual tail for
 B * N >= 1024 rows.
 
+``quantize="int8"`` is the serving mode's W8A8 encoder (vdn/nn/vit.py:
+143-258), behind ``int8_serving_enabled`` (B * N >= 1024 rows on the card):
+F1 takes LN1 and the qkv projection, A1 stays the attention, F3 the
+out-projection with LayerScale and the residual, and F4 the whole MLP
+tail.  The weights are quantized once per weight version.
+
 Configs (reference dinov2.py:339-415): vits 384/12/6, vitb 768/12/12,
 vitl 1024/24/16; patch 14, img_size 518, interpolate_offset 0.1.  vitg's
 SwiGLU FFN is not ported yet.
@@ -15,12 +21,15 @@ SwiGLU FFN is not ported yet.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from vdn_torch.kernels.flash_attention import flash_attention_fused_qkv
+from vdn_torch.kernels.int8 import (fused_ln_mlp_residual_int8,
+                                    int8_ln_linear, int8_proj_residual,
+                                    int8_serving_enabled)
 from vdn_torch.kernels.mlp import fused_ln_mlp_residual
 from vdn_torch.nn.layers import Conv2d, LayerNorm, Linear, Mlp
 from vdn_torch.ops.attention import dot_product_attention, flash_enabled
@@ -71,21 +80,36 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
+    def _attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        b, n, c3 = qkv.shape
         h = self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, h, c // h)
+        qkv = qkv.reshape(b, n, 3, h, c3 // (3 * h))
         if flash_enabled(n, n):
             out = flash_attention_fused_qkv(qkv)
         else:
             out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
                                         qkv[:, :, 2])
-        return self.proj(out.reshape(b, n, c))
+        return out.reshape(b, n, c3 // 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self._attend(self.qkv(x)))
+
+    def forward_int8(self, x: torch.Tensor, norm: "LayerNorm",
+                     gamma: torch.Tensor) -> torch.Tensor:
+        """x + gamma * attn(norm(x)) with the int8 projections: F1 (LN
+        inside) and F3 (LayerScale and residual inside)."""
+        qkv = int8_ln_linear(x, norm.weight, norm.bias,
+                             self.qkv.int8_weight(), self.qkv.bias, norm.eps)
+        return int8_proj_residual(self._attend(qkv), x,
+                                  self.proj.int8_weight(), self.proj.bias,
+                                  gamma)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 quantize: Optional[str] = None):
         super().__init__()
+        self.quantize = quantize
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
@@ -94,6 +118,13 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantize == "int8" and int8_serving_enabled(
+                x.shape[0] * x.shape[1], x):
+            n2, mlp = self.norm2, self.mlp
+            x = self.attn.forward_int8(x, self.norm1, self.ls1.gamma)
+            return fused_ln_mlp_residual_int8(
+                x, n2.weight, n2.bias, mlp.fc1.int8_weight(), mlp.fc1.bias,
+                mlp.fc2.int8_weight(), mlp.fc2.bias, self.ls2.gamma, n2.eps)
         x = x + self.ls1(self.attn(self.norm1(x)))
         if x.shape[0] * x.shape[1] >= FUSED_MLP_MIN_ROWS:
             n2, mlp = self.norm2, self.mlp
@@ -107,7 +138,8 @@ class DinoVisionTransformer(nn.Module):
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  patch_size: int = 14, img_size: int = 518,
-                 interpolate_offset: float = 0.1):
+                 interpolate_offset: float = 0.1,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.embed_dim, self.patch_size = embed_dim, patch_size
         self.interpolate_offset = interpolate_offset
@@ -120,7 +152,8 @@ class DinoVisionTransformer(nn.Module):
         # kept for checkpoint-key parity with the reference (unused)
         self.mask_token = nn.Parameter(torch.zeros(1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, quantize)
+            for _ in range(depth))
         self.norm = LayerNorm(embed_dim)
 
     def _init(self, g):
@@ -175,5 +208,6 @@ class DinoVisionTransformer(nn.Module):
         return result
 
 
-def make_vit(encoder: str) -> DinoVisionTransformer:
-    return DinoVisionTransformer(**VIT_CONFIGS[encoder])
+def make_vit(encoder: str,
+             quantize: Optional[str] = None) -> DinoVisionTransformer:
+    return DinoVisionTransformer(**VIT_CONFIGS[encoder], quantize=quantize)

@@ -10,7 +10,11 @@ references and an 8-frame cross-fade.
 The first window encodes all 32 frames; every later window encodes only
 its 22 new frames and gathers the 10 seed frames' encoder features from
 the previous window on the device (``index_select`` at KEYFRAMES).  Depth
-goes to the host once per window; stitching is numpy.
+goes to the host once per window; stitching is numpy.  For a
+``quantize="int8_static"`` model the first window is the calibration pass
+(vdn/pipelines/infer_video.py:61-76, 117-124): the encoder runs int8 in it
+and the head convs float while they record their scales; its depth and
+features seed the cache as in any first window.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vdn_torch.nn.layers import quant_calibration
 from vdn_torch.ops.resize import resize2d
 from vdn_torch.ops.scale_shift import interpolate_frames_np, scale_and_shift_np
 from vdn_torch.pipelines.transform import (adjust_input_size_for_ratio,
@@ -66,8 +71,9 @@ def infer_video_depth(model, frames: np.ndarray, target_fps: float,
     prev_feats = None
     for frame_id in range(0, n_frames, frame_step):
         if prev_feats is None:
-            depth, prev_feats = model.forward_window(
-                window_input(frame_id, 0, INFER_LEN))
+            with quant_calibration(model):
+                depth, prev_feats = model.forward_window(
+                    window_input(frame_id, 0, INFER_LEN))
         else:
             depth, prev_feats = model.forward_window_cached(
                 window_input(frame_id, OVERLAP, INFER_LEN),

@@ -14,7 +14,9 @@ the device, and slot writes update the rings in place.
 Paths:
 
 - the first frame decodes alone and its entries are replicated over the
-  first INFER_LEN slots (reference video_depth_stream.py:117);
+  first INFER_LEN slots (reference video_depth_stream.py:117); for a
+  ``quantize="int8_static"`` model it is also the calibration pass of the
+  head's convs (vdn/pipelines/stream.py:180-194);
 - one frame (``_step_one``): B1 (``select_rows``) gathers the 31-entry
   window out of every ring with a [31, CAPACITY] one-hot, the model
   decodes, and the frame's entries are written to its slot;
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from vdn_torch.kernels.resize import select_rows
+from vdn_torch.nn.layers import quant_calibration
 from vdn_torch.ops.resize import resize2d
 from vdn_torch.pipelines.transform import (adjust_input_size_for_ratio,
                                            preprocess_frame)
@@ -134,7 +137,8 @@ class VideoDepthStreamPipeline:
         if self.buffers is None:
             self.id += 1
             x = torch.from_numpy(xs[0][None, None]).to(self.device)
-            depth, entries = self._decode(x)
+            with quant_calibration(self.model):
+                depth, entries = self._decode(x)
             self.buffers = tuple(
                 e.new_zeros((e.shape[0], CAPACITY, e.shape[2]))
                 for e in entries)
