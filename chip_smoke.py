@@ -28,7 +28,14 @@ The int8 serving mode, ``quantize="int8_static"`` and ``"int8"``, on the
 same weights: the clip (54 frames; ms per cached and full window), 12
 streamed frames at k = 1 and k = 8, and 8 images through the bank, each
 with the launches per encoder pass (F1, F3, F4 and A1, no A2 and no float
-encoder Linear) and the int8 convs the gate predicts.
+encoder Linear) and the int8 convs the gate predicts; int8_static's
+recalibration after ``clear_memory()`` must keep the running max.
+
+vitg (DINOv2 ViT-g/14 with its SwiGLU FFN, Depth Anything V2 Giant) at
+full width: the clip in bf16, int8_static and int8 (F5 carries the int8
+FFN), 12 frames streamed at k = 1, and 8 images through the bank, then
+``clear_memory()`` and the 480 x 640 images, on the kernels at its widths
+(A3 at dh 192 / 48, A6 at C 192, B1 on 384-lane rings).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of the path never launched.  Depth must
@@ -37,8 +44,8 @@ the plain versions in bf16 than twice bf16's own distance from fp32; the
 k = 8 stream is held to the k = 1 stream by the same gate; an int8 run
 sits no further from the plain int8 bf16 run than twice plain bf16's
 distance from fp32, measured both on the float path and on the int8 path.
-F1-F4 are held to their plain versions with a gate of their own
-(int8_check: operands equal but at ties).  Prints one line
+F1-F5 are held to their plain versions with a gate of their own
+(int8_check: operands equal but at ties), F5 among them.  Prints one line
 per phase; the line before the last is a JSON summary of the kernels, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero and prints no last line.  Needs a CUDA device; imports nothing of
@@ -101,7 +108,17 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12   # fp32 outside the tensor cores
-# the int8 kernels (F1-F4): int8 operands may differ from the plain
+# vitg (DINOv2 ViT-g/14, SwiGLU FFN) at full width: embed 1536, 40 blocks
+# of 24 heads, DPT features 384; its motion modules at C 1536 / 384 (dh 192
+# / 48), its rings 384 / 128 lanes wide, its output island at C 192
+VITG_HEADS = 24
+VITG_MOTION_SHAPES = [(1369, 1536), (361, 1536), (1369, 384), (5476, 384)]
+VITG_RING_SHAPES = [(10952, 384), (2888, 384), (10952, 128), (43808, 128)]
+VITG_ISLAND_C = 192
+VITG_FEATURES = 384
+N_VITG_STREAM = 12
+N_VITG_IMAGE = 8
+# the int8 kernels (F1-F5): int8 operands may differ from the plain
 # version's at quantization ties only, on at most this share, by one; the
 # output within KERNEL_ULPS outside the rows with a tie and INT8_REL_L2 of
 # the plain output overall
@@ -109,9 +126,13 @@ INT8_TIE_SHARE = 1e-3
 INT8_REL_L2 = 1e-3
 
 
+START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One line per phase, with the seconds since the script started."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" elapsed_s={time.perf_counter() - START:.1f}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -169,9 +190,13 @@ def build_kernels() -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def _rand(rng, shape, scale=1.0, offset=0.0):
-    return torch.from_numpy(
-        rng.standard_normal(shape, dtype=np.float32) * scale + offset)
+def _rand(rng, shape, scale=1.0, offset=0.0, device=None):
+    """fp32 normal draws * scale + offset, made on ``device`` (DEVICE by
+    default) by a torch generator seeded from ``rng``: numpy's generator
+    takes seconds for each window-sized input on the host."""
+    dev = torch.device(device or DEVICE)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 62)))
+    return torch.randn(tuple(shape), generator=g, device=dev) * scale + offset
 
 
 def _nbytes(*tensors) -> int:
@@ -207,23 +232,26 @@ def case(name, label, kern, plain, work, path, library=None, tol="bf16",
                 library_base=library_base, check=check, bf16=bf16)
 
 
-def encoder_cases(rng, path, b, t=VIT_TOKENS):
-    """A1 and A2 at b frames of t tokens; inputs bf16 on the card,
-    parameters fp32 as the model stores them."""
+def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
+    """A1 over h heads and (unless with_a2 is False: vitg's FFN is SwiGLU)
+    A2 at b frames of t tokens; inputs bf16 on the card, parameters fp32 as
+    the model stores them."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa, mlp
     dev, bf = DEVICE, torch.bfloat16
 
-    h, d = 16, 64
+    d = 64
     qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
     out = torch.empty((b, t, h * d), dtype=bf, device=dev)
     yield case(
-        "flash_attention_fused_qkv", f"B{b} T{t} H16 D64",
+        "flash_attention_fused_qkv", f"B{b} T{t} H{h} D64",
         lambda qkv=qkv: fa.flash_attention_fused_qkv(qkv),
         lambda qkv=qkv: fa.flash_attention_fused_qkv_plain(qkv),
         (_nbytes(qkv, out), [(4 * b * h * t * t * d, BF16_TENSOR_FLOPS)]),
         path, library=lambda qkv=qkv: F.scaled_dot_product_attention(
             *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
+    if not with_a2:
+        return
 
     c, f = 1024, 4096
     x = _rand(rng, (b, t, c)).to(dev, bf)
@@ -241,15 +269,16 @@ def encoder_cases(rng, path, b, t=VIT_TOKENS):
                                          BF16_TENSOR_FLOPS)]), path)
 
 
-def motion_cases(rng, path, t, with_a3=True):
+def motion_cases(rng, path, t, with_a3=True, shapes=None):
     """A3 (unless with_a3 is False) and A4 at the four motion modules'
-    shapes over t frames."""
+    shapes (MOTION_SHAPES, vitl's, by default) over t frames."""
     from vdn_torch.kernels import geglu
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
     dev, bf = DEVICE, torch.bfloat16
+    shapes = shapes or MOTION_SHAPES
 
-    for bn, c in MOTION_SHAPES if with_a3 else ():
+    for bn, c in shapes if with_a3 else ():
         x = _rand(rng, (bn, t, c)).to(dev, bf)
         pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:t]).to(
             dev)
@@ -266,7 +295,7 @@ def motion_cases(rng, path, t, with_a3=True):
             (2 * _nbytes(x) + _nbytes(pe, bo, *w),
              [(flops, BF16_TENSOR_FLOPS)]), path)
 
-    for bn, c in MOTION_SHAPES:
+    for bn, c in shapes:
         f = 4 * c
         x = _rand(rng, (bn, t, c)).to(dev, bf)
         p = [a.to(dev) for a in (
@@ -286,15 +315,16 @@ def _taps(w) -> int:
     return int(np.count_nonzero(w))
 
 
-def fusion_passes(n, grid=None):
+def fusion_passes(n, grid=None, c=256):
     """The four DPT fusion upsamples (refinenet4, 3, 2, 1) over n frames of
-    a ``grid`` of tokens (the square VIT_GRID by default), bf16, C = 256:
-    from the stride-2 layer's half grid up to 8 x the grid.  A pass is (label, N, H in, H out, W in,
+    a ``grid`` of tokens (the square VIT_GRID by default), bf16, at the
+    head's features c (vitl's 256 by default): from the stride-2 layer's
+    half grid up to 8 x the grid.  A pass is (label, N, H in, H out, W in,
     W out, C, dtype, method, (H scale, W scale) or None)."""
     h, w = ([(g + 1) // 2, g, 2 * g, 4 * g, 8 * g]
             for g in grid or (VIT_GRID, VIT_GRID))
     return [(f"refinenet{4 - i} {h[i]}x{w[i]}->{h[i + 1]}x{w[i + 1]}", n,
-             h[i], h[i + 1], w[i], w[i + 1], 256, torch.bfloat16, "bilinear",
+             h[i], h[i + 1], w[i], w[i + 1], c, torch.bfloat16, "bilinear",
              None) for i in range(4)]
 
 
@@ -366,9 +396,11 @@ def upsample_cases(rng, path, passes):
             tol=tol)
 
 
-def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None):
+def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None,
+                 c=None):
     """A6 over n frames of a ``grid`` of tokens (the square VIT_GRID by
-    default), 8 x the grid in and 14 x out (with sigmoid: the metric head's activation in place of the ReLU),
+    default) at c channels (ISLAND_C by default), 8 x the grid in and 14 x
+    out (with sigmoid: the metric head's activation in place of the ReLU),
     and with h_pass its A5a H pass alone (the input's rows into A6's
     zero-padded plan)."""
     import torch.nn.functional as F
@@ -376,7 +408,7 @@ def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None):
     from vdn_torch.kernels import resize_island as ri
     from vdn_torch.ops.resize import plan_axis
     dev, bf = DEVICE, torch.bfloat16
-    c = ISLAND_C
+    c = c or ISLAND_C
     grid = grid or (VIT_GRID, VIT_GRID)
     (h, wd), (h_out, w_out) = ([8 * g for g in grid], [14 * g for g in grid])
     hp = -(-h_out // ri.TILE_ROWS) * ri.TILE_ROWS + 2
@@ -421,16 +453,17 @@ def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None):
         (_nbytes(feat, w1, b1, w2, b2, out), ops), path)
 
 
-def memory_cases(rng, path):
-    """C2 and C1 at the memory attention's shapes: the square 37 x 37 token
-    grid with the bank's masks of 1, 3 and 6 written slots, and the 37 x 49
-    grid of the non-square image with 2.  The bound counts what the mask
-    leaves: the live slots' keys and values, and their products."""
+def memory_cases(rng, path, h=MEM_HEADS):
+    """C2 and C1 over h heads at the memory attention's shapes: the square
+    37 x 37 token grid with the bank's masks of 1, 3 and 6 written slots,
+    and the 37 x 49 grid of the non-square image with 2.  The bound counts
+    what the mask leaves: the live slots' keys and values, and their
+    products."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     from vdn_torch.nn.memory import slot_bias
     dev, bf = DEVICE, torch.bfloat16
-    h, d, cap = MEM_HEADS, 64, MEM_CAPACITY
+    d, cap = 64, MEM_CAPACITY
     grids = [(VIT_GRID * VIT_GRID, (1, 3, 6)),
              (NONSQUARE_GRID[0] * NONSQUARE_GRID[1], (2,))]
     for hw, counts in grids:
@@ -462,11 +495,12 @@ def memory_cases(rng, path):
                         *(t.transpose(1, 2) for t in a), attn_mask=m))
 
 
-def ring_cases(rng, path):
-    """B1 at the per-frame stream's rings: 31 of 43 rows by a one-hot."""
+def ring_cases(rng, path, shapes=None):
+    """B1 at the per-frame stream's rings (RING_SHAPES, vitl's, by
+    default): 31 of 43 rows by a one-hot."""
     from vdn_torch.kernels import resize as rz
     dev, bf = DEVICE, torch.bfloat16
-    for n_rows, m in RING_SHAPES:
+    for n_rows, m in shapes or RING_SHAPES:
         ring = _rand(rng, (n_rows, 43, m)).to(dev, bf)
         sel = torch.from_numpy(rng.permutation(43)[:31]).to(dev)
         onehot = torch.eye(43, dtype=bf, device=dev)[sel]
@@ -517,16 +551,20 @@ def int8_check(kern, plain, keys):
     return check
 
 
-def int8_cases(rng, path, rows):
-    """F1-F4 over ``rows`` tokens of vitl (C 1024; qkv F 3072, MLP F 4096),
-    the weights pre-quantized as the model caches them.  Library: one
-    ``torch._int_mm`` on the same pre-quantized operands (the product
-    alone; F4's two).  bf16 counterpart: the float path's cuBLAS qkv and
-    proj GEMMs for F1 / F2 and F3, A2 for F4."""
+def int8_cases(rng, path, rows, encoder="vitl"):
+    """The int8 encoder kernels over ``rows`` tokens, the weights
+    pre-quantized as the model caches them: at vitl (C 1024; qkv F 3072,
+    MLP F 4096) F1-F4, at vitg (C 1536; qkv F 4608, SwiGLU hidden 4096) F1,
+    F3 and F5.  Library: one ``torch._int_mm`` on the same pre-quantized
+    operands (the product alone; F4's and F5's two).  bf16 counterpart: the
+    float path's cuBLAS qkv and proj GEMMs for F1 / F2 and F3, A2 for F4,
+    and the float SwiGLU tail (LN, the two cuBLAS GEMMs, silu, LayerScale,
+    residual) for F5."""
     import torch.nn.functional as F
     from vdn_torch.kernels import int8, layer_norm_f32, mlp
     dev, bf = DEVICE, torch.bfloat16
-    c, fq, fm = 1024, 3072, 4096
+    vitg = encoder == "vitg"
+    c, fq, fm = (1536, 4608, 4096) if vitg else (1024, 3072, 4096)
     x = _rand(rng, (1, rows, c)).to(dev, bf)
     att = _rand(rng, (1, rows, c)).to(dev, bf)
     ln = [_rand(rng, (c,), 0.1, 1.0).to(dev), _rand(rng, (c,), 0.1).to(dev)]
@@ -536,13 +574,14 @@ def int8_cases(rng, path, rows):
                 _rand(rng, (f,), 0.1).to(dev))
 
     (wqkv, bqkv), (wp, bp) = linear(fq, c), linear(c, c)
-    (w1, b1), (w2, b2) = linear(fm, c), linear(c, fm)
+    (w1, b1), (w2, b2) = linear(2 * fm if vitg else fm, c), linear(c, fm)
     g1, g2 = (_rand(rng, (c,), 0.5).to(dev) for _ in range(2))
     qkv, proj, fc1, fc2 = (int8.quantize_weight_cols(w)
                            for w in (wqkv, wp, w1, w2))
     vec = lambda *v: _nbytes(*v)
     out_q = rows * fq * 2
     y16 = layer_norm_f32(x, *ln, 1e-6).to(bf)
+    label = f"rows {rows} C{c}"
     specs = [
         ("int8_ln_linear", ["xq"],
          lambda o=None: int8.int8_ln_linear(x, *ln, qkv, bqkv, operands=o),
@@ -565,22 +604,42 @@ def int8_cases(rng, path, rows):
          (_nbytes(att, x, x, proj[0]) + vec(proj[1], bp, g1),
           [(2 * rows * c * c, INT8_TENSOR_OPS)]), [proj],
          lambda: F.linear(att, wp.to(bf))),
-        ("fused_ln_mlp_residual_int8", ["yq", "hq"],
-         lambda o=None: int8.fused_ln_mlp_residual_int8(
-             x, *ln, fc1, b1, fc2, b2, g2, operands=o),
-         lambda o=None: int8.fused_ln_mlp_residual_int8_plain(
-             x, *ln, fc1, b1, fc2, b2, g2, operands=o),
-         (_nbytes(x, x, fc1[0], fc2[0]) + vec(*ln, fc1[1], b1, fc2[1], b2,
-                                               g2),
-          [(4 * rows * c * fm, INT8_TENSOR_OPS)]), [fc1, fc2],
-         lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)),
     ]
+    if vitg:
+        w12b, b12b, w3b, b3b, g2b = (a.to(bf) for a in (w1, b1, w2, b2, g2))
+
+        def swiglu_bf16():
+            x1, x2 = (F.linear(y16, w12b) + b12b).chunk(2, -1)
+            return x + (F.linear(F.silu(x1) * x2, w3b) + b3b) * g2b
+
+        specs[1:2] = []       # F2: no path of vitg calls it
+        specs.append((
+            "fused_ln_swiglu_residual_int8", ["yq", "hq"],
+            lambda o=None: int8.fused_ln_swiglu_residual_int8(
+                x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+            lambda o=None: int8.fused_ln_swiglu_residual_int8_plain(
+                x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+            (_nbytes(x, x, fc1[0], fc2[0]) + vec(*ln, fc1[1], b1, fc2[1],
+                                                  b2, g2),
+             [(6 * rows * c * fm, INT8_TENSOR_OPS)]), [fc1, fc2],
+            swiglu_bf16))
+    else:
+        specs.append((
+            "fused_ln_mlp_residual_int8", ["yq", "hq"],
+            lambda o=None: int8.fused_ln_mlp_residual_int8(
+                x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+            lambda o=None: int8.fused_ln_mlp_residual_int8_plain(
+                x, *ln, fc1, b1, fc2, b2, g2, operands=o),
+            (_nbytes(x, x, fc1[0], fc2[0]) + vec(*ln, fc1[1], b1, fc2[1],
+                                                  b2, g2),
+             [(4 * rows * c * fm, INT8_TENSOR_OPS)]), [fc1, fc2],
+            lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)))
     for name, keys, kern, plain, work, weights, bf16 in specs:
         ops = {}
         plain(ops)
         acts = [ops[k] for k in keys]
         yield case(
-            name, f"rows {rows} C{c}", kern, plain, work, path,
+            name, label, kern, plain, work, path,
             library=lambda a=acts, w=weights: [
                 torch._int_mm(q, wq.t()) for q, (wq, _) in zip(a, w)],
             check=int8_check(kern, plain, keys), bf16=bf16)
@@ -622,6 +681,39 @@ def kernel_cases(rng):
                        ("clip_full", 32 * VIT_TOKENS), ("stream", VIT_TOKENS),
                        ("image", NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)):
         yield from int8_cases(rng, path, rows)
+    yield from vitg_cases(rng)
+
+
+def vitg_cases(rng):
+    """The kernels at vitg's widths on its paths ("vitg_clip": one window,
+    A1 and the int8 encoder at the cached window's 22 frames; "vitg_stream":
+    the per-frame step; "vitg_image": one image): A1 over 24 heads, A3 at dh
+    192 / 48 and A4 at its motion modules, the fusion upsamples at C 384,
+    A6 at C 192, B1 at its 384- and 128-lane rings, C1 / C2 over 24 heads,
+    and F1, F3 and F5 at the cached window, the full window, one frame and
+    the 480 x 640 image."""
+    image_rows = NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1
+    yield from encoder_cases(rng, "vitg_clip", CACHED_FRAMES, h=VITG_HEADS,
+                             with_a2=False)
+    yield from motion_cases(rng, "vitg_clip", 32, shapes=VITG_MOTION_SHAPES)
+    yield from upsample_cases(rng, "vitg_clip",
+                              fusion_passes(32, c=VITG_FEATURES))
+    yield from island_cases(rng, "vitg_clip", ISLAND_FRAMES,
+                            c=VITG_ISLAND_C)
+    yield from ring_cases(rng, "vitg_stream", VITG_RING_SHAPES)
+    yield from encoder_cases(rng, "vitg_stream", 1, h=VITG_HEADS,
+                             with_a2=False)
+    yield from motion_cases(rng, "vitg_stream", 1, shapes=VITG_MOTION_SHAPES)
+    yield from memory_cases(rng, "vitg_image", h=VITG_HEADS)
+    yield from encoder_cases(rng, "vitg_image", 1, image_rows, h=VITG_HEADS,
+                             with_a2=False)
+    yield from island_cases(rng, "vitg_image", 1, grid=NONSQUARE_GRID,
+                            c=VITG_ISLAND_C)
+    for path, rows in (("vitg_clip", CACHED_FRAMES * VIT_TOKENS),
+                       ("vitg_clip_full", 32 * VIT_TOKENS),
+                       ("vitg_stream", VIT_TOKENS),
+                       ("vitg_image", image_rows)):
+        yield from int8_cases(rng, path, rows, "vitg")
 
 
 TRAIN_B, TRAIN_T = 2, 8          # the v4 recipe's batch: 2 clips of 8 frames
@@ -788,12 +880,12 @@ def check_kernels(cases=None) -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
-def build_model():
+def build_model(encoder: str = "vitl"):
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
     gen = torch.Generator().manual_seed(SEED)
     model = build_video_depth_anything(
-        "vitl", compute_dtype=torch.bfloat16, device="cpu", generator=gen)
+        encoder, compute_dtype=torch.bfloat16, device="cpu", generator=gen)
     with torch.no_grad():
         # proj_out is zero-initialized (the mixer starts as identity); give
         # it small random weights so A3 and A4 reach the depth
@@ -865,7 +957,15 @@ def check_launches(path: str, counts: dict, names) -> None:
              f"({counts})")
 
 
-def run_main_path(model, frames):
+def check_absent(path: str, counts: dict, names) -> None:
+    launched = {n: counts[n] for n in names if counts.get(n, 0)}
+    if launched:
+        fail(f"{path}: kernels off the path launched: {launched}")
+
+
+def run_main_path(model, frames, label="main", names=None, absent=()):
+    """The clip path over ``frames``: the kernels ``names`` (CLIP_KERNELS
+    by default) must launch, those in ``absent`` must not."""
     from vdn_torch import kernels
     from vdn_torch.pipelines.infer_video import infer_video_depth
     torch.cuda.synchronize()
@@ -884,8 +984,9 @@ def run_main_path(model, frames):
     std, pos = float(depth.std()), float((depth > 0).mean())
     if not (std > 0 and pos > 0.01):
         fail(f"degenerate depth: std {std}, positive share {pos}")
-    check_launches("clip", counts, CLIP_KERNELS)
-    log("main", shape=list(depth.shape), mean=f"{depth.mean():.5g}",
+    check_launches(label, counts, names or CLIP_KERNELS)
+    check_absent(label, counts, absent)
+    log(label, shape=list(depth.shape), mean=f"{depth.mean():.5g}",
         std=f"{std:.5g}", positive_share=f"{pos:.4f}",
         wall_s=f"{wall:.3f}", peak_mem_gib=f"{peak / 2 ** 30:.3f}",
         launches=json.dumps(counts, separators=(",", ":")))
@@ -893,23 +994,40 @@ def run_main_path(model, frames):
 
 
 def time_windows(model, frames, label: str = "windows") -> None:
-    """ms per full and per cached window (CUDA events, median of 5)."""
+    """ms per full and per cached window (CUDA events, median of 5), and
+    the peak device memory and host wall seconds of one of each."""
     from vdn_torch.pipelines.infer_video import (INFER_LEN, KEYFRAMES,
                                                  OVERLAP,
                                                  gather_seed_features)
     x = window_input(frames)
+
+    def once(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
     with torch.no_grad():
-        _, feats = model.forward_window(x)
+        (_, feats), full_s, full_gib = once(lambda: model.forward_window(x))
         seed = gather_seed_features(
             feats, torch.tensor(KEYFRAMES, device=DEVICE))
         x_new = x[:, OVERLAP:]
+        _, cached_s, cached_gib = once(
+            lambda: model.forward_window_cached(x_new, seed))
         full_ms = time_ms(lambda: model.forward_window(x), reps=5, warmup=1)
         cached_ms = time_ms(lambda: model.forward_window_cached(x_new, seed),
                             reps=5, warmup=1)
     log(label, full_window_ms=f"{full_ms:.2f}",
         cached_window_ms=f"{cached_ms:.2f}",
         cached_fps_32_per_window=f"{INFER_LEN / cached_ms * 1e3:.3f}",
-        new_frames_per_s=f"{(INFER_LEN - OVERLAP) / cached_ms * 1e3:.3f}")
+        new_frames_per_s=f"{(INFER_LEN - OVERLAP) / cached_ms * 1e3:.3f}",
+        full_window_wall_s=f"{full_s:.3f}",
+        cached_window_wall_s=f"{cached_s:.3f}",
+        full_window_peak_gib=f"{full_gib:.3f}",
+        cached_window_peak_gib=f"{cached_gib:.3f}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -930,7 +1048,7 @@ def drift(ref: np.ndarray, out: np.ndarray) -> dict:
             "rel_l2": float(np.linalg.norm(a - b) / np.linalg.norm(a))}
 
 
-def reference_runs(model, frames, depth):
+def reference_runs(model, frames, depth, label="reference"):
     """The same clip and weights through the plain versions on the card,
     in bf16 and in fp32.  Gate: the kernels' run may sit no further from
     the plain bf16 run than E2E_DRIFT_FACTOR times bf16's own distance
@@ -952,12 +1070,12 @@ def reference_runs(model, frames, depth):
     bf16_drift = drift(plain_fp32, plain_bf16)
     vs_fp32 = drift(plain_fp32, depth)
     tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
-    log("reference", kernels_vs_plain_bf16=json.dumps(vs_plain),
+    log(label, kernels_vs_plain_bf16=json.dumps(vs_plain),
         plain_bf16_vs_fp32=json.dumps(bf16_drift),
         kernels_vs_fp32=json.dumps(vs_fp32), rel_l2_tol=f"{tol:.3e}")
     if not np.isfinite(plain_fp32).all() or not vs_plain["rel_l2"] <= tol:
-        fail(f"kernels' depth vs plain bf16: rel_l2 {vs_plain['rel_l2']} "
-             f"> {tol}")
+        fail(f"{label}: kernels' depth vs plain bf16: rel_l2 "
+             f"{vs_plain['rel_l2']} > {tol}")
     return plain_bf16, plain_fp32
 
 
@@ -986,45 +1104,53 @@ def check_depth(name: str, depth: np.ndarray, n: int, hw=None) -> None:
         fail(f"{name}: degenerate depth")
 
 
-def stream_phase(model, frames) -> dict:
-    """The streaming main path per frame (k = 1) and in chunks of
-    STREAM_CHUNK, each with the launch counts set to 0 just before it and
-    read just after; then the k = 1 stream through the plain versions in
-    bf16 and fp32.  Gates, as the clip's: the kernels' k = 1 stream and
-    the k = STREAM_CHUNK stream may each sit no further from the plain
+def stream_phase(model, frames, n=N_STREAM, chunk=STREAM_CHUNK,
+                 label="stream", absent=()) -> tuple:
+    """The streaming main path over ``n`` frames per frame (k = 1) and,
+    unless ``chunk`` is None, in chunks of ``chunk``, each with the launch
+    counts set to 0 just before it and read just after (the kernels in
+    ``absent`` must not launch); then the k = 1 stream through the plain
+    versions in bf16 and fp32.  Gates, as the clip's: the kernels' k = 1
+    stream and the chunked stream may each sit no further from the plain
     bf16 (resp. the k = 1) stream than E2E_DRIFT_FACTOR times bf16's own
-    distance from fp32."""
+    distance from fp32.  Returns (launches k = 1, launches chunked or None,
+    (plain bf16, plain fp32))."""
     from vdn_torch import kernels
-    frames = frames[:N_STREAM]
+    frames = frames[:n]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     d1, walls1, pipe1 = run_stream(model, frames, 1)
     counts1 = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    check_launches("stream k=1", counts1, STREAM_KERNELS)
-    check_depth("stream k=1", d1, N_STREAM)
-    if not len(pipe1.slots) < N_STREAM + 32:
-        fail(f"stream: no eviction ({len(pipe1.slots)} logical entries)")
-    kernels.reset_launches()
-    dk, walls_k, pipe_k = run_stream(model, frames, STREAM_CHUNK)
-    counts_k = dict(kernels.launches)
-    check_launches(f"stream k={STREAM_CHUNK}", counts_k, CLIP_KERNELS)
-    check_depth(f"stream k={STREAM_CHUNK}", dk, N_STREAM)
-    if (pipe_k.slots, pipe_k.free) != (pipe1.slots, pipe1.free):
-        fail("stream: chunked bookkeeping differs from per-frame")
-    ms_1 = statistics.median(walls1[1:])
-    ms_k = sum(walls_k[1:]) / (N_STREAM - STREAM_CHUNK)
-    log("stream", frames=N_STREAM, mean=f"{d1.mean():.5g}",
+    check_launches(f"{label} k=1", counts1,
+                   [n for n in STREAM_KERNELS if n not in absent])
+    check_absent(f"{label} k=1", counts1, absent)
+    check_depth(f"{label} k=1", d1, n)
+    if not len(pipe1.slots) < n + 32:
+        fail(f"{label}: no eviction ({len(pipe1.slots)} logical entries)")
+    counts_k, chunked = None, {}
+    if chunk is not None:
+        kernels.reset_launches()
+        dk, walls_k, pipe_k = run_stream(model, frames, chunk)
+        counts_k = dict(kernels.launches)
+        check_launches(f"{label} k={chunk}", counts_k,
+                       [n for n in CLIP_KERNELS if n not in absent])
+        check_depth(f"{label} k={chunk}", dk, n)
+        if (pipe_k.slots, pipe_k.free) != (pipe1.slots, pipe1.free):
+            fail(f"{label}: chunked bookkeeping differs from per-frame")
+        chunked = {f"ms_per_frame_k{chunk}":
+                   f"{sum(walls_k[1:]) / (n - chunk):.3f}",
+                   f"launches_k{chunk}": json.dumps(counts_k,
+                                                    separators=(",", ":"))}
+    log(label, frames=n, mean=f"{d1.mean():.5g}",
         std=f"{d1.std():.5g}", positive_share=f"{(d1 > 0).mean():.4f}",
-        ms_per_frame_k1=f"{ms_1:.3f}",
-        **{f"ms_per_frame_k{STREAM_CHUNK}": f"{ms_k:.3f}"},
+        ms_per_frame_k1=f"{statistics.median(walls1[1:]):.3f}",
         first_frame_ms=f"{walls1[0]:.3f}",
+        frame_ms=json.dumps([round(w, 2) for w in walls1]),
         peak_mem_gib=f"{peak / 2 ** 30:.3f}",
         ring_gib=f"{sum(_nbytes(b) for b in pipe1.buffers) / 2 ** 30:.3f}",
-        launches_k1=json.dumps(counts1, separators=(",", ":")),
-        **{f"launches_k{STREAM_CHUNK}": json.dumps(counts_k,
-                                                  separators=(",", ":"))})
+        launches_k1=json.dumps(counts1, separators=(",", ":")), **chunked)
     kernels.reset_launches()
     with kernels.plain_reference():
         plain_bf16, _, _ = run_stream(model, frames, 1)
@@ -1035,34 +1161,34 @@ def stream_phase(model, frames) -> dict:
             model.compute_dtype = torch.bfloat16
     if any(kernels.launches.values()):
         fail(f"kernels launched inside plain_reference: {kernels.launches}")
-    check_depth("stream plain fp32", plain_fp32, N_STREAM)
+    check_depth(f"{label} plain fp32", plain_fp32, n)
     vs_plain = drift(plain_bf16, d1)
     bf16_drift = drift(plain_fp32, plain_bf16)
-    k_vs_1 = drift(d1, dk)
     tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
-    log("stream_reference", kernels_vs_plain_bf16=json.dumps(vs_plain),
+    k_vs_1 = drift(d1, dk) if chunk is not None else None
+    log(f"{label}_reference", kernels_vs_plain_bf16=json.dumps(vs_plain),
         plain_bf16_vs_fp32=json.dumps(bf16_drift),
         kernels_vs_fp32=json.dumps(drift(plain_fp32, d1)),
-        **{f"k{STREAM_CHUNK}_vs_k1": json.dumps(k_vs_1)},
+        **({f"k{chunk}_vs_k1": json.dumps(k_vs_1)} if k_vs_1 else {}),
         rel_l2_tol=f"{tol:.3e}")
     if not vs_plain["rel_l2"] <= tol:
-        fail(f"stream k=1 vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
-    if not k_vs_1["rel_l2"] <= tol:
-        fail(f"stream k={STREAM_CHUNK} vs k=1: rel_l2 {k_vs_1['rel_l2']} "
-             f"> {tol}")
+        fail(f"{label} k=1 vs plain bf16: rel_l2 {vs_plain['rel_l2']} > "
+             f"{tol}")
+    if k_vs_1 is not None and not k_vs_1["rel_l2"] <= tol:
+        fail(f"{label} k={chunk} vs k=1: rel_l2 {k_vs_1['rel_l2']} > {tol}")
     return counts1, counts_k, (plain_bf16, plain_fp32)
 
 
 # ---------------------------------------------------------------- phase 7
-def build_image_model():
-    """DepthAnythingV2 vitl, bf16.  With the stock initial values the
+def build_image_model(encoder: str = "vitl"):
+    """DepthAnythingV2 at ``encoder``, bf16.  With the stock initial values the
     memory hardly reaches the depth (CXBlock.gamma is 1e-6 and the three
     embeddings are 0.02-normal), so a broken bank could pass unnoticed:
     gamma is set to 1 and the embeddings to 0.5-normal.  The attention
     out-projections are lecun-normal, not zero, as initialized."""
     from vdn_torch.models.depth_anything_v2 import build_depth_anything_v2
     gen = torch.Generator().manual_seed(SEED + 1)
-    model = build_depth_anything_v2("vitl", compute_dtype=torch.bfloat16,
+    model = build_depth_anything_v2(encoder, compute_dtype=torch.bfloat16,
                                     device="cpu", generator=gen)
     block = model.memory_block
     with torch.no_grad():
@@ -1106,8 +1232,10 @@ def check_frame_launches(name: str, got: dict, want: dict) -> None:
         fail(f"{name}: launches (got, expected) {diff}")
 
 
-def image_phase(model, frames) -> dict:
-    """The single-image main path: N_IMAGE frames through the memory bank,
+def image_phase(model, frames, n_image=N_IMAGE, launches=None,
+                label="image") -> tuple:
+    """The single-image main path: ``n_image`` frames through the memory
+    bank (``launches`` per steady frame, IMAGE_LAUNCHES by default),
     then clear_memory() and N_NONSQUARE images that are not square, with
     the launch counts set to 0 just before and read just after; then the
     same through the plain versions in bf16 and fp32.  Gates: the launches
@@ -1118,7 +1246,8 @@ def image_phase(model, frames) -> dict:
     runs)."""
     from vdn_torch import kernels
     from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
-    images = [np.ascontiguousarray(f[..., ::-1]) for f in frames[:N_IMAGE]]
+    steady = launches or IMAGE_LAUNCHES
+    images = [np.ascontiguousarray(f[..., ::-1]) for f in frames[:n_image]]
     wide = nonsquare_images(frames)
     probe = MEMORY_PROBE
 
@@ -1136,23 +1265,23 @@ def image_phase(model, frames) -> dict:
     (d, walls, per), (d_alone, _, _), (dw, walls_w, per_w) = run(pipe)
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    check_launches("image", counts, IMAGE_LAUNCHES)
-    check_depth("image", d, N_IMAGE)
-    check_depth("image non-square", dw, N_NONSQUARE, NONSQUARE_HW)
+    check_launches(label, counts, [n for n, v in steady.items() if v])
+    check_depth(label, d, n_image)
+    check_depth(f"{label} non-square", dw, N_NONSQUARE, NONSQUARE_HW)
     if pipe.state["count"] != N_NONSQUARE or any(
             t.shape[1:3] != (MEM_CAPACITY,
                              NONSQUARE_GRID[0] * NONSQUARE_GRID[1])
             for t in (pipe.state["features"], pipe.state["pos"])):
-        fail(f"image: bank after the non-square images: count "
+        fail(f"{label}: bank after the non-square images: count "
              f"{pipe.state['count']}, {pipe.state['features'].shape}")
     for i, c in enumerate(per):
-        check_frame_launches(f"image frame {i}", c, {
-            **IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {})})
+        check_frame_launches(f"{label} frame {i}", c, {
+            **steady, **(IMAGE_FIRST if i == 0 else {})})
     for i, c in enumerate(per_w):
-        check_frame_launches(f"image non-square frame {i}", c, {
-            **IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {}),
+        check_frame_launches(f"{label} non-square frame {i}", c, {
+            **steady, **(IMAGE_FIRST if i == 0 else {}),
             **IMAGE_NONSQUARE})
-    log("image", frames=N_IMAGE, mean=f"{d.mean():.5g}",
+    log(label, frames=n_image, mean=f"{d.mean():.5g}",
         std=f"{d.std():.5g}", positive_share=f"{(d > 0).mean():.4f}",
         first_frame_ms=f"{walls[0]:.3f}",
         steady_ms_per_frame=f"{statistics.median(walls[probe:]):.3f}",
@@ -1175,12 +1304,12 @@ def image_phase(model, frames) -> dict:
             model.compute_dtype = torch.bfloat16
     if any(kernels.launches.values()):
         fail(f"kernels launched inside plain_reference: {kernels.launches}")
-    check_depth("image plain fp32", p32, N_IMAGE)
-    for name, got, b16, f32 in (("image", d, p16, p32),
-                                ("image non-square", dw, p16w, p32w)):
+    check_depth(f"{label} plain fp32", p32, n_image)
+    for name, got, b16, f32 in ((label, d, p16, p32),
+                                (f"{label} non-square", dw, p16w, p32w)):
         vs_plain, bf16_drift = drift(b16, got), drift(f32, b16)
         tol = E2E_DRIFT_FACTOR * bf16_drift["rel_l2"]
-        log("image_reference", images=repr(name),
+        log(f"{label}_reference", images=repr(name),
             kernels_vs_plain_bf16=json.dumps(vs_plain),
             plain_bf16_vs_fp32=json.dumps(bf16_drift),
             kernels_vs_fp32=json.dumps(drift(f32, got)),
@@ -1189,10 +1318,11 @@ def image_phase(model, frames) -> dict:
             fail(f"{name} vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
     effect = drift(d[probe], d_alone[0])["rel_l2"]
     noise = drift(p16[probe], d[probe])["rel_l2"]
-    log("image_memory", frame=probe, with_vs_without_bank=f"{effect:.4e}",
+    log(f"{label}_memory", frame=probe,
+        with_vs_without_bank=f"{effect:.4e}",
         kernels_vs_plain_bf16=f"{noise:.4e}")
     if not effect > E2E_DRIFT_FACTOR * noise:
-        fail(f"image: the memory bank does not reach the depth: frame "
+        fail(f"{label}: the memory bank does not reach the depth: frame "
              f"{probe} moves {effect} without it, bf16 noise {noise}")
     return counts, (p16, p32)
 
@@ -1264,8 +1394,15 @@ N_INT8_IMAGE = 8
 INT8_ENCODER = {"int8_ln_linear": 24, "int8_proj_residual": 24,
                 "fused_ln_mlp_residual_int8": 24,
                 "flash_attention_fused_qkv": 24, "fused_ln_mlp_residual": 0,
-                "int8_linear": 0}
+                "int8_linear": 0, "fused_ln_swiglu_residual_int8": 0}
 INT8_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, **INT8_ENCODER}
+# vitg: 40 blocks, F5 carries the SwiGLU tail (no A2, no F4)
+VITG_INT8_ENCODER = {**{n: 40 for n, v in INT8_ENCODER.items() if v},
+                     "fused_ln_mlp_residual_int8": 0,
+                     "fused_ln_swiglu_residual_int8": 40,
+                     "fused_ln_mlp_residual": 0, "int8_linear": 0}
+VITG_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, "flash_attention_fused_qkv": 40,
+                       "fused_ln_mlp_residual": 0}
 
 
 # the head's quantized convs at the clip window (N 32): (name, H = W, Cin,
@@ -1278,26 +1415,33 @@ INT8_CONVS = [("layer3_rn", 37, 1024, 256, 3, False),
               ("output_conv1", 296, 256, 128, 3, True),
               ("projects_2 / 3", 37, 1024, 1024, 1, False),
               ("projects_1", 37, 1024, 512, 1, False)]
+# vitg's head (C 1536 into features 384): its largest gated conv, whose
+# im2col rows (32 x 148^2 x 13,824 bytes, 9.7 GB whole) go in chunks of
+# IM2COL_BYTES, and the 1536-channel projections
+VITG_INT8_CONVS = [("vitg layer1_rn", 148, 1536, 384, 3, False),
+                   ("vitg projects", 37, 1536, 1536, 1, False)]
 
 
-def int8_conv_phase(frames: int = 32) -> None:
+def int8_conv_phase(frames: int = 32, convs=None) -> None:
     """The int8 conv (vdn's XLA-level op: ``torch._int_mm`` on im2col rows,
     not a kernel of the port) at the head's shapes: on two frames its
     output on the card equals the same function on the CPU (exact int32
     sums, the same fp32 dequantization); over ``frames`` frames its time
-    beside the float conv's in bf16 (cuDNN, as the float path runs it)."""
+    beside the float conv's in bf16 (cuDNN, as the float path runs it),
+    and its peak device memory above its input.  ``convs``: INT8_CONVS by
+    default."""
     import torch.nn.functional as F
     from vdn_torch.nn.layers import Conv2d
     from vdn_torch.ops.int8_conv import int8_conv
     rng = np.random.default_rng(SEED)
-    for name, hw, cin, cout, k, static in INT8_CONVS:
+    for name, hw, cin, cout, k, static in convs or INT8_CONVS:
         conv = Conv2d(cin, cout, k, padding=k // 2)
         with torch.no_grad():
             conv.weight.copy_(_rand(rng, conv.weight.shape,
-                                    (cin * k * k) ** -0.5))
+                                    (cin * k * k) ** -0.5, device="cpu"))
         amax = torch.tensor(3.0) if static else None
         args = ((1, 1), (k // 2, k // 2))
-        x2 = _rand(rng, (2, hw, hw, cin)).to(torch.bfloat16)
+        x2 = _rand(rng, (2, hw, hw, cin), device="cpu").to(torch.bfloat16)
         want = int8_conv(x2, conv.int8_weight(), *args, amax)
         conv = conv.to(DEVICE)
         amax = None if amax is None else amax.to(DEVICE)
@@ -1307,35 +1451,58 @@ def int8_conv_phase(frames: int = 32) -> None:
                  f"CPU's")
         x = _rand(rng, (frames, hw, hw, cin)).to(DEVICE, torch.bfloat16)
         w = conv.weight.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        int8_conv(x, conv.int8_weight(), *args, amax)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         ms = time_ms(lambda: int8_conv(x, conv.int8_weight(), *args, amax),
                      reps=5)
         float_ms = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w, None,
                                             1, k // 2), reps=5)
         log("int8_conv", conv=repr(name), shape=f"N{frames} {hw}x{hw} "
             f"{cin}->{cout} {k}x{k}", static=static, equal_to_cpu=True,
-            ms=f"{ms:.4f}", bf16_cudnn_ms=f"{float_ms:.4f}")
+            ms=f"{ms:.4f}", bf16_cudnn_ms=f"{float_ms:.4f}",
+            peak_above_input_gib=f"{peak:.3f}")
         del x, got
         torch.cuda.empty_cache()
 
 
-def quantized_model(build, model, mode):
-    """``build``'s vitl model in the int8 serving ``mode`` with ``model``'s
-    weights (the calibrated output bias and the adjusted weights included):
-    a state_dict loads with strict=True whatever the mode."""
-    q = build("vitl", compute_dtype=torch.bfloat16, device="cpu",
+def quantized_model(build, model, mode, encoder="vitl"):
+    """``build``'s ``encoder`` model in the int8 serving ``mode`` with
+    ``model``'s weights (the calibrated output bias and the adjusted weights
+    included): a state_dict loads with strict=True whatever the mode."""
+    q = build(encoder, compute_dtype=torch.bfloat16, device="cpu",
               quantize=mode)
     q.load_state_dict(model.state_dict())
     return q.to(DEVICE)
 
 
+def clear_quant_stats(model) -> None:
+    """Drop every conv's calibrated scale: the next int8_static pass
+    calibrates afresh (a pass keeps the running max over the scales it
+    finds, as vdn's)."""
+    from vdn_torch.nn.layers import Conv2d
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.act_amax = None
+
+
+def quant_stats(model) -> dict:
+    from vdn_torch.nn.layers import Conv2d
+    return {n: float(m.act_amax) for n, m in model.named_modules()
+            if isinstance(m, Conv2d) and m.act_amax is not None}
+
+
 class Int8Watch:
     """Forward hooks on a quantized model: ``predicted`` counts the calls of
     its quantized convs that vdn's gate sends to int8 (outside calibration
-    passes), ``encoder_linear`` the calls of the encoder's float qkv / proj
-    / fc1 / fc2 Linears (none on the int8 path)."""
+    passes), ``encoder_linear`` the calls of the encoder's float Linears
+    (qkv, proj and the FFN's: none on the int8 path)."""
 
     def __init__(self, model):
-        from vdn_torch.nn.layers import Conv2d, calibrating
+        from vdn_torch.nn.layers import Conv2d, Linear, calibrating
         from vdn_torch.ops.int8_conv import int8_conv_enabled
         self.predicted = self.encoder_linear = 0
 
@@ -1354,8 +1521,8 @@ class Int8Watch:
                         if isinstance(m, Conv2d) and m.quantize
                         and m.accum_dtype is None]
         for blk in model.pretrained.blocks:
-            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
-                        blk.mlp.fc2):
+            for lin in (blk.attn.qkv, blk.attn.proj, *(
+                    m for m in blk.mlp.modules() if isinstance(m, Linear))):
                 self.handles.append(lin.register_forward_pre_hook(
                     linear_hook))
 
@@ -1416,11 +1583,12 @@ def int8_fidelity(name, run, model, got, refs):
     return tol
 
 
-def int8_clip_phase(q, frames, refs, mode) -> dict:
+def int8_clip_phase(q, frames, refs, mode, label="clip",
+                    encoder=None) -> dict:
     """The clip path of ``q`` (quantized in ``mode``): infer_video_depth
     over the clip (for int8_static the first window calibrates), launches
-    per window and int8 convs asserted; ms per window; fidelity against the
-    plain int8 runs."""
+    per window (``encoder``, INT8_ENCODER by default) and int8 convs
+    asserted; ms per window; fidelity against the plain int8 runs."""
     from vdn_torch import kernels
     from vdn_torch.pipelines.infer_video import INFER_LEN, OVERLAP
     from vdn_torch.pipelines.infer_video import infer_video_depth
@@ -1436,22 +1604,40 @@ def int8_clip_phase(q, frames, refs, mode) -> dict:
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    n_conv = watch.check(f"clip {mode}")
-    check_depth(f"clip {mode}", depth, N_FRAMES)
+    encoder = encoder or INT8_ENCODER
+    n_conv = watch.check(f"{label} {mode}")
+    check_depth(f"{label} {mode}", depth, N_FRAMES)
+    if q.quantize == "int8_static" and quant_stats(q):
+        fail(f"{label} {mode}: the clip call left its scales on the model")
     windows = -(-N_FRAMES // (INFER_LEN - OVERLAP))
-    check_launches(f"clip {mode}", counts,
+    check_launches(f"{label} {mode}", counts,
                    [n for n in CLIP_KERNELS if n != "fused_ln_mlp_residual"])
-    check_frame_launches(f"clip {mode} per window",
+    check_frame_launches(f"{label} {mode} per window",
                          {k: v / windows for k, v in counts.items()},
-                         INT8_ENCODER)
-    log(f"clip_{mode}", windows=windows, wall_s=f"{wall:.3f}",
+                         encoder)
+    log(f"{label}_{mode}", windows=windows, wall_s=f"{wall:.3f}",
         peak_mem_gib=f"{peak / 2 ** 30:.3f}", int8_convs=n_conv,
         int8_convs_per_window=f"{n_conv / windows:.1f}",
         launches=json.dumps(counts, separators=(",", ":")))
     watch.remove()
-    time_windows(q, frames, f"windows_{mode}")
-    int8_fidelity(f"clip_{mode}", run, q, depth, refs)
+    if mode == "int8_static":
+        # the timed windows serve on the first window's scales, as the
+        # clip's do (the clip call leaves the model's scales as it found
+        # them)
+        from vdn_torch.nn.layers import quant_calibration
+        with torch.no_grad(), quant_calibration(q):
+            q.forward_window(window_input(frames))
+    time_windows(q, frames, f"windows_{label.replace('clip', '')}{mode}")
+    clear_quant_stats(q)
+    int8_fidelity(f"{label}_{mode}", run, q, depth, refs)
     return counts
+
+
+def fresh_stream(q, frames, k):
+    """run_stream on a model with no calibrated scales: an int8_static
+    stream's first frame calibrates afresh."""
+    clear_quant_stats(q)
+    return run_stream(q, frames, k)
 
 
 def int8_stream_phase(q, frames, refs, mode):
@@ -1467,7 +1653,7 @@ def int8_stream_phase(q, frames, refs, mode):
     for k in (1, STREAM_CHUNK):
         kernels.reset_launches()
         watch.reset()
-        d, walls, _ = run_stream(q, frames, k)
+        d, walls, _ = fresh_stream(q, frames, k)
         counts = dict(kernels.launches)
         # vdn's gate sends no conv of a single 518 x 518 frame to int8
         # with per-frame scales (N * oh * ow < 32768 below 296 x 296,
@@ -1490,7 +1676,8 @@ def int8_stream_phase(q, frames, refs, mode):
         out[k] = (d, counts)
     watch.remove()
     d1, dk = out[1][0], out[STREAM_CHUNK][0]
-    tol = int8_fidelity(f"stream_{mode}", lambda: run_stream(q, frames, 1)[0],
+    tol = int8_fidelity(f"stream_{mode}",
+                        lambda: fresh_stream(q, frames, 1)[0],
                         q, d1, [r[:N_INT8_STREAM] for r in refs])
     k_vs_1 = drift(d1, dk)
     log(f"stream_{mode}_chunked", **{f"k{STREAM_CHUNK}_vs_k1":
@@ -1523,19 +1710,26 @@ def int8_video_phases(model, frames, clip_refs, stream_refs) -> dict:
 def int8_image_phase(model, frames, refs, mode) -> dict:
     """The image pipeline in ``mode`` over N_INT8_IMAGE frames through the
     bank (for int8_static the first calibrates); launches per image and
-    int8 convs asserted; fidelity against the plain int8 runs."""
+    int8 convs asserted; for int8_static the recalibration after
+    clear_memory() (``check_recalibration``); fidelity against the plain
+    int8 runs."""
     from vdn_torch import kernels
     from vdn_torch.models.depth_anything_v2 import build_depth_anything_v2
     from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
     q = quantized_model(build_depth_anything_v2, model, mode)
     images = [np.ascontiguousarray(f[..., ::-1])
               for f in frames[:N_INT8_IMAGE]]
-    run = lambda: run_images(DepthAnythingV2Pipeline(
-        q, capacity=MEM_CAPACITY), images)
+    new_pipe = lambda: DepthAnythingV2Pipeline(q, capacity=MEM_CAPACITY)
+
+    def run(pipe=None):
+        clear_quant_stats(q)
+        return run_images(pipe or new_pipe(), images)
+
     watch = Int8Watch(q)
     kernels.reset_launches()
     watch.reset()
-    d, walls, per = run()
+    pipe = new_pipe()
+    d, walls, per = run(pipe)
     counts = dict(kernels.launches)
     n_conv = watch.check(f"image {mode}", some=mode == "int8_static")
     watch.remove()
@@ -1547,9 +1741,36 @@ def int8_image_phase(model, frames, refs, mode) -> dict:
         steady_ms_per_frame=f"{statistics.median(walls[MEMORY_PROBE - 1:]):.3f}",
         int8_convs=n_conv,
         launches_steady=json.dumps(per[-1], separators=(",", ":")))
+    if mode == "int8_static":
+        check_recalibration(q, pipe, new_pipe, frames[N_INT8_IMAGE])
     int8_fidelity(f"image_{mode}", lambda: run()[0], q, d,
                   [r[:N_INT8_IMAGE] for r in refs])
     return counts
+
+
+def check_recalibration(q, pipe, new_pipe, frame) -> None:
+    """clear_memory(), then an image of a smaller range (the frame's
+    contrast cut to a quarter): its first pass calibrates on top of the
+    scales the bank's first image left, as vdn's pipeline merges its stats
+    into its params.  Fails if any scale shrank, or differs from the max of
+    the two images' own; logs how many the new image alone would have
+    lowered."""
+    before = quant_stats(q)
+    dim = (128 + (frame.astype(np.int16) - 128) // 4).astype(np.uint8)
+    dim = np.ascontiguousarray(dim[..., ::-1])
+    pipe.clear_memory()
+    run_images(pipe, [dim])
+    after = quant_stats(q)
+    clear_quant_stats(q)
+    run_images(new_pipe(), [dim])
+    alone = quant_stats(q)
+    if set(after) != set(before) or set(alone) != set(before) or any(
+            after[n] != max(before[n], alone[n]) for n in before):
+        fail(f"image int8_static: recalibration after clear_memory() kept "
+             f"{after}, not the max of {before} and {alone}")
+    log("image_int8_static_recalibration", convs=len(before),
+        shrunk=sum(after[n] < before[n] for n in before),
+        lower_alone=sum(alone[n] < before[n] for n in before))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1755,7 +1976,7 @@ def check_updates(name: str, named, before) -> list:
 
 
 def check_no_backward_raises() -> None:
-    """B1, C1, C2 and F1-F4 have no backward: on the card each raises when
+    """B1, C1, C2 and F1-F5 have no backward: on the card each raises when
     an input requires grad, rather than return an output that cuts the
     graph (the training phases show that the wrappers with a backward keep
     it: every trainable tensor upstream of them gets a nonzero gradient)."""
@@ -1782,6 +2003,10 @@ def check_no_backward_raises() -> None:
              "fused_ln_mlp_residual_int8":
                  lambda: int8.fused_ln_mlp_residual_int8(
                      t, v64, v64, w(128, 64), torch.zeros(128, device=DEVICE),
+                     w(64, 128), v64, v64),
+             "fused_ln_swiglu_residual_int8":
+                 lambda: int8.fused_ln_swiglu_residual_int8(
+                     t, v64, v64, w(256, 64), torch.zeros(256, device=DEVICE),
                      w(64, 128), v64, v64)}
     for name, call in calls.items():
         try:
@@ -1946,9 +2171,11 @@ SOURCES = {
                            "vdn/ops/pallas/int8.py:293"),
     "fused_ln_mlp_residual_int8": ("vdn_torch/csrc/ln_mlp_int8.cu",
                                    "vdn/ops/pallas/int8.py:357"),
+    "fused_ln_swiglu_residual_int8": ("vdn_torch/csrc/ln_swiglu_int8.cu",
+                                      "vdn/ops/pallas/int8.py:339"),
 }
 INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
-                "fused_ln_mlp_residual_int8"]
+                "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8"]
 # each kernel's headline path: the one whose run gives its ``launches`` and
 # whose shapes its times are summed over
 HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
@@ -1957,16 +2184,69 @@ HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             "flash_attention_fused_qkv_bwd": "train",
             "fused_ln_mlp_residual_bwd": "train",
             "temporal_attention_block_bwd": "train",
-            **{n: "clip_int8_static" for n in INT8_KERNELS}}
+            **{n: "clip_int8_static" for n in INT8_KERNELS},
+            "fused_ln_swiglu_residual_int8": "vitg_clip_int8_static"}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
 # the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES
 # and METRIC_TRAIN_LAUNCHES
 STREAM_KERNELS = [n for n in SOURCES
                   if HEADLINE.get(n, "clip") in ("clip", "stream_k1")]
-# (the int8 paths' kernels: the clip's less A2, with F1, F3 and F4;
-# INT8_ENCODER gives their launches)
+# (the int8 paths' kernels: the clip's less A2, with F1, F3 and F4 at vitl
+# and F5 at vitg; INT8_ENCODER and VITG_INT8_ENCODER give their launches)
 CLIP_KERNELS = [n for n in STREAM_KERNELS if n != "select_rows"]
+# vitg's float paths: A2 and every int8 kernel must stay off them
+VITG_CLIP_KERNELS = [n for n in CLIP_KERNELS if n != "fused_ln_mlp_residual"]
+VITG_ABSENT = ["fused_ln_mlp_residual", *INT8_KERNELS]
+
+
+def case_path(path: str) -> str:
+    """The kernel cases' path (kernel_cases) of a run's path: its first
+    word, after the model's prefix ("vitg_clip_int8_static" -> "vitg_clip",
+    "stream_k1" -> "stream")."""
+    words = path.split("_")
+    return "_".join(words[:2] if words[0] == "vitg" else words[:1])
+
+
+def vitg_phases(frames) -> dict:
+    """vitg at full width, bf16 and seeded random weights: the clip (three
+    windows: one full, two cached) in bf16, int8_static and int8, 12 frames
+    streamed at k = 1, and N_VITG_IMAGE images through DepthAnythingV2's
+    bank, then clear_memory() and the non-square images; each path's
+    launches and fidelity gated as vitl's.  Returns the launches by path."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    model = build_model("vitg")
+    bias = calibrate_output_bias(
+        model.head.scratch, lambda: model.forward_window(window_input(frames)))
+    log("vitg_model", output_bias=f"{bias:.6g}",
+        params=sum(p.numel() for p in model.parameters()))
+    depth, counts = run_main_path(model, frames, "vitg_main",
+                                  VITG_CLIP_KERNELS, VITG_ABSENT)
+    time_windows(model, frames, "vitg_windows")
+    clip_plain = reference_runs(model, frames, depth, "vitg_reference")
+    int8_conv_phase(convs=VITG_INT8_CONVS)
+    k1, _, _ = stream_phase(model, frames, N_VITG_STREAM, None,
+                            "vitg_stream", VITG_ABSENT)
+    out = {"vitg_clip": counts, "vitg_stream_k1": k1}
+    for mode in INT8_MODES:
+        q = quantized_model(build_video_depth_anything, model, mode, "vitg")
+        out[f"vitg_clip_{mode}"] = int8_clip_phase(
+            q, frames, clip_plain, mode, "vitg_clip", VITG_INT8_ENCODER)
+        del q
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    image_model = build_image_model("vitg")
+    x0 = window_input(frames[:1])[0]
+    bias = calibrate_output_bias(image_model.depth_head.scratch,
+                                 lambda: image_model(x0))
+    log("vitg_image_model", output_bias=f"{bias:.6g}")
+    out["vitg_image"], _ = image_phase(image_model, frames, N_VITG_IMAGE,
+                                       VITG_IMAGE_LAUNCHES, "vitg_image")
+    del image_model
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -2006,25 +2286,28 @@ def main() -> None:
     counts_train = train_phase()
     torch.cuda.empty_cache()
     counts_metric_train = metric_train_phase(frames)
+    torch.cuda.empty_cache()
+    launches_vitg = vitg_phases(frames)
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
-                "metric_train": counts_metric_train, **launches_int8}
+                "metric_train": counts_metric_train, **launches_int8,
+                **launches_vitg}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
     # C2: the memory attention's shapes at both token grids; the training
     # kernels: one b2 t8 step's shapes, D4 at the four motion modules;
-    # F1-F4: the cached window's rows, their bf16 counterpart's time in
-    # bf16_ms, every shape's numbers in by_shape), launches over the
-    # training phase's TRAIN_STEPS steps (F1-F4: the int8_static clip's
+    # F1-F5: the cached window's rows, F5 vitg's, their bf16 counterpart's
+    # time in bf16_ms, every shape's numbers in by_shape), launches over
+    # the training phase's TRAIN_STEPS steps (F1-F5: the int8_static clip's
     # three windows), and stream_ms / stream_bound_ms over the stream's
     # shapes; launches from the run of the headline path, and from every
-    # path's run.
+    # path's run; ``vitg``: the numbers at vitg's widths, by path.
     rows = []
     for name, (src, tpu) in SOURCES.items():
         path = HEADLINE.get(name, "clip")
-        head = summary[name][path.split("_")[0]]
+        head = summary[name][case_path(path)]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[path].get(name, 0), "path": path,
@@ -2038,6 +2321,10 @@ def main() -> None:
                 "by_shape": {p: v for p, v in summary[name].items()
                              if p != "max_abs_err"}}
                if name in INT8_KERNELS else {}),
+            **({"vitg": {p: v for p, v in summary[name].items()
+                         if p.startswith("vitg")}}
+               if any(p.startswith("vitg") for p in summary[name])
+               and name not in INT8_KERNELS else {}),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in launches.items()}})
     print(json.dumps({"kernels": rows}), flush=True)

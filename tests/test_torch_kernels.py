@@ -157,6 +157,8 @@ def test_fused_ln_mlp_residual(shape, dtype):
     (37, 32, 256),    # mm2/mm3 width (dh 32), token count not a block multiple
     (9, 32, 1024),    # mm0/mm1 width (dh 128)
     (20, 8, 256),     # short window
+    (9, 32, 1536),    # vitg's mm0/mm1 (dh 192)
+    (37, 32, 384),    # vitg's mm2/mm3 (dh 48)
 ])
 def test_temporal_attention_block(bn, t, c, dtype):
     rng = np.random.default_rng(2)
@@ -174,6 +176,24 @@ def test_temporal_attention_block(bn, t, c, dtype):
         tx, torch.from_numpy(pe), *(torch.from_numpy(w).T for w in ws),
         torch.from_numpy(bo), 8, scale)
     _close(got, want, dtype)
+
+
+def test_temporal_attention_head_dims(monkeypatch):
+    """A3's wrapper admits vitl's and vitg's head widths; D4's (its checks
+    reached as on the card) keeps the training paths' and says why vitg's
+    are left out."""
+    monkeypatch.setattr(tta, "use_kernel", lambda x: True)
+    for c in (256, 384, 1024, 1536):
+        x = torch.zeros((2, 4, c), dtype=torch.bfloat16)
+        tta._check_args("temporal_attention_block", x, 8)
+        if c // 8 in (48, 192):
+            with pytest.raises(ValueError, match="served only"):
+                tta.temporal_attention_bwd_dx(x, *[None] * 6, 8, 1.0)
+        else:
+            tta._check_args("bwd", x, 8, tta.BACKWARD_HEAD_DIMS)
+    with pytest.raises(ValueError):
+        tta._check_args("a3", torch.zeros((2, 4, 640),
+                                           dtype=torch.bfloat16), 8)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -284,6 +304,7 @@ def _island_args(n, h, w, c, seed):
     (1, 21, 21, 128, (37, 37), False, 1.0, 0),   # odd output width
     (1, 30, 30, 256, (53, 53), False, 1.0, 0),   # wider channels
     (1, 19, 19, 128, (40, 40), True, 20.0, 3),   # the sigmoid head
+    (1, 21, 21, 192, (37, 37), False, 1.0, 0),   # vitg's C (bands of 4)
 ])
 def test_fused_resize_island(n, h, w, c, out_hw, sigmoid, max_depth, seed,
                              dtype):

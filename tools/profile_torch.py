@@ -18,6 +18,11 @@ VideoDepthAnything:
   by the ``int8_conv`` range each call is traced in), beside the
   ``cached`` unit's bf16 split.
 
+vitg (chip_smoke.py's vitg model, full width):
+
+- ``vitg_cached`` and ``vitg_int8``: the ``cached`` and ``int8`` units on
+  VideoDepthAnything vitg (F5 in place of F4).
+
 DepthAnythingV2 with its memory bank:
 
 - ``image``: four ``infer_image`` calls after 8 warm frames (the six-slot
@@ -53,14 +58,18 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
-    (r"quant_rows_kernel<float", "F4 hidden quantize (per row and F / 2)"),
+    (r"quant_rows_kernel<float",
+     "F4 / F5 hidden quantize (per row and F / 2)"),
     (r"quant_rows_kernel<[^,]*, (true|\(bool\)1)>",
-     "F1 / F4 LayerNorm + quantize rows"),
+     "F1 / F4 / F5 LayerNorm + quantize rows"),
     (r"quant_rows_kernel", "F3 quantize rows"),
     (r"EpiI8Bias", "F1 qkv int8 GEMM"),
-    (r"EpiI8ProjResidual", "F3 proj int8 GEMM (+ b, x gamma, + residual)"),
+    (r"gemm_s8_kernel<1,.*EpiI8Residual",
+     "F3 proj int8 GEMM (+ b, x gamma, + residual)"),
     (r"EpiI8Gelu", "F4 fc1 int8 GEMM (GELU epilogue)"),
-    (r"EpiI8MlpResidual", "F4 fc2 int8 GEMM (two chunks, + b2, x gamma, + x)"),
+    (r"EpiI8Swiglu", "F5 w12 int8 GEMM (dual, SwiGLU epilogue)"),
+    (r"gemm_s8_kernel<2,.*EpiI8Residual",
+     "F4 fc2 / F5 w3 int8 GEMM (two chunks, + b, x gamma, + x)"),
     (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
      "A1-train flash attention (+ log-sum-exp)"),
     (r"flash_qkv_kernel", "A1 flash attention"),
@@ -179,31 +188,38 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-UNITS = ("cached", "int8", "stream_k1", "stream_k8", "image", "train")
+UNITS = ("cached", "int8", "stream_k1", "stream_k8", "image", "train",
+         "vitg_cached", "vitg_int8")
 
 
-def profile_video(units, out: str) -> None:
+def profile_cached(model, frames, out: str, name: str) -> None:
+    """Three cached windows of ``model`` after a full one and a warm-up."""
     from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
                                                  gather_seed_features)
+    x = cs.window_input(frames)
+    with torch.no_grad():
+        _, feats = model.forward_window(x)
+        seed = gather_seed_features(
+            feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
+        x_new = x[:, OVERLAP:]
+        model.forward_window_cached(x_new, seed)
+        res = trace(lambda: model.forward_window_cached(x_new, seed), 3,
+                    os.path.join(out, f"{name}.json"))
+    report(name, res, 3, "window")
+
+
+def profile_video(units, out: str, encoder: str = "vitl") -> None:
     from vdn_torch.pipelines.stream import VideoDepthStreamPipeline
-    model = cs.build_model()
+    model = cs.build_model(encoder)
     frames = cs.synthetic_clip()
-    if "cached" in units:
-        x = cs.window_input(frames)
-        with torch.no_grad():
-            _, feats = model.forward_window(x)
-            seed = gather_seed_features(
-                feats, torch.tensor(KEYFRAMES, device=cs.DEVICE))
-            x_new = x[:, OVERLAP:]
-            model.forward_window_cached(x_new, seed)
-            res = trace(lambda: model.forward_window_cached(x_new, seed), 3,
-                        os.path.join(out, "cached.json"))
-        report("cached", res, 3, "window")
+    prefix = "" if encoder == "vitl" else f"{encoder}_"
+    if f"{prefix}cached" in units:
+        profile_cached(model, frames, out, f"{prefix}cached")
 
-    if "int8" in units:
-        profile_int8(model, frames, out)
+    if f"{prefix}int8" in units:
+        profile_int8(model, frames, out, f"{prefix}int8", encoder)
 
-    if "stream_k1" in units:
+    if f"{prefix}stream_k1" in units:
         pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
         for f in frames[:12]:
             pipe.infer_video_depth_one(f)
@@ -212,7 +228,7 @@ def profile_video(units, out: str) -> None:
                     os.path.join(out, "stream_k1.json"))
         report("stream_k1", res, 4, "frame")
 
-    if "stream_k8" in units:
+    if f"{prefix}stream_k8" in units:
         pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
         pipe.infer_video_depth_chunk(list(frames[:8]))
         chunks = iter([list(frames[8:16]), list(frames[16:24])])
@@ -221,7 +237,8 @@ def profile_video(units, out: str) -> None:
         report("stream_k8", res, 16, "frame")
 
 
-def profile_int8(model, frames, out: str) -> None:
+def profile_int8(model, frames, out: str, name: str = "int8",
+                 encoder: str = "vitl") -> None:
     """The cached window of ``model``'s weights in int8_static, calibrated
     on one full window; each int8 conv call inside an INT8_CONV range."""
     from vdn_torch.models.video_depth_anything import \
@@ -229,7 +246,8 @@ def profile_int8(model, frames, out: str) -> None:
     from vdn_torch.nn import layers
     from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
                                                  gather_seed_features)
-    q = cs.quantized_model(build_video_depth_anything, model, "int8_static")
+    q = cs.quantized_model(build_video_depth_anything, model, "int8_static",
+                           encoder)
     x = cs.window_input(frames)
     conv = layers.int8_conv
 
@@ -247,10 +265,10 @@ def profile_int8(model, frames, out: str) -> None:
             x_new = x[:, OVERLAP:]
             q.forward_window_cached(x_new, seed)
             res = trace(lambda: q.forward_window_cached(x_new, seed), 3,
-                        os.path.join(out, "int8.json"))
+                        os.path.join(out, f"{name}.json"))
     finally:
         layers.int8_conv = conv
-    report("int8", res, 3, "window")
+    report(name, res, 3, "window")
 
 
 def profile_image(out: str) -> None:
@@ -288,8 +306,11 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     cs.environment()
     cs.build_kernels()
-    if set(args.units) - {"image", "train"}:
+    if set(args.units) & {"cached", "int8", "stream_k1", "stream_k8"}:
         profile_video(args.units, args.out)
+    if set(args.units) & {"vitg_cached", "vitg_int8"}:
+        torch.cuda.empty_cache()
+        profile_video(args.units, args.out, "vitg")
     if "image" in args.units:
         profile_image(args.out)
     if "train" in args.units:

@@ -13,7 +13,9 @@ released checkpoint converted for it) loads into the port's modules with
 - everything else (cls_token, pos_embed, gamma, ...) copies verbatim.
 
 These are the rules the clip-depth, single-image and metric-depth models
-use (the memory block's ``gamma`` and (1, ., C) embeddings copy verbatim,
+use at every encoder size (vitg's SwiGLU ``mlp.w12`` / ``mlp.w3`` kernels
+are rank-2 and transpose like any Linear's; the memory block's ``gamma``
+and (1, ., C) embeddings copy verbatim,
 its depthwise and stride convs are plain rank-4 kernels), and the
 refinement models v2-v5 (vdn_torch.models.refine): their zero convs
 (``shift_head_0``, ``scale_head/feat_1``) are rank-4 kernels, the v2

@@ -1,17 +1,21 @@
-// One tiled int8 GEMM for the W8A8 serving kernels (F1-F4):
+// One tiled int8 GEMM for the W8A8 serving kernels (F1-F5):
 //   out = epi( sum_j (float(A_j @ W_j^T) * rs[m, j]) * cs[n] )
 //
 //   A   [M, K] int8, row stride lda bytes (rows quantized by a row kernel)
-//   W   [N, K] int8, K contiguous (a quantized torch Linear weight)
+//   W   [N, K] int8, K contiguous (a quantized torch Linear weight); in the
+//       dual mode [2N, K], rows [0, N) the SwiGLU gate half and [N, 2N) the
+//       value half
 //   rs  fp32 row scales [M, kChunks]; K splits into kChunks equal chunks j,
 //       each summed exactly in int32 and dequantized on its own
-//   cs  fp32 column scales [N] (the weight's per-output-channel scales)
+//   cs  fp32 column scales [N] (dual mode [2N]: the weight's
+//       per-output-channel scales)
 //   epi epilogue functor, called with two adjacent fp32 values of one
-//       output row
+//       output row (dual mode: the gate pair and the value pair of the same
+//       two output columns)
 //
 // Replaces the int8 MXU dots of vdn/ops/pallas/int8.py (_int8_dot inside
-// _ln_linear_kernel, _linear_kernel, _proj_residual_kernel and
-// _ln_mlp_int8_kernel).  The TPU kernels keep the whole int8 weight in VMEM;
+// _ln_linear_kernel, _linear_kernel, _proj_residual_kernel,
+// _ln_mlp_int8_kernel and _ln_swiglu_int8_kernel).  The TPU kernels keep the whole int8 weight in VMEM;
 // a Hopper block has 227 KB, so the product is tiled as the bf16 template
 // (gemm_tile.cuh) tiles it: 128 x 128 output tiles, K in 64-byte slices,
 // eight warps of 64 x 32, mma.sync m16n8k32 s8 x s8 -> s32, the next slice
@@ -57,11 +61,12 @@ __device__ __forceinline__ float dequant(int acc, float rs, float cs) {
   return __fmul_rn(__fmul_rn(static_cast<float>(acc), rs), cs);
 }
 
-template <int kChunks, class Epi>
+template <int kChunks, bool kDual, class Epi>
 __global__ void __launch_bounds__(kIGemmThreads)
 gemm_s8_kernel(int M, int N, int K, const int8_t* __restrict__ A, int lda,
                const int8_t* __restrict__ W, const float* __restrict__ rs,
                const float* __restrict__ cs, Epi epi) {
+  static_assert(!(kDual && kChunks > 1), "the dual mode dequantizes once");
   __shared__ __align__(16) int8_t As[2][kIBM * kILds];
   __shared__ __align__(16) int8_t Ws[2][kIBN * kILds];
 
@@ -69,10 +74,25 @@ gemm_s8_kernel(int M, int N, int K, const int8_t* __restrict__ A, int lda,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int n0 = blockIdx.x * kIBN;
+  const int n0 = blockIdx.x * (kDual ? kIBN / 2 : kIBN);
   const int m0 = blockIdx.y * kIBM;
   const int KT = K / kIBK;
   const int KC = KT / kChunks;  // slices per chunk
+
+  // tile row r of the W tile -> weight row (or -1 beyond N).  The dual mode
+  // interleaves 8-row groups of the two halves (as gemm_tile.cuh's), so a
+  // warp's n8 tiles 2p and 2p+1 hold the gate and value columns of the
+  // same 8 outputs.
+  auto w_row = [&](int r) -> int {
+    if constexpr (!kDual) {
+      return n0 + r < N ? n0 + r : -1;
+    } else {
+      const int grp = r >> 3;
+      const int idx = n0 + (grp >> 1) * 8 + (r & 7);
+      if (idx >= N) return -1;
+      return (grp & 1) ? N + idx : idx;
+    }
+  };
 
   uint4 ra[2], rw[2];
   auto load = [&](int kt) {
@@ -81,11 +101,11 @@ gemm_s8_kernel(int M, int N, int K, const int8_t* __restrict__ A, int lda,
     for (int i = 0; i < 2; ++i) {
       const int c = tid + i * kIGemmThreads;
       const int r = c >> 2, kc = (c & 3) * 16;
-      const int m = m0 + r, n = n0 + r;
+      const int m = m0 + r, wr = w_row(r);
       ra[i] = m < M ? *reinterpret_cast<const uint4*>(A + (size_t)m * lda + k0 + kc)
                     : make_uint4(0, 0, 0, 0);
-      rw[i] = n < N ? *reinterpret_cast<const uint4*>(W + (size_t)n * K + k0 + kc)
-                    : make_uint4(0, 0, 0, 0);
+      rw[i] = wr >= 0 ? *reinterpret_cast<const uint4*>(W + (size_t)wr * K + k0 + kc)
+                      : make_uint4(0, 0, 0, 0);
     }
   };
   auto store = [&](int buf) {
@@ -171,16 +191,31 @@ gemm_s8_kernel(int M, int N, int K, const int8_t* __restrict__ A, int lda,
     for (int h = 0; h < 2; ++h) {
       const int m = row_of(mi, 2 * h);
       if (m >= M) continue;
+      if constexpr (kDual) {
+        const float r = rs[m];
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int n = col_of(nj, 0);
-        if (n >= N) continue;
-        if constexpr (kChunks > 1) {
-          epi(m, n, sum[mi][nj][2 * h], sum[mi][nj][2 * h + 1]);
-        } else {
-          const float r = rs[m];
-          epi(m, n, dequant(acc[mi][nj][2 * h], r, cs[n]),
-              dequant(acc[mi][nj][2 * h + 1], r, cs[n + 1]));
+        for (int p = 0; p < 2; ++p) {
+          const int n = n0 + wn * 16 + p * 8 + 2 * t;
+          if (n >= N) continue;
+          const int* a = acc[mi][2 * p];
+          const int* v = acc[mi][2 * p + 1];
+          epi(m, n, dequant(a[2 * h], r, cs[n]),
+              dequant(a[2 * h + 1], r, cs[n + 1]),
+              dequant(v[2 * h], r, cs[N + n]),
+              dequant(v[2 * h + 1], r, cs[N + n + 1]));
+        }
+      } else {
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int n = col_of(nj, 0);
+          if (n >= N) continue;
+          if constexpr (kChunks > 1) {
+            epi(m, n, sum[mi][nj][2 * h], sum[mi][nj][2 * h + 1]);
+          } else {
+            const float r = rs[m];
+            epi(m, n, dequant(acc[mi][nj][2 * h], r, cs[n]),
+                dequant(acc[mi][nj][2 * h + 1], r, cs[n + 1]));
+          }
         }
       }
     }
@@ -188,16 +223,38 @@ gemm_s8_kernel(int M, int N, int K, const int8_t* __restrict__ A, int lda,
 }
 
 // Requires K % (64 * kChunks) == 0, N % 8 == 0, lda % 16 == 0 and 16-byte
-// aligned pointers (checked by the Python wrappers).
-template <int kChunks, class Epi>
+// aligned pointers (checked by the Python wrappers).  N is the number of
+// output columns; in the dual mode W and cs hold 2N rows.
+template <int kChunks, bool kDual = false, class Epi>
 cudaError_t launch_gemm_s8(int M, int N, int K, const int8_t* A, int lda,
                            const int8_t* W, const float* rs, const float* cs,
                            Epi epi, cudaStream_t stream) {
-  dim3 grid((N + kIBN - 1) / kIBN, (M + kIBM - 1) / kIBM);
-  gemm_s8_kernel<kChunks, Epi><<<grid, kIGemmThreads, 0, stream>>>(
+  const int ntile = kDual ? kIBN / 2 : kIBN;
+  dim3 grid((N + ntile - 1) / ntile, (M + kIBM - 1) / kIBM);
+  gemm_s8_kernel<kChunks, kDual, Epi><<<grid, kIGemmThreads, 0, stream>>>(
       M, N, K, A, lda, W, rs, cs, epi);
   return cudaGetLastError();
 }
+
+// res + bf16(((v + b) * gamma)) in bf16, the epilogue of F3, F4 and F5:
+// LayerScale and the block residual (int8.py:201-215, :331-332).  res
+// [M, ld] bf16 may not alias out.
+struct EpiI8Residual {
+  const float* b;
+  const float* gamma;
+  const __nv_bfloat16* res;
+  __nv_bfloat16* out;
+  int ld;
+  __device__ void operator()(int m, int n, float v0, float v1) const {
+    const size_t i = (size_t)m * ld + n;
+    const float2 r = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(res + i));
+    const float o0 = __fmul_rn(__fadd_rn(v0, b[n]), gamma[n]);
+    const float o1 = __fmul_rn(__fadd_rn(v1, b[n + 1]), gamma[n + 1]);
+    *reinterpret_cast<uint32_t*>(out + i) =
+        pack_bf16(r.x + bf16r(o0), r.y + bf16r(o1));
+  }
+};
 
 // Eight consecutive elements of a bf16 or fp32 row, as fp32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {

@@ -22,9 +22,6 @@
 
 namespace {
 
-using vdn::bf16r;
-using vdn::bf2f;
-
 struct EpiI8Bias {
   const float* b;
   __nv_bfloat16* out;
@@ -32,23 +29,6 @@ struct EpiI8Bias {
   __device__ void operator()(int m, int n, float v0, float v1) const {
     *reinterpret_cast<uint32_t*>(out + (size_t)m * ldo + n) =
         vdn::pack_bf16(__fadd_rn(v0, b[n]), __fadd_rn(v1, b[n + 1]));
-  }
-};
-
-struct EpiI8ProjResidual {
-  const float* b;
-  const float* gamma;
-  const __nv_bfloat16* res;
-  __nv_bfloat16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    const size_t i = (size_t)m * ld + n;
-    const float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(res + i));
-    const float o0 = __fmul_rn(__fadd_rn(v0, b[n]), gamma[n]);
-    const float o1 = __fmul_rn(__fadd_rn(v1, b[n + 1]), gamma[n + 1]);
-    *reinterpret_cast<uint32_t*>(out + i) =
-        vdn::pack_bf16(r.x + bf16r(o0), r.y + bf16r(o1));
   }
 };
 
@@ -99,9 +79,9 @@ extern "C" int vdn_int8_proj_residual(const void* x, const void* res, int M,
   return vdn::launch_gemm_s8<1>(
       M, F, C, q, C, static_cast<const int8_t*>(wq), sc,
       static_cast<const float*>(sw),
-      EpiI8ProjResidual{static_cast<const float*>(b),
-                        static_cast<const float*>(gamma),
-                        static_cast<const __nv_bfloat16*>(res),
-                        static_cast<__nv_bfloat16*>(out), F},
+      vdn::EpiI8Residual{static_cast<const float*>(b),
+                         static_cast<const float*>(gamma),
+                         static_cast<const __nv_bfloat16*>(res),
+                         static_cast<__nv_bfloat16*>(out), F},
       s);
 }

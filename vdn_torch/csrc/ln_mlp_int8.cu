@@ -24,8 +24,6 @@
 
 namespace {
 
-using vdn::bf16r;
-
 struct EpiI8Gelu {
   const float* b;
   float* h;
@@ -34,23 +32,6 @@ struct EpiI8Gelu {
     *reinterpret_cast<float2*>(h + (size_t)m * ldh + n) =
         make_float2(vdn::gelu_tanh(__fadd_rn(v0, b[n])),
                     vdn::gelu_tanh(__fadd_rn(v1, b[n + 1])));
-  }
-};
-
-struct EpiI8MlpResidual {
-  const float* b;
-  const float* gamma;
-  const __nv_bfloat16* x;
-  __nv_bfloat16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    const size_t i = (size_t)m * ld + n;
-    const float2 xv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(x + i));
-    const float o0 = __fmul_rn(__fadd_rn(v0, b[n]), gamma[n]);
-    const float o1 = __fmul_rn(__fadd_rn(v1, b[n + 1]), gamma[n + 1]);
-    *reinterpret_cast<uint32_t*>(out + i) =
-        vdn::pack_bf16(xv.x + bf16r(o0), xv.y + bf16r(o1));
   }
 };
 
@@ -88,8 +69,8 @@ extern "C" int vdn_ln_mlp_int8(const void* x, int M, int C, int F,
   return vdn::launch_gemm_s8<2>(
       M, C, F, h8, F, static_cast<const int8_t*>(w2q),
       static_cast<const float*>(sh), static_cast<const float*>(s2),
-      EpiI8MlpResidual{static_cast<const float*>(b2),
-                       static_cast<const float*>(gamma), xb,
-                       static_cast<__nv_bfloat16*>(out), C},
+      vdn::EpiI8Residual{static_cast<const float*>(b2),
+                          static_cast<const float*>(gamma), xb,
+                          static_cast<__nv_bfloat16*>(out), C},
       s);
 }

@@ -5,18 +5,19 @@
 // 32 -> 1, act ReLU or sigmoid * max_depth.
 //
 // Replaces vdn/ops/pallas/resize_island.py fused_resize_island (_kernel) at
-// vitl 518: [32, 296, 296, 128] -> [32, 518, 518, 1].  The full-resolution
-// 128-channel feature is never written to device memory.
+// vitl 518: [32, 296, 296, 128] -> [32, 518, 518, 1], and at vitg 518 with
+// C = 192.  The full-resolution C-channel feature is never written to
+// device memory.
 //
 // Bound on the H100 by the conv3x3: 2 * 32 * 518^2 * 9 * 128 * 32 = 0.63 TFLOP
 // (0.64 ms at the bf16 tensor-core peak) against 1.3 GB of xh read (0.4 ms).
 // The TPU kernel lane-packed 4 output columns into the 128-lane MXU with
 // bucketed weights; Hopper's tensor cores take N = 32 as it is, so this is an
-// implicit GEMM: M = output pixels, N = 32, K = 9 * C.  A block (8 warps)
-// owns a band of 8 output rows of one image and walks it in tiles of 32
+// implicit GEMM: M = output pixels, N = 32, K = 9 * C.  A block (kTH warps)
+// owns a band of kTH output rows of one image and walks it in tiles of 32
 // columns:
 //   1. all conv weights [32][9C] bf16 are staged in shared memory once per
-//      block (74 KB at C 128);
+//      block (74 KB at C 128, 111 KB at C 192);
 //   2. per tile, the W-resized rows the tile's 3x3 windows need --
 //      (8 + 2) rows x (32 + 2) columns x C -- are built in shared memory from
 //      xh with the two-tap column plan: bf16 weights, fp32 sum, rounded to
@@ -28,20 +29,30 @@
 //      offset), fp32 accumulators;
 //   4. epilogue: + b1, ReLU, rounded to bf16 (vdn's rounding point), the
 //      32-wide dot with w2 in fp32 across the quad of lanes, + b2, act.
-// One block per SM (166 KB of shared memory); no overlap of the tile build
-// with the MMAs yet.
+// One block per SM (166 KB of shared memory at C 128); no overlap of the
+// tile build with the MMAs yet.  Bands of 8 rows hold C <= 176 in the 227 KB
+// a block may use; above, bands of 4 rows (4 warps) hold C <= 224 (193 KB at
+// C 192).  Each output pixel's sums run in the same order in both, so the
+// band height does not change a result.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTH = 8;   // output rows per block (one per warp)
 constexpr int kTW = 32;  // output columns per tile
 constexpr int kO = 32;   // conv3x3 output channels
-constexpr int kThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 
-__global__ void __launch_bounds__(kThreads, 1)
+// shared memory of a band of kTH rows at C channels
+constexpr size_t island_smem(int kTH, int c) {
+  return (size_t)kO * (9 * c + 8) * 2 +
+         (size_t)(kTH + 2) * (kTW + 2) * (c + 8) * 2;
+}
+
+// kTH: output rows per block, one per warp
+template <int kTH>
+__global__ void __launch_bounds__(32 * kTH, 1)
 resize_island_kernel(const __nv_bfloat16* __restrict__ xh, int hp, int w_in,
                      int C, int h_out, int w_out,
                      const int* __restrict__ cidx,
@@ -51,6 +62,7 @@ resize_island_kernel(const __nv_bfloat16* __restrict__ xh, int hp, int w_in,
                      const float* __restrict__ w2,
                      const float* __restrict__ b2p, int sigmoid,
                      float max_depth, float* __restrict__ out) {
+  constexpr int kThreads = 32 * kTH;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldb = 9 * C + 8;  // odd multiple of 4 words: conflict-free frags
   const int ldu = C + 8;
@@ -177,13 +189,35 @@ resize_island_kernel(const __nv_bfloat16* __restrict__ xh, int hp, int w_in,
   }
 }
 
+template <int kTH>
+cudaError_t launch_island(const void* xh, int n, int hp, int w_in, int c,
+                          int h_out, int w_out, const void* cidx,
+                          const void* cw, const void* wt, const void* b1,
+                          const void* w2, const void* b2, int sigmoid,
+                          float max_depth, void* out, cudaStream_t s) {
+  const int tiles = (h_out + kTH - 1) / kTH;
+  if (hp < tiles * kTH + 2) return cudaErrorInvalidValue;
+  const size_t smem = island_smem(kTH, c);
+  cudaError_t err = cudaFuncSetAttribute(
+      resize_island_kernel<kTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  resize_island_kernel<kTH><<<dim3(tiles, n), 32 * kTH, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(xh), hp, w_in, c, h_out, w_out,
+      static_cast<const int*>(cidx), static_cast<const float*>(cw),
+      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2), sigmoid,
+      max_depth, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // xh [n, hp, w_in, c] bf16 with hp >= ceil(h_out / 8) * 8 + 2; cidx [w_out, 2]
 // int32 and cw [w_out, 2] fp32 (values rounded to bf16) the column plan;
 // wt [32, 9c] bf16 with wt[o][(dy * 3 + dx) * c + ci] = w1[dy, dx, ci, o];
 // b1 [32], w2 [32], b2 [1] fp32 (w2 values rounded to bf16); out
-// [n, h_out, w_out] fp32.  c a multiple of 16, at most 176.
+// [n, h_out, w_out] fp32.  c a multiple of 16, at most 224.
 extern "C" int vdn_resize_island(const void* xh, int n, int hp, int w_in,
                                  int c, int h_out, int w_out, const void* cidx,
                                  const void* cw, const void* wt,
@@ -191,21 +225,11 @@ extern "C" int vdn_resize_island(const void* xh, int n, int hp, int w_in,
                                  int sigmoid, float max_depth, void* out,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (h_out + kTH - 1) / kTH;
-  if (c % 16 || c > 176 || hp < tiles * kTH + 2 || n > 65535)
+  if (c % 16 || n > 65535 || island_smem(4, c) > kMaxSmem)
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)kO * (9 * c + 8) * 2 +
-                      (size_t)(kTH + 2) * (kTW + 2) * (c + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      resize_island_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  resize_island_kernel<<<dim3(tiles, n), kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(xh), hp, w_in, c, h_out, w_out,
-      static_cast<const int*>(cidx), static_cast<const float*>(cw),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), sigmoid,
-      max_depth,
-      static_cast<float*>(out));
-  return cudaGetLastError();
+  if (island_smem(8, c) <= kMaxSmem)
+    return launch_island<8>(xh, n, hp, w_in, c, h_out, w_out, cidx, cw, wt,
+                            b1, w2, b2, sigmoid, max_depth, out, s);
+  return launch_island<4>(xh, n, hp, w_in, c, h_out, w_out, cidx, cw, wt, b1,
+                          w2, b2, sigmoid, max_depth, out, s);
 }

@@ -3,7 +3,8 @@
 //
 // Replaces vdn/ops/pallas/temporal_attention.py temporal_attention_block
 // (_kernel via _fused_fwd_impl) at (BN, C) = (1369, 1024), (361, 1024),
-// (1369, 256), (5476, 256), T = 32, dh = 128 / 32, bf16.
+// (1369, 256), (5476, 256), T = 32, dh = 128 / 32, bf16 (vitl), and at C
+// 1536 / 384, dh = 192 / 48 (vitg; vdn's gate has no dh condition).
 //
 // Bound on the H100 by the four C x C projections (8 * BN * T * C^2 FLOP);
 // the T x T attention core is 4 * BN * T^2 * C FLOP, 1-3% of that.  The TPU
@@ -16,7 +17,9 @@
 //      head in shared memory, one warp per query row with lane j holding
 //      key j, so the 32 x 32 fp32 logits and the softmax stay in registers;
 //      probs rounded to bf16, pv = probs @ v in fp32 rounded to bf16.  The
-//      core is small, so it uses fp32 FMA rather than the tensor cores;
+//      core is small, so it uses fp32 FMA rather than the tensor cores.
+//      One instantiation per head width (32, 48, 64, 128, 192): q / k / v
+//      take 3 * 32 * (dh + 2) bf16 of shared memory, 37 KB at dh 192;
 //   3. gemm_tile for pv @ wo^T (the fp32 sum over all heads at once), the
 //      sum rounded to bf16, then + bo in bf16.
 // The qkv and pv round trips are 4 * BN * T * C * 2 bytes, which the
@@ -108,10 +111,15 @@ temporal_core_kernel(const __nv_bfloat16* __restrict__ qkv, int T, int C,
   }
   __syncthreads();
 
-  // pv = probs @ v: thread -> one column pair, a stride of rows
+  // pv = probs @ v: thread -> one column pair, a stride of rows; with dh
+  // 48 or 192 the pairs do not divide the block, and the threads past the
+  // last whole group of pairs idle
   constexpr int kPairs = DH / 2;
+  constexpr int kGroups = kCoreThreads / kPairs > 0 ? kCoreThreads / kPairs : 1;
+  static_assert(kPairs <= kCoreThreads, "one column pair per thread");
   const int cp = tid % kPairs;
-  for (int i = tid / kPairs; i < T; i += kCoreThreads / kPairs) {
+  if (tid >= kGroups * kPairs) return;
+  for (int i = tid / kPairs; i < T; i += kGroups) {
     float a0 = 0.f, a1 = 0.f;
     for (int j = 0; j < T; ++j) {
       const float p = ps[i][j];
@@ -138,7 +146,7 @@ cudaError_t launch_core(const __nv_bfloat16* qkv, int BN, int T, int C,
 
 // x, out [BN * T, C]; pe [T, C]; wqkv [3C, C] (to_q | to_k | to_v weights);
 // wo [C, C]; bo [C]; all bf16.  Scratch: qkv [BN * T, 3C], pv [BN * T, C].
-// T <= 32 and C / heads in {32, 64, 128}; other shapes return
+// T <= 32 and C / heads in {32, 48, 64, 128, 192}; other shapes return
 // cudaErrorInvalidValue.
 extern "C" int vdn_temporal_attention(const void* x, int BN, int T, int C,
                                       int heads, const void* pe,
@@ -148,7 +156,8 @@ extern "C" int vdn_temporal_attention(const void* x, int BN, int T, int C,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = BN * T;
   const int dh = C / heads;
-  if (T > kMaxT || dh * heads != C || (dh != 32 && dh != 64 && dh != 128))
+  if (T > kMaxT || dh * heads != C ||
+      (dh != 32 && dh != 48 && dh != 64 && dh != 128 && dh != 192))
     return cudaErrorInvalidValue;
   auto* qkvb = static_cast<__nv_bfloat16*>(qkv);
   auto* pvb = static_cast<__nv_bfloat16*>(pv);
@@ -158,9 +167,13 @@ extern "C" int vdn_temporal_attention(const void* x, int BN, int T, int C,
       vdn::ProAddPe{static_cast<const __nv_bfloat16*>(pe), T, C},
       EpiStore{qkvb, 3 * C}, s);
   if (err != cudaSuccess) return err;
-  if (dh == 128) err = launch_core<128>(qkvb, BN, T, C, heads, scale, pvb, s);
-  else if (dh == 64) err = launch_core<64>(qkvb, BN, T, C, heads, scale, pvb, s);
-  else err = launch_core<32>(qkvb, BN, T, C, heads, scale, pvb, s);
+  switch (dh) {
+    case 192: err = launch_core<192>(qkvb, BN, T, C, heads, scale, pvb, s); break;
+    case 128: err = launch_core<128>(qkvb, BN, T, C, heads, scale, pvb, s); break;
+    case 64: err = launch_core<64>(qkvb, BN, T, C, heads, scale, pvb, s); break;
+    case 48: err = launch_core<48>(qkvb, BN, T, C, heads, scale, pvb, s); break;
+    default: err = launch_core<32>(qkvb, BN, T, C, heads, scale, pvb, s);
+  }
   if (err != cudaSuccess) return err;
   return vdn::launch_gemm<false>(
       M, C, C, pvb, C, static_cast<const __nv_bfloat16*>(wo),

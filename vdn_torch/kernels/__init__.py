@@ -2,7 +2,7 @@
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
 the single-image path's memory attention, the training backwards D1,
-D3 and D4 with A1's training forward, and F1-F4 of the int8 serving mode)
+D3 and D4 with A1's training forward, and F1-F5 of the int8 serving mode)
 live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
@@ -25,7 +25,7 @@ kernel (D1, D3, D4), the same kernel on the transposed plan (A5a, A5b) or
 a recompute of the plain version (A4, A6), as vdn computes it; on the CPU
 the backward takes the kernel's plain version.  A backward dispatches as
 its forward did, on whatever thread autograd runs it (``save_dispatch``,
-``same_dispatch``).  B1, C1, C2 and F1-F4 have no backward: on a CUDA
+``same_dispatch``).  B1, C1, C2 and F1-F5 have no backward: on a CUDA
 tensor that requires grad they raise.
 
 ``launches`` counts, per wrapper, the calls that launched the kernel.
@@ -73,6 +73,7 @@ launches = {
     "int8_linear": 0,
     "int8_proj_residual": 0,
     "fused_ln_mlp_residual_int8": 0,
+    "fused_ln_swiglu_residual_int8": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -101,6 +102,7 @@ _SIGNATURES = {
     "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 7,
     "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
+    "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)

@@ -1,11 +1,12 @@
-"""F1-F4: the W8A8 int8 serving kernels of the ViT encoder.
+"""F1-F5: the W8A8 int8 serving kernels of the ViT encoder.
 
 Replace vdn/ops/pallas/int8.py ``int8_ln_linear`` (F1, the qkv projection
 with LN1 inside), ``int8_linear`` (F2, any linear), ``int8_proj_residual``
-(F3, the out-projection with LayerScale and the block residual) and
-``fused_ln_mlp_residual_int8`` (F4, the MLP tail); all four reach the one
-``pl.pallas_call`` of ``_call_3d``.  The scheme is vdn's, symmetric with
-no zero points:
+(F3, the out-projection with LayerScale and the block residual),
+``fused_ln_mlp_residual_int8`` (F4, the MLP tail) and
+``fused_ln_swiglu_residual_int8`` (F5, vitg's SwiGLU tail); all five
+reach the one ``pl.pallas_call`` of ``_call_3d``.  The scheme is vdn's,
+symmetric with no zero points:
 
 - weights per output channel, ``wq = round(w / s)``, ``s = amax / 127``
   over the input axis (a division; ``quantize_weight_cols``);
@@ -13,20 +14,22 @@ no zero points:
   (a reciprocal multiply; ``quantize_rows``), floor 1e-30 on both scales;
 - int8 x int8 products summed exactly in int32, dequantized as
   ``(float(acc) * sx) * sw``, then + bias in fp32;
-- F1 and F4 quantize the fp32 LayerNorm output and F4 its fp32 GELU output
-  without a round to the compute dtype; F4 quantizes the hidden
-  activations per (row, F / 2 chunk) and sums the two chunks' dequantized
-  products in fp32 before + b2 (vdn's ``_F_CHUNKS``, which the numbers
-  depend on).
+- F1, F4 and F5 quantize the fp32 LayerNorm output, F4 its fp32 GELU
+  output and F5 its fp32 ``silu(x1) * x2`` without a round to the compute
+  dtype; F4 and F5 quantize the hidden activations per (row, F / 2 chunk)
+  and sum the two chunks' dequantized products in fp32 before + b2 (vdn's
+  ``_F_CHUNKS``, which the numbers depend on).
 
 On the H100 each kernel is a row kernel (LayerNorm or identity, row amax,
 int8 rows and their scales) followed by an int8 tile GEMM on mma.sync
 m16n8k32 (csrc/int8_gemm.cuh) with the dequantization in its epilogue;
 F4 runs row kernel, fc1 GEMM (GELU epilogue, fp32 hidden), a per-(row,
 chunk) quantizer, then the fc2 GEMM, whose K loop dequantizes chunk 0
-before chunk 1 accumulates (csrc/int8_linear.cu, csrc/ln_mlp_int8.cu).
-Bound by the int8 products (2 * rows * C * F operations each at 1979
-TOP/s) at the window's shapes, F3 by its bytes.
+before chunk 1 accumulates (csrc/int8_linear.cu, csrc/ln_mlp_int8.cu);
+F5 the same with the w12 GEMM in its dual mode (gate and value columns of
+one output in one thread, the SwiGLU epilogue) and w3 in place of fc2
+(csrc/ln_swiglu_int8.cu).  Bound by the int8 products (2 * rows * C * F
+operations each at 1979 TOP/s) at the window's shapes, F3 by its bytes.
 
 A weight argument is a float Linear weight [F, C] (torch layout) or a
 pre-quantized ``(wq int8 [F, C], sw fp32 [F])`` pair, which the model
@@ -35,7 +38,8 @@ Serving only: the kernels have no backward, and on the card an input that
 requires grad raises.  The plain versions sum the int8 products exactly in
 float64 (every sum here is below 2^53).  Every function takes an optional
 ``operands`` dict, which receives its int8 activation operands and their
-scales (``xq``, ``sx``; F4 ``yq``, ``sy``, ``hq``, ``sh``) for checks.
+scales (``xq``, ``sx``; F4 and F5 ``yq``, ``sy``, ``hq``, ``sh``) for
+checks.
 """
 
 from __future__ import annotations
@@ -45,17 +49,19 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from vdn_torch.kernels import (check_kernel_args, launch, launches,
+from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
                                layer_norm_f32, use_kernel, wants_grad)
 from vdn_torch.kernels.mlp import gelu_f32
 
 __all__ = ["quantize_weight_cols", "quantize_rows", "int8_serving_enabled",
            "int8_ln_linear", "int8_linear", "int8_proj_residual",
-           "fused_ln_mlp_residual_int8", "int8_ln_linear_plain",
-           "int8_linear_plain", "int8_proj_residual_plain",
-           "fused_ln_mlp_residual_int8_plain", "F_CHUNKS", "INT8_MIN_ROWS"]
+           "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8",
+           "int8_ln_linear_plain", "int8_linear_plain",
+           "int8_proj_residual_plain", "fused_ln_mlp_residual_int8_plain",
+           "fused_ln_swiglu_residual_int8_plain", "F_CHUNKS",
+           "INT8_MIN_ROWS"]
 
-F_CHUNKS = 2          # vdn's _F_CHUNKS: F4's hidden scales per (row, F / 2)
+F_CHUNKS = 2          # vdn's _F_CHUNKS: hidden scales per (row, F / 2)
 INT8_MIN_ROWS = 1024  # one 518 x 518 image (1370 tokens) qualifies
 K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice
 
@@ -179,6 +185,38 @@ def fused_ln_mlp_residual_int8_plain(x, ln_w, ln_b, w1: Weight, b1,
     hq, sh = quantize_rows(h, chunks)
     _record(operands, yq=q, sy=sy, hq=hq, sh=sh)
     o = _dequant_dot(hq, sh, w2q, s2) + b2.float()
+    return (x2 + (o * gamma.float()).to(dt)).reshape(x.shape)
+
+
+def _swiglu_f32(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """silu(x1) * x2 in fp32 as vdn's F5 forms it (int8.py:319-327):
+    x1 * sig * x2 with sig = 1 / (1 + exp2(x1 * -log2(e))), a true
+    division."""
+    sig = torch.ones((), device=x1.device) / (1.0 + torch.exp2(
+        x1 * -LOG2E))
+    return x1 * sig * x2
+
+
+def fused_ln_swiglu_residual_int8_plain(x, ln_w, ln_b, w12: Weight, b12,
+                                        w3: Weight, b3, gamma,
+                                        eps: float = 1e-6,
+                                        operands: Optional[dict] = None
+                                        ) -> torch.Tensor:
+    """F5: x + gamma * (w3(silu(x1) * x2) + b3) with [x1 | x2] =
+    w12(LN(x)) + b12, int8 products, the hidden activations quantized per
+    (row, F / 2 chunk).  w12 [2F, C], w3 [C, F]."""
+    w12q, s12 = _quantized(w12)
+    w3q, s3 = _quantized(w3)
+    dt = x.dtype
+    c = x.shape[-1]
+    f = w12q.shape[0] // 2
+    chunks = F_CHUNKS if f % F_CHUNKS == 0 else 1
+    x2 = x.reshape(-1, c)
+    q, sy = quantize_rows(layer_norm_f32(x2, ln_w, ln_b, eps))
+    x12 = _dequant_dot(q, sy, w12q, s12) + b12.float()
+    hq, sh = quantize_rows(_swiglu_f32(x12[:, :f], x12[:, f:]), chunks)
+    _record(operands, yq=q, sy=sy, hq=hq, sh=sh)
+    o = _dequant_dot(hq, sh, w3q, s3) + b3.float()
     return (x2 + (o * gamma.float()).to(dt)).reshape(x.shape)
 
 
@@ -311,6 +349,46 @@ def fused_ln_mlp_residual_int8(x, ln_w, ln_b, w1: Weight, b1, w2: Weight,
     out = torch.empty_like(x2)
     check_kernel_args(name, x2, *args, yq, sy, h, hq, sh, out)
     launch("vdn_ln_mlp_int8", x2.data_ptr(), m, c, f,
+           *(t.data_ptr() for t in args[:2]), float(eps),
+           *(t.data_ptr() for t in args[2:]),
+           *(t.data_ptr() for t in (yq, sy, h, hq, sh, out)))
+    launches[name] += 1
+    _record(operands, yq=yq, sy=sy, hq=hq, sh=sh)
+    return out.reshape(x.shape)
+
+
+def fused_ln_swiglu_residual_int8(x, ln_w, ln_b, w12: Weight, b12,
+                                  w3: Weight, b3, gamma, eps: float = 1e-6,
+                                  operands: Optional[dict] = None
+                                  ) -> torch.Tensor:
+    """F5: x + gamma * (w3(silu(x1) * x2) + b3), [x1 | x2] = w12(LN(x)) +
+    b12, x [..., C]; w12 [2F, C] (the gate half, then the value half), w3
+    [C, F] (float, or pre-quantized pairs)."""
+    if not use_kernel(x):
+        return fused_ln_swiglu_residual_int8_plain(
+            x, ln_w, ln_b, w12, b12, w3, b3, gamma, eps, operands)
+    name = "fused_ln_swiglu_residual_int8"
+    (w12q, s12), (w3q, s3) = _quantized(w12), _quantized(w3)
+    c = x.shape[-1]
+    f = w12q.shape[0] // 2
+    _check(name, x, (w12q, c), (w3q, f))
+    if (w12q.shape[0] != 2 * f or w3q.shape[0] != c
+            or f % (F_CHUNKS * K_TILE)):
+        raise ValueError(f"{name}: w12 {tuple(w12q.shape)}, w3 "
+                         f"{tuple(w3q.shape)}: the kernel takes w12 [2F, C] "
+                         f"and w3 [C, F] with F a multiple of "
+                         f"{F_CHUNKS * K_TILE}")
+    _serving_only(name, x, ln_w, ln_b, b12, b3, gamma)
+    x2 = x.reshape(-1, c).contiguous()
+    m = x2.shape[0]
+    args = [*_f32(ln_w, ln_b), w12q.contiguous(), *_f32(s12, b12),
+            w3q.contiguous(), *_f32(s3, b3, gamma)]
+    yq, sy = _rows_scratch(m, c, x.device)
+    h = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    hq, sh = _rows_scratch(m, f, x.device, F_CHUNKS)
+    out = torch.empty_like(x2)
+    check_kernel_args(name, x2, *args, yq, sy, h, hq, sh, out)
+    launch("vdn_ln_swiglu_int8", x2.data_ptr(), m, c, f,
            *(t.data_ptr() for t in args[:2]), float(eps),
            *(t.data_ptr() for t in args[2:]),
            *(t.data_ptr() for t in (yq, sy, h, hq, sh, out)))

@@ -43,8 +43,10 @@ from vdn_torch.kernels.resize import (cached_on_device, dense_matrix,
                                       resize_rows_plain, rows_plan)
 from vdn_torch.ops.resize import plan_axis
 
-TILE_ROWS = 8   # output rows per block of the CUDA kernel
-MAX_C = 176     # shared-memory limit of the CUDA kernel
+TILE_ROWS = 8   # output rows per block of the CUDA kernel (its padding)
+# the CUDA kernel's shared-memory limit: all conv weights and a band of
+# resized rows; bands of 8 rows up to C 176, of 4 rows up to C 224
+MAX_C = 224
 
 
 def _plans(h_in: int, w_in: int, h_out: int, w_out: int):

@@ -61,14 +61,21 @@ def temporal_attention_bwd_dx_plain(x, pe, g, wq, wk, wv, wo, heads: int,
     return dx.to(dt)
 
 
-def _check_args(name, x, heads) -> None:
+# head widths of the kernels: A3 takes vitl's motion modules (dh 128, 32)
+# and vitg's (192, 48); D4, the training backward, keeps its widths: vitg is
+# a serving path here
+FORWARD_HEAD_DIMS = (32, 48, 64, 128, 192)
+BACKWARD_HEAD_DIMS = (32, 64, 128)
+
+
+def _check_args(name, x, heads, dims=FORWARD_HEAD_DIMS, why="") -> None:
     bn, t, c = x.shape
     dh = c // heads
     if (x.dtype != torch.bfloat16 or t > 32 or dh * heads != c
-            or dh not in (32, 64, 128)):
+            or dh not in dims):
         raise ValueError(f"{name}: kernel takes bf16 [BN, T <= 32, C] with "
-                         f"C / heads in (32, 64, 128), got {tuple(x.shape)} "
-                         f"{x.dtype}, heads={heads}")
+                         f"C / heads in {dims}, got {tuple(x.shape)} "
+                         f"{x.dtype}, heads={heads}{why}")
 
 
 def temporal_attention_bwd_dx(x, pe, g, wq, wk, wv, wo, heads: int,
@@ -78,7 +85,9 @@ def temporal_attention_bwd_dx(x, pe, g, wq, wk, wv, wo, heads: int,
         return temporal_attention_bwd_dx_plain(x, pe, g, wq, wk, wv, wo,
                                                heads, scale)
     name = "temporal_attention_block_bwd"
-    _check_args(name, x, heads)
+    _check_args(name, x, heads, BACKWARD_HEAD_DIMS,
+                " (the backward has the training paths' head widths; "
+                "vitg's motion modules, dh 192 / 48, are served only)")
     bn, t, c = x.shape
     bf = torch.bfloat16
     x = x.contiguous()

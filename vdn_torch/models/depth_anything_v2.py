@@ -76,7 +76,7 @@ def build_depth_anything_v2(
         device: Union[torch.device, str] = "cuda",
         generator: Optional[torch.Generator] = None,
         quantize: Optional[str] = None, **kw) -> DepthAnythingV2:
-    """A preset model (vits, vitb, vitl) with parameters drawn from
+    """A preset model (vits, vitb, vitl, vitg) with parameters drawn from
     ``generator`` (seed 0 by default) with vdn's initializers, in eval mode
     on ``device``: the card unless the caller asks for the CPU.
 

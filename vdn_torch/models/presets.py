@@ -17,6 +17,8 @@ MODEL_CONFIGS = {
                  out_channels=(96, 192, 384, 768)),
     "vitl": dict(encoder="vitl", features=256,
                  out_channels=(256, 512, 1024, 1024)),
+    "vitg": dict(encoder="vitg", features=384,
+                 out_channels=(1536, 1536, 1536, 1536)),
 }
 
 

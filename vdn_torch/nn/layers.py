@@ -9,8 +9,8 @@ from an explicit ``torch.Generator`` with vdn's initializers.
 
 The int8 serving mode (``quantize``) quantizes the weights of a Linear or
 Conv2d once per weight version (``int8_weight``); a Conv2d with
-``quantize="int8_static"`` serves with the activation absmax that the last
-``quant_calibration`` pass recorded.
+``quantize="int8_static"`` serves with the activation absmax that the
+``quant_calibration`` passes recorded, the running max over all of them.
 """
 
 from __future__ import annotations
@@ -49,25 +49,41 @@ _CALIBRATING = contextvars.ContextVar("vdn_torch_quant_calibration",
                                       default=False)
 
 
+def _static_convs(model: nn.Module) -> list:
+    return [m for m in model.modules()
+            if isinstance(m, Conv2d) and m.quantize == "int8_static"]
+
+
 @contextlib.contextmanager
 def quant_calibration(model: nn.Module):
     """The calibration pass of ``quantize="int8_static"`` (vdn's apply with
     ``mutable=["quant_stats"]``): inside it every such Conv2d of ``model``
-    runs its float conv and records the running max of ``|x|`` over the
-    pass (``act_amax``); the stats of an earlier pass are cleared first.
-    A model without such a conv runs unchanged."""
-    convs = [m for m in model.modules()
-             if isinstance(m, Conv2d) and m.quantize == "int8_static"]
-    if not convs:
+    runs its float conv and keeps the running max of ``|x|`` in
+    ``act_amax``, on top of what an earlier pass or ``load_quant_stats``
+    left there (vdn/nn/layers.py:117-123).  A model without such a conv
+    runs unchanged."""
+    if not _static_convs(model):
         yield
         return
-    for conv in convs:
-        conv.act_amax = None
     token = _CALIBRATING.set(True)
     try:
         yield
     finally:
         _CALIBRATING.reset(token)
+
+
+@contextlib.contextmanager
+def restored_quant_stats(model: nn.Module):
+    """Every ``int8_static`` conv's ``act_amax`` as it was on entry, again
+    on exit: a calibration inside does not outlive the block, as vdn's
+    clip call merges its stats into a local copy of the params
+    (vdn/pipelines/infer_video.py:119-124)."""
+    saved = [(m, m.act_amax) for m in _static_convs(model)]
+    try:
+        yield
+    finally:
+        for m, amax in saved:
+            m.act_amax = amax
 
 
 def calibrating() -> bool:
@@ -282,3 +298,19 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwiGLUFFN(nn.Module):
+    """vitg's FFN (vdn/nn/layers.py:272-290, the reference's
+    ``SwiGLUFFNFused``): w12 -> [gate x1 | value x2] halves ->
+    w3(silu(x1) * x2).  vdn runs it as plain XLA in float; the int8 path
+    is F5 (vdn_torch.kernels.int8.fused_ln_swiglu_residual_int8)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)

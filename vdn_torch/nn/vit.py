@@ -1,21 +1,23 @@
-"""DINOv2 vision transformer (vdn/nn/vit.py), float path.
+"""DINOv2 vision transformer (vdn/nn/vit.py).
 
 Tokens are [B, N, C]; input frames NHWC.  Parameter names are the
-reference checkpoint's (``blocks.0.attn.qkv.weight``, ``ls1.gamma``, ...).
-Two kernels carry the blocks, behind vdn's size gates: A1 reads
-self-attention straight off the fused qkv projection for N >= 256 tokens,
-and A2 runs the LN2 -> MLP -> LayerScale -> residual tail for
-B * N >= 1024 rows.
+reference checkpoint's (``blocks.0.attn.qkv.weight``, ``ls1.gamma``,
+vitg's ``blocks.0.mlp.w12.weight``, ...).  Two kernels carry the blocks,
+behind vdn's size gates: A1 reads self-attention straight off the fused
+qkv projection for N >= 256 tokens, and A2 runs the LN2 -> MLP ->
+LayerScale -> residual tail for B * N >= 1024 rows.  vitg's FFN is SwiGLU
+(``ffn="swiglufused"``), plain torch in float as vdn leaves it to XLA.
 
 ``quantize="int8"`` is the serving mode's W8A8 encoder (vdn/nn/vit.py:
-143-258), behind ``int8_serving_enabled`` (B * N >= 1024 rows on the card):
+143-275), behind ``int8_serving_enabled`` (B * N >= 1024 rows on the card):
 F1 takes LN1 and the qkv projection, A1 stays the attention, F3 the
 out-projection with LayerScale and the residual, and F4 the whole MLP
-tail.  The weights are quantized once per weight version.
+tail (F5 the SwiGLU tail for vitg).  The weights are quantized once per
+weight version.
 
 Configs (reference dinov2.py:339-415): vits 384/12/6, vitb 768/12/12,
-vitl 1024/24/16; patch 14, img_size 518, interpolate_offset 0.1.  vitg's
-SwiGLU FFN is not ported yet.
+vitl 1024/24/16, vitg 1536/40/24 with SwiGLU; patch 14, img_size 518,
+interpolate_offset 0.1.
 """
 
 from __future__ import annotations
@@ -28,17 +30,19 @@ from torch import nn
 
 from vdn_torch.kernels.flash_attention import flash_attention_fused_qkv
 from vdn_torch.kernels.int8 import (fused_ln_mlp_residual_int8,
+                                    fused_ln_swiglu_residual_int8,
                                     int8_ln_linear, int8_proj_residual,
                                     int8_serving_enabled)
 from vdn_torch.kernels.mlp import fused_ln_mlp_residual
-from vdn_torch.nn.layers import Conv2d, LayerNorm, Linear, Mlp
+from vdn_torch.nn.layers import Conv2d, LayerNorm, Linear, Mlp, SwiGLUFFN
 from vdn_torch.ops.attention import dot_product_attention, flash_enabled
 from vdn_torch.ops.resize import rescale2d
 
 VIT_CONFIGS = {
-    "vits": dict(embed_dim=384, depth=12, num_heads=6),
-    "vitb": dict(embed_dim=768, depth=12, num_heads=12),
-    "vitl": dict(embed_dim=1024, depth=24, num_heads=16),
+    "vits": dict(embed_dim=384, depth=12, num_heads=6, ffn="mlp"),
+    "vitb": dict(embed_dim=768, depth=12, num_heads=12, ffn="mlp"),
+    "vitl": dict(embed_dim=1024, depth=24, num_heads=16, ffn="mlp"),
+    "vitg": dict(embed_dim=1536, depth=40, num_heads=24, ffn="swiglufused"),
 }
 
 # which intermediate blocks feed the DPT head, per encoder size
@@ -46,6 +50,7 @@ INTERMEDIATE_LAYER_IDX = {
     "vits": [2, 5, 8, 11],
     "vitb": [2, 5, 8, 11],
     "vitl": [4, 11, 17, 23],
+    "vitg": [9, 19, 29, 39],
 }
 
 FUSED_MLP_MIN_ROWS = 1024  # vdn/ops/pallas/mlp.py fused_mlp_enabled
@@ -107,27 +112,36 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, ffn: str = "mlp"):
         super().__init__()
         self.quantize = quantize
+        self.ffn = ffn
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if ffn == "mlp":
+            self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        else:  # swiglufused: 2/3 of the MLP's hidden, up to a multiple of 8
+            hidden = int(dim * mlp_ratio) * 2 // 3
+            self.mlp = SwiGLUFFN(dim, (hidden + 7) // 8 * 8)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n2, mlp = self.norm2, self.mlp
         if self.quantize == "int8" and int8_serving_enabled(
                 x.shape[0] * x.shape[1], x):
-            n2, mlp = self.norm2, self.mlp
             x = self.attn.forward_int8(x, self.norm1, self.ls1.gamma)
+            if self.ffn != "mlp":
+                return fused_ln_swiglu_residual_int8(
+                    x, n2.weight, n2.bias, mlp.w12.int8_weight(),
+                    mlp.w12.bias, mlp.w3.int8_weight(), mlp.w3.bias,
+                    self.ls2.gamma, n2.eps)
             return fused_ln_mlp_residual_int8(
                 x, n2.weight, n2.bias, mlp.fc1.int8_weight(), mlp.fc1.bias,
                 mlp.fc2.int8_weight(), mlp.fc2.bias, self.ls2.gamma, n2.eps)
         x = x + self.ls1(self.attn(self.norm1(x)))
-        if x.shape[0] * x.shape[1] >= FUSED_MLP_MIN_ROWS:
-            n2, mlp = self.norm2, self.mlp
+        if self.ffn == "mlp" and x.shape[0] * x.shape[1] >= FUSED_MLP_MIN_ROWS:
             return fused_ln_mlp_residual(
                 x, n2.weight, n2.bias, mlp.fc1.weight, mlp.fc1.bias,
                 mlp.fc2.weight, mlp.fc2.bias, self.ls2.gamma, n2.eps)
@@ -139,7 +153,7 @@ class DinoVisionTransformer(nn.Module):
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  patch_size: int = 14, img_size: int = 518,
                  interpolate_offset: float = 0.1,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, ffn: str = "mlp"):
         super().__init__()
         self.embed_dim, self.patch_size = embed_dim, patch_size
         self.interpolate_offset = interpolate_offset
@@ -152,7 +166,7 @@ class DinoVisionTransformer(nn.Module):
         # kept for checkpoint-key parity with the reference (unused)
         self.mask_token = nn.Parameter(torch.zeros(1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, quantize)
+            Block(embed_dim, num_heads, mlp_ratio, quantize, ffn)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim)
 

@@ -6,7 +6,10 @@ A thin host wrapper with the reference's ergonomics
 functional model: the memory lives in an explicit ring-buffer state carried
 between calls, in the model's compute dtype on the model's device.  For a
 ``quantize="int8_static"`` model the first image (no memory yet) is the
-calibration pass of the head's convs (vdn/pipelines/infer_image.py:34-55).
+calibration pass of the head's convs (vdn/pipelines/infer_image.py:34-55);
+after ``clear_memory()`` the next first image calibrates again, on top of
+the scales the model keeps (the running max, as vdn merges its stats into
+``self.params``).
 """
 
 from __future__ import annotations

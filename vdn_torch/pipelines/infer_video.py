@@ -13,8 +13,11 @@ the previous window on the device (``index_select`` at KEYFRAMES).  Depth
 goes to the host once per window; stitching is numpy.  For a
 ``quantize="int8_static"`` model the first window is the calibration pass
 (vdn/pipelines/infer_video.py:61-76, 117-124): the encoder runs int8 in it
-and the head convs float while they record their scales; its depth and
-features seed the cache as in any first window.
+and the head convs float while they record their scales, on top of the
+scales the model holds (``load_quant_stats`` or an earlier pass); its depth
+and features seed the cache as in any first window.  As in vdn, where the
+pass merges into a local copy of the params, the call leaves the model's
+scales as it found them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vdn_torch.nn.layers import quant_calibration
+from vdn_torch.nn.layers import quant_calibration, restored_quant_stats
 from vdn_torch.ops.resize import resize2d
 from vdn_torch.ops.scale_shift import interpolate_frames_np, scale_and_shift_np
 from vdn_torch.pipelines.transform import (adjust_input_size_for_ratio,
@@ -69,19 +72,20 @@ def infer_video_depth(model, frames: np.ndarray, target_fps: float,
     keyframes = torch.tensor(KEYFRAMES, device=device)
     depth_list = []
     prev_feats = None
-    for frame_id in range(0, n_frames, frame_step):
-        if prev_feats is None:
-            with quant_calibration(model):
-                depth, prev_feats = model.forward_window(
-                    window_input(frame_id, 0, INFER_LEN))
-        else:
-            depth, prev_feats = model.forward_window_cached(
-                window_input(frame_id, OVERLAP, INFER_LEN),
-                gather_seed_features(prev_feats, keyframes))
-        depth = resize2d(depth[0][..., None], (frame_h, frame_w), "bilinear",
-                         align_corners=True)[..., 0]
-        depth = depth.cpu().numpy()
-        depth_list += [depth[i] for i in range(depth.shape[0])]
+    with restored_quant_stats(model):
+        for frame_id in range(0, n_frames, frame_step):
+            if prev_feats is None:
+                with quant_calibration(model):
+                    depth, prev_feats = model.forward_window(
+                        window_input(frame_id, 0, INFER_LEN))
+            else:
+                depth, prev_feats = model.forward_window_cached(
+                    window_input(frame_id, OVERLAP, INFER_LEN),
+                    gather_seed_features(prev_feats, keyframes))
+            depth = resize2d(depth[0][..., None], (frame_h, frame_w),
+                             "bilinear", align_corners=True)[..., 0]
+            depth = depth.cpu().numpy()
+            depth_list += [depth[i] for i in range(depth.shape[0])]
 
     # ---- stitching (reference video_depth.py:118-154) ----
     aligned = []

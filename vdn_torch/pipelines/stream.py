@@ -16,7 +16,8 @@ Paths:
 - the first frame decodes alone and its entries are replicated over the
   first INFER_LEN slots (reference video_depth_stream.py:117); for a
   ``quantize="int8_static"`` model it is also the calibration pass of the
-  head's convs (vdn/pipelines/stream.py:180-194);
+  head's convs (vdn/pipelines/stream.py:180-194), after a ``reset()`` on
+  top of the scales the model keeps (the running max, as vdn's);
 - one frame (``_step_one``): B1 (``select_rows``) gathers the 31-entry
   window out of every ring with a [31, CAPACITY] one-hot, the model
   decodes, and the frame's entries are written to its slot;
