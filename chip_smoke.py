@@ -37,6 +37,14 @@ FFN), 12 frames streamed at k = 1, and 8 images through the bank, then
 ``clear_memory()`` and the 480 x 640 images, on the kernels at its widths
 (A3 at dh 192 / 48, A6 at C 192, B1 on 384-lane rings).
 
+The v1 research model (dual hieradet encoders at hiera_base's width and
+the sangyu head), fp32 as vdn trains it, at 256 x 256 and b2 x s8:
+V1Trainer for 1 + 5 steps (C2 at fp32 / D 96 and its backward D2 at the
+six global blocks, A5a / A5b forward and backward; the head's unused
+parameters move by the weight decay alone), the gradient fidelity at b1 x
+s4 against the plain fp32 run, the model under no_grad on one clip, and
+the MAE Hiera's published hiera_base_224 at 224 x 224 (no kernel there).
+
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of the path never launched.  Depth must
 be finite and not degenerate, and sit no further from the same run through
@@ -1976,8 +1984,8 @@ def check_updates(name: str, named, before) -> list:
 
 
 def check_no_backward_raises() -> None:
-    """B1, C1, C2 and F1-F5 have no backward: on the card each raises when
-    an input requires grad, rather than return an output that cuts the
+    """B1, C1, C2's bf16 kernel (D2 is fp32) and F1-F5 have no backward: on
+    the card each raises when an input requires grad, rather than return an output that cuts the
     graph (the training phases show that the wrappers with a backward keep
     it: every trainable tensor upstream of them gets a nonzero gradient)."""
     from vdn_torch.kernels import flash_attention as fa, int8, resize
@@ -2131,6 +2139,481 @@ def metric_train_phase(frames) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- v1
+# The v1 research model (dual hieradet encoders + the sangyu head) at
+# hiera_base's full width, fp32 as vdn trains it: b2 x s8 clips of
+# 256 x 256 (hieradet's stage 2 at 16 x 16 = 256 tokens, so its global
+# blocks 12, 16 and 20 take C2; 2 encoders x 3 blocks = 6 per forward).
+V1_ENCODER = "hiera_base"
+V1_LEVELS = (2, 3)
+V1_SIZE = 256
+V1_B, V1_S = 2, 8
+V1_FRAMES = V1_B * V1_S
+V1_HEADS, V1_DH = 4, 96
+V1_TOKENS = (256, 324)   # stage 2 at 256 px, and at 288 px (ragged)
+V1_GRAD_S = 4            # clip length of the gradient-fidelity step (b1)
+V1_WARMUP, V1_STEPS = 1, 5
+# The recipe's LR (vdn's V1Trainer default).  On random weights the head's
+# ReLUs stay alive over the steps at it (``v1_train`` logs the positive
+# share of the last hidden conv before and after); the step's work does
+# not depend on the LR.
+V1_LR = 1e-5
+V1_WEIGHT_DECAY = 0.01
+# the hub MAE Hiera's published configuration: hiera_base_224 at 224 x 224
+V1_MAE_ENCODER, V1_MAE_SIZE, V1_MAE_STEPS = "hiera_base_224", 224, 2
+# kernels vs plain fp32 on the card, rel L2 (both fp32; sums in another
+# order, C2 / D2's online softmax against the exact one): the model's
+# outputs, and its VJP under a fixed cotangent within E2E_DRIFT_FACTOR
+# times the plain run's own VJP distance when an input moves by 1e-6 (on
+# random weights that moves every gradient by ~1e-3, as v1_fidelity
+# logs), and never above V1_VJP_REL_L2 short of it
+V1_VJP_REL_L2 = 1e-4
+V1_INFER_REL_L2 = 1e-5
+# launches per training step: C2 and D2 at the six global blocks; A5a / A5b
+# forward at the five 2x upsamples of the head and the two encoders'
+# pos-embed bicubic (14 -> 64), and backward on the transposed plans: the
+# pos-embed's H plan (19 taps) runs dense through A5b.  Inference: the
+# forwards alone.  Every other kernel launches 0.
+V1_TRAIN_LAUNCHES = {"flash_attention": 6, "flash_attention_bwd": 6,
+                     "resize_rows": 12, "resize_mid_axis": 16}
+V1_INFER_LAUNCHES = {"flash_attention": 6, "resize_rows": 7,
+                     "resize_mid_axis": 7}
+# the head's parameters no forward reads: the stacks and pos-embeds of the
+# levels outside V1_LEVELS, the fusion layers
+V1_UNUSED = tuple(f"head.{s}.{lvl}." for s in (
+    "temporal_layers_first", "temporal_layers_second",
+    "spatial_layers_first", "spatial_layers_second")
+    for lvl in range(4) if lvl not in V1_LEVELS) + tuple(
+    f"head.pos_embeds.{lvl}" for lvl in range(4) if lvl not in V1_LEVELS) + (
+    "head.fusion_layer.",)
+
+
+def all_launches(want: dict) -> dict:
+    """``want`` over every kernel, the others at 0."""
+    from vdn_torch import kernels
+    return {**{n: 0 for n in kernels.launches}, **want}
+
+
+def v1_attention_cases(rng, path="v1"):
+    """C2 at fp32 / D 96 and D2 on hieradet's global blocks: q, k, v read
+    in place off the fused qkv [16, T, 3, 4, 96] fp32, at T = 256 (256 px)
+    and 324 (288 px: ragged tiles).  Library calls: SDPA's forward, and
+    its backward timed as forward + backward less forward, in fp32."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    b, h, d = V1_FRAMES, V1_HEADS, V1_DH
+    for t in V1_TOKENS:
+        qkv = _rand(rng, (b, t, 3, h, d))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        o, lse = fa._attention_lse_plain(q, k, v, None, d ** -0.5)
+        sdpa_in = [x.transpose(1, 2).detach().requires_grad_()
+                   for x in (q, k, v)]
+        yield case(
+            "flash_attention", f"B{b} T{t} H{h} D{d} fp32",
+            lambda a=(q, k, v): fa.flash_attention(*a),
+            lambda a=(q, k, v): fa.flash_attention_plain(*a),
+            (_nbytes(q, k, v, o), [(4 * b * h * t * t * d, FP32_FLOPS)]),
+            path, tol="fp32",
+            library=lambda a=sdpa_in: F.scaled_dot_product_attention(
+                *(x.detach() for x in a)))
+        # the training forward: out and the log-sum-exp D2 reads
+        yield case(
+            "flash_attention", f"B{b} T{t} H{h} D{d} fp32 (lse)",
+            lambda a=(q, k, v): fa._launch_f32(*a, d ** -0.5, True)
+            if a[0].is_cuda else fa._attention_lse_plain(*a, None, d ** -0.5),
+            lambda a=(q, k, v): fa._attention_lse_plain(*a, None, d ** -0.5),
+            (_nbytes(q, k, v, o, lse), [(4 * b * h * t * t * d,
+                                         FP32_FLOPS)]), path + "_lse",
+            tol="fp32")
+        dout = _rand(rng, (b, t, h, d))
+
+        def sdpa_fwd_bwd(a=sdpa_in, g=dout.transpose(1, 2)):
+            torch.autograd.grad(F.scaled_dot_product_attention(*a), a, g)
+
+        def sdpa_fwd(a=sdpa_in):
+            with torch.no_grad():
+                F.scaled_dot_product_attention(*a)
+
+        yield case(
+            "flash_attention_bwd", f"B{b} T{t} H{h} D{d} fp32",
+            lambda a=(q, k, v, o, lse, dout): fa.flash_attention_bwd(*a),
+            lambda a=(q, k, v, o, dout): fa.flash_attention_bwd_plain(*a),
+            (_nbytes(q, k, v, o, lse, dout) + 3 * _nbytes(o),
+             [(10 * b * h * t * t * d, FP32_FLOPS)]), path, tol="fp32",
+            library=sdpa_fwd_bwd, library_base=sdpa_fwd)
+
+
+def v1_resize_passes():
+    """The v1 step's resizes (fp32): the head's five 2x align-corners
+    upsamples over 16 frames (8 -> 256 rows at C 768 ... 96) and each
+    encoder's pos-embed bicubic, 14 -> 64 at C 96."""
+    n, c = V1_FRAMES, (768, 384, 192, 96, 96)
+    sizes = (8, 16, 32, 64, 128, 256)
+    passes = [(f"head up {a}->{z}", n, a, z, a, z, ch, torch.float32,
+               "bilinear", None) for a, z, ch in zip(sizes, sizes[1:], c)]
+    g = V1_SIZE // 4
+    passes.append((f"pos-embed 14->{g} bicubic", 1, 14, g, 14, g, 96,
+                   torch.float32, "bicubic", None))
+    return passes
+
+
+def resize_backward_cases(rng, path, passes):
+    """The backward of each resize in ``passes``: the W pass on its
+    transposed plan (A5b, dense), then the H pass on its transposed plan
+    (A5a, or A5b's dense form where the plan has more than MAX_TAPS
+    taps: the pos-embed's 64 -> 14)."""
+    from vdn_torch.kernels import resize as rz
+    from vdn_torch.ops.resize import plan_axis
+    dev = DEVICE
+    for label, n, r_in, r_out, wd, w_out, c, dt, method, _ in passes:
+        ac = method == "bilinear"
+        idx_t, w_t = rz.transpose_plan(*plan_axis(w_out, wd, method, ac,
+                                                  None), wd)
+        g = _rand(rng, (n * r_out, w_out, c)).to(dev, dt)
+        y = torch.empty((n * r_out, wd, c), dtype=dt, device=dev)
+        dense = rz.dense_plan(idx_t, w_t, w_out, dt, dev)
+        yield case(
+            "resize_mid_axis", f"{label} W bwd N{n * r_out} C{c}",
+            lambda g=g, i=idx_t, w=w_t, o=wd: rz.resize_mid_axis(g, i, w, o),
+            lambda g=g, dense=dense: rz.mix_rows_plain(g, dense),
+            (_nbytes(g, y, dense), [(2 * g.shape[0] * c * _taps(w_t),
+                                     FP32_FLOPS)]), path, tol="fp32")
+        idx_t, w_t = rz.transpose_plan(*plan_axis(r_out, r_in, method, ac,
+                                                  None), r_in)
+        g = _rand(rng, (n, r_out, wd, c)).to(dev, dt)
+        y = torch.empty((n, r_in, wd, c), dtype=dt, device=dev)
+        pidx, pw = rz.rows_plan(idx_t, w_t, dev)
+        flops = [(2 * n * wd * c * _taps(w_t), FP32_FLOPS)]
+        if pidx.shape[1] > rz.MAX_TAPS:
+            dense = rz.dense_plan(idx_t, w_t, r_out, dt, dev)
+            name, extra = "resize_mid_axis", _nbytes(dense)
+            plain = lambda g=g, dense=dense, s=(n, r_in, wd, c): \
+                rz.mix_rows_plain(g.reshape(n, r_out, -1), dense).reshape(s)
+        else:
+            name, extra = "resize_rows", 0
+            plain = lambda g=g, pidx=pidx, pw=pw: rz.resize_rows_plain(
+                g, pidx, pw)
+        yield case(
+            name, f"{label} H bwd N{n} C{c}"
+            + (" (dense)" if extra else ""),
+            lambda g=g, i=idx_t, w=w_t, o=r_in: rz.resize_rows(g, i, w, o),
+            plain, (_nbytes(g, y) + extra, flops), path, tol="fp32")
+
+
+def v1_cases(rng):
+    """The v1 step's kernels at their shapes: C2 / D2 at the global blocks
+    and A5a / A5b forward and backward at the head's upsamples and the
+    pos-embed (its wide transposed plan among them)."""
+    yield from v1_attention_cases(rng)
+    passes = v1_resize_passes()
+    yield from upsample_cases(rng, "v1", passes)
+    yield from resize_backward_cases(rng, "v1", passes)
+
+
+class exact_fp32:
+    """vdn's v1 is fp32: matmuls and cuDNN convs in full fp32, not TF32,
+    for the block (environment() already turns TF32 off for the whole
+    script; this states it for the v1 phases and restores what it
+    found)."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def v1_batch(rng, size=None) -> dict:
+    """The v1 batch contract at V1_B x V1_S clips of size x size (V1_SIZE
+    by default), synthetic: RGB frames in 0-1, input depths in 0-65,535
+    and GT depths in 0.5-10.5 (smooth, drifting over the clip), masks with
+    5% invalid pixels and an invalid band."""
+    b, s, hw = V1_B, V1_S, (size or V1_SIZE,) * 2
+    base = smooth_field(rng, b, hw).repeat(s, 0).reshape(b, s, *hw)
+    drift = smooth_field(rng, b * s, hw).reshape(b, s, *hw)
+    da = 65535.0 * np.clip(0.8 * base + 0.2 * drift, 0, 1)
+    gt = 0.5 + 10.0 * (1.0 - base) * (0.9 + 0.2 * smooth_field(
+        rng, b * s, hw).reshape(b, s, *hw))
+    rgb = np.stack([smooth_field(rng, b * s, hw) for _ in range(3)],
+                   -1).reshape(b, s, *hw, 3)
+    mask = (rng.random((b, s, *hw)) > 0.05).astype(np.float32)
+    mask[..., :, :8] = 0.0
+    return {"rgb": rgb.astype(np.float32),
+            "depth_anything_v2": da.astype(np.float32),
+            "depth": gt.astype(np.float32), "mask": mask}
+
+
+def build_v1_model(encoder=V1_ENCODER, seed=SEED + 7):
+    """VideoDepthEstimationModel at ``encoder``'s full width, seeded random
+    weights (fp32), on the card.  hieradet's pos-embed tables start at zero
+    in vdn; they get small random values so the bicubic resize reaches the
+    features."""
+    from vdn_torch.models.video_depth_v1 import build_video_depth_v1
+    gen = torch.Generator().manual_seed(seed)
+    model = build_video_depth_v1(encoder, device="cpu", generator=gen,
+                                 sequence_length=V1_S,
+                                 attention_feature_levels=V1_LEVELS)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("pos_embed", "pos_embed_window")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model.to(DEVICE)
+
+
+def head_positive_share(model, inputs) -> float:
+    """The share of positive pre-activations of the head's last hidden
+    conv (final_upscale_layer.8, before its ReLU) on ``inputs``."""
+    seen = []
+    hook = model.head.final_upscale_layer[8].register_forward_hook(
+        lambda m, i, o: seen.append(float((o > 0).float().mean())))
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        hook.remove()
+    return round(seen[0], 4)
+
+
+def v1_fidelity(model, trainer, small, cot) -> dict:
+    """One b1 x s4 step's gradients with the kernels (C2 / D2 must launch)
+    and through the plain versions, both fp32, rel L2 over every tensor
+    that gets one.  Gated: the model's outputs (V1_INFER_REL_L2) and its
+    VJP under the fixed cotangent ``cot`` (see V1_VJP_REL_L2), which hold
+    C2, D2 and A5a / A5b.  Logged: the loss's gradient against the plain
+    one, beside the plain one's own distances when the input depths or
+    frames move by 1e-6 (the trimmed and median terms send their
+    cotangent to the pixels that hold the selected values, and a rounding
+    can move those pixels)."""
+    from vdn_torch import kernels
+    inputs = small[:2]
+
+    def vjp(x=inputs):
+        d, n = model(*x)
+        return (d * cot[0]).sum() + (n * cot[1]).sum()
+
+    def loss(x=inputs):
+        return trainer.loss(*x, *small[2:])["total_loss"]
+
+    def grads(fn):
+        model.zero_grad(set_to_none=True)
+        fn().backward()
+        have = [p for p in model.parameters() if p.grad is not None]
+        tensors[0] = len(have)
+        g = grad_vector(have)
+        model.zero_grad(set_to_none=True)
+        return g
+
+    tensors = [0]
+
+    kernels.reset_launches()
+    with torch.no_grad():
+        out_k = model(*inputs)
+    g_vjp, g_loss = grads(vjp), grads(loss)
+    if not kernels.launches["flash_attention_bwd"]:
+        fail("v1_train: the kernels' gradient step launched no D2")
+    kernels.reset_launches()
+    floor = {}
+    with kernels.plain_reference():
+        with torch.no_grad():
+            out_p = model(*inputs)
+        p_vjp, p_loss = grads(vjp), grads(loss)
+        # the plain run's own distance when one input moves by 1e-6
+        for i, name in enumerate(("depth", "rgb")):
+            nudged = list(inputs)
+            nudged[i] = nudged[i] * (1 + 1e-6)
+            with torch.no_grad():
+                out_n = model(*nudged)
+            floor[name] = (
+                max(rel_l2(a, b) for a, b in zip(out_n, out_p)),
+                rel_l2(grads(lambda: vjp(nudged)), p_vjp),
+                rel_l2(grads(lambda: loss(nudged)), p_loss))
+    if any(kernels.launches.values()):
+        fail(f"kernels launched inside plain_reference: {kernels.launches}")
+    res = {"outputs": max(rel_l2(a, b) for a, b in zip(out_k, out_p)),
+           "vjp": rel_l2(g_vjp, p_vjp), "loss_grad": rel_l2(g_loss, p_loss),
+           **{f"plain_nudged_{k}_{what}": v[i] for k, v in floor.items()
+              for i, what in enumerate(("outputs", "vjp", "loss_grad"))}}
+    vjp_tol = max(V1_VJP_REL_L2, E2E_DRIFT_FACTOR * max(
+        v[1] for v in floor.values()))
+    log("v1_train_grads", **{k: f"{v:.4e}" for k, v in res.items()},
+        tensors=tensors[0], vjp_norm=f"{float(p_vjp.norm()):.6g}",
+        outputs_tol=f"{V1_INFER_REL_L2:.0e}", vjp_tol=f"{vjp_tol:.4e}")
+    if not (bool(torch.isfinite(p_vjp).all()) and float(p_vjp.norm()) > 0):
+        fail("v1_train: the plain VJP is zero or not finite")
+    if res["outputs"] > V1_INFER_REL_L2 or res["vjp"] > vjp_tol:
+        fail(f"v1_train: kernels vs plain fp32 {res}, VJP tolerance "
+             f"{vjp_tol}")
+    return res
+
+
+def check_decay_only(name, trainer, before: dict, lrs) -> list:
+    """The parameters with an all-zero gradient in the last step are
+    exactly the head's unused ones (V1_UNUSED), and each changed over the
+    steps by the weight decay alone: x prod(1 - lr_t wd)."""
+    named = list(trainer.model.named_parameters())
+    zero = sorted(n for n, p in named if not bool(p.grad.any()))
+    want = sorted(n for n, _ in named if n.startswith(V1_UNUSED))
+    if zero != want:
+        fail(f"{name}: zero-gradient tensors {zero[:6]} ... vs unused "
+             f"{want[:6]} ...")
+    factor = float(np.prod([1.0 - lr * V1_WEIGHT_DECAY for lr in lrs]))
+    worst = 0.0
+    for n, p in named:
+        if n in want:
+            err = float(((p.detach() - before[n] * factor).abs()
+                         / before[n].abs().clamp_min(1e-30)).max())
+            worst = max(worst, err)
+    if not worst <= 1e-6:
+        fail(f"{name}: unused parameters off their decay by {worst}")
+    stuck = [n for n, p in named
+             if n not in want and torch.equal(p.detach(), before[n])]
+    if stuck:
+        fail(f"{name}: parameters with a gradient unchanged: {stuck[:6]}")
+    return want
+
+
+def v1_train_phase() -> dict:
+    """V1Trainer on the v1 model (hiera_base, levels 2 and 3, 256 x 256,
+    b2 x s8, fp32): the gradient fidelity at b1 x s4 (v1_fidelity), then
+    V1_WARMUP + V1_STEPS steps with the
+    launch counts set to 0 just before the timed steps and read just
+    after.  Gates: the fidelity, the per-step launches (C2 6, D2 6, A5a /
+    A5b as counted, every other kernel 0), finite losses, every parameter
+    with a gradient changed and the unused ones by the decay alone."""
+    from vdn_torch.train.trainer import V1Trainer
+    rng = np.random.default_rng(SEED + 7)
+    batch = v1_batch(rng)
+    model = build_v1_model()
+    trainer = V1Trainer(model, initial_lr=V1_LR,
+                        weight_decay=V1_WEIGHT_DECAY)
+    small = trainer._batch({k: v[:1, :V1_GRAD_S] for k, v in batch.items()})
+    alive = [head_positive_share(model, small[:2])]
+    v1_fidelity(model, trainer, small,
+                [_rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE)),
+                 _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE, 3))])
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lrs = []
+    for _ in range(V1_WARMUP):
+        lrs.append(trainer.optimizer.param_groups[0]["lr"])
+        trainer.train_step(batch)
+
+    def step():
+        lrs.append(trainer.optimizer.param_groups[0]["lr"])
+        return trainer.train_step(batch)
+
+    losses, walls, peak, counts = timed_steps(step, V1_STEPS)
+    per_step = check_step_launches("v1_train", counts, V1_STEPS,
+                                   all_launches(V1_TRAIN_LAUNCHES))
+    total = [float(l["total_loss"]) for l in losses]
+    if not np.isfinite(total).all():
+        fail(f"v1_train: losses {total}")
+    unused = check_decay_only("v1_train", trainer, before, lrs)
+    del before
+    alive.append(head_positive_share(model, small[:2]))
+    if min(alive) <= 0.0:
+        fail(f"v1_train: the head's ReLU went silent: {alive}")
+    log("v1_train", batch=f"b{V1_B}xs{V1_S}", size=V1_SIZE,
+        encoder=V1_ENCODER, lr=V1_LR, steps=V1_STEPS,
+        ms_per_step=f"{statistics.median(walls):.3f}",
+        step_ms=json.dumps([round(w, 2) for w in walls]),
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        losses=json.dumps([float(f"{x:.9g}") for x in total]),
+        normal_loss=json.dumps([round(float(l["normal_loss"]), 6)
+                                for l in losses]),
+        head_positive_share=json.dumps(alive),
+        params=sum(p.numel() for p in model.parameters()),
+        decay_only_tensors=len(unused),
+        launches_per_step=json.dumps(per_step, separators=(",", ":")))
+    return counts, model, batch
+
+
+def v1_infer_phase(model, batch) -> dict:
+    """The v1 model under no_grad on one 8-frame clip (the first of
+    ``batch``): C2 6 and the forward resizes, the launch counts set to 0
+    just before and read just after; depth and normal against the plain
+    fp32 run within V1_INFER_REL_L2."""
+    from vdn_torch import kernels
+    from vdn_torch.train.trainer import (preprocess_depth_sequences,
+                                         preprocess_rgb_sequences)
+    dev = DEVICE
+    depth = preprocess_depth_sequences(
+        torch.from_numpy(batch["depth_anything_v2"][:1]).to(dev), None,
+        norm=False) / 65535.0
+    rgb = preprocess_rgb_sequences(torch.from_numpy(batch["rgb"][:1]).to(dev))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        d, n = model(depth, rgb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.launches)
+        ms = time_ms(lambda: model(depth, rgb), reps=5, warmup=1)
+        with kernels.plain_reference():
+            d32, n32 = model(depth, rgb)
+    check_frame_launches("v1_infer", counts, all_launches(V1_INFER_LAUNCHES))
+    if d.shape != (1, V1_S, V1_SIZE, V1_SIZE) or n.shape != (
+            1, V1_S, V1_SIZE, V1_SIZE, 3):
+        fail(f"v1_infer: shapes {tuple(d.shape)}, {tuple(n.shape)}")
+    if not (bool(torch.isfinite(d).all()) and bool(torch.isfinite(n).all())
+            and float(d.std()) > 0):
+        fail("v1_infer: non-finite or constant output")
+    err = {"depth": rel_l2(d.float(), d32.float()),
+           "normal": rel_l2(n.float(), n32.float())}
+    log("v1_infer", frames=V1_S, ms=f"{ms:.3f}", first_wall_ms=f"{wall:.3f}",
+        depth_rel_l2=f"{err['depth']:.3e}",
+        normal_rel_l2=f"{err['normal']:.3e}", tol=f"{V1_INFER_REL_L2:.0e}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    if max(err.values()) > V1_INFER_REL_L2:
+        fail(f"v1_infer: kernels vs plain fp32 {err}")
+    return counts
+
+
+def v1_mae_phase() -> dict:
+    """The published configuration: the MAE Hiera (hiera_base_224) at
+    224 x 224, b2 x s8, 1 + V1_MAE_STEPS V1Trainer steps.  Its mask-unit
+    attention is plain (as in vdn, no kernel at this configuration): C2
+    and D2 never launch; the pos-embed needs no resize at 224."""
+    from vdn_torch.train.trainer import V1Trainer
+    rng = np.random.default_rng(SEED + 8)
+    batch = v1_batch(rng, size=V1_MAE_SIZE)
+    model = build_v1_model(V1_MAE_ENCODER, SEED + 8)
+    trainer = V1Trainer(model, initial_lr=V1_LR,
+                        weight_decay=V1_WEIGHT_DECAY)
+    trainer.train_step(batch)
+    losses, walls, peak, counts = timed_steps(
+        lambda: trainer.train_step(batch), V1_MAE_STEPS)
+    check_absent("v1_mae", counts, ["flash_attention", "flash_attention_bwd"])
+    total = [float(l["total_loss"]) for l in losses]
+    if not np.isfinite(total).all():
+        fail(f"v1_mae: losses {total}")
+    log("v1_mae", encoder=V1_MAE_ENCODER, size=V1_MAE_SIZE,
+        batch=f"b{V1_B}xs{V1_S}", steps=V1_MAE_STEPS,
+        ms_per_step=f"{statistics.median(walls):.3f}",
+        step_ms=json.dumps([round(w, 2) for w in walls]),
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        losses=json.dumps([float(f"{x:.9g}") for x in total]),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
+
+
+def v1_phases() -> dict:
+    """The v1 phases, fp32 throughout: the training run, inference on its
+    model, the MAE configuration.  Returns the launches by path."""
+    with exact_fp32():
+        train, model, batch = v1_train_phase()
+        infer = v1_infer_phase(model, batch)
+        del model
+        torch.cuda.empty_cache()
+        mae = v1_mae_phase()
+        torch.cuda.empty_cache()
+    return {"v1_train": train, "v1_infer": infer, "v1_mae": mae}
+
+
 # ---------------------------------------------------------------- main
 SOURCES = {
     "flash_attention_fused_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
@@ -2153,6 +2636,8 @@ SOURCES = {
                         "vdn/ops/pallas/flash_attention.py:270"),
     "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_bthd.cu",
                                 "vdn/ops/pallas/flash_attention.py:157"),
+    "flash_attention_bwd": ("vdn_torch/csrc/flash_attn_bthd_bwd.cu",
+                            "vdn/ops/pallas/flash_attention.py:366"),
     "flash_attention_fused_qkv_train": (
         "vdn_torch/csrc/flash_attn_qkv.cu",
         "vdn/ops/pallas/flash_attention.py:528"),
@@ -2180,6 +2665,7 @@ INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
 # whose shapes its times are summed over
 HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             "flash_attention_colbias": "image",
+            "flash_attention_bwd": "v1_train",
             "flash_attention_fused_qkv_train": "train",
             "flash_attention_fused_qkv_bwd": "train",
             "fused_ln_mlp_residual_bwd": "train",
@@ -2254,6 +2740,13 @@ def main() -> None:
     build_kernels()
     summary = check_kernels()
     summary.update(check_kernels(train_cases(np.random.default_rng(SEED))))
+    with exact_fp32():
+        for name, s in check_kernels(
+                v1_cases(np.random.default_rng(SEED + 7))).items():
+            merged = summary.setdefault(name, {"max_abs_err": 0.0})
+            merged["max_abs_err"] = max(merged["max_abs_err"],
+                                        s.pop("max_abs_err"))
+            merged.update(s)
     check_no_backward_raises()
     model = build_model()
     frames = synthetic_clip()
@@ -2288,11 +2781,13 @@ def main() -> None:
     counts_metric_train = metric_train_phase(frames)
     torch.cuda.empty_cache()
     launches_vitg = vitg_phases(frames)
+    torch.cuda.empty_cache()
+    launches_v1 = v1_phases()
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
                 "metric_train": counts_metric_train, **launches_int8,
-                **launches_vitg}
+                **launches_vitg, **launches_v1}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
@@ -2303,7 +2798,9 @@ def main() -> None:
     # the training phase's TRAIN_STEPS steps (F1-F5: the int8_static clip's
     # three windows), and stream_ms / stream_bound_ms over the stream's
     # shapes; launches from the run of the headline path, and from every
-    # path's run; ``vitg``: the numbers at vitg's widths, by path.
+    # path's run; ``vitg``: the numbers at vitg's widths, by path; ``v1``:
+    # C2's and A5a / A5b's at the v1 step's shapes (D2's own row: the
+    # global blocks at T 256 and the ragged 324, launches over V1_STEPS).
     rows = []
     for name, (src, tpu) in SOURCES.items():
         path = HEADLINE.get(name, "clip")
@@ -2325,6 +2822,8 @@ def main() -> None:
                          if p.startswith("vitg")}}
                if any(p.startswith("vitg") for p in summary[name])
                and name not in INT8_KERNELS else {}),
+            **({"v1": summary[name]["v1"]}
+               if "v1" in summary[name] and path != "v1_train" else {}),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in launches.items()}})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -33,6 +33,11 @@ RefineVideoDepth v4 (chip_smoke.py's training phase):
 - ``train``: two RefineTrainer steps (b2 t8, frozen temporal head) after a
   warm-up step.
 
+The v1 research model (chip_smoke.py's v1 phase: hiera_base, 256 x 256,
+fp32):
+
+- ``v1_train``: two V1Trainer steps (b2 x s8) after a warm-up step.
+
 For each, device time is summed from the exported chrome trace (events of
 category "kernel"), grouped by kernel name, and printed per unit (window,
 frame) beside the span of host wall time and the union of kernel intervals
@@ -58,6 +63,10 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
+    (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
+    (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
+    (r"flash_bwd_dq_f32", "D2 dQ"),
+    (r"flash_bwd_delta_f32", "D2 delta"),
     (r"quant_rows_kernel<float",
      "F4 / F5 hidden quantize (per row and F / 2)"),
     (r"quant_rows_kernel<[^,]*, (true|\(bool\)1)>",
@@ -189,7 +198,7 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
 
 
 UNITS = ("cached", "int8", "stream_k1", "stream_k8", "image", "train",
-         "vitg_cached", "vitg_int8")
+         "vitg_cached", "vitg_int8", "v1_train")
 
 
 def profile_cached(model, frames, out: str, name: str) -> None:
@@ -296,6 +305,19 @@ def profile_train(out: str) -> None:
     report("train", res, 2, "step")
 
 
+def profile_v1_train(out: str) -> None:
+    import numpy as np
+    from vdn_torch.train.trainer import V1Trainer
+    with cs.exact_fp32():
+        batch = cs.v1_batch(np.random.default_rng(cs.SEED + 7))
+        trainer = V1Trainer(cs.build_v1_model(), initial_lr=cs.V1_LR,
+                            weight_decay=cs.V1_WEIGHT_DECAY)
+        trainer.train_step(batch)
+        res = trace(lambda: trainer.train_step(batch), 2,
+                    os.path.join(out, "v1_train.json"))
+    report("v1_train", res, 2, "step")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/profile",
@@ -315,6 +337,9 @@ def main() -> None:
         profile_image(args.out)
     if "train" in args.units:
         profile_train(args.out)
+    if "v1_train" in args.units:
+        torch.cuda.empty_cache()
+        profile_v1_train(args.out)
 
 
 if __name__ == "__main__":

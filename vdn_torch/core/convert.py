@@ -5,7 +5,8 @@ leaf by leaf, so one set of weights (made for the JAX package, or a
 released checkpoint converted for it) loads into the port's modules with
 ``load_state_dict``:
 
-- ``name_N`` path components become ``name.N``;
+- ``name_N`` path components become ``name.N`` (``name_N_M``,
+  ``name.N.M``);
 - a rank-2 ``kernel`` becomes ``weight`` transposed (Linear);
 - a rank-4 ``kernel`` goes HWIO -> OIHW (Conv2d), or is un-flipped back to
   torch's IOHW for ConvTranspose2d keys;
@@ -23,9 +24,22 @@ BatchNorm's ``scale`` becomes ``weight`` and its running statistics copy
 verbatim.  A reference torch checkpoint of the older layout (``head.*``,
 ``final_res2.*``, ``final_scale2.*``) takes the v4 names key by key
 through vdn_torch.train.trainer.rename_with_map with ``V4_RENAME_MAP``, as
-vdn's training CLI renames it.  The SAM2 / Hiera leaves
-(``embedding``, ``in_proj``, NHWC pos-embed tables) come with their port;
-until then such a tree fails to load as unexpected keys.
+vdn's training CLI renames it.
+
+The v1 model (vdn_torch.models.video_depth_v1) adds three rules:
+
+- the packed attention of torch's nn.MultiheadAttention: ``in_proj``'s
+  ``kernel`` [C, 3C] becomes ``in_proj_weight`` [3C, C] (transposed) and
+  its ``bias`` ``in_proj_bias``;
+- hieradet's ``pos_embed`` and ``pos_embed_window`` tables, NHWC in vdn,
+  go back to the reference's NCHW (the MAE Hiera's [1, N, C] ``pos_embed``
+  copies verbatim);
+- the ConvTranspose2d kernels of heads v1 and v2 un-flip as the others,
+  under ``V1_HEAD_CONVT_PATTERNS`` / ``V2_HEAD_CONVT_PATTERNS`` (the
+  patterns vdn's converter takes for them).
+
+SAM2's ``embedding`` leaves come with its port; until then such a tree
+fails to load as unexpected keys.
 
 Registered buffers that vdn recomputes (the sinusoidal ``pe``) are not in
 the flax tree; the port's modules rebuild them.
@@ -45,7 +59,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "load_flax_params", "load_quant_stats",
-           "DEFAULT_CONVT_PATTERNS"]
+           "DEFAULT_CONVT_PATTERNS", "V1_HEAD_CONVT_PATTERNS",
+           "V2_HEAD_CONVT_PATTERNS"]
 
 # torch modules that are ConvTranspose2d (vdn.core.convert's defaults)
 DEFAULT_CONVT_PATTERNS = (
@@ -54,6 +69,12 @@ DEFAULT_CONVT_PATTERNS = (
     r"output_upscaling\.0\.",
     r"output_upscaling\.3\.",
 )
+
+# the ConvTranspose2d modules of the v1 family's heads v1 and v2
+V1_HEAD_CONVT_PATTERNS = (r"decoder\.\d+\.0\.",)
+V2_HEAD_CONVT_PATTERNS = (r"upscale_layers\.\d+\.0\.",
+                          r"final_upscale_layer\.0\.",
+                          r"final_upscale_layer\.3\.")
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
@@ -67,10 +88,18 @@ def _flatten(tree: Mapping, prefix=()) -> Iterable:
 
 
 def _torch_key(path) -> str:
+    """``a_0_1`` -> ``a.0.1``: vdn merges every numeric component of a
+    torch key into the name before it (nested ModuleLists, the v1 heads'
+    ``decoder.0.0``)."""
     parts = []
     for comp in path:
+        idx = []
         m = _INDEXED.match(comp)
-        parts.extend([m.group(1), m.group(2)] if m else [comp])
+        while m:
+            comp = m.group(1)
+            idx.insert(0, m.group(2))
+            m = _INDEXED.match(comp)
+        parts.extend([comp] + idx)
     return ".".join(parts)
 
 
@@ -88,6 +117,12 @@ def state_dict_from_flax(params: Mapping,
         value = np.asarray(value)
         leaf = path[-1]
         path = list(path)
+        if len(path) > 1 and path[-2] == "in_proj":
+            # nn.MultiheadAttention's packed qkv: kernel [C, 3C]
+            name = "in_proj_weight" if leaf == "kernel" else f"in_proj_{leaf}"
+            out[_torch_key(path[:-2] + [name])] = torch.tensor(
+                np.ascontiguousarray(value.T if leaf == "kernel" else value))
+            continue
         if leaf == "kernel":
             key = _torch_key(path[:-1] + ["weight"])
             if value.ndim == 4:
@@ -105,6 +140,8 @@ def state_dict_from_flax(params: Mapping,
             key = _torch_key(path[:-1] + ["weight"])
         else:
             key = _torch_key(path)
+            if leaf in ("pos_embed", "pos_embed_window") and value.ndim == 4:
+                value = np.transpose(value, (0, 3, 1, 2))  # NHWC -> NCHW
         out[key] = torch.tensor(np.ascontiguousarray(value))
     return out
 

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
-the single-image path's memory attention, the training backwards D1,
-D3 and D4 with A1's training forward, and F1-F5 of the int8 serving mode)
+the single-image path's memory attention and of hieradet's global blocks,
+the training backwards D1-D4 with A1's training forward, and F1-F5 of the
+int8 serving mode)
 live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
@@ -18,15 +19,16 @@ Dispatch, used by every wrapper in this package:
   Only reference runs enter it (chip_smoke.py's end-to-end comparison);
   the model's own path never does.
 
-Autograd: a wrapper that a training path reaches (A1-A6) runs, when grad
-is enabled and an input requires it, through a ``torch.autograd.Function``
-whose forward dispatches as above and whose backward is the backward
-kernel (D1, D3, D4), the same kernel on the transposed plan (A5a, A5b) or
-a recompute of the plain version (A4, A6), as vdn computes it; on the CPU
-the backward takes the kernel's plain version.  A backward dispatches as
-its forward did, on whatever thread autograd runs it (``save_dispatch``,
-``same_dispatch``).  B1, C1, C2 and F1-F5 have no backward: on a CUDA
-tensor that requires grad they raise.
+Autograd: a wrapper that a training path reaches (A1-A6, C2) runs, when
+grad is enabled and an input requires it, through a
+``torch.autograd.Function`` whose forward dispatches as above and whose
+backward is the backward kernel (D1-D4), the same kernel on the transposed
+plan (A5a, A5b) or a recompute of the plain version (A4, A6), as vdn
+computes it; on the CPU the backward takes the kernel's plain version.  A
+backward dispatches as its forward did, on whatever thread autograd runs
+it (``save_dispatch``, ``same_dispatch``).  B1, C1 and F1-F5 have no
+backward, nor has C2's bf16 kernel (D2 is fp32): on a CUDA tensor that
+requires grad they raise.
 
 ``launches`` counts, per wrapper, the calls that launched the kernel.
 """
@@ -65,6 +67,7 @@ launches = {
     "fused_resize_island": 0,
     "flash_attention": 0,
     "flash_attention_colbias": 0,
+    "flash_attention_bwd": 0,
     "flash_attention_fused_qkv_train": 0,
     "flash_attention_fused_qkv_bwd": 0,
     "fused_ln_mlp_residual_bwd": 0,
@@ -77,6 +80,7 @@ launches = {
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _P),
     "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _P),
@@ -85,6 +89,10 @@ _SIGNATURES = {
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _P),
+    "vdn_flash_attention_bthd_f32": (_P, _P, _P, _I, _I, _I, _I, _I)
+    + (_L,) * 6 + (_F, _P, _P, _P),
+    "vdn_flash_attention_bthd_bwd": (_P,) * 6 + (_I,) * 5 + (_L,) * 6
+    + (_F, _F) + (_P,) * 5,
     "vdn_ln_mlp_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
                             _P, _P, _P, _P, _P),
     "vdn_ln_mlp_residual_bwd": (_P, _P, _I, _I, _I) + (_P,) * 7 + (_F,)

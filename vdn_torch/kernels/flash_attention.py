@@ -12,10 +12,20 @@ C2 replaces ``flash_attention`` (``_flash_kernel``) and C1
 ``flash_attention_colbias`` (``_flash_colbias_kernel``): attention over
 separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
-Both run csrc/flash_attn_bthd.cu, A1's arithmetic read through the
-[B, T, H, D] strides, with whole -inf key tiles skipped.  They are
-inference kernels: on the card a tensor that requires grad raises (their
-backward, D2, comes with the paths that train through them).
+In bf16 at D = 64 both run csrc/flash_attn_bthd.cu, A1's arithmetic read
+through the [B, T, H, D] strides, with whole -inf key tiles skipped.  C2
+also runs fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, every product and
+sum an fp32 FMA): hieradet's global blocks on the v1 model, whose q, k and
+v it reads in place as slices of the fused qkv projection.
+
+Training through C2: with grad enabled and q, k or v requiring it, C2 runs
+as an autograd Function.  Its forward also writes the base-2 row
+log-sum-exp [B, H, Tq]; its backward is D2 (csrc/flash_attn_bthd_bwd.cu),
+vdn's ``_flash_bwd_bhtd``: delta = rowsum(dO * O), dV = P^T dO, dS = P (dP
+- delta), dQ = dS K * scale, dK = dS^T q * scale, with P recomputed from
+the saved log-sum-exp.  D2 covers fp32 at D = 96; C1 and C2's bf16 kernel
+are inference kernels, and on the card an input that requires grad raises
+there.
 
 Training: with grad enabled and qkv requiring it, A1 runs as an autograd
 Function.  Its forward is A1's training variant (the same kernel with
@@ -44,10 +54,11 @@ def _qscale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
-def _kernel_qscale(scale: float) -> float:
-    """The kernels' q factor, scale * log2(e) rounded to bf16 (on the host:
-    no device round trip)."""
-    return float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+def _kernel_qscale(scale: float, dtype: torch.dtype = torch.bfloat16
+                   ) -> float:
+    """The kernels' q factor, scale * log2(e) rounded to the operands'
+    dtype (on the host: no device round trip)."""
+    return float(torch.tensor(scale * LOG2E, dtype=dtype))
 
 
 def _attention_lse_plain(q, k, v, col_bias, scale):
@@ -83,7 +94,39 @@ def flash_attention_colbias_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
+    """C2's function at any D and dtype (in fp32: vdn's exact full-K
+    softmax, p = exp2(s - rowmax) and out = (p V) / rowsum(p))."""
     return flash_attention_colbias_plain(q, k, v, None, scale)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor,
+                              scale: Optional[float] = None):
+    """D2's function, (dq, dk, dv), with vdn's math and rounding points
+    (``_flash_bwd_kernel``, flash_attention.py:294-363): the softmax
+    recomputed over the whole row, unnormalized, p = exp2(s - rowmax) in
+    fp32 and l = rowsum(p); delta = rowsum(dO * out) from the saved output;
+    1 / l folded into the [Tq, D] operands (dO / l for dV, q / l rounded to
+    q's dtype for dK, the row rescale of dQ); dP = dO V^T, t = p (dP -
+    delta) rounded to q's dtype; dQ = t K * (scale / l), dK = t^T (q / l) *
+    scale, dV = p^T (dO / l), each summed in fp32 and rounded to its
+    input's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dt = q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * _qscale(q, scale)).float(),
+                     k.float())
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    inv_l = (1.0 / p.sum(-1).clamp_min(1e-30)).permute(0, 2, 1)[..., None]
+    g = dout.float()
+    delta = (g * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g * inv_l)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
+    tc = (p * (dp - delta)).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", tc, k.float()) * (inv_l * scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", tc,
+                      (q.float() * inv_l).to(dt).float()) * scale
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_fused_qkv_plain(qkv: torch.Tensor,
@@ -231,12 +274,14 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
             or v.shape != k.shape or tk > 64 * MAX_KEY_TILES):
         raise ValueError(
             f"{name}: kernel takes bf16 q [B, Tq, H, 64] and k, v "
-            f"[B, Tk, H, 64] with Tk <= {64 * MAX_KEY_TILES}, got q "
-            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, v "
-            f"{tuple(v.shape)} {v.dtype}")
+            f"[B, Tk, H, 64] with Tk <= {64 * MAX_KEY_TILES}"
+            + (" (C2 also fp32 at D = 96)" if col_bias is None else "")
+            + f", got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
+            f"{k.dtype}, v {tuple(v.shape)} {v.dtype}")
     if wants_grad(q, k, v):
-        raise RuntimeError(f"{name}: the kernel has no backward; run under "
-                           f"torch.no_grad()")
+        raise RuntimeError(
+            f"{name}: the bf16 kernel has no backward (D2 takes fp32 at "
+            f"D = 96); run under torch.no_grad()")
     scale = d ** -0.5 if scale is None else scale
     # scale * log2(e) rounded to bf16, as the plain version folds it
     qscale = _kernel_qscale(scale)
@@ -257,11 +302,133 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     return out
 
 
+F32_HEAD_DIMS = (96,)   # csrc/flash_attn_bthd_f32.cu, flash_attn_bthd_bwd.cu
+
+
+def _is_f32_case(q, k, v) -> bool:
+    """True where C2's fp32 kernel and D2 take the call."""
+    return (q.dtype == k.dtype == v.dtype == torch.float32
+            and q.shape[-1] in F32_HEAD_DIMS)
+
+
+def _strides(name: str, t: torch.Tensor, d: int) -> tuple:
+    """(batch, row) strides of a [B, T, H, D] operand the fp32 kernels read
+    in place: a head at h * D, elements contiguous, 16-byte rows."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
+    sb, st, sh, sd = t.stride()
+    if (sd != 1 or sh != d or st % 4 or sb % 4 or t.data_ptr() % 16
+            or st < t.shape[2] * d):
+        raise ValueError(f"{name}: [B, T, H, {d}] operand with strides "
+                         f"{t.stride()} is not readable in place")
+    return sb, st
+
+
+def _check_f32(name: str, q, k, v) -> None:
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+
+
+def _launch_f32(q, k, v, scale, save_lse: bool):
+    """C2's fp32 kernel: out, or (out, lse) with ``save_lse``."""
+    name = "flash_attention"
+    _check_f32(name, q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    strides = [s for t in (q, k, v) for s in _strides(name, t, d)]
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+           if save_lse else None)
+    launch("vdn_flash_attention_bthd_f32", q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), b, tq, tk, h, d, *strides,
+           _kernel_qscale(scale, torch.float32), out.data_ptr(),
+           None if lse is None else lse.data_ptr())
+    launches[name] += 1
+    return (out, lse) if save_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, scale: Optional[float] = None):
+    """D2: (dq, dk, dv) of C2 from the forward's out and base-2 lse
+    [B, H, Tq]; kernel for fp32 at D = 96 (q, k, v read in place)."""
+    if not use_kernel(q):
+        return flash_attention_bwd_plain(q, k, v, out, dout, scale)
+    name = "flash_attention_bwd"
+    if not _is_f32_case(q, k, v):
+        raise ValueError(f"{name}: kernel takes fp32 q, k, v with D in "
+                         f"{F32_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}")
+    _check_f32(name, q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    strides = [s for t in (q, k, v) for s in _strides(name, t, d)]
+    out, lse = out.contiguous(), lse.contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    if out.shape != q.shape or dout.shape != q.shape or (
+            lse.shape != (b, h, tq) or lse.dtype != torch.float32):
+        raise ValueError(f"{name}: out / dout {tuple(q.shape)} and lse fp32 "
+                         f"[B, H, Tq], got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    check_kernel_args(name, out, dout, lse, delta, dq, dk, dv)
+    launch("vdn_flash_attention_bthd_bwd", q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), b,
+           tq, tk, h, d, *strides, _kernel_qscale(scale, torch.float32),
+           float(scale), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr())
+    launches[name] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """C2 with its log-sum-exp and D2 as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        if use_kernel(q):
+            if not _is_f32_case(q, k, v):
+                raise RuntimeError(
+                    f"flash_attention: D2 takes fp32 q, k, v with D in "
+                    f"{F32_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}; the "
+                    f"bf16 kernel runs under torch.no_grad() only")
+            out, lse = _launch_f32(q, k, v, scale, save_lse=True)
+        else:
+            out, lse = _attention_lse_plain(q, k, v, None, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        save_dispatch(ctx)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        with same_dispatch(ctx):
+            return (*flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale),
+                    None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """C2: attention over [B, T, H, D]; kernel for bf16, D = 64."""
+    """C2: attention over [B, T, H, D]; kernel for bf16 at D = 64
+    (contiguous inputs) and fp32 at D = 96 (read in place through their
+    strides).  Differentiable (D2, fp32 D = 96 on the card) where grad is
+    enabled and an input requires it."""
+    if wants_grad(q, k, v):
+        return _Attention.apply(q, k, v, scale)
     if not use_kernel(q):
         return flash_attention_plain(q, k, v, scale)
+    if _is_f32_case(q, k, v):
+        return _launch_f32(q, k, v, q.shape[-1] ** -0.5 if scale is None
+                           else scale, save_lse=False)
     return _launch_bthd("flash_attention", q, k, v, None, scale)
 
 

@@ -5,7 +5,11 @@ Replace vdn/ops/pallas/resize.py:
 - ``resize_rows`` (A5a, ``_rows_kernel``): x [N, R_in, W, C] -> [N, out, W,
   C], each output row a blend of at most MAX_TAPS input rows (4 in a
   forward plan, up to 8 in a backward's transposed one) with fp32 weights,
-  summed in fp32 and rounded once to x's dtype (csrc/resize_rows.cu);
+  summed in fp32 and rounded once to x's dtype (csrc/resize_rows.cu).  A
+  plan with more taps (the transposed plan of a large upsample: hieradet's
+  bicubic pos-embed, 14 -> 64 rows, has 19) takes A5b's dense form over
+  [N, R_in, W * C], as vdn sends a plan its rows kernel does not support
+  to ``resize_mid_axis`` (vdn/ops/resize.py:222-232);
 - ``resize_mid_axis`` (A5b, ``_resize_kernel``): x [N, R, M] -> [N, S, M],
   out[n, s, m] = sum_r W[s, r] x[n, r, m] with the dense weights rounded to
   x's dtype first and fp32 sums (csrc/resize_mid_axis.cu);
@@ -49,7 +53,8 @@ def _rows_plan(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int]
     """vdn's per-row tap list: nonzero taps merged per source row (weights
     summed in float64, then fp32) and sorted by source row.  An all-zero
     row keeps its first tap at weight 0, as vdn does.  Rows are padded to
-    the longest with zero-weight taps (which add exact zeros)."""
+    the longest with zero-weight taps (which add exact zeros); a plan wider
+    than MAX_TAPS is returned as it is and runs dense (``_resize_rows``)."""
     idx = np.frombuffer(idx_bytes, np.int32).reshape(shape)
     w = np.frombuffer(w_bytes, np.float32).reshape(shape)
     rows = []
@@ -61,8 +66,6 @@ def _rows_plan(idx_bytes: bytes, w_bytes: bytes, shape: Tuple[int, int]
                 taps[i] = taps.get(i, 0.0) + float(w[o, t])
         rows.append(sorted(taps.items()) or [(int(idx[o, 0]), 0.0)])
     width = max(len(r) for r in rows)
-    if width > MAX_TAPS:
-        raise ValueError(f"resize_rows: {width} taps, at most {MAX_TAPS}")
     pidx = np.zeros((shape[0], width), np.int32)
     pw = np.zeros((shape[0], width), np.float32)
     for o, taps in enumerate(rows):
@@ -138,8 +141,8 @@ def cached_on_device(key: tuple, make, device) -> Tuple[torch.Tensor, ...]:
 
 def rows_plan(idx: np.ndarray, w: np.ndarray, device
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tap rows [out, taps] int32, tap weights [out, taps] fp32), taps <=
-    MAX_TAPS, on ``device``."""
+    """(tap rows [out, taps] int32, tap weights [out, taps] fp32) on
+    ``device``."""
     key = plan_key(idx, w)
     return cached_on_device(
         ("rows",) + key, lambda: map(torch.from_numpy, _rows_plan(*key)),
@@ -222,6 +225,12 @@ def _resize_rows(x: torch.Tensor, idx: np.ndarray, w: np.ndarray,
     pidx, pw = rows_plan(idx, w, x.device)
     if pidx.shape[0] != out_size:
         raise ValueError("resize_rows: plan rows != out_size")
+    if pidx.shape[1] > MAX_TAPS:
+        # the same blend through the dense weights: a plan [N, R, W, C]
+        # over its H axis is A5b's [N, R, W * C]
+        n, r_in, wd, c = x.shape
+        y = _resize_mid(x.reshape(n, r_in, wd * c), idx, w, out_size)
+        return y.reshape(n, out_size, wd, c)
     if not use_kernel(x):
         return resize_rows_plain(x, pidx, pw)
     _check_dtype("resize_rows", x)

@@ -221,6 +221,13 @@ class DinoVisionTransformer(nn.Module):
             result.append((t[:, 1:], t[:, 0]))
         return result
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, 3] -> every block, then the norm: [B, 1 + N, C]."""
+        tokens = self.prepare_tokens(x)
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        return self.norm(tokens)
+
 
 def make_vit(encoder: str,
              quantize: Optional[str] = None) -> DinoVisionTransformer:

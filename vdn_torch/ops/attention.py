@@ -10,6 +10,10 @@ CUDA tensor" in place of "on TPU":
 - a general [B, H, Tq, Tk] bias or a short sequence -> the plain path
   below, as vdn sends them to XLA.
 
+``use_flash`` overrides the size gate as vdn's does: False keeps the plain
+path at any length (the v1 head's attention, vdn/nn/video_heads.py:63-66),
+True takes the kernels at any length (a general bias still goes plain).
+
 On a CPU tensor the kernels' wrappers take their plain versions.
 
 The ViT reads its self-attention off the fused qkv buffer through kernel
@@ -49,15 +53,20 @@ def flash_enabled(tq: int, tk: int,
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
-                          bias: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None,
+                          use_flash: Optional[bool] = None) -> torch.Tensor:
     """Attention over [B, T, H, D] tensors (q: Tq, k / v: Tk); logits and
     softmax in fp32, probs rounded to the input dtype before the value
-    product.  bias: optional additive [B|1, H|1, Tq|1, Tk] logits bias."""
+    product.  bias: optional additive [B|1, H|1, Tq|1, Tk] logits bias.
+    use_flash: True / False force the kernels on / off; None (default) is
+    the size gate ``flash_enabled``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if flash_enabled(q.shape[1], k.shape[1], bias):
+    if use_flash is None:
+        use_flash = flash_enabled(q.shape[1], k.shape[1], bias)
+    if use_flash:
         if bias is None:
             return flash_attention(q, k, v, scale)
-        return flash_attention_colbias(q, k, v, bias.reshape(-1), scale)
+        if bias.numel() == k.shape[1]:
+            return flash_attention_colbias(q, k, v, bias.reshape(-1), scale)
     return _plain_attention(q, k, v, scale, bias)

@@ -1,5 +1,6 @@
-"""Refinement trainer, v4 semantics (vdn/train/trainer.py; reference
-scripts/train_v4.py:443-649).
+"""The refinement trainer, v4 semantics, and the v1 trainer
+(vdn/train/trainer.py; reference scripts/train_v4.py:443-649 and
+scripts/train.py:413-460).
 
 - AdamW (weight decay 0.01 on every trainable tensor, biases and norms
   included, as optax.adamw) with cosine annealing warm restarts (T_0 =
@@ -17,6 +18,14 @@ scripts/train_v4.py:443-649).
   checkpoints (reference :475-489): ``V4_RENAME_MAP`` with
   ``rename_with_map``, key by key.
 
+``V1Trainer`` trains the v1 research model (VideoDepthEstimationModel) on
+depth + normals: VideoDepthLoss + VideoNormalLoss * normal_loss_scale, the
+same AdamW and schedule over every parameter, input depths / 65,535 and GT
+depth -> disparity.  optax's adamw also decays the parameters that get no
+gradient (the head's unused stacks and pos-embeds); ``torch.optim.AdamW``
+skips a parameter whose ``.grad`` is None, so the trainer gives those a
+zero gradient.
+
 One process, one card: vdn's mesh (data-parallel SPMD) is not ported.
 """
 
@@ -28,7 +37,8 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from vdn_torch.train.losses import video_depth_loss
+from vdn_torch.ops.normals import normal_vector
+from vdn_torch.train.losses import video_depth_loss, video_normal_loss
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -107,6 +117,12 @@ def preprocess_depth_sequences(depth: torch.Tensor,
     return torch.where(any_valid, out, 0.0)
 
 
+def _as_tensor(a, device) -> torch.Tensor:
+    """A batch entry (numpy or tensor) as fp32 on ``device``."""
+    return torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                           else a, device=device).float()
+
+
 class RefineTrainer:
     """v4 refinement training: model(input depths) against GT disparity.
     The model (vdn_torch.models.refine.RefineVideoDepth) trains in place,
@@ -135,13 +151,11 @@ class RefineTrainer:
         return next(self.model.parameters()).device
 
     def _batch(self, batch: Mapping):
-        def dev(a):
-            return torch.as_tensor(np.asarray(a) if not isinstance(
-                a, torch.Tensor) else a, device=self.device).float()
-        mask = dev(batch["mask"])
+        dev = self.device
+        mask = _as_tensor(batch["mask"], dev)
         input_depths = preprocess_depth_sequences(
-            dev(batch["depth_anything_v2"]), mask, norm=False)
-        gt_disp = 1.0 / dev(batch["depth"]).clamp_min(1e-8)
+            _as_tensor(batch["depth_anything_v2"], dev), mask, norm=False)
+        gt_disp = 1.0 / _as_tensor(batch["depth"], dev).clamp_min(1e-8)
         return input_depths, gt_disp, mask
 
     def loss(self, input_depths, gt_disp, mask) -> Dict[str, torch.Tensor]:
@@ -162,4 +176,74 @@ class RefineTrainer:
     @torch.no_grad()
     def eval_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """The losses of ``batch`` without an update."""
+        return self.loss(*self._batch(batch))
+
+
+class V1Trainer:
+    """v1 research-model training: depth + normal objective over the
+    dual-Hiera model (vdn_torch.models.video_depth_v1), in place, on the
+    device its parameters lie on, in fp32 as vdn trains it."""
+
+    def __init__(self, model: torch.nn.Module, initial_lr: float = 1e-5,
+                 final_lr: float = 0.0, t_0: int = 10_000, t_mult: int = 2,
+                 alpha: float = 0.5, stable_scale: float = 10.0,
+                 normal_loss_scale: float = 1.0,
+                 input_depth_max: float = 65535.0,
+                 weight_decay: float = 0.01):
+        self.model = model
+        self.normal_loss_scale = normal_loss_scale
+        self.input_depth_max = input_depth_max
+        self.loss_kwargs = dict(alpha=alpha, stable_scale=stable_scale)
+        self.params = list(model.parameters())
+        self.optimizer = torch.optim.AdamW(self.params, lr=initial_lr,
+                                           weight_decay=weight_decay)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lr_lambda(cosine_warm_restarts(
+                initial_lr, t_0, t_mult, final_lr), initial_lr))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _batch(self, batch: Mapping):
+        """(input depths, rgbs, GT disparity, mask) on the model's device
+        (reference train.py:426-440 preprocessing)."""
+        dev = self.device
+        mask = _as_tensor(batch["mask"], dev)
+        rgbs = preprocess_rgb_sequences(_as_tensor(batch["rgb"], dev))
+        input_depths = preprocess_depth_sequences(
+            _as_tensor(batch["depth_anything_v2"], dev), mask,
+            norm=False) / self.input_depth_max
+        gt_disp = 1.0 / _as_tensor(batch["depth"], dev).clamp_min(1e-8)
+        return input_depths, rgbs, gt_disp, mask
+
+    def loss(self, input_depths, rgbs, gt_disp, mask
+             ) -> Dict[str, torch.Tensor]:
+        pred_depths, pred_normals = self.model(input_depths, rgbs)
+        out = video_depth_loss(pred_depths, gt_disp, mask,
+                               **self.loss_kwargs)
+        out.update(video_normal_loss(pred_normals, normal_vector(gt_disp),
+                                     mask))
+        out["total_loss"] = (out["total_loss"]
+                             + out["normal_loss"] * self.normal_loss_scale)
+        return out
+
+    def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """batch: rgb [B, S, H, W, 3] in 0-1, depth_anything_v2, depth and
+        mask [B, S, H, W], numpy or tensors.  One AdamW step; returns the
+        loss dict (detached)."""
+        loss_dict = self.loss(*self._batch(batch))
+        self.optimizer.zero_grad(set_to_none=True)
+        loss_dict["total_loss"].backward()
+        for p in self.params:
+            if p.grad is None:  # decayed all the same, as optax's adamw
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
+        self.scheduler.step()
+        return {k: v.detach() for k, v in loss_dict.items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """The validation losses of ``batch`` without an update (reference
+        train.py:376-410)."""
         return self.loss(*self._batch(batch))
