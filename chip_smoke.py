@@ -37,6 +37,16 @@ FFN), 12 frames streamed at k = 1, and 8 images through the bank, then
 ``clear_memory()`` and the 480 x 640 images, on the kernels at its widths
 (A3 at dh 192 / 48, A6 at C 192, B1 on 384-lane rings).
 
+Context parallel over the frame axis, on a world of one rank (NCCL) and a
+(1, 1, 1) mesh: E1, the ring-attention step, over a ring of 4 K / V blocks
+in one process against the plain ring and SDPA (local T 8, 32, 128); the
+32-frame vitl window through ``make_context_parallel_forward`` with
+``seq_axis="seq"`` on the main model's weights (``ring_pallas``: E1 8
+times, A3 never; ``auto``: no E1), against the plain model's window and
+its own plain run; the two CP streaming decodes (``_cached_cp`` for one
+frame, one chunk window of 8 frames) against the local ones; one backward
+through the ring of E1.
+
 The v1 research model (dual hieradet encoders at hiera_base's width and
 the sangyu head), fp32 as vdn trains it, at 256 x 256 and b2 x s8:
 V1Trainer for 1 + 5 steps (C2 at fp32 / D 96 and its backward D2 at the
@@ -132,6 +142,9 @@ N_VITG_IMAGE = 8
 # the plain output overall
 INT8_TIE_SHARE = 1e-3
 INT8_REL_L2 = 1e-3
+# context parallel: the ring of K / V blocks E1 is held over in one process
+# (the order rank 0 of a seq group of CP_RANKS sees them)
+CP_RANKS = 4
 
 
 START = time.perf_counter()
@@ -658,7 +671,8 @@ def kernel_cases(rng):
     32-frame window (A1, A2 at the cached window's 22 frames); "stream":
     the per-frame step (k = 1, batch 1 and T = 1, A3 on the first frame
     only) and the chunk of STREAM_CHUNK frames; "image" and "metric": one
-    image through DepthAnythingV2 and MetricDepthAnythingV2."""
+    image through DepthAnythingV2 and MetricDepthAnythingV2; "cp" (and
+    "cp4", "cplong", "cpextra"): E1 on the context-parallel window."""
     yield from encoder_cases(rng, "clip", CACHED_FRAMES)
     yield from motion_cases(rng, "clip", 32)
     yield from upsample_cases(rng, "clip",
@@ -690,6 +704,7 @@ def kernel_cases(rng):
                        ("image", NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)):
         yield from int8_cases(rng, path, rows)
     yield from vitg_cases(rng)
+    yield from e1_cases(rng)
 
 
 def vitg_cases(rng):
@@ -860,7 +875,8 @@ def check_kernels(cases=None) -> dict:
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **extra)
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            bound_bytes=c["work"][0], **extra)
         if not finite or not ok:
             fail(f"{c['name']} {c['label']}: max abs err {err} (tol {tol}) "
                  f"{extra}")
@@ -1185,6 +1201,362 @@ def stream_phase(model, frames, n=N_STREAM, chunk=STREAM_CHUNK,
     if k_vs_1 is not None and not k_vs_1["rel_l2"] <= tol:
         fail(f"{label} k={chunk} vs k=1: rel_l2 {k_vs_1['rel_l2']} > {tol}")
     return counts1, counts_k, (plain_bf16, plain_fp32)
+
+
+# ------------------------------------------------------- phase 6b: CP
+def e1_shapes():
+    """E1's rows and head width at the four motion modules: (tokens x 8
+    heads, C / 8)."""
+    return [(bn * 8, c // 8) for bn, c in MOTION_SHAPES]
+
+
+def _zero_carry(g, t, d):
+    o = torch.zeros((g, t, d), device=DEVICE)
+    l = torch.zeros((g, t), device=DEVICE)
+    return o, torch.full_like(l, -1e30), l
+
+
+def e1_cases(rng):
+    """E1 at the motion modules' rows, Tq = Tk = 32 (path "cp": the
+    context-parallel window at p = 1, one call per module of the window's
+    two), 8 ("cp4": p = 4 over the window) and 128 ("cplong"), bf16 from the
+    ring's first (zero) carry; and ("cpextra") one fp32 shape and one
+    non-zero incoming carry, the second step of a ring.  The kernel updates
+    a copy of the carry in place; library: SDPA over the same block (from a
+    zero carry o / l is the attention)."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import ring_attention as ra
+    bf = torch.bfloat16
+    g0, d0 = e1_shapes()[0]
+    specs = [(path, t, g, d, bf, False)
+             for path, t in (("cp", 32), ("cp4", 8), ("cplong", 128))
+             for g, d in e1_shapes()]
+    specs += [("cpextra", 32, g0, d0, torch.float32, False),
+              ("cpextra", 32, g0, d0, bf, True)]
+    for path, t, g, d, dt, carry in specs:
+        q, k, v = (_rand(rng, (g, t, d)).to(DEVICE, dt) for _ in range(3))
+        if carry:
+            o = _rand(rng, (g, t, d), 3.0)
+            m = _rand(rng, (g, t), 1.0, 2.0)
+            l = _rand(rng, (g, t)).abs() * 4 + 1
+        else:
+            o, m, l = _zero_carry(g, t, d)
+        work = [a.clone() for a in (o, m, l)]
+        scale = d ** -0.5
+        peak = BF16_TENSOR_FLOPS if dt == bf else FP32_FLOPS
+        yield case(
+            "ring_step", f"G{g} T{t} D{d} {str(dt)[6:]}"
+            + (" carry" if carry else ""),
+            lambda a=(q, k, v, *work), s=scale: ra.ring_step(*a, s),
+            lambda a=(q, k, v, o, m, l), s=scale: ra.ring_step_plain(*a, s),
+            # q, k, v read once, the carry read and written
+            (_nbytes(q, k, v) + 2 * _nbytes(o, m, l),
+             [(4 * g * t * t * d, peak)]), path,
+            library=None if carry else (
+                lambda a=(q, k, v), s=scale:
+                    F.scaled_dot_product_attention(*a, scale=s)),
+            tol="bf16" if dt == bf else "fp32")
+
+
+def e1_ring_phase(rng) -> dict:
+    """E1 over a ring of CP_RANKS K / V blocks in one process, in the order
+    rank 0 sees them (its own block, then the blocks of ranks 3, 2, 1), at
+    [tokens, T_local, 8, D] (the layout the CP model hands E1, read through
+    its strides) for the first and the last motion module and local T 8 /
+    32 / 128.  Gates: o / l within KERNEL_ULPS of the chained plain E1
+    steps, and no further from the plain fp32 ring (vdn's
+    ring_attention recipe) than E2E_DRIFT_FACTOR times SDPA's bf16 distance
+    from it (at least KERNEL_ULPS ulps): both round p to bf16.  Times the
+    E1 ring against the plain ring: the card's numbers for vdn's gate at a
+    local K / V length of 128."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import ring_attention as ra
+    from vdn_torch.parallel.context import ring_update_plain
+    bf = torch.bfloat16
+    out = {}
+    for bn, c in (MOTION_SHAPES[0], MOTION_SHAPES[-1]):
+        h, d = 8, c // 8
+        for t in (8, 32, 128):
+            q = _rand(rng, (bn, t, h, d)).to(DEVICE, bf)
+            kv = [_rand(rng, (bn, CP_RANKS * t, h, d)).to(DEVICE, bf)
+                  for _ in range(2)]
+            blocks = [tuple(a[:, j * t:(j + 1) * t].contiguous()
+                            for a in kv)
+                      for j in (0, *range(CP_RANKS - 1, 0, -1))]
+            scale = d ** -0.5
+
+            def e1_ring():
+                o, m, l = _zero_carry(bn * h, t, d)
+                for k, v in blocks:
+                    ra.ring_step(q, k, v, o, m, l, scale)
+                return (o / l[..., None]).to(bf)
+
+            def e1_plain():
+                o, m, l = _zero_carry(bn * h, t, d)
+                for k, v in blocks:
+                    o, m, l = ra.ring_step_plain(q, k, v, o, m, l, scale)
+                return (o / l[..., None]).to(bf)
+
+            def plain_ring():
+                qf = q.float()
+                o = torch.zeros((bn, h, t, d), device=DEVICE)
+                l = torch.zeros((bn, h, t, 1), device=DEVICE)
+                m = l - 1e30
+                for k, v in blocks:
+                    o, m, l = ring_update_plain(qf, k, v, o, m, l, scale)
+                return (o / l).reshape(bn * h, t, d)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *(a.transpose(1, 2) for a in (q, *kv)), scale=scale)
+
+            got, want = e1_ring(), e1_plain()
+            exact = plain_ring()
+            lib = sdpa().reshape(bn * h, t, d)
+            err, tol, scale_, _ = _compare(got, want, "bf16")
+            err32 = (got.float() - exact).abs().max().item()
+            lib32 = (lib.float() - exact).abs().max().item()
+            tol32 = max(E2E_DRIFT_FACTOR * lib32, tol)
+            ms, plain_ms = time_ms(e1_ring), time_ms(plain_ring)
+            lib_ms = time_ms(sdpa)
+            label = f"N{bn} T{t}x{CP_RANKS} D{d}"
+            log("e1_ring", shape=repr(label), max_abs_err=f"{err:.3e}",
+                tol=f"{tol:.3e}", vs_fp32_ring=f"{err32:.3e}",
+                sdpa_vs_fp32_ring=f"{lib32:.3e}", tol_fp32=f"{tol32:.3e}",
+                ms=f"{ms:.4f}", plain_ring_ms=f"{plain_ms:.4f}",
+                ratio=f"{ms / plain_ms:.3f}", sdpa_ms=f"{lib_ms:.4f}")
+            if not (err <= tol and err32 <= tol32
+                    and bool(torch.isfinite(got).all())):
+                fail(f"e1 ring {label}: err {err} (tol {tol}), vs the fp32 "
+                     f"ring {err32} (tol {tol32})")
+            out[label] = {"ms": ms, "plain_ring_ms": plain_ms,
+                          "sdpa_ms": lib_ms}
+            del q, kv, blocks, got, want, exact, lib
+            torch.cuda.empty_cache()
+    return out
+
+
+def build_cp_model(model):
+    """The clip model with ``seq_axis="seq"`` and the same weights."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    cp = build_video_depth_anything(
+        "vitl", compute_dtype=torch.bfloat16, device="cpu", seq_axis="seq")
+    cp.load_state_dict(model.state_dict())
+    return cp.to(DEVICE)
+
+
+def plain_fp32(model, fn):
+    """fn() through the plain versions with the model in fp32."""
+    from vdn_torch import kernels
+    with kernels.plain_reference():
+        model.compute_dtype = torch.float32
+        try:
+            return fn()
+        finally:
+            model.compute_dtype = torch.bfloat16
+
+
+def cp_gate(label, got, want, noise) -> dict:
+    """E2E drift gate: ``got`` no further from ``want`` than
+    E2E_DRIFT_FACTOR times ``noise`` (bf16's own rel L2 from fp32)."""
+    d = drift(want, got)
+    tol = E2E_DRIFT_FACTOR * noise
+    if not np.isfinite(got).all() or not d["rel_l2"] <= tol:
+        fail(f"{label}: rel_l2 {d['rel_l2']} > {tol}")
+    return d
+
+
+def cp_clip_phase(model, cp, mesh, frames) -> dict:
+    """The vitl 518 window (32 frames) through make_context_parallel_forward
+    on the seq group of one rank: ``ring_pallas`` (E1, once per attention
+    block: 8, and no A3), then ``auto`` (the plain ring at T 32: no E1);
+    the other kernels as the plain model's window.  The depth within the
+    drift gate of the plain model's window and of the CP model's plain
+    bf16 run; the window timed against the plain model's."""
+    from vdn_torch import kernels
+    from vdn_torch.parallel.context import (make_context_parallel_forward,
+                                            set_cp_mode)
+    x = window_input(frames)
+    fwd = make_context_parallel_forward(cp, mesh)
+    with torch.no_grad():
+        kernels.reset_launches()
+        clip = model(x)
+        torch.cuda.synchronize()
+        want_counts = dict(kernels.launches)
+        set_cp_mode("ring_pallas")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        depth = fwd(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        want_counts.update(ring_step=8, temporal_attention_block=0)
+        check_frame_launches("cp_clip", counts, want_counts)
+        cp_ms = time_ms(lambda: fwd(x), reps=5, warmup=1)
+        clip_ms = time_ms(lambda: model(x), reps=5, warmup=1)
+        set_cp_mode("auto")
+        kernels.reset_launches()
+        auto = fwd(x)
+        torch.cuda.synchronize()
+        counts_auto = dict(kernels.launches)
+        check_frame_launches("cp_clip auto", counts_auto,
+                             {**want_counts, "ring_step": 0})
+        auto_ms = time_ms(lambda: fwd(x), reps=5, warmup=1)
+        set_cp_mode("ring_pallas")
+        with kernels.plain_reference():
+            clip16 = model(x)
+            cp16 = fwd(x)
+        clip32 = plain_fp32(model, lambda: model(x))
+    to_np = lambda a: a.float().cpu().numpy()
+    depth, auto, clip = to_np(depth), to_np(auto), to_np(clip)
+    check_depth("cp_clip", depth[0], 32)
+    noise = drift(to_np(clip32), to_np(clip16))["rel_l2"]
+    vs_clip = cp_gate("cp_clip vs the plain model's window", depth, clip,
+                      noise)
+    vs_plain = cp_gate("cp_clip vs its plain bf16 run", depth, to_np(cp16),
+                       noise)
+    vs_auto = cp_gate("cp_clip ring_pallas vs auto", depth, auto, noise)
+    log("cp_clip", mode="ring_pallas", cp_window_ms=f"{cp_ms:.2f}",
+        plain_model_window_ms=f"{clip_ms:.2f}",
+        auto_window_ms=f"{auto_ms:.2f}", wall_s=f"{wall:.3f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        vs_clip=json.dumps(vs_clip), vs_plain_bf16=json.dumps(vs_plain),
+        vs_auto=json.dumps(vs_auto), bf16_vs_fp32=f"{noise:.3e}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        launches_auto=json.dumps(counts_auto, separators=(",", ":")))
+    return {"cp_clip": counts, "cp_clip_auto": counts_auto}
+
+
+def cp_decode_phase(model, cp, mesh, frames) -> None:
+    """The two context-parallel streaming decodes at p = 1 against the
+    plain model's local ones, on the window of the clip's first 31 frames
+    (the entries of one window pass): ``_cached_cp`` for frame 31 (cache_len
+    31) against ``_cached_local``, and one chunk-window step of
+    STREAM_CHUNK frames (frames 31-38; a 32-slot ring holding the 31
+    entries) with ``seq_axis`` against the local chunk window.  Gate:
+    the drift gate against bf16's own distance from fp32 of the local
+    decode of frame 31."""
+    from vdn_torch.parallel.mesh import use_mesh
+    x = window_input(frames)
+    xw, new = x[:, :31], x[:, 31:32]
+    chunk = window_input(frames[31:])[:, :STREAM_CHUNK]
+    kf = chunk.shape[1]
+
+    def window_and_frame(m):
+        feats = m.forward_features(xw)
+        _, entries = m.forward_depth(feats, xw.shape, want_entries=True)
+        f_new = m.forward_features(new)
+        return entries, f_new, m.forward_depth(f_new, new.shape,
+                                               caches=list(entries))
+
+    def chunk_step(m, entries):
+        cap = 32
+        bufs = [torch.cat([e, e.new_zeros((e.shape[0], cap - 31,
+                                           e.shape[2]))], 1)
+                for e in entries]
+        sel = [[f if f < 31 else cap + f - 31 for f in range(j, j + 32)]
+               for j in range(kf)]
+        onehot = torch.nn.functional.one_hot(
+            torch.tensor(sel, device=DEVICE), cap + kf).float()
+        ph, pw = SIZE // 14, SIZE // 14
+        r1, r2, l3, l4 = m.head.decode_pre(m.forward_features(chunk), ph, pw)
+        p3, ents = m.head.decode_temporal(
+            l3, l4, tuple(r2.shape[-3:-1]), kf,
+            caches=[(b, onehot) for b in bufs])
+        return m.head.decode_post(p3, r1, r2, (SIZE, SIZE)), ents
+
+    with torch.no_grad():
+        entries, f_new, (local, local_e) = window_and_frame(model)
+        with use_mesh(mesh):
+            got, got_e = cp.forward_depth(f_new, new.shape,
+                                          caches=list(entries), cache_len=31)
+            got_k, got_k_e = chunk_step(cp, entries)
+        local_k, local_k_e = chunk_step(model, entries)
+        _, _, (local32, _) = plain_fp32(model,
+                                        lambda: window_and_frame(model))
+    to_np = lambda a: a.float().cpu().numpy()
+    noise = drift(to_np(local32), to_np(local))["rel_l2"]
+    cached = cp_gate("cp _cached_cp vs _cached_local", to_np(got),
+                     to_np(local), noise)
+    chunked = cp_gate("cp chunk window vs local", to_np(got_k),
+                      to_np(local_k), noise)
+    # an entry is the projection of its block's input, which the earlier
+    # blocks' attention already moved by bf16 noise: logged, not gated
+    entries = max(rel_l2(a.float(), b.float())
+                  for a, b in zip(got_e + got_k_e, local_e + local_k_e))
+    log("cp_decode", cached_cp_vs_local=json.dumps(cached),
+        chunk_vs_local=json.dumps(chunked),
+        chunk_equal=bool(torch.equal(got_k, local_k)),
+        entries_max_rel_l2=f"{entries:.3e}", bf16_vs_fp32=f"{noise:.3e}")
+
+
+def cp_backward_phase(rng, group) -> None:
+    """One backward through ring_attention_kernel (the E1 ring forward, the
+    plain ring under autograd backward) at the first motion module's E1
+    shape on the seq group: its gradients against an fp32 autograd
+    reference within E2E_DRIFT_FACTOR times SDPA's bf16 gradients' distance
+    from it (at least KERNEL_ULPS ulps)."""
+    import torch.nn.functional as F
+    from vdn_torch import kernels
+    from vdn_torch.kernels.ring_attention import ring_attention_kernel
+    bn, c = MOTION_SHAPES[0]
+    h, d, t = 8, c // 8, 32
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, (bn, t, h, d)).to(DEVICE, bf) for _ in range(3))
+    g = _rand(rng, (bn, t, h, d)).to(DEVICE, bf)
+
+    def grads(fn, dt):
+        args = [a.to(dt).detach().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(fn(*args), args, g.to(dt))
+
+    kernels.reset_launches()
+    got = grads(lambda *a: ring_attention_kernel(*a, group), bf)
+    torch.cuda.synchronize()
+    if kernels.launches["ring_step"] != 1:
+        fail(f"cp backward: ring_step launches {kernels.launches}")
+    sdpa = lambda *a: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in a)).transpose(1, 2)
+    lib = grads(sdpa, bf)
+    ref = grads(sdpa, torch.float32)
+    errs = {}
+    for name, a, b, r in zip("qkv", got, lib, ref):
+        err = (a.float() - r).abs().max().item()
+        lib_err = (b.float() - r).abs().max().item()
+        tol = max(E2E_DRIFT_FACTOR * lib_err,
+                  KERNEL_ULPS * bf16_ulp(r.abs().max().item()))
+        errs[f"d{name}"] = [f"{err:.3e}", f"{lib_err:.3e}", f"{tol:.3e}"]
+        if not (err <= tol and bool(torch.isfinite(a).all())):
+            fail(f"cp backward d{name}: {err} > {tol}")
+    log("cp_backward", shape=repr(f"N{bn} T{t} H{h} D{d}"),
+        err_sdpa_err_tol=json.dumps(errs))
+
+
+def cp_phases(model, frames) -> dict:
+    """Context parallel over the frame axis on one card: a world of one
+    (NCCL), a (1, 1, 1) mesh, the seq_axis model on the main model's
+    weights; the in-process E1 ring, the CP window, the two CP decodes and
+    the ring's backward.  Returns (the CP window's launches in the modes
+    ring_pallas and auto, the E1 ring's times by shape)."""
+    import torch.distributed as dist
+    from vdn_torch.parallel.launch import initialize_distributed
+    from vdn_torch.parallel.mesh import SEQ_AXIS, make_mesh
+    rng = np.random.default_rng(SEED + 8)
+    initialize_distributed(device=DEVICE)
+    mesh = make_mesh(seq=1, device=DEVICE)
+    log("cp_mesh", backend=dist.get_backend(), world=dist.get_world_size(),
+        mesh=repr(str(mesh)))
+    ring = e1_ring_phase(rng)
+    cp = build_cp_model(model)
+    counts = cp_clip_phase(model, cp, mesh, frames)
+    cp_decode_phase(model, cp, mesh, frames)
+    cp_backward_phase(rng, mesh.get_group(SEQ_AXIS))
+    del cp
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return counts, ring
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1984,11 +2356,13 @@ def check_updates(name: str, named, before) -> list:
 
 
 def check_no_backward_raises() -> None:
-    """B1, C1, C2's bf16 kernel (D2 is fp32) and F1-F5 have no backward: on
+    """B1, C1, C2's bf16 kernel (D2 is fp32), F1-F5 and the single E1 step
+    (the ring's backward is a recompute) have no backward: on
     the card each raises when an input requires grad, rather than return an output that cuts the
     graph (the training phases show that the wrappers with a backward keep
     it: every trainable tensor upstream of them gets a nonzero gradient)."""
     from vdn_torch.kernels import flash_attention as fa, int8, resize
+    from vdn_torch.kernels import ring_attention as ra
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=DEVICE,
                     requires_grad=True)
     x = torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=DEVICE,
@@ -2015,7 +2389,9 @@ def check_no_backward_raises() -> None:
              "fused_ln_swiglu_residual_int8":
                  lambda: int8.fused_ln_swiglu_residual_int8(
                      t, v64, v64, w(256, 64), torch.zeros(256, device=DEVICE),
-                     w(64, 128), v64, v64)}
+                     w(64, 128), v64, v64),
+             "ring_step": lambda: ra.ring_step(
+                 t, t, t, *_zero_carry(1, 32, 64), 0.125)}
     for name, call in calls.items():
         try:
             call()
@@ -2658,6 +3034,8 @@ SOURCES = {
                                    "vdn/ops/pallas/int8.py:357"),
     "fused_ln_swiglu_residual_int8": ("vdn_torch/csrc/ln_swiglu_int8.cu",
                                       "vdn/ops/pallas/int8.py:339"),
+    "ring_step": ("vdn_torch/csrc/ring_step.cu",
+                  "vdn/ops/pallas/ring_attention.py:65"),
 }
 INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
                 "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8"]
@@ -2671,7 +3049,8 @@ HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             "fused_ln_mlp_residual_bwd": "train",
             "temporal_attention_block_bwd": "train",
             **{n: "clip_int8_static" for n in INT8_KERNELS},
-            "fused_ln_swiglu_residual_int8": "vitg_clip_int8_static"}
+            "fused_ln_swiglu_residual_int8": "vitg_clip_int8_static",
+            "ring_step": "cp_clip"}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
 # the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES
@@ -2757,6 +3136,7 @@ def main() -> None:
     time_windows(model, frames)
     clip_plain = reference_runs(model, frames, depth)
     counts_k1, counts_k8, stream_plain = stream_phase(model, frames)
+    launches_cp, cp_ring = cp_phases(model, frames)
     int8_conv_phase()
     launches_int8 = int8_video_phases(model, frames, clip_plain,
                                       stream_plain)
@@ -2787,7 +3167,7 @@ def main() -> None:
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
                 "metric_train": counts_metric_train, **launches_int8,
-                **launches_vitg, **launches_v1}
+                **launches_vitg, **launches_v1, **launches_cp}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
@@ -2800,7 +3180,10 @@ def main() -> None:
     # shapes; launches from the run of the headline path, and from every
     # path's run; ``vitg``: the numbers at vitg's widths, by path; ``v1``:
     # C2's and A5a / A5b's at the v1 step's shapes (D2's own row: the
-    # global blocks at T 256 and the ragged 324, launches over V1_STEPS).
+    # global blocks at T 256 and the ragged 324, launches over V1_STEPS;
+    # E1: the CP window's four shapes at T 32, one call of a module's two,
+    # ``by_t`` at local T 8 / 128 and the fp32 / carry cases, ``ring_of_4``
+    # the in-process ring against the plain ring).
     rows = []
     for name, (src, tpu) in SOURCES.items():
         path = HEADLINE.get(name, "clip")
@@ -2824,6 +3207,10 @@ def main() -> None:
                and name not in INT8_KERNELS else {}),
             **({"v1": summary[name]["v1"]}
                if "v1" in summary[name] and path != "v1_train" else {}),
+            **({"by_t": {p: summary[name][p]
+                         for p in ("cp4", "cplong", "cpextra")},
+                "ring_of_4": cp_ring}
+               if name == "ring_step" else {}),
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in launches.items()}})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,7 +9,11 @@ VideoDepthAnything:
 - ``cached``: three cached clip windows (22 new frames + 10 reused);
 - ``stream_k1``: four per-frame streaming steps after 12 warm frames
   (past the gap-41 eviction);
-- ``stream_k8``: two chunks of 8 streaming frames after a warm chunk.
+- ``stream_k8``: two chunks of 8 streaming frames after a warm chunk;
+- ``cp_window``: three full 32-frame windows of the same weights built
+  with ``seq_axis="seq"`` through ``make_context_parallel_forward`` on a
+  world of one rank (NCCL, a (1, 1, 1) mesh) in ``ring_pallas`` mode: the
+  motion modules' attention is E1 (8 launches per window) instead of A3.
 
 - ``int8``: three cached clip windows of the same weights in the int8
   serving mode (``quantize="int8_static"``, calibrated on one full
@@ -63,6 +67,7 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
+    (r"ring_step_kernel", "E1 ring-attention step (CP motion modules)"),
     (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
     (r"flash_bwd_dq_f32", "D2 dQ"),
@@ -197,8 +202,8 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-UNITS = ("cached", "int8", "stream_k1", "stream_k8", "image", "train",
-         "vitg_cached", "vitg_int8", "v1_train")
+UNITS = ("cached", "int8", "stream_k1", "stream_k8", "cp_window", "image",
+         "train", "vitg_cached", "vitg_int8", "v1_train")
 
 
 def profile_cached(model, frames, out: str, name: str) -> None:
@@ -244,6 +249,28 @@ def profile_video(units, out: str, encoder: str = "vitl") -> None:
         res = trace(lambda: pipe.infer_video_depth_chunk(next(chunks)), 2,
                     os.path.join(out, "stream_k8.json"))
         report("stream_k8", res, 16, "frame")
+
+    if f"{prefix}cp_window" in units:
+        profile_cp_window(model, frames, out)
+
+
+def profile_cp_window(model, frames, out: str) -> None:
+    """Three full windows of the context-parallel model (``ring_pallas``)
+    on a world of one rank, after a warm-up window."""
+    import torch.distributed as dist
+    from vdn_torch.parallel.context import (make_context_parallel_forward,
+                                            set_cp_mode)
+    from vdn_torch.parallel.launch import initialize_distributed
+    from vdn_torch.parallel.mesh import make_mesh
+    initialize_distributed()
+    fwd = make_context_parallel_forward(cs.build_cp_model(model),
+                                        make_mesh(seq=1))
+    x = cs.window_input(frames)
+    set_cp_mode("ring_pallas")
+    fwd(x)
+    res = trace(lambda: fwd(x), 3, os.path.join(out, "cp_window.json"))
+    report("cp_window", res, 3, "window")
+    dist.destroy_process_group()
 
 
 def profile_int8(model, frames, out: str, name: str = "int8",
@@ -328,7 +355,8 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     cs.environment()
     cs.build_kernels()
-    if set(args.units) & {"cached", "int8", "stream_k1", "stream_k8"}:
+    if set(args.units) & {"cached", "int8", "stream_k1", "stream_k8",
+                          "cp_window"}:
         profile_video(args.units, args.out)
     if set(args.units) & {"vitg_cached", "vitg_int8"}:
         torch.cuda.empty_cache()

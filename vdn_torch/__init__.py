@@ -15,7 +15,12 @@ on the card unless the caller passes ``device="cpu"``:
   build_metric_depth_anything_v2``;
 - training: ``vdn_torch.models.refine.build_refine_video_depth`` with
   ``vdn_torch.train.trainer.RefineTrainer``, and the metric-depth model
-  with ``vdn_torch.train.metric_depth.MetricDepthTrainer``.
+  with ``vdn_torch.train.metric_depth.MetricDepthTrainer``;
+- context-parallel clips over the frame axis: the same video model built
+  with ``seq_axis="seq"``, ``vdn_torch.parallel.launch.
+  initialize_distributed``, ``vdn_torch.parallel.mesh.make_mesh`` and
+  ``vdn_torch.parallel.context.make_context_parallel_forward`` (a world
+  of one on the card by default; torchrun's environment for more).
 
 The hand-written CUDA kernels and their build live in
 ``vdn_torch.kernels``.

@@ -2,8 +2,9 @@
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
 the single-image path's memory attention and of hieradet's global blocks,
-the training backwards D1-D4 with A1's training forward, and F1-F5 of the
-int8 serving mode)
+the training backwards D1-D4 with A1's training forward, F1-F5 of the
+int8 serving mode, and E1, the ring-attention step of the context-parallel
+temporal attention)
 live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
@@ -23,12 +24,12 @@ Autograd: a wrapper that a training path reaches (A1-A6, C2) runs, when
 grad is enabled and an input requires it, through a
 ``torch.autograd.Function`` whose forward dispatches as above and whose
 backward is the backward kernel (D1-D4), the same kernel on the transposed
-plan (A5a, A5b) or a recompute of the plain version (A4, A6), as vdn
-computes it; on the CPU the backward takes the kernel's plain version.  A
+plan (A5a, A5b) or a recompute of the plain version (A4, A6; the ring of
+E1 re-runs the plain ring), as vdn computes it; on the CPU the backward takes the kernel's plain version.  A
 backward dispatches as its forward did, on whatever thread autograd runs
-it (``save_dispatch``, ``same_dispatch``).  B1, C1 and F1-F5 have no
-backward, nor has C2's bf16 kernel (D2 is fp32): on a CUDA tensor that
-requires grad they raise.
+it (``save_dispatch``, ``same_dispatch``).  B1, C1, F1-F5 and the
+single E1 step have no backward, nor has C2's bf16 kernel (D2 is fp32): on
+a CUDA tensor that requires grad they raise.
 
 ``launches`` counts, per wrapper, the calls that launched the kernel.
 """
@@ -77,6 +78,7 @@ launches = {
     "int8_proj_residual": 0,
     "fused_ln_mlp_residual_int8": 0,
     "fused_ln_swiglu_residual_int8": 0,
+    "ring_step": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -111,6 +113,8 @@ _SIGNATURES = {
     "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
     "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
+    "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
+    + (_P,) * 4,
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)

@@ -4,8 +4,9 @@
 - ``forward(x)``: x [B, T, H, W, 3] -> depth [B, T, H, W] fp32
 - ``forward_features(x)``: the ViT's four intermediate layers over the
   flattened frames
-- ``forward_depth(features, x_shape, caches, want_entries)``: decode
-  features of T frames, with the streaming cache entries when asked
+- ``forward_depth(features, x_shape, caches, want_entries, cache_len)``:
+  decode features of T frames, with the streaming cache entries when
+  asked
 - ``forward_window`` / ``forward_window_cached``: the window steps of
   vdn_torch.pipelines.infer_video, which reuse the previous window's
   encoder features for the seed frames (the encoder is per-frame, so the
@@ -17,6 +18,13 @@ F1-F4) and the head's convs with per-frame scales; ``"int8_static"``
 keeps the encoder dynamic and gives the head convs calibrated scales
 (vdn_torch.nn.layers.quant_calibration; the pipelines calibrate on their
 first window or frame).  Inference only.
+
+``pe`` is the motion modules' position embedding ("ape", or temporal
+"rope"); ``seq_axis`` (vdn_torch.parallel.mesh.SEQ_AXIS) makes the
+temporal attention span that mesh axis: the model then runs on each rank's
+block of frames, under vdn_torch.parallel.context.
+make_context_parallel_forward (or ``use_mesh`` for the streaming decodes).
+Neither adds a parameter: one state dict loads into every variant.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ class VideoDepthAnything(nn.Module):
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
                  num_frames: int = 32,
                  compute_dtype: torch.dtype = torch.float32,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, pe: str = "ape",
+                 seq_axis: Optional[str] = None):
         super().__init__()
         self.encoder = encoder
         self.compute_dtype = compute_dtype
@@ -47,7 +56,8 @@ class VideoDepthAnything(nn.Module):
         enc_q = "int8" if quantize == "int8_static" else quantize
         self.pretrained = make_vit(encoder, enc_q)
         self.head = DPTHeadTemporal(self.pretrained.embed_dim, features,
-                                    out_channels, num_frames, quantize)
+                                    out_channels, num_frames, quantize, pe,
+                                    seq_axis)
 
     def forward_features(self, x: torch.Tensor):
         """x [B, T, H, W, 3] -> 4 x (tokens [(B*T), N, C], cls)."""
@@ -57,17 +67,18 @@ class VideoDepthAnything(nn.Module):
             flat, INTERMEDIATE_LAYER_IDX[self.encoder])
 
     def forward_depth(self, features, x_shape: Tuple[int, ...], caches=None,
-                      want_entries: bool = False):
+                      want_entries: bool = False,
+                      cache_len: Optional[int] = None):
         """Decode features of T frames into (depth [B, T, H, W] fp32
         relu'd, cache entries).  Entries (tuple of 8) come back when
         ``caches`` is given or ``want_entries`` is set, else None; see
-        DPTHeadTemporal.decode_temporal."""
+        DPTHeadTemporal.decode_temporal (also for ``cache_len``)."""
         b, t, h, w, _ = x_shape
         head = self.head
         ph, pw = h // 14, w // 14
         r1, r2, l3, l4 = head.decode_pre(features, ph, pw)
         p3, entries = head.decode_temporal(l3, l4, tuple(r2.shape[-3:-1]), t,
-                                           caches, want_entries)
+                                           caches, want_entries, cache_len)
         depth = head.decode_post(p3, r1, r2, (ph * 14, pw * 14))
         depth = resize2d(depth, (h, w), "bilinear", align_corners=True)
         depth = torch.relu(depth.float())
@@ -115,6 +126,8 @@ def build_video_depth_anything(
     forward in the default fp32 raises ValueError at its first attention.
     fp32 on the card is for reference runs inside
     ``kernels.plain_reference()``.  ``quantize="int8"`` or
-    ``"int8_static"`` in ``kw`` builds the serving mode."""
+    ``"int8_static"`` in ``kw`` builds the serving mode, ``pe="rope"`` the
+    temporal-RoPE motion modules, ``seq_axis="seq"`` the context-parallel
+    model."""
     return build_preset(VideoDepthAnything, encoder, compute_dtype, device,
                         generator, **kw)

@@ -6,7 +6,9 @@ refinenet3.  The three stages mirror vdn's split (frame-independent head,
 frame-sequential middle, full-resolution tail); ``forward`` composes them
 for the clip path, and the streaming pipeline calls them one by one.
 ``quantize`` reaches the DPT convs only; the temporal mixers stay float,
-as in vdn.
+as in vdn.  ``pe`` ("ape" / "rope") and ``seq_axis`` (context parallel over
+the frame axis) go to the four motion modules, ``cache_len`` to their
+context-parallel streaming decode.
 """
 
 from __future__ import annotations
@@ -26,14 +28,16 @@ CACHE_ENTRIES_PER_MODULE = 2
 class DPTHeadTemporal(DPTHead):
     def __init__(self, in_channels: int, features: int = 256,
                  out_channels: Sequence[int] = (256, 512, 1024, 1024),
-                 num_frames: int = 32, quantize: Optional[str] = None):
+                 num_frames: int = 32, quantize: Optional[str] = None,
+                 pe: str = "ape", seq_axis: Optional[str] = None):
         super().__init__(in_channels, features, out_channels,
                          quantize=quantize)
         widths = (out_channels[2], out_channels[3], features, features)
         self.motion_modules = nn.ModuleList(
             TemporalModule(w, num_attention_heads=8, num_transformer_block=1,
                            num_attention_blocks=2,
-                           temporal_max_len=num_frames)
+                           temporal_max_len=num_frames,
+                           pos_embedding_type=pe, seq_axis=seq_axis)
             for w in widths)
 
     def forward(self, out_features, patch_h: int, patch_w: int,
@@ -51,14 +55,18 @@ class DPTHeadTemporal(DPTHead):
 
     def decode_temporal(self, l3, l4, r2_hw: Tuple[int, int],
                         frame_length: int, caches=None,
-                        want_entries: bool = False):
+                        want_entries: bool = False,
+                        cache_len: Optional[int] = None):
         """All four temporal mixers and the refinenet4/3 fusion between.
 
         Returns (p3 at r2's resolution, entries): ``entries`` is the tuple of
         8 new cache entries when ``caches`` is given (8 gathered windows,
         or 8 (ring, one-hot) pairs) or ``want_entries`` is set (the
         stream's first frame), else None -- the clip path pays nothing for
-        them."""
+        them.  ``cache_len``: with ``seq_axis`` and gathered windows, the
+        valid entries of the window over the whole seq axis (each rank's
+        caches are its shard, zero-padded so the window divides the
+        axis)."""
         t = frame_length
         mm, s = self.motion_modules, self.scratch
         stream = caches is not None or want_entries
@@ -69,7 +77,7 @@ class DPTHeadTemporal(DPTHead):
                 return mm[i](x, t)
             k = CACHE_ENTRIES_PER_MODULE
             sub = None if caches is None else list(caches[k * i:k * (i + 1)])
-            y, e = mm[i].forward_stream(x, t, sub)
+            y, e = mm[i].forward_stream(x, t, sub, cache_len)
             entries.extend(e)
             return y
 

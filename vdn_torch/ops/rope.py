@@ -1,7 +1,10 @@
 """Rotary position embeddings with real sin / cos pairs (vdn/ops/rope.py).
 
 - 1-D temporal RoPE over the frame axis (``temporal_rope_freqs``):
-  frequencies over the full inner dim.
+  frequencies over the full inner dim; the motion modules with
+  ``pos_embedding_type="rope"`` rotate q and k [B*N, T, C] before the head
+  split, with the table's rows at the rank's global frame offset
+  (vdn_torch.nn.motion).
 - 2-D axial RoPE over the spatial token grid of the memory attention
   (``axial_rope_freqs``): per-head-dim frequencies, the first half of the
   pairs rotates by x, the second by y; ``repeat_k`` tiles the pattern over
