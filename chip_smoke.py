@@ -30,6 +30,12 @@ streamed frames at k = 1 and k = 8, and 8 images through the bank, each
 with the launches per encoder pass (F1, F3, F4 and A1, no A2 and no float
 encoder Linear) and the int8 convs the gate predicts; int8_static's
 recalibration after ``clear_memory()`` must keep the running max.
+Then F6, the int8 flash attention, under ``VDN_FLASH_INT8="all"``:
+int8_static's clip (54 frames), one uncached window
+(``cache_encoder=False``), 12 frames streamed at k = 1 and 8 images,
+vitg's int8 clip; and one cached vitl window each in "qk" and "pv"; each
+with F6 in place of A1 in the launches per encoder pass, the clip, stream
+and images held to the plain int8 runs in the same mode.
 
 vitg (DINOv2 ViT-g/14 with its SwiGLU FFN, Depth Anything V2 Giant) at
 full width: the clip in bf16, int8_static and int8 (F5 carries the int8
@@ -62,8 +68,10 @@ the plain versions in bf16 than twice bf16's own distance from fp32; the
 k = 8 stream is held to the k = 1 stream by the same gate; an int8 run
 sits no further from the plain int8 bf16 run than twice plain bf16's
 distance from fp32, measured both on the float path and on the int8 path.
-F1-F5 are held to their plain versions with a gate of their own
-(int8_check: operands equal but at ties), F5 among them.  Prints one line
+F1-F6 are held to their plain versions with a gate of their own
+(int8_check: operands equal but at ties), F6 in each mode at the cached
+and full windows, a frame, the 480 x 640 image and vitg's window; C3, the
+head-major fused-qkv attention that no path calls, at the window.  Prints one line
 per phase; the line before the last is a JSON summary of the kernels, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero and prints no last line.  Needs a CUDA device; imports nothing of
@@ -72,8 +80,10 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -136,12 +146,14 @@ VITG_ISLAND_C = 192
 VITG_FEATURES = 384
 N_VITG_STREAM = 12
 N_VITG_IMAGE = 8
-# the int8 kernels (F1-F5): int8 operands may differ from the plain
+# the int8 kernels (F1-F6): int8 operands may differ from the plain
 # version's at quantization ties only, on at most this share, by one; the
 # output within KERNEL_ULPS outside the rows with a tie and INT8_REL_L2 of
 # the plain output overall
 INT8_TIE_SHARE = 1e-3
 INT8_REL_L2 = 1e-3
+# F6's modes (VDN_FLASH_INT8): int8 QK^T, int8 P V, both
+F6_MODES = ("qk", "pv", "all")
 # context parallel: the ring of K / V blocks E1 is held over in one process
 # (the order rank 0 of a seq group of CP_RANKS sees them)
 CP_RANKS = 4
@@ -229,12 +241,15 @@ def bound(work) -> tuple:
     move (each input read once, each output written once) over the memory
     rate, against its operations over the peak rate for their type.  The
     tensor cores and the fp32 FMA units run side by side, so the
-    operations take as long as the busiest of the two."""
+    operations take as long as the busiest of the two; int8 and bf16
+    products share the tensor cores, so their times add (F6's modes)."""
     nbytes, ops = work
     t_bytes = nbytes / HBM_BYTES_PER_S
     per_unit = {}
     for flops, peak in ops:
-        per_unit[peak] = per_unit.get(peak, 0.0) + flops / peak
+        unit = "tensor" if peak in (BF16_TENSOR_FLOPS, INT8_TENSOR_OPS) \
+            else peak
+        per_unit[unit] = per_unit.get(unit, 0.0) + flops / peak
     t_ops = max(per_unit.values(), default=0.0)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -536,12 +551,16 @@ def ring_cases(rng, path, shapes=None):
             library=lambda ring=ring, sel=sel: ring.index_select(1, sel))
 
 
-def int8_check(kern, plain, keys):
+def int8_check(kern, plain, keys, row_view=None):
     """The int8 kernels' gate: ``kern(ops)`` and ``plain(ops)`` fill an
     operands dict each.  The int8 operands under ``keys`` may differ at
     quantization ties only (at most INT8_TIE_SHARE of them, by one); the
     output is held within KERNEL_ULPS bf16 ulps of the plain output's scale
-    on the rows with no tie, and to INT8_REL_L2 overall."""
+    on the rows with no tie, and to INT8_REL_L2 overall.  ``row_view(key,
+    d)`` gives an operand's differences as [output rows, ...], or None for
+    an operand that every output row reads (F6's k and v codes: a tie there
+    moves each row by a share of one key); by default every operand is
+    [rows, K] in the output's row order."""
     def check():
         ko, po = {}, {}
         got, want = kern(ko), plain(po)
@@ -554,7 +573,9 @@ def int8_check(kern, plain, keys):
             worst = max(worst, int(d.max()))
             n_diff += int((d > 0).sum())
             n_all += d.numel()
-            tie_rows |= (d > 0).any(1)
+            d = d if row_view is None else row_view(k, d)
+            if d is not None:
+                tie_rows |= (d > 0).any(1)
         g = got.reshape(rows, -1).float()
         w = want.reshape(rows, -1).float()
         scale = w.abs().max().item()
@@ -666,6 +687,86 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             check=int8_check(kern, plain, keys), bf16=bf16)
 
 
+def f6_row_view(key, d):
+    """F6's q codes [B, H, T, D] in the output's row order (b, t, h); its k
+    and v codes are read by every row of their (frame, head)."""
+    return d.permute(0, 2, 1, 3).reshape(-1, d.shape[-1]) if key == "qi" \
+        else None
+
+
+def f6_cases(rng, path, b, t=VIT_TOKENS, h=16, modes=F6_MODES):
+    """F6 in each of ``modes`` over b frames of t tokens and h heads (path
+    ``path`` for "all", ``<mode>_<path>`` for the others), held with
+    int8_check on its q, k and v codes; bf16 counterpart: A1 at the same
+    shape; library: SDPA.  The input carries vdn's channel-mean outliers on
+    k and v (test_flash_attention.py:205-207), which the centring takes
+    out of the codes' range.  Bound: each product once (F6 computes QK^T
+    twice), int8 where quantized, bf16 where not, on the tensor cores."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    dev, bf, d = DEVICE, torch.bfloat16, 64
+    qkv = _rand(rng, (b, t, 3, h, d))
+    qkv[:, :, 1, :, 3] += 4.0
+    qkv[:, :, 2, :, 5] += 3.0
+    qkv = qkv.to(dev, bf)
+    out = torch.empty((b, t, h, d), dtype=bf, device=dev)
+    prod = 2 * b * h * t * t * d
+    for mode in modes:
+        keys = {"qk": ["qi", "ki"], "pv": ["vi"],
+                "all": ["qi", "ki", "vi"]}[mode]
+        rate = lambda quantized: (INT8_TENSOR_OPS if quantized
+                                  else BF16_TENSOR_FLOPS)
+        kern = lambda o=None, m=mode: fa.flash_attention_int8_fused_qkv(
+            qkv, mode=m, operands=o)
+        plain = lambda o=None, m=mode: \
+            fa.flash_attention_int8_fused_qkv_plain(qkv, mode=m, operands=o)
+        yield case(
+            "flash_attention_int8_fused_qkv", f"{mode} B{b} T{t} H{h} D64",
+            kern, plain,
+            (_nbytes(qkv, out), [(prod, rate(mode != "pv")),
+                                 (prod, rate(mode != "qk"))]),
+            path if mode == "all" else f"{mode}_{path}",
+            library=lambda: F.scaled_dot_product_attention(
+                *(qkv[:, :, i].transpose(1, 2) for i in range(3))),
+            check=int8_check(kern, plain, keys, f6_row_view),
+            bf16=lambda: fa.flash_attention_fused_qkv(qkv))
+
+
+def c3_cases(rng, path, b, t=VIT_TOKENS, h=16):
+    """C3 over b frames of t tokens and h heads, [B, H, T, D] out; library:
+    SDPA on the [B, H, T, D] views; bf16 counterpart: A1."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    dev, bf, d = DEVICE, torch.bfloat16, 64
+    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
+    out = torch.empty((b, h, t, d), dtype=bf, device=dev)
+    yield case(
+        "flash_attention_qkv", f"B{b} T{t} H{h} D64 -> [B, H, T, D]",
+        lambda: fa.flash_attention_qkv(qkv),
+        lambda: fa.flash_attention_qkv_plain(qkv),
+        (_nbytes(qkv, out), [(4 * b * h * t * t * d, BF16_TENSOR_FLOPS)]),
+        path, library=lambda: F.scaled_dot_product_attention(
+            *(qkv[:, :, i].transpose(1, 2) for i in range(3))),
+        bf16=lambda: fa.flash_attention_fused_qkv(qkv))
+
+
+def attention_int8_cases(rng):
+    """F6 in its three modes at the int8 paths' shapes: the cached window
+    (B 22), the full window (B 32), a streamed frame (B 1) and the 480 x
+    640 image (T 1814) at vitl's 16 heads, and vitg's cached window (24
+    heads); C3 at the vitl window, B 22 and 32."""
+    image_t = NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1
+    for path, b, t, h in (("clip", CACHED_FRAMES, VIT_TOKENS, 16),
+                          ("clip_full", 32, VIT_TOKENS, 16),
+                          ("stream", 1, VIT_TOKENS, 16),
+                          ("image", 1, image_t, 16),
+                          ("vitg_clip", CACHED_FRAMES, VIT_TOKENS,
+                           VITG_HEADS)):
+        yield from f6_cases(rng, path, b, t, h)
+    yield from c3_cases(rng, "clip", CACHED_FRAMES)
+    yield from c3_cases(rng, "clip_full", 32)
+
+
 def kernel_cases(rng):
     """Every kernel at the shapes its main paths give it.  "clip": one
     32-frame window (A1, A2 at the cached window's 22 frames); "stream":
@@ -703,6 +804,7 @@ def kernel_cases(rng):
                        ("clip_full", 32 * VIT_TOKENS), ("stream", VIT_TOKENS),
                        ("image", NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)):
         yield from int8_cases(rng, path, rows)
+    yield from attention_int8_cases(rng)
     yield from vitg_cases(rng)
     yield from e1_cases(rng)
 
@@ -1774,13 +1876,21 @@ N_INT8_IMAGE = 8
 INT8_ENCODER = {"int8_ln_linear": 24, "int8_proj_residual": 24,
                 "fused_ln_mlp_residual_int8": 24,
                 "flash_attention_fused_qkv": 24, "fused_ln_mlp_residual": 0,
-                "int8_linear": 0, "fused_ln_swiglu_residual_int8": 0}
+                "int8_linear": 0, "fused_ln_swiglu_residual_int8": 0,
+                "flash_attention_int8_fused_qkv": 0}
 INT8_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, **INT8_ENCODER}
 # vitg: 40 blocks, F5 carries the SwiGLU tail (no A2, no F4)
 VITG_INT8_ENCODER = {**{n: 40 for n, v in INT8_ENCODER.items() if v},
                      "fused_ln_mlp_residual_int8": 0,
                      "fused_ln_swiglu_residual_int8": 40,
-                     "fused_ln_mlp_residual": 0, "int8_linear": 0}
+                     "fused_ln_mlp_residual": 0, "int8_linear": 0,
+                     "flash_attention_int8_fused_qkv": 0}
+# under VDN_FLASH_INT8 ("qk", "pv", "all"): F6 takes A1's calls
+F6_ENCODER = {**INT8_ENCODER, "flash_attention_fused_qkv": 0,
+              "flash_attention_int8_fused_qkv": 24}
+F6_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, **F6_ENCODER}
+VITG_F6_ENCODER = {**VITG_INT8_ENCODER, "flash_attention_fused_qkv": 0,
+                   "flash_attention_int8_fused_qkv": 40}
 VITG_IMAGE_LAUNCHES = {**IMAGE_LAUNCHES, "flash_attention_fused_qkv": 40,
                        "fused_ln_mlp_residual": 0}
 
@@ -1991,7 +2101,7 @@ def int8_clip_phase(q, frames, refs, mode, label="clip",
         fail(f"{label} {mode}: the clip call left its scales on the model")
     windows = -(-N_FRAMES // (INFER_LEN - OVERLAP))
     check_launches(f"{label} {mode}", counts,
-                   [n for n in CLIP_KERNELS if n != "fused_ln_mlp_residual"])
+                   [n for n in CLIP_KERNELS if encoder.get(n, 1)])
     check_frame_launches(f"{label} {mode} per window",
                          {k: v / windows for k, v in counts.items()},
                          encoder)
@@ -2020,17 +2130,20 @@ def fresh_stream(q, frames, k):
     return run_stream(q, frames, k)
 
 
-def int8_stream_phase(q, frames, refs, mode):
+def int8_stream_phase(q, frames, refs, mode, encoder=None,
+                      chunks=(1, STREAM_CHUNK), label="stream"):
     """The stream of ``q`` over N_INT8_STREAM frames per frame (k = 1;
-    for int8_static the first frame calibrates) and in chunks of
-    STREAM_CHUNK; launches per encoder pass and int8 convs asserted for
-    each; the k = 1 stream held to the plain int8 runs and the chunked one
-    to the k = 1 stream."""
+    for int8_static the first frame calibrates) and, where ``chunks`` has
+    it, in chunks of STREAM_CHUNK; launches per encoder pass (``encoder``,
+    INT8_ENCODER by default) and int8 convs asserted for each; the k = 1
+    stream held to the plain int8 runs and the chunked one to the k = 1
+    stream.  Returns the launches at k = 1 and chunked (or None)."""
     from vdn_torch import kernels
+    encoder = encoder or INT8_ENCODER
     frames = frames[:N_INT8_STREAM]
     watch = Int8Watch(q)
     out = {}
-    for k in (1, STREAM_CHUNK):
+    for k in chunks:
         kernels.reset_launches()
         watch.reset()
         d, walls, _ = fresh_stream(q, frames, k)
@@ -2045,20 +2158,23 @@ def int8_stream_phase(q, frames, refs, mode):
         # first frame and one for the rest of its chunk, then one a chunk
         passes = (N_INT8_STREAM if k == 1
                   else 1 + -(-(N_INT8_STREAM - 1) // k))
-        check_frame_launches(f"stream {mode} k={k} per encoder pass",
+        check_frame_launches(f"{label} {mode} k={k} per encoder pass",
                              {n: counts.get(n, 0) / passes
-                              for n in INT8_ENCODER}, INT8_ENCODER)
-        log(f"stream_{mode}_k{k}", frames=N_INT8_STREAM,
+                              for n in encoder}, encoder)
+        log(f"{label}_{mode}_k{k}", frames=N_INT8_STREAM,
             ms_per_frame=f"{statistics.median(walls[1:]) / k:.3f}"
             if k == 1 else f"{sum(walls[1:]) / (N_INT8_STREAM - k):.3f}",
             first_frame_ms=f"{walls[0]:.3f}", int8_convs=n_conv,
             launches=json.dumps(counts, separators=(",", ":")))
         out[k] = (d, counts)
     watch.remove()
-    d1, dk = out[1][0], out[STREAM_CHUNK][0]
-    tol = int8_fidelity(f"stream_{mode}",
+    d1 = out[1][0]
+    tol = int8_fidelity(f"{label}_{mode}",
                         lambda: fresh_stream(q, frames, 1)[0],
                         q, d1, [r[:N_INT8_STREAM] for r in refs])
+    if STREAM_CHUNK not in out:
+        return out[1][1], None
+    dk = out[STREAM_CHUNK][0]
     k_vs_1 = drift(d1, dk)
     log(f"stream_{mode}_chunked", **{f"k{STREAM_CHUNK}_vs_k1":
                                      json.dumps(k_vs_1)},
@@ -2087,12 +2203,13 @@ def int8_video_phases(model, frames, clip_refs, stream_refs) -> dict:
     return out
 
 
-def int8_image_phase(model, frames, refs, mode) -> dict:
+def int8_image_phase(model, frames, refs, mode, launches=None,
+                     label="image") -> dict:
     """The image pipeline in ``mode`` over N_INT8_IMAGE frames through the
-    bank (for int8_static the first calibrates); launches per image and
-    int8 convs asserted; for int8_static the recalibration after
-    clear_memory() (``check_recalibration``); fidelity against the plain
-    int8 runs."""
+    bank (for int8_static the first calibrates); launches per image
+    (``launches``, INT8_IMAGE_LAUNCHES by default) and int8 convs
+    asserted; for int8_static the recalibration after clear_memory()
+    (``check_recalibration``); fidelity against the plain int8 runs."""
     from vdn_torch import kernels
     from vdn_torch.models.depth_anything_v2 import build_depth_anything_v2
     from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
@@ -2111,19 +2228,21 @@ def int8_image_phase(model, frames, refs, mode) -> dict:
     pipe = new_pipe()
     d, walls, per = run(pipe)
     counts = dict(kernels.launches)
-    n_conv = watch.check(f"image {mode}", some=mode == "int8_static")
+    n_conv = watch.check(f"{label} {mode}", some=mode == "int8_static")
     watch.remove()
-    check_depth(f"image {mode}", d, N_INT8_IMAGE)
+    check_depth(f"{label} {mode}", d, N_INT8_IMAGE)
     for i, c in enumerate(per):
-        check_frame_launches(f"image {mode} frame {i}", c, {
-            **INT8_IMAGE_LAUNCHES, **(IMAGE_FIRST if i == 0 else {})})
-    log(f"image_{mode}", images=N_INT8_IMAGE, first_frame_ms=f"{walls[0]:.3f}",
+        check_frame_launches(f"{label} {mode} frame {i}", c, {
+            **(launches or INT8_IMAGE_LAUNCHES),
+            **(IMAGE_FIRST if i == 0 else {})})
+    log(f"{label}_{mode}", images=N_INT8_IMAGE,
+        first_frame_ms=f"{walls[0]:.3f}",
         steady_ms_per_frame=f"{statistics.median(walls[MEMORY_PROBE - 1:]):.3f}",
         int8_convs=n_conv,
         launches_steady=json.dumps(per[-1], separators=(",", ":")))
     if mode == "int8_static":
         check_recalibration(q, pipe, new_pipe, frames[N_INT8_IMAGE])
-    int8_fidelity(f"image_{mode}", lambda: run()[0], q, d,
+    int8_fidelity(f"{label}_{mode}", lambda: run()[0], q, d,
                   [r[:N_INT8_IMAGE] for r in refs])
     return counts
 
@@ -2151,6 +2270,114 @@ def check_recalibration(q, pipe, new_pipe, frame) -> None:
     log("image_int8_static_recalibration", convs=len(before),
         shrunk=sum(after[n] < before[n] for n in before),
         lower_alone=sum(alone[n] < before[n] for n in before))
+
+
+# ---------------------------------------------------------------- phase 8c
+# F6 on the int8 paths: VDN_FLASH_INT8 set around a phase, as a user sets
+# it for the process (the wrapper reads it at each call)
+@contextlib.contextmanager
+def flash_int8(mode: str):
+    before = os.environ.get("VDN_FLASH_INT8")
+    os.environ["VDN_FLASH_INT8"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["VDN_FLASH_INT8"]
+        else:
+            os.environ["VDN_FLASH_INT8"] = before
+
+
+def uncached_window_phase(q, frames) -> dict:
+    """One window of infer_video_depth(cache_encoder=False) over 22 frames
+    (32 inputs: the encoder over all 32 frames, F6 at B 32, no calibration
+    pass, so an int8_static model without scales quantizes its convs per
+    frame): one encoder pass's launches, a finite and not degenerate depth;
+    its wall seconds."""
+    from vdn_torch import kernels
+    from vdn_torch.pipelines.infer_video import (INFER_LEN, OVERLAP,
+                                                 infer_video_depth)
+    n, label = INFER_LEN - OVERLAP, "all_uncached"
+    clear_quant_stats(q)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    depth, _ = infer_video_depth(q, frames[:n], 30.0, SIZE,
+                                 cache_encoder=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    check_depth(label, depth, n)
+    check_frame_launches(f"{label} per window", counts, F6_ENCODER)
+    log(label, frames=n, windows=1, wall_s=f"{wall:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    return counts
+
+
+def f6_window_phase(q, frames, mode) -> dict:
+    """One cached vitl window with F6 in ``mode`` (the seed features from a
+    calibrating full window): its launches, its depth finite and not
+    degenerate, its ms (CUDA events, median of 5), and its distance from
+    the same window through the plain versions (logged)."""
+    from vdn_torch import kernels
+    from vdn_torch.nn.layers import quant_calibration
+    from vdn_torch.pipelines.infer_video import (KEYFRAMES, OVERLAP,
+                                                 gather_seed_features)
+    label = f"window_int8_static_{mode}"
+    x = window_input(frames)
+    clear_quant_stats(q)
+    with torch.no_grad():
+        with quant_calibration(q):
+            _, feats = q.forward_window(x)
+        seed = gather_seed_features(feats,
+                                    torch.tensor(KEYFRAMES, device=DEVICE))
+        x_new = x[:, OVERLAP:]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        depth = q.forward_window_cached(x_new, seed)[0]
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        ms = time_ms(lambda: q.forward_window_cached(x_new, seed), reps=5,
+                     warmup=1)
+        with kernels.plain_reference():
+            plain = q.forward_window_cached(x_new, seed)[0]
+    clear_quant_stats(q)
+    d = depth.float().cpu().numpy()[0]
+    check_depth(label, d, d.shape[0])
+    check_frame_launches(label, counts, F6_ENCODER)
+    log(label, cached_window_ms=f"{ms:.2f}",
+        kernels_vs_plain_bf16=json.dumps(drift(
+            plain.float().cpu().numpy()[0], d)),
+        launches=json.dumps(counts, separators=(",", ":")))
+    return counts
+
+
+def f6_video_phases(model, frames, clip_refs, stream_refs) -> dict:
+    """F6 on the vitl int8_static paths, ``model``'s weights: under "all"
+    the 54-frame clip (launches per window F6_ENCODER, the windows timed,
+    fidelity against the plain int8 runs with F6's plain version in the
+    same mode), one uncached window, and N_INT8_STREAM frames streamed at
+    k = 1; then one cached window each in "qk" and "pv".  Returns the
+    launches by path."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    q = quantized_model(build_video_depth_anything, model, "int8_static")
+    out = {}
+    with flash_int8("all"):
+        out["clip_int8_static_all"] = int8_clip_phase(
+            q, frames, clip_refs, "int8_static", "all_clip", F6_ENCODER)
+        out["clip_uncached_int8_static_all"] = uncached_window_phase(q,
+                                                                     frames)
+        out["stream_int8_static_all_k1"], _ = int8_stream_phase(
+            q, frames, stream_refs, "int8_static", F6_ENCODER, chunks=(1,),
+            label="all_stream")
+    for mode in ("qk", "pv"):
+        with flash_int8(mode):
+            out[f"window_int8_static_{mode}"] = f6_window_phase(q, frames,
+                                                                mode)
+    del q
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2356,8 +2583,8 @@ def check_updates(name: str, named, before) -> list:
 
 
 def check_no_backward_raises() -> None:
-    """B1, C1, C2's bf16 kernel (D2 is fp32), F1-F5 and the single E1 step
-    (the ring's backward is a recompute) have no backward: on
+    """B1, C1, C2's bf16 kernel (D2 is fp32), C3, F1-F6 and the single E1
+    step (the ring's backward is a recompute) have no backward: on
     the card each raises when an input requires grad, rather than return an output that cuts the
     graph (the training phases show that the wrappers with a backward keep
     it: every trainable tensor upstream of them gets a nonzero gradient)."""
@@ -2369,6 +2596,8 @@ def check_no_backward_raises() -> None:
                     requires_grad=True)
     t = torch.zeros((1, 32, 64), dtype=torch.bfloat16, device=DEVICE,
                     requires_grad=True)
+    qkv = torch.zeros((1, 64, 3, 2, 64), dtype=torch.bfloat16, device=DEVICE,
+                      requires_grad=True)
     v64 = torch.zeros(64, device=DEVICE)
     w = lambda f, k: (torch.zeros((f, k), dtype=torch.int8, device=DEVICE),
                       torch.ones(f, device=DEVICE))
@@ -2391,7 +2620,10 @@ def check_no_backward_raises() -> None:
                      t, v64, v64, w(256, 64), torch.zeros(256, device=DEVICE),
                      w(64, 128), v64, v64),
              "ring_step": lambda: ra.ring_step(
-                 t, t, t, *_zero_carry(1, 32, 64), 0.125)}
+                 t, t, t, *_zero_carry(1, 32, 64), 0.125),
+             "flash_attention_int8_fused_qkv":
+                 lambda: fa.flash_attention_int8_fused_qkv(qkv, mode="all"),
+             "flash_attention_qkv": lambda: fa.flash_attention_qkv(qkv)}
     for name, call in calls.items():
         try:
             call()
@@ -3036,9 +3268,18 @@ SOURCES = {
                                       "vdn/ops/pallas/int8.py:339"),
     "ring_step": ("vdn_torch/csrc/ring_step.cu",
                   "vdn/ops/pallas/ring_attention.py:65"),
+    "flash_attention_int8_fused_qkv": (
+        "vdn_torch/csrc/flash_attn_int8.cu",
+        "vdn/ops/pallas/flash_attention.py:920"),
+    "flash_attention_qkv": ("vdn_torch/csrc/flash_attn_bthd.cu",
+                            "vdn/ops/pallas/flash_attention.py:964"),
 }
 INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
-                "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8"]
+                "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8",
+                "flash_attention_int8_fused_qkv"]
+# kernels that no path of vdn or of the port calls (C3): a headline path
+# for their times, and 0 launches on every path
+NO_PATH = ["flash_attention_qkv"]
 # each kernel's headline path: the one whose run gives its ``launches`` and
 # whose shapes its times are summed over
 HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
@@ -3050,13 +3291,14 @@ HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             "temporal_attention_block_bwd": "train",
             **{n: "clip_int8_static" for n in INT8_KERNELS},
             "fused_ln_swiglu_residual_int8": "vitg_clip_int8_static",
+            "flash_attention_int8_fused_qkv": "clip_int8_static_all",
             "ring_step": "cp_clip"}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
 # the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES
 # and METRIC_TRAIN_LAUNCHES
-STREAM_KERNELS = [n for n in SOURCES
-                  if HEADLINE.get(n, "clip") in ("clip", "stream_k1")]
+STREAM_KERNELS = [n for n in SOURCES if n not in NO_PATH
+                  and HEADLINE.get(n, "clip") in ("clip", "stream_k1")]
 # (the int8 paths' kernels: the clip's less A2, with F1, F3 and F4 at vitl
 # and F5 at vitg; INT8_ENCODER and VITG_INT8_ENCODER give their launches)
 CLIP_KERNELS = [n for n in STREAM_KERNELS if n != "select_rows"]
@@ -3098,6 +3340,11 @@ def vitg_phases(frames) -> dict:
         q = quantized_model(build_video_depth_anything, model, mode, "vitg")
         out[f"vitg_clip_{mode}"] = int8_clip_phase(
             q, frames, clip_plain, mode, "vitg_clip", VITG_INT8_ENCODER)
+        if mode == "int8":
+            with flash_int8("all"):
+                out["vitg_clip_int8_all"] = int8_clip_phase(
+                    q, frames, clip_plain, mode, "vitg_all_clip",
+                    VITG_F6_ENCODER)
         del q
         torch.cuda.empty_cache()
     del model
@@ -3140,6 +3387,8 @@ def main() -> None:
     int8_conv_phase()
     launches_int8 = int8_video_phases(model, frames, clip_plain,
                                       stream_plain)
+    launches_int8.update(f6_video_phases(model, frames, clip_plain,
+                                         stream_plain))
     del model
     torch.cuda.empty_cache()
     image_model = build_image_model()
@@ -3152,6 +3401,11 @@ def main() -> None:
         launches_int8[f"image_{mode}"] = int8_image_phase(
             image_model, frames, image_plain, mode)
         torch.cuda.empty_cache()
+    with flash_int8("all"):
+        launches_int8["image_int8_static_all"] = int8_image_phase(
+            image_model, frames, image_plain, "int8_static",
+            F6_IMAGE_LAUNCHES, "all_image")
+    torch.cuda.empty_cache()
     del image_model
     torch.cuda.empty_cache()
     counts_metric = metric_phase(frames)
@@ -3173,11 +3427,13 @@ def main() -> None:
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
     # C2: the memory attention's shapes at both token grids; the training
     # kernels: one b2 t8 step's shapes, D4 at the four motion modules;
-    # F1-F5: the cached window's rows, F5 vitg's, their bf16 counterpart's
-    # time in bf16_ms, every shape's numbers in by_shape), launches over
-    # the training phase's TRAIN_STEPS steps (F1-F5: the int8_static clip's
-    # three windows), and stream_ms / stream_bound_ms over the stream's
-    # shapes; launches from the run of the headline path, and from every
+    # F1-F6: the cached window's rows, F5 vitg's, F6's in "all", their
+    # bf16 counterpart's time in bf16_ms (F6's and C3's: A1), every shape's
+    # numbers in by_shape, F6's other modes at "qk_<path>" / "pv_<path>";
+    # C3: the cached window), launches over the training phase's
+    # TRAIN_STEPS steps (F1-F5: the int8_static clip's three windows, F6:
+    # the same under "all"; C3: 0, no path calls it), and stream_ms /
+    # stream_bound_ms over the stream's shapes; launches from the run of the headline path, and from every
     # path's run; ``vitg``: the numbers at vitg's widths, by path; ``v1``:
     # C2's and A5a / A5b's at the v1 step's shapes (D2's own row: the
     # global blocks at T 256 and the ragged 324, launches over V1_STEPS;
@@ -3196,11 +3452,12 @@ def main() -> None:
                                     "library_ms")},
             **({"stream_ms": summary[name]["stream"]["ms"],
                 "stream_bound_ms": summary[name]["stream"]["bound_ms"]}
-               if path == "clip" and "stream" in summary[name] else {}),
-            **({"bf16_ms": head["bf16_ms"],
-                "by_shape": {p: v for p, v in summary[name].items()
+               if case_path(path) == "clip" and "stream" in summary[name]
+               else {}),
+            **({"bf16_ms": head["bf16_ms"]} if "bf16_ms" in head else {}),
+            **({"by_shape": {p: v for p, v in summary[name].items()
                              if p != "max_abs_err"}}
-               if name in INT8_KERNELS else {}),
+               if name in INT8_KERNELS + NO_PATH else {}),
             **({"vitg": {p: v for p, v in summary[name].items()
                          if p.startswith("vitg")}}
                if any(p.startswith("vitg") for p in summary[name])

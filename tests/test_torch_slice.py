@@ -113,3 +113,25 @@ def test_infer_video_depth(models):
     assert got.shape == (40, SIZE, SIZE) and got_fps == fps
     assert np.isfinite(got).all()
     _close(got, want)
+
+
+def test_infer_video_depth_uncached(models):
+    """cache_encoder=False, vdn's re-encoding path: each window encodes all
+    32 frames, its first 10 inputs copied from the previous window's input
+    at KEYFRAMES; a forward_fn takes the same path, once per window."""
+    from vdn.pipelines.infer_video import infer_video_depth as jinfer
+    from vdn_torch.pipelines.infer_video import infer_video_depth as tinfer
+    jm, params, tm = models
+    frames = np.random.default_rng(4).integers(
+        0, 256, (40, SIZE, SIZE, 3), dtype=np.uint8)
+    want, fps = jinfer(jm, params, frames, 24.0, input_size=SIZE,
+                       cache_encoder=False)
+    got, got_fps = tinfer(tm, frames, 24.0, input_size=SIZE,
+                          cache_encoder=False)
+    assert got.shape == (40, SIZE, SIZE) and got_fps == fps
+    _close(got, want)
+    seen = []
+    via_fn, _ = tinfer(tm, frames, 24.0, input_size=SIZE,
+                       forward_fn=lambda x: seen.append(x.shape) or tm(x))
+    np.testing.assert_array_equal(via_fn, got)
+    assert seen == [(1, 32, SIZE, SIZE, 3)] * 2

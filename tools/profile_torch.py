@@ -20,7 +20,9 @@ VideoDepthAnything:
   window); its split names F1-F4 and the int8 convs (``torch._int_mm``
   apart from their quantize, im2col and dequantize passes, which are told
   by the ``int8_conv`` range each call is traced in), beside the
-  ``cached`` unit's bf16 split.
+  ``cached`` unit's bf16 split;
+- ``int8_all``: the ``int8`` unit with ``VDN_FLASH_INT8="all"``: F6 (its
+  pre-pass and its two-pass attention) in A1's place.
 
 vitg (chip_smoke.py's vitg model, full width):
 
@@ -67,6 +69,8 @@ import chip_smoke as cs  # noqa: E402
 
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
+    (r"quantize_qkv_kernel", "F6 pre-pass (q / k / v codes and scales)"),
+    (r"flash_int8_kernel", "F6 int8 flash attention"),
     (r"ring_step_kernel", "E1 ring-attention step (CP motion modules)"),
     (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
@@ -202,7 +206,8 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
               f"{label}", flush=True)
 
 
-UNITS = ("cached", "int8", "stream_k1", "stream_k8", "cp_window", "image",
+UNITS = ("cached", "int8", "int8_all", "stream_k1", "stream_k8", "cp_window",
+         "image",
          "train", "vitg_cached", "vitg_int8", "v1_train")
 
 
@@ -232,6 +237,10 @@ def profile_video(units, out: str, encoder: str = "vitl") -> None:
 
     if f"{prefix}int8" in units:
         profile_int8(model, frames, out, f"{prefix}int8", encoder)
+
+    if encoder == "vitl" and "int8_all" in units:
+        with cs.flash_int8("all"):
+            profile_int8(model, frames, out, "int8_all")
 
     if f"{prefix}stream_k1" in units:
         pipe = VideoDepthStreamPipeline(model, input_size=cs.SIZE)
@@ -355,8 +364,8 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     cs.environment()
     cs.build_kernels()
-    if set(args.units) & {"cached", "int8", "stream_k1", "stream_k8",
-                          "cp_window"}:
+    if set(args.units) & {"cached", "int8", "int8_all", "stream_k1",
+                          "stream_k8", "cp_window"}:
         profile_video(args.units, args.out)
     if set(args.units) & {"vitg_cached", "vitg_int8"}:
         torch.cuda.empty_cache()

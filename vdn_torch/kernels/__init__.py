@@ -2,9 +2,10 @@
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
 the single-image path's memory attention and of hieradet's global blocks,
-the training backwards D1-D4 with A1's training forward, F1-F5 of the
-int8 serving mode, and E1, the ring-attention step of the context-parallel
-temporal attention)
+the training backwards D1-D4 with A1's training forward, F1-F6 of the
+int8 serving mode, E1, the ring-attention step of the context-parallel
+temporal attention, and C3, the head-major fused-qkv attention that no
+path calls)
 live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
@@ -27,7 +28,7 @@ backward is the backward kernel (D1-D4), the same kernel on the transposed
 plan (A5a, A5b) or a recompute of the plain version (A4, A6; the ring of
 E1 re-runs the plain ring), as vdn computes it; on the CPU the backward takes the kernel's plain version.  A
 backward dispatches as its forward did, on whatever thread autograd runs
-it (``save_dispatch``, ``same_dispatch``).  B1, C1, F1-F5 and the
+it (``save_dispatch``, ``same_dispatch``).  B1, C1, C3, F1-F6 and the
 single E1 step have no backward, nor has C2's bf16 kernel (D2 is fp32): on
 a CUDA tensor that requires grad they raise.
 
@@ -79,6 +80,8 @@ launches = {
     "fused_ln_mlp_residual_int8": 0,
     "fused_ln_swiglu_residual_int8": 0,
     "ring_step": 0,
+    "flash_attention_int8_fused_qkv": 0,
+    "flash_attention_qkv": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -115,6 +118,8 @@ _SIGNATURES = {
     "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
     "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
     + (_P,) * 4,
+    "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 9,
+    "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _P),
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)

@@ -33,10 +33,28 @@ Function.  Its forward is A1's training variant (the same kernel with
 backward is D1 (csrc/flash_attn_qkv_bwd.cu), vdn's ``_flash_bwd_cols``:
 the normalized softmax recomputed from the saved log-sum-exp, delta =
 rowsum(dO * O), dqkv in qkv's layout.
+
+C3 replaces ``flash_attention_qkv`` (``_flash_qkv_kernel``): self-attention
+off the fused qkv, written head-major as [B, H, T, D], with its own
+arithmetic in natural units (s = (q k^T) * scale in fp32, p = exp(s - m),
+the row sum from the unrounded p, out = (bf16(p) V) / l).  No model path
+calls it, in vdn or here; its kernel is a case of csrc/flash_attn_bthd.cu
+that reads the fused qkv through its row stride and writes [B, H, T, D].
+
+F6 replaces ``flash_attention_int8_fused_qkv`` (``_flash_cols_int8_kernel``
+via ``_flash_int8_call``): A1 with the QK^T and / or the P V product in
+int8, the serving mode's attention.  ``VDN_FLASH_INT8`` picks the mode,
+read at each call: "qk" quantizes q per row and the token-centred k per
+(batch, head), "pv" the softmax probabilities with the fixed scale 127 and
+the token-centred v per channel, "all" both; any other value (default
+"0") is A1.  See ``flash_attention_int8_fused_qkv_plain`` for the
+rounding points and csrc/flash_attn_int8.cu for the kernel.  Serving
+only: no backward.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -442,3 +460,230 @@ def flash_attention_colbias(q: torch.Tensor, k: torch.Tensor,
     if not use_kernel(q):
         return flash_attention_colbias_plain(q, k, v, col_bias, scale)
     return _launch_bthd("flash_attention_colbias", q, k, v, col_bias, scale)
+
+
+# ------------------------------------------------------------------- C3
+def flash_attention_qkv_plain(qkv: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """C3's function, qkv [B, T, 3, H, D] -> [B, H, T, D], with vdn's
+    rounding points (flash_attention.py:945-961): s = (q k^T) * scale in
+    fp32, p = exp(s - rowmax) in fp32, l = rowsum(p) of the unrounded p,
+    out = (p rounded to v's dtype) V / l, summed in fp32."""
+    scale = qkv.shape[-1] ** -0.5 if scale is None else scale
+    q, k, v = (qkv[:, :, i].transpose(1, 2).float() for i in range(3))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pv = torch.matmul(p.to(qkv.dtype).float(), v)
+    return (pv / l).to(qkv.dtype)
+
+
+def flash_attention_qkv(qkv: torch.Tensor,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """C3: qkv [B, T, 3, H, D] -> out [B, H, T, D] (head-major); kernel
+    for bf16, D = 64.  Inference only: on the card an input that requires
+    grad raises (vdn's has no VJP)."""
+    if not use_kernel(qkv):
+        return flash_attention_qkv_plain(qkv, scale)
+    name = "flash_attention_qkv"
+    _check_fused_qkv(name, qkv)
+    if wants_grad(qkv):
+        raise RuntimeError(f"{name}: the kernel has no backward; run under "
+                           f"torch.no_grad()")
+    qkv = qkv.contiguous()
+    b, t, _, h, d = qkv.shape
+    check_kernel_args(name, qkv)
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    launch("vdn_flash_attention_qkv_heads", qkv.data_ptr(), b, t, h,
+           float(scale), out.data_ptr())
+    launches[name] += 1
+    return out
+
+
+# ------------------------------------------------------------------- F6
+INT8_FLASH_MODES = ("qk", "pv", "all")
+_MODE_BITS = {"qk": 1, "pv": 2, "all": 3}   # csrc/flash_attn_int8.cu
+INT8_TILE = 64          # the kernel's token tile: its scratch is padded to it
+# log2(127): exp2(s - (m - this)) is 127 * exp2(s - m), vdn's fold of the
+# fixed probability scale into the exponential
+LOG2_127 = 6.988684686772166
+
+
+def int8_flash_mode() -> str:
+    """``VDN_FLASH_INT8`` as vdn reads it ("0", off, by default), read at
+    each call."""
+    return os.environ.get("VDN_FLASH_INT8", "0")
+
+
+def int8_heads_ok(h: int, d: int) -> bool:
+    """vdn's column-block gate for F6 (``pick_heads_per_block`` at its
+    default): hb = max(1, 128 // d) heads must divide H and fill whole
+    128-lane blocks; any other head config takes A1."""
+    hb = max(1, 128 // d)
+    return h % hb == 0 and (d * hb) % 128 == 0
+
+
+def _int8_route(qkv: torch.Tensor, mode: Optional[str]) -> Optional[str]:
+    """The F6 mode a call runs, or None where it is A1."""
+    mode = int8_flash_mode() if mode is None else mode
+    if mode not in INT8_FLASH_MODES or not int8_heads_ok(*qkv.shape[-2:]):
+        return None
+    return mode
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _token_mean(x: torch.Tensor) -> torch.Tensor:
+    """fp32 [.., T, D] -> its mean over T, [.., 1, D]: the sum, then a true
+    division by T (vdn's jnp.mean; CUDA divides by a Python scalar as a
+    multiply by its reciprocal)."""
+    return x.sum(-2, keepdim=True) / _f32(x.shape[-2], x.device)
+
+
+def _int8_attention_one(q, k, v, scale, mode, dt, ops):
+    """One frame: q, k, v [H, T, D] -> out fp32 [H, T, D]; ``ops`` (a dict,
+    or None) receives the frame's codes (int8) and scales."""
+    dev = q.device
+    c2f = _f32(scale * LOG2E, dev)
+    inv127 = _f32(1.0 / 127.0, dev)
+    ops = {} if ops is None else ops
+    i8 = torch.int8
+    if mode in ("qk", "all"):
+        qf, kf = q.float(), k.float()
+        kf = kf - _token_mean(kf)
+        aq = torch.clamp_min(qf.abs().amax(-1, keepdim=True), 1e-30) * inv127
+        ak = torch.clamp_min(kf.abs().amax((-2, -1), keepdim=True),
+                             1e-30) * inv127
+        qi = torch.round(qf * torch.reciprocal(aq))
+        ki = torch.round(kf * torch.reciprocal(ak))
+        # every partial sum of D int8 products is an integer of at most D *
+        # 127^2, below 2^24 for D <= 1040: exact in fp32 in any order
+        si = torch.matmul(qi, ki.transpose(-1, -2))
+        s = si * (aq * (ak * c2f))
+        ops.update(qi=qi.to(i8), aq=aq[..., 0], ki=ki.to(i8), ak=ak[:, 0, 0])
+    else:
+        s = torch.matmul((q * _qscale(q, scale)).float(),
+                         k.float().transpose(-1, -2))
+    m = s.amax(-1, keepdim=True)
+    if mode in ("pv", "all"):
+        vf = v.float()
+        mu = _token_mean(vf)
+        vf = vf - mu
+        av = torch.clamp_min(vf.abs().amax(-2, keepdim=True), 1e-30) * inv127
+        vi = torch.round(vf * torch.reciprocal(av))
+        pi = torch.round(torch.exp2(s - (m - _f32(LOG2_127, dev))))
+        l = pi.sum(-1, keepdim=True)       # integers: exact in fp32
+        # the int32 sums of the kernel, exact in float64, then rounded to
+        # fp32 as vdn's int32 -> fp32 conversion rounds them
+        pv = torch.matmul(pi.double(), vi.double()).float()
+        out = pv * av / l + mu
+        ops.update(vi=vi.to(i8), av=av[:, 0], mu=mu[:, 0], pi=pi.to(i8))
+    else:
+        p = torch.exp2(s - m).to(dt).float()
+        out = torch.matmul(p, v.float()) / p.sum(-1, keepdim=True)
+    return out
+
+
+def flash_attention_int8_fused_qkv_plain(qkv: torch.Tensor,
+                                         scale: Optional[float] = None,
+                                         mode: Optional[str] = None,
+                                         operands: Optional[dict] = None
+                                         ) -> torch.Tensor:
+    """F6's function: qkv [B, T, 3, H, D] -> [B, T, H, D] in qkv's dtype,
+    rounding where vdn's ``_flash_cols_int8_kernel`` rounds, per (batch,
+    head) over all T tokens:
+
+    - QK^T in "qk" / "all": kf = k in fp32 less its mean over tokens;
+      aq = max(max_D |q|, 1e-30) * fp32(1/127) per row, ak = max(max
+      |kf|, 1e-30) * fp32(1/127) per (batch, head); qi = round(q * (1 /
+      aq)), ki = round(kf * (1 / ak)), half to even; s = (qi ki^T) * (aq *
+      (ak * c2f)) with c2f = fp32(scale * log2 e).  Otherwise s = (q *
+      bf16(scale * log2 e)) k^T in fp32 (A1's fold of the scale into q);
+    - m, the exact row max over all T keys;
+    - P V in "pv" / "all": mu the per-channel mean of v over tokens, av =
+      max(max_T |v - mu|, 1e-30) * fp32(1/127) per channel, vi = round((v
+      - mu) * (1 / av)); pi = round(exp2(s - (m - log2 127))) in [0, 127],
+      l = rowsum(pi), out = (pi vi * av) / l + mu.  Otherwise p = exp2(s
+      - m) rounded to v's dtype, l from the rounded p, out = (p V) / l.
+
+    ``mode`` None reads ``VDN_FLASH_INT8``; a mode that is not "qk", "pv"
+    or "all", or a head config vdn's gate turns away (``int8_heads_ok``),
+    is A1's plain version.  ``operands``, where given, receives the int8
+    codes qi, ki, vi [B, H, T, D] and pi [B, H, T, T] (int8), and the
+    scales aq [B, H, T], ak [B, H], av and mu [B, H, D] of the mode."""
+    mode = _int8_route(qkv, mode)
+    if mode is None:
+        return flash_attention_fused_qkv_plain(qkv, scale)
+    scale = qkv.shape[-1] ** -0.5 if scale is None else scale
+    dt = qkv.dtype
+    outs, per_frame = [], []
+    for x in qkv:                      # one frame at a time: [T, 3, H, D]
+        q, k, v = (x[:, i].transpose(0, 1) for i in range(3))
+        ops = None if operands is None else {}
+        outs.append(_int8_attention_one(q, k, v, scale, mode, dt,
+                                        ops).to(dt).transpose(0, 1))
+        per_frame.append(ops)
+    if operands is not None:
+        operands.update({key: torch.stack([f[key] for f in per_frame])
+                         for key in per_frame[0]})
+    return torch.stack(outs)
+
+
+def flash_attention_int8_fused_qkv(qkv: torch.Tensor,
+                                   scale: Optional[float] = None,
+                                   mode: Optional[str] = None,
+                                   operands: Optional[dict] = None
+                                   ) -> torch.Tensor:
+    """F6: qkv [B, T, 3, H, D] -> out [B, T, H, D] with int8 QK^T and / or
+    P V; kernel for bf16, D = 64.  ``mode`` None reads ``VDN_FLASH_INT8``;
+    off (any value but "qk", "pv", "all") or a head config vdn's gate
+    turns away, this is A1 (``flash_attention_fused_qkv``) unchanged.
+    ``operands`` receives what the plain version records, but pi (the
+    kernel keeps the probabilities in registers).  Serving only: on the
+    card an input that requires grad raises."""
+    route = _int8_route(qkv, mode)
+    if route is None:
+        return flash_attention_fused_qkv(qkv, scale)
+    if not use_kernel(qkv):
+        return flash_attention_int8_fused_qkv_plain(qkv, scale, route,
+                                                    operands)
+    name = "flash_attention_int8_fused_qkv"
+    _check_fused_qkv(name, qkv)
+    if wants_grad(qkv):
+        raise RuntimeError(f"{name}: the int8 kernels have no backward; run "
+                           f"under torch.no_grad()")
+    qkv = qkv.contiguous()
+    b, t, _, h, d = qkv.shape
+    scale = d ** -0.5 if scale is None else scale
+    tp = -(-t // INT8_TILE) * INT8_TILE
+    dev = qkv.device
+    qk, pv = route in ("qk", "all"), route in ("pv", "all")
+
+    def scratch(shape, dtype, wanted):
+        return torch.empty(shape, dtype=dtype, device=dev) if wanted else None
+
+    qi = scratch((b, h, tp, d), torch.int8, qk)
+    aq = scratch((b, h, tp), torch.float32, qk)
+    ki = scratch((b, h, tp, d), torch.int8, qk)
+    ak = scratch((b, h), torch.float32, qk)
+    vt = scratch((b, h, d, tp), torch.int8, pv)
+    av = scratch((b, h, d), torch.float32, pv)
+    mu = scratch((b, h, d), torch.float32, pv)
+    out = torch.empty((b, t, h, d), dtype=qkv.dtype, device=dev)
+    bufs = (qi, aq, ki, ak, vt, av, mu)
+    check_kernel_args(name, qkv, out, *(x for x in bufs if x is not None))
+    launch("vdn_flash_attention_int8", qkv.data_ptr(), b, t, h,
+           _MODE_BITS[route], float(scale * LOG2E), _kernel_qscale(scale),
+           *(None if x is None else x.data_ptr() for x in bufs),
+           out.data_ptr())
+    launches[name] += 1
+    if operands is not None:
+        if qk:
+            operands.update(qi=qi[:, :, :t], aq=aq[:, :, :t], ki=ki[:, :, :t],
+                            ak=ak)
+        if pv:
+            operands.update(vi=vt[..., :t].transpose(-1, -2), av=av, mu=mu)
+    return out

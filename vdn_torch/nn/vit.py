@@ -10,10 +10,11 @@ LayerScale -> residual tail for B * N >= 1024 rows.  vitg's FFN is SwiGLU
 
 ``quantize="int8"`` is the serving mode's W8A8 encoder (vdn/nn/vit.py:
 143-275), behind ``int8_serving_enabled`` (B * N >= 1024 rows on the card):
-F1 takes LN1 and the qkv projection, A1 stays the attention, F3 the
-out-projection with LayerScale and the residual, and F4 the whole MLP
-tail (F5 the SwiGLU tail for vitg).  The weights are quantized once per
-weight version.
+F1 takes LN1 and the qkv projection, F6 the attention behind the same
+size gate as A1 (int8 QK^T and / or P V under ``VDN_FLASH_INT8``; unset,
+F6 is A1), F3 the out-projection with LayerScale and the residual, and F4
+the whole MLP tail (F5 the SwiGLU tail for vitg).  The weights are
+quantized once per weight version.
 
 Configs (reference dinov2.py:339-415): vits 384/12/6, vitb 768/12/12,
 vitl 1024/24/16, vitg 1536/40/24 with SwiGLU; patch 14, img_size 518,
@@ -28,7 +29,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from vdn_torch.kernels.flash_attention import flash_attention_fused_qkv
+from vdn_torch.kernels.flash_attention import (
+    flash_attention_fused_qkv, flash_attention_int8_fused_qkv)
 from vdn_torch.kernels.int8 import (fused_ln_mlp_residual_int8,
                                     fused_ln_swiglu_residual_int8,
                                     int8_ln_linear, int8_proj_residual,
@@ -85,12 +87,15 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def _attend(self, qkv: torch.Tensor) -> torch.Tensor:
+    def _attend(self, qkv: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        """Self-attention off the fused qkv [B, N, 3C]; ``int8``: the int8
+        serving path's, F6 under the flash gate (vdn/nn/vit.py:161-172)."""
         b, n, c3 = qkv.shape
         h = self.num_heads
         qkv = qkv.reshape(b, n, 3, h, c3 // (3 * h))
         if flash_enabled(n, n):
-            out = flash_attention_fused_qkv(qkv)
+            out = (flash_attention_int8_fused_qkv(qkv) if int8
+                   else flash_attention_fused_qkv(qkv))
         else:
             out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
                                         qkv[:, :, 2])
@@ -102,10 +107,10 @@ class Attention(nn.Module):
     def forward_int8(self, x: torch.Tensor, norm: "LayerNorm",
                      gamma: torch.Tensor) -> torch.Tensor:
         """x + gamma * attn(norm(x)) with the int8 projections: F1 (LN
-        inside) and F3 (LayerScale and residual inside)."""
+        inside), F6 and F3 (LayerScale and residual inside)."""
         qkv = int8_ln_linear(x, norm.weight, norm.bias,
                              self.qkv.int8_weight(), self.qkv.bias, norm.eps)
-        return int8_proj_residual(self._attend(qkv), x,
+        return int8_proj_residual(self._attend(qkv, int8=True), x,
                                   self.proj.int8_weight(), self.proj.bias,
                                   gamma)
 

@@ -18,9 +18,18 @@ scales the model holds (``load_quant_stats`` or an earlier pass); its depth
 and features seed the cache as in any first window.  As in vdn, where the
 pass merges into a local copy of the params, the call leaves the model's
 scales as it found them.
+
+``cache_encoder=False`` (or a ``forward_fn``) is vdn's re-encoding path
+(vdn/pipelines/infer_video.py:80-99, 129-140): every window encodes all 32
+frames, its first OVERLAP inputs copied from the previous window's input
+at KEYFRAMES, and ``forward_fn(x)`` (the model's forward by default) gives
+the depth.  It runs no calibration pass: an int8_static model serves on
+the scales it holds (per frame where it holds none), as vdn's plain apply.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -48,10 +57,18 @@ def gather_seed_features(prev_feats, keyframes: torch.Tensor):
 
 @torch.no_grad()
 def infer_video_depth(model, frames: np.ndarray, target_fps: float,
-                      input_size: int = 518):
+                      input_size: int = 518,
+                      forward_fn: Optional[Callable] = None,
+                      cache_encoder: bool = True):
     """frames: [N, H, W, 3] RGB (uint8 or float 0-255).
 
     Returns (depths [N, H, W] fp32 numpy at source resolution, target_fps).
+
+    ``cache_encoder`` (default): reuse the previous window's encoder
+    features for the KEYFRAMES seed frames instead of re-encoding them.
+    ``forward_fn`` (x [1, 32, h, w, 3] on the model's device -> depth [1,
+    32, h, w]) forces the re-encoding path, as ``cache_encoder=False``
+    does with the model's own forward.
     """
     device = next(model.parameters()).device
     n_frames = len(frames)
@@ -69,12 +86,23 @@ def infer_video_depth(model, frames: np.ndarray, target_fps: float,
                       for i in range(lo, hi)], axis=0)[None]
         return torch.from_numpy(x).to(device)
 
+    if forward_fn is not None:
+        cache_encoder = False
+    elif not cache_encoder:
+        forward_fn = model
+
     keyframes = torch.tensor(KEYFRAMES, device=device)
     depth_list = []
-    prev_feats = None
+    prev_feats = pre_input = None
     with restored_quant_stats(model):
         for frame_id in range(0, n_frames, frame_step):
-            if prev_feats is None:
+            if not cache_encoder:
+                x = window_input(frame_id, 0, INFER_LEN)
+                if pre_input is not None:
+                    x[:, :OVERLAP] = pre_input.index_select(1, keyframes)
+                depth = forward_fn(x)
+                pre_input = x
+            elif prev_feats is None:
                 with quant_calibration(model):
                     depth, prev_feats = model.forward_window(
                         window_input(frame_id, 0, INFER_LEN))
