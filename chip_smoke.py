@@ -1,6 +1,9 @@
 """Smoke run of the PyTorch / CUDA port (vdn_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab PARENT   # F4, C2 fp32 and the paths that
+                                        # run them: a parent checkout
+                                        # against this one (ab_tree)
 
 Builds the hand-written CUDA kernels from vdn_torch/csrc, holds each one
 against its plain PyTorch version at the main paths' own shapes (and times
@@ -136,6 +139,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12   # fp32 outside the tensor cores
+TF32_TENSOR_FLOPS = 495e12
 # vitg (DINOv2 ViT-g/14, SwiGLU FFN) at full width: embed 1536, 40 blocks
 # of 24 heads, DPT features 384; its motion modules at C 1536 / 384 (dh 192
 # / 48), its rings 384 / 128 lanes wide, its output island at C 192
@@ -152,6 +156,11 @@ N_VITG_IMAGE = 8
 # the plain output overall
 INT8_TIE_SHARE = 1e-3
 INT8_REL_L2 = 1e-3
+# F4's four kernels by their names in the profiler's trace: the LN + quantize
+# row kernel, fc1 (GELU epilogue: the fp32 hidden and its absmax), the
+# hidden's quantizer, fc2 (csrc/ln_mlp_int8.cu)
+F4_STAGES = {"row": r"ln_quant_rows", "fc1": r"EpiHidden",
+             "hidden": r"quant_hidden", "fc2": r"EpiI8Residual"}
 # F6's modes (VDN_FLASH_INT8): int8 QK^T, int8 P V, both
 F6_MODES = ("qk", "pv", "all")
 # context parallel: the ring of K / V blocks E1 is held over in one process
@@ -187,6 +196,36 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, patterns: dict, reps: int = 10) -> dict:
+    """Device ms per call of fn()'s kernels, grouped by the regular
+    expressions of ``patterns`` ({group: pattern}; a kernel in the first
+    group whose pattern its name matches, else in "other"), from
+    torch.profiler's trace of ``reps`` calls after a warm-up call."""
+    import re
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {k: 0.0 for k in patterns}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        group = next((k for k, p in patterns.items()
+                      if re.search(p, e["name"])), "other")
+        out[group] = out.get(group, 0.0) + e["dur"] / 1e3 / reps
+    return out
 
 
 def bf16_ulp(x: float) -> float:
@@ -241,14 +280,15 @@ def bound(work) -> tuple:
     move (each input read once, each output written once) over the memory
     rate, against its operations over the peak rate for their type.  The
     tensor cores and the fp32 FMA units run side by side, so the
-    operations take as long as the busiest of the two; int8 and bf16
-    products share the tensor cores, so their times add (F6's modes)."""
+    operations take as long as the busiest of the two; int8, bf16 and
+    TF32 products share the tensor cores, so their times add (F6's
+    modes)."""
     nbytes, ops = work
     t_bytes = nbytes / HBM_BYTES_PER_S
     per_unit = {}
     for flops, peak in ops:
-        unit = "tensor" if peak in (BF16_TENSOR_FLOPS, INT8_TENSOR_OPS) \
-            else peak
+        unit = "tensor" if peak in (BF16_TENSOR_FLOPS, INT8_TENSOR_OPS,
+                                    TF32_TENSOR_FLOPS) else peak
         per_unit[unit] = per_unit.get(unit, 0.0) + flops / peak
     t_ops = max(per_unit.values(), default=0.0)
     return (max(t_bytes, t_ops) * 1e3,
@@ -256,16 +296,19 @@ def bound(work) -> tuple:
 
 
 def case(name, label, kern, plain, work, path, library=None, tol="bf16",
-         library_base=None, check=None, bf16=None):
+         library_base=None, check=None, bf16=None, stages=None):
     """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
     tuple of tensors (each held to the tolerance at its own scale); the
     library time is ``library``'s, less ``library_base``'s where given (a
     backward timed as forward + backward minus forward).  ``check``, where
     given, replaces that comparison (the int8 kernels' gate, int8_check);
-    ``bf16`` is the bf16 counterpart timed beside an int8 kernel."""
+    ``bf16`` is the bf16 counterpart timed beside an int8 kernel;
+    ``stages``, where given, {stage: kernel name pattern}: the device time
+    of each stage's kernels, from the profiler (kernel_ms)."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
                 path=path, library=library, tol=tol,
-                library_base=library_base, check=check, bf16=bf16)
+                library_base=library_base, check=check, bf16=bf16,
+                stages=stages)
 
 
 def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
@@ -684,7 +727,9 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             name, label, kern, plain, work, path,
             library=lambda a=acts, w=weights: [
                 torch._int_mm(q, wq.t()) for q, (wq, _) in zip(a, w)],
-            check=int8_check(kern, plain, keys), bf16=bf16)
+            check=int8_check(kern, plain, keys), bf16=bf16,
+            stages=F4_STAGES if name == "fused_ln_mlp_residual_int8"
+            else None)
 
 
 def f6_row_view(key, d):
@@ -970,9 +1015,12 @@ def check_kernels(cases=None) -> dict:
         if lib_ms is not None and c["library_base"]:
             lib_ms -= time_ms(c["library_base"])
         bf16_ms = time_ms(c["bf16"]) if c["bf16"] else None
+        stage_ms = kernel_ms(c["kern"], c["stages"]) if c["stages"] else {}
         bound_ms, bound_by = bound(c["work"])
         if bf16_ms is not None:
             extra["bf16_ms"] = f"{bf16_ms:.4f}"
+        for k, v in stage_ms.items():
+            extra[f"{k}_ms"] = f"{v:.4f}"
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -995,6 +1043,9 @@ def check_kernels(cases=None) -> dict:
                            else p["library_ms"] + lib_ms)
         if bf16_ms is not None:
             p["bf16_ms"] = p.get("bf16_ms", 0.0) + bf16_ms
+        for k, v in stage_ms.items():
+            st = p.setdefault("stages_ms", {})
+            st[k] = st.get(k, 0.0) + v
         del c
         torch.cuda.empty_cache()
     for s in summary.values():
@@ -1119,9 +1170,10 @@ def run_main_path(model, frames, label="main", names=None, absent=()):
     return depth, counts
 
 
-def time_windows(model, frames, label: str = "windows") -> None:
+def time_windows(model, frames, label: str = "windows") -> tuple:
     """ms per full and per cached window (CUDA events, median of 5), and
-    the peak device memory and host wall seconds of one of each."""
+    the peak device memory and host wall seconds of one of each; returns
+    the two ms."""
     from vdn_torch.pipelines.infer_video import (INFER_LEN, KEYFRAMES,
                                                  OVERLAP,
                                                  gather_seed_features)
@@ -1154,6 +1206,7 @@ def time_windows(model, frames, label: str = "windows") -> None:
         cached_window_wall_s=f"{cached_s:.3f}",
         full_window_peak_gib=f"{full_gib:.3f}",
         cached_window_peak_gib=f"{cached_gib:.3f}")
+    return full_ms, cached_ms
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2806,7 +2859,10 @@ def v1_attention_cases(rng, path="v1"):
     """C2 at fp32 / D 96 and D2 on hieradet's global blocks: q, k, v read
     in place off the fused qkv [16, T, 3, 4, 96] fp32, at T = 256 (256 px)
     and 324 (288 px: ragged tiles).  Library calls: SDPA's forward, and
-    its backward timed as forward + backward less forward, in fp32."""
+    its backward timed as forward + backward less forward, in fp32.
+    Bounds: three times the products' operations at the TF32 tensor-core
+    rate, the least work that keeps fp32 accuracy on the tensor cores
+    (3xTF32, which C2 runs)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     b, h, d = V1_FRAMES, V1_HEADS, V1_DH
@@ -2820,7 +2876,8 @@ def v1_attention_cases(rng, path="v1"):
             "flash_attention", f"B{b} T{t} H{h} D{d} fp32",
             lambda a=(q, k, v): fa.flash_attention(*a),
             lambda a=(q, k, v): fa.flash_attention_plain(*a),
-            (_nbytes(q, k, v, o), [(4 * b * h * t * t * d, FP32_FLOPS)]),
+            (_nbytes(q, k, v, o), [(3 * 4 * b * h * t * t * d,
+                                    TF32_TENSOR_FLOPS)]),
             path, tol="fp32",
             library=lambda a=sdpa_in: F.scaled_dot_product_attention(
                 *(x.detach() for x in a)))
@@ -2830,8 +2887,8 @@ def v1_attention_cases(rng, path="v1"):
             lambda a=(q, k, v): fa._launch_f32(*a, d ** -0.5, True)
             if a[0].is_cuda else fa._attention_lse_plain(*a, None, d ** -0.5),
             lambda a=(q, k, v): fa._attention_lse_plain(*a, None, d ** -0.5),
-            (_nbytes(q, k, v, o, lse), [(4 * b * h * t * t * d,
-                                         FP32_FLOPS)]), path + "_lse",
+            (_nbytes(q, k, v, o, lse), [(3 * 4 * b * h * t * t * d,
+                                         TF32_TENSOR_FLOPS)]), path + "_lse",
             tol="fp32")
         dout = _rand(rng, (b, t, h, d))
 
@@ -2847,7 +2904,8 @@ def v1_attention_cases(rng, path="v1"):
             lambda a=(q, k, v, o, lse, dout): fa.flash_attention_bwd(*a),
             lambda a=(q, k, v, o, dout): fa.flash_attention_bwd_plain(*a),
             (_nbytes(q, k, v, o, lse, dout) + 3 * _nbytes(o),
-             [(10 * b * h * t * t * d, FP32_FLOPS)]), path, tol="fp32",
+             [(3 * 10 * b * h * t * t * d, TF32_TENSOR_FLOPS)]), path,
+            tol="fp32",
             library=sdpa_fwd_bwd, library_base=sdpa_fwd)
 
 
@@ -3139,19 +3197,26 @@ def v1_train_phase() -> dict:
     return counts, model, batch
 
 
+def v1_clip(batch) -> tuple:
+    """The v1 model's inputs for one 8-frame clip, the first of ``batch``:
+    (depth prior, rgb)."""
+    from vdn_torch.train.trainer import (preprocess_depth_sequences,
+                                         preprocess_rgb_sequences)
+    depth = preprocess_depth_sequences(
+        torch.from_numpy(batch["depth_anything_v2"][:1]).to(DEVICE), None,
+        norm=False) / 65535.0
+    rgb = preprocess_rgb_sequences(
+        torch.from_numpy(batch["rgb"][:1]).to(DEVICE))
+    return depth, rgb
+
+
 def v1_infer_phase(model, batch) -> dict:
     """The v1 model under no_grad on one 8-frame clip (the first of
     ``batch``): C2 6 and the forward resizes, the launch counts set to 0
     just before and read just after; depth and normal against the plain
     fp32 run within V1_INFER_REL_L2."""
     from vdn_torch import kernels
-    from vdn_torch.train.trainer import (preprocess_depth_sequences,
-                                         preprocess_rgb_sequences)
-    dev = DEVICE
-    depth = preprocess_depth_sequences(
-        torch.from_numpy(batch["depth_anything_v2"][:1]).to(dev), None,
-        norm=False) / 65535.0
-    rgb = preprocess_rgb_sequences(torch.from_numpy(batch["rgb"][:1]).to(dev))
+    depth, rgb = v1_clip(batch)
     with torch.no_grad():
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -3474,6 +3539,95 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
+# ------------------------------------------------- parent against change
+def ab_tree(tree: str) -> dict:
+    """The checkout at ``tree`` (its vdn_torch ahead of this one's on
+    sys.path, its kernels built from its own sources) through this
+    script's own cases and phases on the same seeds and timers: F4 at a
+    streamed frame and the cached and full windows (int8_cases), C2 fp32
+    at v1's shapes with and without the log-sum-exp (v1_attention_cases),
+    the int8_static windows (time_windows, on the first window's scales)
+    and a streamed int8_static frame at k = 1 (run_stream, median of the
+    frames after the first), and the v1 model's step (b2 x s8, median of
+    V1_STEPS after V1_WARMUP) and clip (median of 5), fp32."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    from vdn_torch.nn.layers import quant_calibration
+    from vdn_torch.train.trainer import V1Trainer
+    environment()
+    build_kernels()
+    out = {"tree": tree}
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        for rows in (VIT_TOKENS, CACHED_FRAMES * VIT_TOKENS,
+                     32 * VIT_TOKENS):
+            for c in int8_cases(rng, "ab", rows):
+                if c["name"] == "fused_ln_mlp_residual_int8":
+                    out[f"f4_rows{rows}_ms"] = time_ms(c["kern"], reps=20)
+            torch.cuda.empty_cache()
+        with exact_fp32():
+            for c in v1_attention_cases(rng):
+                if c["name"] == "flash_attention":
+                    key = f"c2_{c['path']}_{c['label'].split()[1]}_ms"
+                    out[key] = time_ms(c["kern"], reps=20)
+        frames = synthetic_clip()
+        q = quantized_model(build_video_depth_anything, build_model(),
+                            "int8_static")
+        with quant_calibration(q):
+            q.forward_window(window_input(frames))
+        out["int8_static_full_window_ms"], \
+            out["int8_static_cached_window_ms"] = time_windows(
+                q, frames, "ab_windows_int8_static")
+    walls = fresh_stream(q, frames[:N_STREAM], 1)[1]
+    out["int8_static_stream_k1_ms_per_frame"] = statistics.median(walls[1:])
+    del q
+    torch.cuda.empty_cache()
+    with exact_fp32():
+        batch = v1_batch(np.random.default_rng(SEED + 7))
+        model = build_v1_model()
+        trainer = V1Trainer(model, initial_lr=V1_LR,
+                            weight_decay=V1_WEIGHT_DECAY)
+        for _ in range(V1_WARMUP):
+            trainer.train_step(batch)
+        walls = timed_steps(lambda: trainer.train_step(batch), V1_STEPS)[1]
+        out["v1_step_ms"] = statistics.median(walls)
+        depth, rgb = v1_clip(batch)
+        with torch.no_grad():
+            out["v1_clip_ms"] = time_ms(lambda: model(depth, rgb), reps=5,
+                                        warmup=1)
+    return out
+
+
+def ab(parent: str) -> None:
+    """``python3 chip_smoke.py --ab PARENT``: ab_tree of a parent checkout
+    (unpacked under a git-ignored directory) and of this one in turns,
+    parent, change, change, parent, each in a process of its own; then
+    each number's two runs per tree and their median."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for who, tree in (("parent", parent), ("change", here),
+                      ("change", here), ("parent", parent)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ab-tree", tree], timeout=900,
+                             capture_output=True, text=True)
+        print(res.stdout, end="", flush=True)
+        if res.returncode:
+            print(res.stderr[-8000:], file=sys.stderr, flush=True)
+            fail(f"--ab-tree {tree}: exit {res.returncode}")
+        line = [l for l in res.stdout.splitlines() if l.startswith("AB ")]
+        runs[who].append(json.loads(line[-1][3:]))
+    summary = {k: {who: [r[k] for r in rs] + [statistics.median(
+                   r[k] for r in rs)] for who, rs in runs.items()}
+               for k in runs["change"][0] if k != "tree"}
+    print("AB_SUMMARY " + json.dumps(summary), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab"]:
+        ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--ab-tree"]:
+        print("AB " + json.dumps(ab_tree(sys.argv[2])), flush=True)
+    else:
+        main()
     sys.exit(0)

@@ -131,13 +131,15 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // tanh-form GELU in fp32, the bf16 flavour of vdn/ops/pallas/mlp.py
-// (_gelu_fast_f32): tanh(u) = 1 - 2 / (exp2(2u log2 e) + 1)
+// (_gelu_fast_f32): tanh(u) = 1 - 2 / (exp2(2u log2 e) + 1).  2 / d is
+// taken as 2 * rcp_rn(d), the same bits as the correctly rounded quotient
+// (a power of two commutes with rounding; d >= 1) in fewer instructions.
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float kA = 0.7978845608028654f;  // sqrt(2 / pi)
   const float kB = 0.044715f;
   float u = kA * (x + kB * x * x * x);
   float e = exp2f(u * (2.0f * 1.4426950408889634f));
-  return 0.5f * x * (1.0f + (1.0f - 2.0f / (e + 1.0f)));
+  return 0.5f * x * (1.0f + (1.0f - 2.0f * __frcp_rn(e + 1.0f)));
 }
 
 }  // namespace vdn

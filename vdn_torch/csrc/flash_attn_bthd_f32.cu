@@ -1,25 +1,33 @@
-// C2 in fp32: attention over [B, T, H, D] with every product and sum in
-// fp32, for hieradet's global blocks (vdn/nn/hiera.py:120) on the v1 model:
-// q, k, v [b * s, 256, 4, 96] fp32 (16 x 16 tokens at 256 x 256; 324 at
-// 288), read in place as slices of the block's fused qkv projection.
+// C2 in fp32: attention over [B, T, H, D] at fp32 accuracy, for hieradet's
+// global blocks (vdn/nn/hiera.py:120) on the v1 model: q, k, v [b * s,
+// 256, 4, 96] fp32 (16 x 16 tokens at 256 x 256; 324 at 288), read in
+// place as slices of the block's fused qkv projection.
 //
 // Replaces vdn/ops/pallas/flash_attention.py flash_attention
 // (_flash_kernel via _flash_bhtd) at fp32, where vdn's math is an exact
 // full-K softmax: q * (scale * log2 e) rounded to fp32, S = q k^T, p =
 // exp2(S - rowmax), out = (p V) / rowsum(p).  The bf16 D = 64 case stays
-// in flash_attn_bthd.cu on the tensor cores.
+// in flash_attn_bthd.cu.
 //
-// Bound on the H100 by its fp32 FMAs, 4 * B * H * Tq * Tk * D FLOP at the
-// card's 67 TFLOP/s (0.024 ms at v1's [16, 256, 4, 96]); q, k, v and out
-// are 6.3 MB, 0.002 ms of memory.  The TPU kernel held a head's whole K and
-// V in VMEM and took the exact softmax in one pass; here one block per
-// (32-row q tile, head, batch) streams 32-key K / V tiles through shared
-// memory with an online softmax in base 2 (the running max and row sum in
-// registers, O rescaled per tile), so the result differs from the exact
-// softmax by fp32 rounding only.  A simple kernel: plain FMAs on shared
-// tiles (attn_f32.cuh), no tensor cores and no copy/compute overlap; 3xTF32
-// or wgmma are later work.  Ragged tails (Tq, Tk = 324 = 10 * 32 + 4): q
-// rows >= Tq are zero and never stored, keys >= Tk take -inf logits.
+// Bound on the H100 by its tensor-core products: 4 * B * H * Tq * Tk * D
+// FLOP, issued three times over (3xTF32, attn_f32.cuh) at the card's 495
+// TF32 TFLOP/s (0.010 ms at v1's [16, 256, 4, 96]); q, k, v and out are
+// 6.3 MB, 0.002 ms of memory.  The plain fp32 FMA units (67 TFLOP/s) would
+// take 0.024 ms for the same work, and a single TF32 product keeps too few
+// bits for the 1e-5 checks.  The TPU kernel held a head's whole K and V in
+// VMEM and took the exact softmax in one pass; here one block of four
+// warps per (64-row q tile, head, batch) streams 64-key K / V tiles
+// through shared memory, double-buffered by cp.async, with an online
+// softmax in base 2 (the running max and row sum in registers, O rescaled
+// per tile), so the result differs from the exact softmax by fp32 rounding
+// only.  Each warp owns 16 q rows: q (times qscale, rounded as the plain
+// version's product) stays in registers as the A fragments of S = q k^T;
+// the logits' accumulators are the A fragments of P V with the keys of
+// each 8-key step taken in the order 2t, 2t + 1 (logical t, t + 4), so p
+// never leaves registers, and V's rows are read in the same order.  Every
+// operand is split into big and small in registers.  Ragged tails (Tq, Tk
+// = 324 = 5 * 64 + 4): q rows >= Tq are zero and never stored, keys >= Tk
+// are zero-filled and take -inf logits.
 //
 // For the backward (D2, flash_attn_bthd_bwd.cu) the training variant also
 // writes the row log-sum-exp in base 2, lse = m + log2(l), [B, H, Tq].
@@ -29,8 +37,36 @@ namespace {
 
 using namespace vdn::attn_f32;
 
+constexpr int kQRows = 64;     // q rows per block: four warps of 16
+constexpr int kKeys = 64;      // keys per K / V tile
+constexpr int kTcThreads = 128;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct TcDims {
+  static_assert(D % 8 == 0, "head width must be a multiple of 8");
+  static constexpr int kLd = D + 4;          // floats per shared row
+  static constexpr int kTile = kKeys * kLd;  // floats per K or V tile
+  static constexpr int kN = D / 8;           // 8-wide steps of the head
+  // K and V, two buffers each
+  static constexpr int kSmem = 4 * kTile * (int)sizeof(float);
+};
+
+// cp.async of rows [t0, t0 + 64) of x into a shared tile, rows >= T
+// zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile_async(float* tile, Operand x,
+                                                int t0, int T) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kKeys * kChunks; c += kTcThreads) {
+    const int r = c / kChunks, d = (c % kChunks) * 4;
+    const bool in = t0 + r < T;
+    const float* src = x.base + (in ? (t0 + r) * x.row : 0) + d;
+    vdn::cp_async_16(tile + r * TcDims<D>::kLd + d, src, in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
 flash_bthd_f32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, int Tq, int Tk, int H,
@@ -38,82 +74,160 @@ flash_bthd_f32_kernel(const float* __restrict__ q,
                       long long skt, long long svb, long long svt,
                       float qscale, float* __restrict__ out,
                       float* __restrict__ lse) {
-  using Dm = Dims<D>;
+  using Dm = TcDims<D>;
+  constexpr int kN = Dm::kN;
+  constexpr int kS = kKeys / 8;  // 8-key steps per tile
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + Dm::kTile;
-  float* Vs = Ks + Dm::kTile;
-  float* Ps = Vs + Dm::kTile;  // [32][kPld]
+  float* const Ks = smem;                 // [2][kKeys][kLd]
+  float* const Vs = smem + 2 * Dm::kTile;
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3;
+  const int q0 = blockIdx.x * kQRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const Operand qo = operand(q, sqb, sqt, b, h, D);
   const Operand ko = operand(k, skb, skt, b, h, D);
   const Operand vo = operand(v, svb, svt, b, h, D);
+  const int ntiles = (Tk + kKeys - 1) / kKeys;
 
-  load_tile<D>(Qs, qo, q0, Tq, qscale);  // q * qscale, as the plain version
+  load_tile_async<D>(Ks, ko, 0, Tk);
+  load_tile_async<D>(Vs, vo, 0, Tk);
+  vdn::cp_async_commit();
 
-  float4 o[Dm::kVec];
+  // the warp's q rows r0 = q0 + 16 warp + g and r0 + 8 as A fragments:
+  // qa[kk] = {q[r0][8kk+t], q[r0+8][8kk+t], q[r0][8kk+t+4], q[r0+8][8kk+t+4]}
+  const int r0 = q0 + warp * 16 + g;
+  // a warp whose 16 rows all lie past Tq only loads and syncs
+  const bool active = q0 + warp * 16 < Tq;
+  float qa[kN][4];
 #pragma unroll
-  for (int i = 0; i < Dm::kVec; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m_run = -INFINITY, l_run = 0.f;  // l_run: this thread's columns
+  for (int kk = 0; kk < kN; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + (i & 1) * 8;
+      const int d = 8 * kk + t + (i >> 1) * 4;
+      qa[kk][i] = row < Tq ? __fmul_rn(__ldg(qo.base + row * qo.row + d), qscale)
+                           : 0.f;
+    }
 
-  for (int k0 = 0; k0 < Tk; k0 += kRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, ko, k0, Tk, 1.f);
-    load_tile<D>(Vs, vo, k0, Tk, 1.f);
+  float o[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  // running max and this thread's share of the row sum, rows r0 and r0 + 8
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < ntiles) {  // its buffer was last read before the previous sync
+      load_tile_async<D>(Ks + (buf ^ 1) * Dm::kTile, ko, (j + 1) * kKeys, Tk);
+      load_tile_async<D>(Vs + (buf ^ 1) * Dm::kTile, vo, (j + 1) * kKeys, Tk);
+    }
+    vdn::cp_async_commit();
+    vdn::cp_async_wait<1>();
     __syncthreads();
+    const float* ks = Ks + buf * Dm::kTile;
+    const float* vs = Vs + buf * Dm::kTile;
+    const int kbase = j * kKeys;
+    // 8-key steps of the tile that hold a key < Tk (all but in the last)
+    const int steps = min(kS, (Tk - kbase + 7) / 8);
+    if (active) {
 
-    float s[kRows / 4];
-    float mx = -INFINITY;
+    // S = q k^T over the tile's 64 keys: s[n] holds keys 8n + 2t, 8n + 2t + 1
+    float s[kS][4];
 #pragma unroll
-    for (int j = 0; j < kRows / 4; ++j) {
-      const int c = sub + 4 * j;
-      s[j] = k0 + c < Tk
-                 ? dot_rows<D>(Qs + r * Dm::kLd, Ks + c * Dm::kLd)
-                 : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // every tile holds a key < Tk, so m_new is finite; on the first tile
-    // alpha = exp2(-inf) = 0 rescales nothing that was accumulated
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = exp2f(m_run - m_new);
-    m_run = m_new;
-    l_run *= alpha;
+    for (int n = 0; n < kS; ++n)
 #pragma unroll
-    for (int j = 0; j < kRows / 4; ++j) {
-      const float p = exp2f(s[j] - m_new);
-      l_run += p;
-      Ps[r * kPld + sub + 4 * j] = p;
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) {
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(qa[kk][i], ab[i], as[i]);
+      uint32_t bb[kS][2], bs[kS][2];
+#pragma unroll
+      for (int n = 0; n < kS; ++n) {
+        const float* kr = ks + (8 * n + g) * Dm::kLd + 8 * kk + t;
+        split_tf32(kr[0], bb[n][0], bs[n][0]);
+        split_tf32(kr[4], bb[n][1], bs[n][1]);
+      }
+      mma_3xtf32(s, 0, ab, as, bb, bs, steps);
+    }
+
+    // keys >= Tk take -inf; every tile holds a key < Tk, so the new max is
+    // finite, and on the first tile alpha = exp2(-inf) = 0
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int n = 0; n < kS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (kbase + 8 * n + 2 * t + (i & 1) >= Tk) s[n][i] = -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+      l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int i = 0; i < Dm::kVec; ++i) {
-      o[i].x *= alpha;
-      o[i].y *= alpha;
-      o[i].z *= alpha;
-      o[i].w *= alpha;
+    for (int n = 0; n < kS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i >> 1]);
+        l_run[i >> 1] += s[n][i];
+      }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+
+    // O += P V: step kk takes keys 8kk + 2t (logical t) and 8kk + 2t + 1
+    // (logical t + 4), which is where S's accumulators left them
+#pragma unroll
+    for (int kk = 0; kk < kS; ++kk) {
+      if (kk >= steps) break;
+      uint32_t ab[4], as[4];
+      split_tf32(s[kk][0], ab[0], as[0]);
+      split_tf32(s[kk][2], ab[1], as[1]);
+      split_tf32(s[kk][1], ab[2], as[2]);
+      split_tf32(s[kk][3], ab[3], as[3]);
+      const float* vr = vs + (8 * kk + 2 * t) * Dm::kLd + g;
+      // the head's columns in groups of kG n8 tiles (registers)
+      constexpr int kG = kN % 6 == 0 ? 6 : kN % 4 == 0 ? 4 : 1;
+#pragma unroll
+      for (int n0 = 0; n0 < kN; n0 += kG) {
+        uint32_t bb[kG][2], bs[kG][2];
+#pragma unroll
+        for (int n = 0; n < kG; ++n) {
+          split_tf32(vr[8 * (n0 + n)], bb[n][0], bs[n][0]);
+          split_tf32(vr[Dm::kLd + 8 * (n0 + n)], bb[n][1], bs[n][1]);
+        }
+        mma_3xtf32(o, n0, ab, as, bb, bs);
+      }
     }
-    __syncwarp();  // a row's p comes from the four lanes of that row
-#pragma unroll 4
-    for (int c = 0; c < kRows; ++c)
-      axpy_row<D>(o, Ps[r * kPld + c], Vs + c * Dm::kLd, sub);
+    }  // active
+    __syncthreads();  // the tile's readers are done before it is refilled
   }
 
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  const int row = q0 + r;
-  if (row >= Tq) return;
-  float* dst = out + ((size_t)b * Tq + row) * H * D + (size_t)h * D;
 #pragma unroll
-  for (int i = 0; i < Dm::kVec; ++i) {
-    const float4 a = o[i];
-    *reinterpret_cast<float4*>(dst + 4 * (sub + 4 * i)) =
-        make_float4(a.x / l_run, a.y / l_run, a.z / l_run, a.w / l_run);
+  for (int r = 0; r < 2; ++r) {
+    if (!active) break;
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= Tq) continue;
+    float* dst = out + ((size_t)b * Tq + row) * H * D + (size_t)h * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * r] / l_run[r], o[n][2 * r + 1] / l_run[r]);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * Tq + row] = m_run[r] + log2f(l_run[r]);
   }
-  if (lse != nullptr && sub == 0)
-    lse[((size_t)b * H + h) * Tq + row] = m_run + log2f(l_run);
 }
 
 template <int D>
@@ -121,12 +235,12 @@ int launch(const void* q, const void* k, const void* v, int B, int Tq,
            int Tk, int H, long long sqb, long long sqt, long long skb,
            long long skt, long long svb, long long svt, float qscale,
            void* out, void* lse, cudaStream_t s) {
-  using Dm = Dims<D>;
-  const int smem = (3 * Dm::kTile + kRows * kPld) * (int)sizeof(float);
-  static const cudaError_t attr = allow_smem(flash_bthd_f32_kernel<D>, smem);
+  using Dm = TcDims<D>;
+  static const cudaError_t attr =
+      allow_smem(flash_bthd_f32_kernel<D>, Dm::kSmem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  flash_bthd_f32_kernel<D><<<grid, kThreads, smem, s>>>(
+  dim3 grid((Tq + kQRows - 1) / kQRows, H, B);
+  flash_bthd_f32_kernel<D><<<grid, kTcThreads, Dm::kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), Tq, Tk, H, sqb, sqt, skb, skt, svb, svt,
       qscale, static_cast<float*>(out), static_cast<float*>(lse));

@@ -1,4 +1,5 @@
-// One tiled int8 GEMM for the W8A8 serving kernels (F1-F5):
+// One tiled int8 GEMM for the W8A8 serving kernels F1, F2, F3 and F5 (F4
+// runs on the wgmma + TMA core, int8_wgmma.cuh, which these adopt in turn):
 //   out = epi( sum_j (float(A_j @ W_j^T) * rs[m, j]) * cs[n] )
 //
 //   A   [M, K] int8, row stride lda bytes (rows quantized by a row kernel)
@@ -14,8 +15,9 @@
 //       two output columns)
 //
 // Replaces the int8 MXU dots of vdn/ops/pallas/int8.py (_int8_dot inside
-// _ln_linear_kernel, _linear_kernel, _proj_residual_kernel,
-// _ln_mlp_int8_kernel and _ln_swiglu_int8_kernel).  The TPU kernels keep the whole int8 weight in VMEM;
+// _ln_linear_kernel, _linear_kernel, _proj_residual_kernel and
+// _ln_swiglu_int8_kernel).  The TPU kernels keep the whole int8 weight in
+// VMEM;
 // a Hopper block has 227 KB, so the product is tiled as the bf16 template
 // (gemm_tile.cuh) tiles it: 128 x 128 output tiles, K in 64-byte slices,
 // eight warps of 64 x 32, mma.sync m16n8k32 s8 x s8 -> s32, the next slice
@@ -24,8 +26,9 @@
 // holds four int8 values of consecutive K where it held two bf16.  The
 // int32 sums are exact, so the order of the K loop changes nothing; the
 // dequantization keeps vdn's order, (acc * rs) * cs per chunk and the
-// chunks added in order in fp32 (F4's fc2: pj0 + pj1).
-// Bound by tensor-core issue at the window's shapes; no wgmma/TMA yet.
+// chunks added in order in fp32 (F5's w3: pj0 + pj1).
+// Bound by tensor-core issue at the window's shapes (int8_wgmma.cuh is the
+// wgmma + TMA form).
 #pragma once
 
 #include "common.cuh"

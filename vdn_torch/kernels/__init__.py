@@ -114,7 +114,8 @@ _SIGNATURES = {
                           _P, _I, _F, _P, _P),
     "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 7,
     "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
-    "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
+    "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
+    + (_I,) * 3 + (_P,),
     "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
     "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
     + (_P,) * 4,

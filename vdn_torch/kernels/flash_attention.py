@@ -14,9 +14,10 @@ separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
 In bf16 at D = 64 both run csrc/flash_attn_bthd.cu, A1's arithmetic read
 through the [B, T, H, D] strides, with whole -inf key tiles skipped.  C2
-also runs fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, every product and
-sum an fp32 FMA): hieradet's global blocks on the v1 model, whose q, k and
-v it reads in place as slices of the fused qkv projection.
+also runs fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, its products on the
+tensor cores in 3xTF32, which keeps fp32 accuracy): hieradet's global
+blocks on the v1 model, whose q, k and v it reads in place as slices of
+the fused qkv projection.
 
 Training through C2: with grad enabled and q, k or v requiring it, C2 runs
 as an autograd Function.  Its forward also writes the base-2 row

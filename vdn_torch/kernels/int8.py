@@ -21,14 +21,17 @@ symmetric with no zero points:
   ``_F_CHUNKS``, which the numbers depend on).
 
 On the H100 each kernel is a row kernel (LayerNorm or identity, row amax,
-int8 rows and their scales) followed by an int8 tile GEMM on mma.sync
-m16n8k32 (csrc/int8_gemm.cuh) with the dequantization in its epilogue;
-F4 runs row kernel, fc1 GEMM (GELU epilogue, fp32 hidden), a per-(row,
-chunk) quantizer, then the fc2 GEMM, whose K loop dequantizes chunk 0
-before chunk 1 accumulates (csrc/int8_linear.cu, csrc/ln_mlp_int8.cu);
-F5 the same with the w12 GEMM in its dual mode (gate and value columns of
-one output in one thread, the SwiGLU epilogue) and w3 in place of fc2
-(csrc/ln_swiglu_int8.cu).  Bound by the int8 products (2 * rows * C * F
+int8 rows and their scales) followed by int8 tile GEMMs with the
+dequantization in their epilogues.  F1, F2, F3 and F5 run their products
+on mma.sync m16n8k32 (csrc/int8_gemm.cuh; csrc/int8_linear.cu,
+csrc/ln_swiglu_int8.cu: F5's w12 GEMM in its dual mode, gate and value
+columns of one output in one thread, and w3 with the per-chunk
+dequantization).  F4 runs on the warp-specialised wgmma + TMA core
+(csrc/int8_wgmma.cuh, persistent blocks over 128-row tiles; see
+``f4_plan``): the row kernel, fc1 with the GELU epilogue (the fp32 hidden
+and its absmax per (row, chunk)), the hidden's quantizer, then fc2, whose
+K loop dequantizes chunk 0 before chunk 1 accumulates
+(csrc/ln_mlp_int8.cu).  Bound by the int8 products (2 * rows * C * F
 operations each at 1979 TOP/s) at the window's shapes, F3 by its bytes.
 
 A weight argument is a float Linear weight [F, C] (torch layout) or a
@@ -44,6 +47,7 @@ checks.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple, Union
 
@@ -64,6 +68,11 @@ __all__ = ["quantize_weight_cols", "quantize_rows", "int8_serving_enabled",
 F_CHUNKS = 2          # vdn's _F_CHUNKS: hidden scales per (row, F / 2)
 INT8_MIN_ROWS = 1024  # one 518 x 518 image (1370 tokens) qualifies
 K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice
+# csrc/int8_wgmma.cuh: rows and bytes of K of a tile; F4's fc1 tile width
+# (csrc/ln_mlp_int8.cu) and the widest C its row kernel holds in registers
+WG_ROWS, WG_K = 128, 128
+F4_BN1 = 128
+F4_MAX_C = 2048
 
 Weight = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -248,6 +257,24 @@ def _rows_scratch(m: int, k: int, device, chunks: int = 1):
             torch.empty((m, chunks), dtype=torch.float32, device=device))
 
 
+def f4_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """What F4's launch takes for ``m`` rows on a card of ``sms`` SMs: fc2's
+    tile width (N = C: 128, or 64 where 128-wide tiles would number fewer
+    than the SMs, as a streamed frame's 1370 rows give 11 x 8) and the
+    persistent blocks of each product, min(tiles, sms).  fc1 runs 128 x
+    128 tiles.  fc2's chunked K loop (chunk 0 dequantized, then chunk 1
+    added) is the same at either width."""
+    mt = -(-m // WG_ROWS)
+    bn2 = 128 if mt * (c // 128) >= sms else 64
+    return {"bn2": bn2, "grid1": min(mt * (f // F4_BN1), sms),
+            "grid2": min(mt * (c // bn2), sms)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _linear_launch(name, x, ln, w: Weight, b, eps,
                    operands: Optional[dict]) -> torch.Tensor:
     """F1 (``ln`` = (weight, bias)) or F2 (``ln`` None) on the card."""
@@ -330,28 +357,33 @@ def fused_ln_mlp_residual_int8(x, ln_w, ln_b, w1: Weight, b1, w2: Weight,
         return fused_ln_mlp_residual_int8_plain(x, ln_w, ln_b, w1, b1, w2,
                                                 b2, gamma, eps, operands)
     name = "fused_ln_mlp_residual_int8"
+    _serving_only(name, x, ln_w, ln_b, b1, b2, gamma)
     (w1q, s1), (w2q, s2) = _quantized(w1), _quantized(w2)
     c = x.shape[-1]
     f = w1q.shape[0]
     _check(name, x, (w1q, c), (w2q, f))
-    if w2q.shape[0] != c or f % (F_CHUNKS * K_TILE):
-        raise ValueError(f"{name}: w2 {tuple(w2q.shape)} with F {f}: the "
-                         f"kernel takes F a multiple of "
-                         f"{F_CHUNKS * K_TILE}")
-    _serving_only(name, x, ln_w, ln_b, b1, b2, gamma)
+    if (w2q.shape[0] != c or f % (F_CHUNKS * F4_BN1) or c % WG_K
+            or c > F4_MAX_C):
+        raise ValueError(f"{name}: w2 {tuple(w2q.shape)} with F {f}, C {c}: "
+                         f"the kernel takes F a multiple of "
+                         f"{F_CHUNKS * F4_BN1} and C of {WG_K} up to "
+                         f"{F4_MAX_C}")
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
+    plan = f4_plan(m, c, f, _sm_count(x.device.index))
     args = [*_f32(ln_w, ln_b), w1q.contiguous(), *_f32(s1, b1),
             w2q.contiguous(), *_f32(s2, b2, gamma)]
     yq, sy = _rows_scratch(m, c, x.device)
-    h = torch.empty((m, f), dtype=torch.float32, device=x.device)
     hq, sh = _rows_scratch(m, f, x.device, F_CHUNKS)
+    h = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    amax = torch.empty((m, F_CHUNKS), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x2)
-    check_kernel_args(name, x2, *args, yq, sy, h, hq, sh, out)
+    check_kernel_args(name, x2, *args, yq, sy, h, amax, hq, sh, out)
     launch("vdn_ln_mlp_int8", x2.data_ptr(), m, c, f,
            *(t.data_ptr() for t in args[:2]), float(eps),
            *(t.data_ptr() for t in args[2:]),
-           *(t.data_ptr() for t in (yq, sy, h, hq, sh, out)))
+           *(t.data_ptr() for t in (yq, sy, h, amax, hq, sh, out)),
+           plan["bn2"], plan["grid1"], plan["grid2"])
     launches[name] += 1
     _record(operands, yq=yq, sy=sy, hq=hq, sh=sh)
     return out.reshape(x.shape)
