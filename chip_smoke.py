@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port (vdn_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT   # F4, C2 fp32 and the paths that
+    python3 chip_smoke.py --ab PARENT   # D1, F5, F4 and the paths that
                                         # run them: a parent checkout
                                         # against this one (ab_tree)
 
@@ -72,8 +72,10 @@ k = 8 stream is held to the k = 1 stream by the same gate; an int8 run
 sits no further from the plain int8 bf16 run than twice plain bf16's
 distance from fp32, measured both on the float path and on the int8 path.
 F1-F6 are held to their plain versions with a gate of their own
-(int8_check: operands equal but at ties), F6 in each mode at the cached
-and full windows, a frame, the 480 x 640 image and vitg's window; C3, the
+(int8_check: operands equal but at ties), F1, F3 and F4 also at vits' and
+vitb's widths, F6 in each mode at the cached and full windows, a frame,
+the 480 x 640 image and vitg's window; D1 also at ragged T, and two of its
+launches must give the same bits; C3, the
 head-major fused-qkv attention that no path calls, at the window.  Prints one line
 per phase; the line before the last is a JSON summary of the kernels, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -161,6 +163,19 @@ INT8_REL_L2 = 1e-3
 # hidden's quantizer, fc2 (csrc/ln_mlp_int8.cu)
 F4_STAGES = {"row": r"ln_quant_rows", "fc1": r"EpiHidden",
              "hidden": r"quant_hidden", "fc2": r"EpiI8Residual"}
+# F5's (csrc/ln_swiglu_int8.cu): the row kernel, w12 in the paired mode
+# (SwiGLU epilogue), the hidden's quantizer, w3; D1's three launches
+# (csrc/flash_attn_qkv_bwd.cu)
+F5_STAGES = {"row": r"ln_quant_rows", "w12": r"EpiSwigluHidden",
+             "hidden": r"quant_hidden", "w3": r"EpiI8Residual"}
+D1_STAGES = {"prepass": r"d1_prepass", "dkdv": r"d1_dkdv", "dq": r"d1_dq"}
+# D1 at the v4 shape and at ragged T (B 2): 90 (one 128-row block, two
+# 64-row tiles, the second partial) and 257 (3 blocks, the last nearly
+# empty)
+D1_RAGGED = (90, 257)
+# the int8 encoder's widths: C, the qkv projection's F, the MLP's hidden
+INT8_WIDTHS = {"vits": (384, 1152, 1536), "vitb": (768, 2304, 3072),
+               "vitl": (1024, 3072, 4096), "vitg": (1536, 4608, 4096)}
 # F6's modes (VDN_FLASH_INT8): int8 QK^T, int8 P V, both
 F6_MODES = ("qk", "pv", "all")
 # context parallel: the ring of K / V blocks E1 is held over in one process
@@ -296,19 +311,41 @@ def bound(work) -> tuple:
 
 
 def case(name, label, kern, plain, work, path, library=None, tol="bf16",
-         library_base=None, check=None, bf16=None, stages=None):
+         check=None, bf16=None, stages=None):
     """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
     tuple of tensors (each held to the tolerance at its own scale); the
-    library time is ``library``'s, less ``library_base``'s where given (a
-    backward timed as forward + backward minus forward).  ``check``, where
+    library time is ``library``'s.  ``check``, where
     given, replaces that comparison (the int8 kernels' gate, int8_check);
     ``bf16`` is the bf16 counterpart timed beside an int8 kernel;
     ``stages``, where given, {stage: kernel name pattern}: the device time
     of each stage's kernels, from the profiler (kernel_ms)."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
-                path=path, library=library, tol=tol,
-                library_base=library_base, check=check, bf16=bf16,
+                path=path, library=library, tol=tol, check=check, bf16=bf16,
                 stages=stages)
+
+
+def sdpa_backward(q, k, v, g):
+    """SDPA's backward alone on [B, H, T, D] q, k, v and the cotangent g:
+    the graph is built once here, and the returned call runs only
+    ``torch.autograd.grad`` through it (retain_graph)."""
+    import torch.nn.functional as F
+    inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*inputs)
+    return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+
+def both_launches_equal(kern, plain, tol="bf16"):
+    """A check (see ``case``) that also runs the kernel twice and asks for
+    the same bits (a kernel with no atomics sums in one order)."""
+    def check():
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err, tol_, scale, finite = _compare(got, want, tol)
+        return err, tol_, scale, finite, err <= tol_ and same, {
+            "bit_equal": same}
+    return check
 
 
 def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
@@ -345,7 +382,19 @@ def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
         lambda x=x, p=p: mlp.fused_ln_mlp_residual(x, *p),
         lambda x=x, p=p: mlp.fused_ln_mlp_residual_plain(x, *p),
         (2 * _nbytes(x) + _nbytes(*p), [(4 * rows * c * f,
-                                         BF16_TENSOR_FLOPS)]), path)
+                                         BF16_TENSOR_FLOPS)]), path,
+        library=two_products(rng, x, p[2], p[4]))
+
+
+def two_products(rng, x, w1, w2):
+    """The library call of an MLP tail (A2, A4): its two products alone in
+    cuBLAS bf16 (``F.linear``), x [.., C] against w1 [F, C], then a bf16
+    hidden [.., F] against w2 [C, F]."""
+    import torch.nn.functional as F
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    hid = _rand(rng, (*x.shape[:-1], w2.shape[1])).to(x.device,
+                                                      torch.bfloat16)
+    return lambda: [F.linear(x, w1b), F.linear(hid, w2b)]
 
 
 def motion_cases(rng, path, t, with_a3=True, shapes=None):
@@ -386,7 +435,8 @@ def motion_cases(rng, path, t, with_a3=True, shapes=None):
             lambda x=x, p=p: geglu.fused_ln_geglu_residual(x, *p),
             lambda x=x, p=p: geglu.fused_ln_geglu_residual_plain(x, *p),
             (2 * _nbytes(x) + _nbytes(*p),
-             [(6 * bn * t * c * f, BF16_TENSOR_FLOPS)]), path)
+             [(6 * bn * t * c * f, BF16_TENSOR_FLOPS)]), path,
+            library=two_products(rng, x, p[2], p[4]))
 
 
 def _taps(w) -> int:
@@ -638,9 +688,9 @@ def int8_check(kern, plain, keys, row_view=None):
 
 def int8_cases(rng, path, rows, encoder="vitl"):
     """The int8 encoder kernels over ``rows`` tokens, the weights
-    pre-quantized as the model caches them: at vitl (C 1024; qkv F 3072,
-    MLP F 4096) F1-F4, at vitg (C 1536; qkv F 4608, SwiGLU hidden 4096) F1,
-    F3 and F5.  Library: one ``torch._int_mm`` on the same pre-quantized
+    pre-quantized as the model caches them (widths: INT8_WIDTHS): at vitl
+    F1-F4, at vits and vitb F1, F3 and F4, at vitg F1, F3 and F5 (SwiGLU
+    hidden 4096).  Library: one ``torch._int_mm`` on the same pre-quantized
     operands (the product alone; F4's and F5's two).  bf16 counterpart: the
     float path's cuBLAS qkv and proj GEMMs for F1 / F2 and F3, A2 for F4,
     and the float SwiGLU tail (LN, the two cuBLAS GEMMs, silu, LayerScale,
@@ -649,7 +699,7 @@ def int8_cases(rng, path, rows, encoder="vitl"):
     from vdn_torch.kernels import int8, layer_norm_f32, mlp
     dev, bf = DEVICE, torch.bfloat16
     vitg = encoder == "vitg"
-    c, fq, fm = (1536, 4608, 4096) if vitg else (1024, 3072, 4096)
+    c, fq, fm = INT8_WIDTHS[encoder]
     x = _rand(rng, (1, rows, c)).to(dev, bf)
     att = _rand(rng, (1, rows, c)).to(dev, bf)
     ln = [_rand(rng, (c,), 0.1, 1.0).to(dev), _rand(rng, (c,), 0.1).to(dev)]
@@ -697,7 +747,6 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             x1, x2 = (F.linear(y16, w12b) + b12b).chunk(2, -1)
             return x + (F.linear(F.silu(x1) * x2, w3b) + b3b) * g2b
 
-        specs[1:2] = []       # F2: no path of vitg calls it
         specs.append((
             "fused_ln_swiglu_residual_int8", ["yq", "hq"],
             lambda o=None: int8.fused_ln_swiglu_residual_int8(
@@ -719,6 +768,10 @@ def int8_cases(rng, path, rows, encoder="vitl"):
                                                   b2, g2),
              [(4 * rows * c * fm, INT8_TENSOR_OPS)]), [fc1, fc2],
             lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)))
+    if encoder != "vitl":     # F2: no path of vits, vitb or vitg calls it
+        specs[1:2] = []
+    stages = {"fused_ln_mlp_residual_int8": F4_STAGES,
+              "fused_ln_swiglu_residual_int8": F5_STAGES}
     for name, keys, kern, plain, work, weights, bf16 in specs:
         ops = {}
         plain(ops)
@@ -728,8 +781,7 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             library=lambda a=acts, w=weights: [
                 torch._int_mm(q, wq.t()) for q, (wq, _) in zip(a, w)],
             check=int8_check(kern, plain, keys), bf16=bf16,
-            stages=F4_STAGES if name == "fused_ln_mlp_residual_int8"
-            else None)
+            stages=stages.get(name))
 
 
 def f6_row_view(key, d):
@@ -849,6 +901,13 @@ def kernel_cases(rng):
                        ("clip_full", 32 * VIT_TOKENS), ("stream", VIT_TOKENS),
                        ("image", NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1)):
         yield from int8_cases(rng, path, rows)
+    # F1, F3 and F4 at vits and vitb widths (C 384 / 768: the row kernel's
+    # partial 8-value groups, fc2 at 3 or 6 tile columns), the cached
+    # window and a streamed frame
+    for enc in ("vits", "vitb"):
+        for path, rows in (("clip", CACHED_FRAMES * VIT_TOKENS),
+                           ("stream", VIT_TOKENS)):
+            yield from int8_cases(rng, f"{enc}_{path}", rows, enc)
     yield from attention_int8_cases(rng)
     yield from vitg_cases(rng)
     yield from e1_cases(rng)
@@ -861,7 +920,8 @@ def vitg_cases(rng):
     192 / 48 and A4 at its motion modules, the fusion upsamples at C 384,
     A6 at C 192, B1 at its 384- and 128-lane rings, C1 / C2 over 24 heads,
     and F1, F3 and F5 at the cached window, the full window, one frame and
-    the 480 x 640 image."""
+    the 480 x 640 image (and at 1,000 rows: "vitg_ragged", a partial last
+    tile)."""
     image_rows = NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1
     yield from encoder_cases(rng, "vitg_clip", CACHED_FRAMES, h=VITG_HEADS,
                              with_a2=False)
@@ -882,7 +942,7 @@ def vitg_cases(rng):
     for path, rows in (("vitg_clip", CACHED_FRAMES * VIT_TOKENS),
                        ("vitg_clip_full", 32 * VIT_TOKENS),
                        ("vitg_stream", VIT_TOKENS),
-                       ("vitg_image", image_rows)):
+                       ("vitg_image", image_rows), ("vitg_ragged", 1000)):
         yield from int8_cases(rng, path, rows, "vitg")
 
 
@@ -894,8 +954,9 @@ def train_cases(rng, path="train"):
     """The training step's kernels at vitl 518, b2 t8 (16 frames of 1370
     tokens; the motion modules at 2 x their tokens, T = 8): A1's training
     forward (its log-sum-exp), D1, D3 (every output) and D4, inputs bf16,
-    parameters fp32 as the model stores them.  D1's library call is SDPA's
-    backward at the same shape, timed as forward + backward less forward."""
+    parameters fp32 as the model stores them; D1 also at ragged T
+    (``d1_cases``).  Library calls: SDPA's forward (A1-train) and backward
+    alone (D1), D3's three products in cuBLAS bf16."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa, mlp
     from vdn_torch.kernels import temporal_attention as ta
@@ -913,28 +974,8 @@ def train_cases(rng, path="train"):
                                    BF16_TENSOR_FLOPS)]), path,
         library=lambda qkv=qkv: F.scaled_dot_product_attention(
             *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
-    with torch.no_grad():
-        o, lse = fa._fused_qkv_forward(qkv, None, True)
-    dout = _rand(rng, (b, t, h, d)).to(dev, bf)
-    sdpa_in = [qkv[:, :, i].transpose(1, 2).detach().requires_grad_()
-               for i in range(3)]
-    g_sdpa = dout.transpose(1, 2)
-
-    def sdpa_fwd_bwd(a=sdpa_in, g=g_sdpa):
-        torch.autograd.grad(F.scaled_dot_product_attention(*a), a, g)
-
-    def sdpa_fwd(a=sdpa_in):
-        with torch.no_grad():
-            F.scaled_dot_product_attention(*a)
-
-    yield case(
-        "flash_attention_fused_qkv_bwd", f"B{b} T{t} H16 D64",
-        lambda a=(qkv, o, lse, dout): fa.flash_attention_fused_qkv_bwd(*a),
-        lambda a=(qkv, o, lse, dout):
-            fa.flash_attention_fused_qkv_bwd_plain(*a),
-        (_nbytes(qkv, o, lse, dout, qkv), [(10 * b * h * t * t * d,
-                                            BF16_TENSOR_FLOPS)]), path,
-        library=sdpa_fwd_bwd, library_base=sdpa_fwd)
+    del qkv
+    yield from d1_cases(rng, path)
 
     c, f = 1024, 4096
     x = _rand(rng, (b, t, c)).to(dev, bf)
@@ -946,12 +987,17 @@ def train_cases(rng, path="train"):
     rows = b * t
     # out: dx, y [rows, C]; h, dhpre [rows, F] bf16; dls, dlb, db1 fp32
     out_bytes = 2 * (2 * rows * c + 2 * rows * f) + 4 * (2 * c + f)
+    # library: the three products (fc1 again, dh = g w2, dx = dhpre w1)
+    w1b, w2b = p[2].to(bf), p[4].to(bf)
+    dh = _rand(rng, (b, t, f)).to(dev, bf)
     yield case(
         "fused_ln_mlp_residual_bwd", f"rows {b}x{t} C1024 F4096",
         lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd(*a),
         lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd_plain(*a),
         (_nbytes(x, g, *p) + out_bytes, [(6 * rows * c * f,
-                                          BF16_TENSOR_FLOPS)]), path)
+                                          BF16_TENSOR_FLOPS)]), path,
+        library=lambda: [F.linear(x, w1b), F.linear(g, w2b.t()),
+                         F.linear(dh, w1b.t())])
 
     for bn, c in MOTION_SHAPES:
         bn *= TRAIN_B
@@ -971,6 +1017,35 @@ def train_cases(rng, path="train"):
                 ta.temporal_attention_bwd_dx_plain(*a, 8, s),
             (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
             path)
+
+
+def d1_cases(rng, path="train"):
+    """D1 at the v4 step's shape (B 16, T 1370, 16 heads) and at B 2 with
+    the ragged T of D1_RAGGED (path ``d1_ragged``): held to the plain
+    version and to its own second launch bit for bit; the device time of
+    its three launches by stage (D1_STAGES); library: SDPA's backward
+    alone on the same q, k, v and cotangent."""
+    from vdn_torch.kernels import flash_attention as fa
+    dev, bf = DEVICE, torch.bfloat16
+    h, d = 16, 64
+    for b, t, p in ((TRAIN_FRAMES, VIT_TOKENS, path),
+                    *((2, tt, "d1_ragged") for tt in D1_RAGGED)):
+        qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
+        with torch.no_grad():
+            o, lse = fa._fused_qkv_forward(qkv, None, True)
+        dout = _rand(rng, (b, t, h, d)).to(dev, bf)
+        kern = lambda a=(qkv, o, lse, dout): \
+            fa.flash_attention_fused_qkv_bwd(*a)
+        plain = lambda a=(qkv, o, lse, dout): \
+            fa.flash_attention_fused_qkv_bwd_plain(*a)
+        yield case(
+            "flash_attention_fused_qkv_bwd", f"B{b} T{t} H16 D64", kern,
+            plain, (_nbytes(qkv, o, lse, dout, qkv),
+                    [(10 * b * h * t * t * d, BF16_TENSOR_FLOPS)]), p,
+            library=sdpa_backward(
+                *(qkv[:, :, i].transpose(1, 2) for i in range(3)),
+                dout.transpose(1, 2)),
+            check=both_launches_equal(kern, plain), stages=D1_STAGES)
 
 
 def _compare(got, want, kind: str):
@@ -1012,8 +1087,6 @@ def check_kernels(cases=None) -> dict:
             del got, want
         ms, plain_ms = time_ms(c["kern"]), time_ms(c["plain"])
         lib_ms = time_ms(c["library"]) if c["library"] else None
-        if lib_ms is not None and c["library_base"]:
-            lib_ms -= time_ms(c["library_base"])
         bf16_ms = time_ms(c["bf16"]) if c["bf16"] else None
         stage_ms = kernel_ms(c["kern"], c["stages"]) if c["stages"] else {}
         bound_ms, bound_by = bound(c["work"])
@@ -2859,7 +2932,7 @@ def v1_attention_cases(rng, path="v1"):
     """C2 at fp32 / D 96 and D2 on hieradet's global blocks: q, k, v read
     in place off the fused qkv [16, T, 3, 4, 96] fp32, at T = 256 (256 px)
     and 324 (288 px: ragged tiles).  Library calls: SDPA's forward, and
-    its backward timed as forward + backward less forward, in fp32.
+    its backward alone (``sdpa_backward``), in fp32.
     Bounds: three times the products' operations at the TF32 tensor-core
     rate, the least work that keeps fp32 accuracy on the tensor cores
     (3xTF32, which C2 runs)."""
@@ -2891,22 +2964,14 @@ def v1_attention_cases(rng, path="v1"):
                                          TF32_TENSOR_FLOPS)]), path + "_lse",
             tol="fp32")
         dout = _rand(rng, (b, t, h, d))
-
-        def sdpa_fwd_bwd(a=sdpa_in, g=dout.transpose(1, 2)):
-            torch.autograd.grad(F.scaled_dot_product_attention(*a), a, g)
-
-        def sdpa_fwd(a=sdpa_in):
-            with torch.no_grad():
-                F.scaled_dot_product_attention(*a)
-
         yield case(
             "flash_attention_bwd", f"B{b} T{t} H{h} D{d} fp32",
             lambda a=(q, k, v, o, lse, dout): fa.flash_attention_bwd(*a),
             lambda a=(q, k, v, o, dout): fa.flash_attention_bwd_plain(*a),
             (_nbytes(q, k, v, o, lse, dout) + 3 * _nbytes(o),
              [(3 * 10 * b * h * t * t * d, TF32_TENSOR_FLOPS)]), path,
-            tol="fp32",
-            library=sdpa_fwd_bwd, library_base=sdpa_fwd)
+            tol="fp32", library=sdpa_backward(*sdpa_in,
+                                              dout.transpose(1, 2)))
 
 
 def v1_resize_passes():
@@ -3543,59 +3608,55 @@ def main() -> None:
 def ab_tree(tree: str) -> dict:
     """The checkout at ``tree`` (its vdn_torch ahead of this one's on
     sys.path, its kernels built from its own sources) through this
-    script's own cases and phases on the same seeds and timers: F4 at a
-    streamed frame and the cached and full windows (int8_cases), C2 fp32
-    at v1's shapes with and without the log-sum-exp (v1_attention_cases),
-    the int8_static windows (time_windows, on the first window's scales)
-    and a streamed int8_static frame at k = 1 (run_stream, median of the
-    frames after the first), and the v1 model's step (b2 x s8, median of
-    V1_STEPS after V1_WARMUP) and clip (median of 5), fp32."""
+    script's own cases and phases on the same seeds and timers: D1 at the
+    v4 step's shape (d1_cases), F5 at vitg's cached-window rows and at a
+    streamed frame and F4 at vitl's cached window (int8_cases), the v4
+    training step (RefineTrainer b2 t8, median of TRAIN_STEPS after
+    TRAIN_WARMUP) and vitg's int8_static windows (time_windows, on the
+    first window's scales)."""
     sys.path.insert(0, os.path.abspath(tree))
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
     from vdn_torch.nn.layers import quant_calibration
-    from vdn_torch.train.trainer import V1Trainer
+    from vdn_torch.train.trainer import RefineTrainer
     environment()
     build_kernels()
     out = {"tree": tree}
     rng = np.random.default_rng(SEED)
+    c = next(d1_cases(rng, "ab"))
+    out["d1_v4_ms"] = time_ms(c["kern"], reps=20)
+    del c
     with torch.no_grad():
-        for rows in (VIT_TOKENS, CACHED_FRAMES * VIT_TOKENS,
-                     32 * VIT_TOKENS):
-            for c in int8_cases(rng, "ab", rows):
-                if c["name"] == "fused_ln_mlp_residual_int8":
-                    out[f"f4_rows{rows}_ms"] = time_ms(c["kern"], reps=20)
-            torch.cuda.empty_cache()
-        with exact_fp32():
-            for c in v1_attention_cases(rng):
-                if c["name"] == "flash_attention":
-                    key = f"c2_{c['path']}_{c['label'].split()[1]}_ms"
+        for enc, rows, key in (
+                ("vitg", CACHED_FRAMES * VIT_TOKENS, "f5_cached_window_ms"),
+                ("vitg", VIT_TOKENS, "f5_stream_frame_ms"),
+                ("vitl", CACHED_FRAMES * VIT_TOKENS, "f4_cached_window_ms")):
+            for c in int8_cases(rng, "ab", rows, enc):
+                if c["name"].startswith("fused_ln_"):
                     out[key] = time_ms(c["kern"], reps=20)
-        frames = synthetic_clip()
-        q = quantized_model(build_video_depth_anything, build_model(),
-                            "int8_static")
+            del c
+            torch.cuda.empty_cache()
+    batch = train_batch(np.random.default_rng(SEED))
+    model = build_refine_model(batch)[0]
+    trainer = RefineTrainer(model, initial_lr=TRAIN_LR)
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    walls = timed_steps(lambda: trainer.train_step(batch), TRAIN_STEPS)[1]
+    out["v4_step_ms"] = statistics.median(walls)
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    frames = synthetic_clip()
+    vitg = build_model("vitg")
+    q = quantized_model(build_video_depth_anything, vitg, "int8_static",
+                        "vitg")
+    del vitg
+    torch.cuda.empty_cache()
+    with torch.no_grad():
         with quant_calibration(q):
             q.forward_window(window_input(frames))
-        out["int8_static_full_window_ms"], \
-            out["int8_static_cached_window_ms"] = time_windows(
-                q, frames, "ab_windows_int8_static")
-    walls = fresh_stream(q, frames[:N_STREAM], 1)[1]
-    out["int8_static_stream_k1_ms_per_frame"] = statistics.median(walls[1:])
-    del q
-    torch.cuda.empty_cache()
-    with exact_fp32():
-        batch = v1_batch(np.random.default_rng(SEED + 7))
-        model = build_v1_model()
-        trainer = V1Trainer(model, initial_lr=V1_LR,
-                            weight_decay=V1_WEIGHT_DECAY)
-        for _ in range(V1_WARMUP):
-            trainer.train_step(batch)
-        walls = timed_steps(lambda: trainer.train_step(batch), V1_STEPS)[1]
-        out["v1_step_ms"] = statistics.median(walls)
-        depth, rgb = v1_clip(batch)
-        with torch.no_grad():
-            out["v1_clip_ms"] = time_ms(lambda: model(depth, rgb), reps=5,
-                                        warmup=1)
+        out["vitg_int8_static_full_window_ms"], \
+            out["vitg_int8_static_cached_window_ms"] = time_windows(
+                q, frames, "ab_vitg_windows_int8_static")
     return out
 
 

@@ -76,24 +76,26 @@ GROUPS = [
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
     (r"flash_bwd_dq_f32", "D2 dQ"),
     (r"flash_bwd_delta_f32", "D2 delta"),
-    (r"quant_rows_kernel<float",
-     "F4 / F5 hidden quantize (per row and F / 2)"),
-    (r"quant_rows_kernel<[^,]*, (true|\(bool\)1)>",
-     "F1 / F4 / F5 LayerNorm + quantize rows"),
-    (r"quant_rows_kernel", "F3 quantize rows"),
-    (r"EpiI8Bias", "F1 qkv int8 GEMM"),
-    (r"gemm_s8_kernel<1,.*EpiI8Residual",
+    # F4 / F5 on the wgmma core (csrc/int8_tail.cuh, ln_mlp_int8.cu,
+    # ln_swiglu_int8.cu): F4's fc2 and F5's w3 are one instantiation
+    (r"ln_quant_rows_kernel", "F4 / F5 LayerNorm + quantize rows"),
+    (r"quant_hidden_kernel", "F4 / F5 hidden quantize (per row and F / 2)"),
+    (r"EpiHidden", "F4 fc1 int8 wgmma (GELU epilogue)"),
+    (r"EpiSwigluHidden", "F5 w12 int8 wgmma (paired, SwiGLU epilogue)"),
+    (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
+     "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
+    # F1-F3 on the mma.sync template (csrc/int8_gemm.cuh, int8_linear.cu)
+    (r"quant_rows_kernel<(true|\(bool\)1)>", "F1 LayerNorm + quantize rows"),
+    (r"quant_rows_kernel", "F2 / F3 quantize rows"),
+    (r"EpiI8Bias", "F1 qkv / F2 int8 GEMM"),
+    (r"gemm_s8_kernel<.*EpiI8Residual",
      "F3 proj int8 GEMM (+ b, x gamma, + residual)"),
-    (r"EpiI8Gelu", "F4 fc1 int8 GEMM (GELU epilogue)"),
-    (r"EpiI8Swiglu", "F5 w12 int8 GEMM (dual, SwiGLU epilogue)"),
-    (r"gemm_s8_kernel<2,.*EpiI8Residual",
-     "F4 fc2 / F5 w3 int8 GEMM (two chunks, + b, x gamma, + x)"),
     (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
      "A1-train flash attention (+ log-sum-exp)"),
     (r"flash_qkv_kernel", "A1 flash attention"),
-    (r"flash_bwd_dkdv", "D1 dK / dV"),
-    (r"flash_bwd_dq", "D1 dQ"),
-    (r"flash_bwd_delta", "D1 delta"),
+    (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
+    (r"d1_dkdv", "D1 dK / dV (wgmma)"),
+    (r"d1_dq", "D1 dQ (wgmma)"),
     (r"EpiHpreGelu", "D3 GEMM y W1^T (hpre, h)"),
     (r"EpiDhpre", "D3 GEMM (g gamma) W2 (dhpre)"),
     (r"EpiStoreDy", "D3 GEMM dhpre W1 (dy)"),

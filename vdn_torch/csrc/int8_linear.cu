@@ -48,13 +48,13 @@ extern "C" int vdn_int8_ln_linear(const void* x, int M, int C, int F,
   auto* sc = static_cast<float*>(sx);
   cudaError_t err =
       ln_w != nullptr
-          ? vdn::launch_quant_rows<__nv_bfloat16, true>(
-                xb, M, C, 1, static_cast<const float*>(ln_w),
+          ? vdn::launch_quant_rows<true>(
+                xb, M, C, static_cast<const float*>(ln_w),
                 static_cast<const float*>(ln_b), eps, q, sc, s)
-          : vdn::launch_quant_rows<__nv_bfloat16, false>(
-                xb, M, C, 1, nullptr, nullptr, 0.f, q, sc, s);
+          : vdn::launch_quant_rows<false>(
+                xb, M, C, nullptr, nullptr, 0.f, q, sc, s);
   if (err != cudaSuccess) return err;
-  return vdn::launch_gemm_s8<1>(
+  return vdn::launch_gemm_s8(
       M, F, C, q, C, static_cast<const int8_t*>(wq), sc,
       static_cast<const float*>(sw),
       EpiI8Bias{static_cast<const float*>(b),
@@ -72,11 +72,11 @@ extern "C" int vdn_int8_proj_residual(const void* x, const void* res, int M,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* q = static_cast<int8_t*>(xq);
   auto* sc = static_cast<float*>(sx);
-  cudaError_t err = vdn::launch_quant_rows<__nv_bfloat16, false>(
-      static_cast<const __nv_bfloat16*>(x), M, C, 1, nullptr, nullptr, 0.f,
+  cudaError_t err = vdn::launch_quant_rows<false>(
+      static_cast<const __nv_bfloat16*>(x), M, C, nullptr, nullptr, 0.f,
       q, sc, s);
   if (err != cudaSuccess) return err;
-  return vdn::launch_gemm_s8<1>(
+  return vdn::launch_gemm_s8(
       M, F, C, q, C, static_cast<const int8_t*>(wq), sc,
       static_cast<const float*>(sw),
       vdn::EpiI8Residual{static_cast<const float*>(b),

@@ -1,28 +1,40 @@
-// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F4; F5,
-// F3 and F1 adopt it in their turn):
+// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F4 and
+// F5; F3 and F1 adopt it in their turn):
 //   out = epi( sum_j (float(A_j @ W_j^T) * rs[m, j]) * cs[n] )
 //
 //   A   [M, K] int8, K contiguous (rows quantized by a row kernel)
-//   W   [N, K] int8, K contiguous (a quantized torch Linear weight)
+//   W   [N, K] int8, K contiguous (a quantized torch Linear weight); in
+//       the paired mode [2N, K], rows [0, N) a SwiGLU gate half and [N, 2N)
+//       its value half
 //   rs  fp32 row scales [M, kChunks]; K splits into kChunks equal chunks j,
 //       each summed exactly in int32 and dequantized on its own
-//   cs  fp32 column scales [N] (the weight's per-output-channel scales)
+//   cs  fp32 column scales [N] (paired: [2N]), the weight's
+//       per-output-channel scales
 //   epi epilogue functor, epi(v, m, n, M) over one consumer thread's
 //       dequantized values of a tile (layout below)
 //
 // Replaces the mma.sync template (int8_gemm.cuh) for the products of
-// vdn/ops/pallas/int8.py's _ln_mlp_int8_kernel: int8 wgmma takes K-major
-// operands only, which A and W already are.  One persistent block per SM
-// walks the 128 x BN output tiles (tile t: rows (t / (N / BN)) * 128,
-// columns (t % (N / BN)) * BN; block b takes t = b, b + grid, ...).
-// Warpgroup 2 is the producer, one thread of which keeps TMA loads of
-// 128-byte K slices (A 128 rows, W BN rows, 128-byte swizzle) in flight
-// through a ring of kStages stages, each guarded by a "full" and an
-// "empty" mbarrier; warpgroups 0 and 1 are the consumers, 64 rows each,
-// issuing wgmma m64nBNk32 s8 x s8 -> s32 from shared memory (A and B), four
-// per slice, and dequantizing.  setmaxnreg moves registers from the
-// producer to the warpgroups that hold values.  The producer runs ahead
-// through the ring while the consumers finish a tile.
+// vdn/ops/pallas/int8.py's _ln_mlp_int8_kernel and _ln_swiglu_int8_kernel:
+// int8 wgmma takes K-major operands only, which A and W already are.  One
+// persistent block per SM walks the 128 x BN output tiles (tile t: rows
+// (t / n_tiles) * 128, columns (t % n_tiles) * BN, paired BN / 2; block b
+// takes t = b, b + grid, ...).  Warpgroup 2 is the producer, one thread of which keeps
+// TMA loads of 128-byte K slices (A 128 rows, W BN rows, 128-byte swizzle)
+// in flight through a ring of kStages stages, each guarded by a "full"
+// and an "empty" mbarrier; warpgroups 0 and 1 are the consumers, 64 rows
+// each, issuing wgmma m64nBNk32 s8 x s8 -> s32 from shared memory (A and
+// B), four per slice, and dequantizing.  setmaxnreg moves registers from
+// the producer to the warpgroups that hold values.  The producer runs
+// ahead through the ring while the consumers finish a tile.
+//
+// The paired mode (F5's w12) gives a tile BN / 2 output columns [n0, n0 +
+// BN / 2): its B stage holds weight rows [n0, n0 + BN / 2) of the gate
+// half and [N + n0, N + n0 + BN / 2) of the value half, two TMA boxes of
+// BN / 2 rows counted on one mbarrier (the 128-byte swizzle repeats every
+// 8 rows, so they lie as one BN-row box would).  In the accumulator layout
+// the thread that holds accumulator column c holds c + BN / 2 too: value
+// i < kRegs / 2 of a thread is a gate column and value i + kRegs / 2 the
+// value column of the same output, paired by the epilogue in registers.
 //
 // The epilogue runs in one of two places.  Inline, in the consumers after
 // their K loop (fc2's residual epilogue, light).  Or, with kEpiWarps, in
@@ -30,26 +42,20 @@
 // into a shared staging buffer, laid out [value][consumer thread], and go
 // on with the next tile's products, while epilogue thread i takes consumer
 // thread i's values (the same rows and columns) and runs the epilogue
-// (fc1's GELU, about 25 dependent instructions a value; on the card the
-// products did not overlap an epilogue that the consumers ran between a
-// wgmma group's issue and its wait).  TMA zero-fills rows past M; nothing
-// past M is stored.
+// (fc1's GELU or w12's SwiGLU, about 25 dependent instructions a value; on
+// the card the products did not overlap an epilogue that the consumers ran
+// between a wgmma group's issue and its wait).  TMA zero-fills rows past
+// M; nothing past M is stored.
 //
 // The int32 sums are exact, so the order of the K loop changes nothing;
 // the dequantization keeps vdn's order, (float(acc) * rs) * cs per chunk,
 // each product rounded on its own (dequant, int8_gemm.cuh), and the chunks
-// added in order in fp32.
-//
-// Tensor maps are encoded on the host at every launch (microseconds; the
-// caching allocator reuses pointers) through the driver entry point that
-// the runtime hands out, so the library needs no -lcuda.  A failed encode
-// or a wait on an mbarrier that outlives kWaitNs (a trap, reported as a
-// launch failure) ends the launch with an error, never a hang.
+// added in order in fp32.  A failed tensor-map encode or a stuck mbarrier
+// wait (sm90.cuh) ends the launch with an error, never a hang.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (header only)
-
 #include "int8_gemm.cuh"
+#include "sm90.cuh"
 
 namespace vdn {
 namespace wg {
@@ -57,7 +63,6 @@ namespace wg {
 constexpr int kBM = 128;  // output rows per tile: two warpgroups of 64
 constexpr int kBK = 128;  // bytes of K per stage: one swizzle row
 constexpr int kConsumers = 256;
-constexpr unsigned long long kWaitNs = 4000000000ull;
 
 template <int BN, bool kEpiWarps>
 struct Tile {
@@ -90,95 +95,8 @@ struct Tile {
   static constexpr int kEpilogueRegs = 120;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > kWaitNs) __trap();
-}
-
-// one 2-D tile (c0: byte of K, c1: row) into shared memory, counted on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO), layout type 1 (B128).  The
-// tile base is 1024-aligned; a step of 32 bytes along K adds to the start
-// address.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed wgmma groups are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// D (+)= A B for a 64 x N x 32 step, A and B from shared memory.  The
-// accumulator layout (PTX ISA, "wgmma .m64nNk32" register fragments), for
-// thread w * 32 + l of the warpgroup: d[4i + e] is row 16 w + l / 4 + 8
-// (e / 2), column 8 i + 2 (l % 4) + e % 2.
+// D (+)= A B for a 64 x N x 32 step, A and B from shared memory, in the
+// accumulator layout of row_in_tile / col_in_tile (sm90.cuh).
 __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -245,22 +163,7 @@ struct PairEpi {
   }
 };
 
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
-// consumer thread t's first row and column within a tile
-__device__ __forceinline__ int row_in_tile(int t) {
-  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
-}
-__device__ __forceinline__ int col_in_tile(int t) { return 2 * (t & 3); }
-
-template <int BN, int kChunks, bool kEpiWarps, class Epi>
+template <int BN, int kChunks, bool kEpiWarps, bool kPaired, class Epi>
 __global__ void __launch_bounds__((Tile<BN, kEpiWarps>::kThreads), 1)
 gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_w, int M, int N,
@@ -268,6 +171,7 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                      const float* __restrict__ cs, Epi epi) {
   using T = Tile<BN, kEpiWarps>;
   static_assert(!kEpiWarps || kChunks == 1, "staged tiles take one chunk");
+  constexpr int kTileN = kPaired ? BN / 2 : BN;  // output columns a tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -279,7 +183,7 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   uint64_t* staged = empty + T::kStages;    // values in the staging buffer
   uint64_t* drained = staged + 1;           // staging buffer read
 
-  const int n_tiles = N / BN;
+  const int n_tiles = N / kTileN;
   const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
   const int slices = K / kBK;
   const int per_chunk = slices / kChunks;
@@ -292,7 +196,7 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     mbar_init(smem_u32(staged), kConsumers);
     mbar_init(smem_u32(drained), T::kEpiThreads);  // every epilogue thread
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -303,7 +207,8 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * BN;
+        const int m0 = (tile / n_tiles) * kBM;
+        const int n0 = (tile % n_tiles) * kTileN;
         for (int kb = 0; kb < slices; ++kb) {
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t bar = smem_u32(&full[stage]);
@@ -311,6 +216,9 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_expect_tx(bar, T::kStageBytes);
           tma_load_2d(dst, &map_a, bar, kb * kBK, m0);
           tma_load_2d(dst + T::kABytes, &map_w, bar, kb * kBK, n0);
+          if constexpr (kPaired)  // the value half's rows of these outputs
+            tma_load_2d(dst + T::kABytes + kTileN * kBK, &map_w, bar,
+                        kb * kBK, N + n0);
           if (++stage == T::kStages) {
             stage = 0;
             phase ^= 1;
@@ -330,7 +238,7 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t round = 0;  // tiles staged
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m = (tile / n_tiles) * kBM + row_in;
-      const int n = (tile % n_tiles) * BN + col_in;
+      const int n = (tile % n_tiles) * kTileN + col_in;
 #pragma unroll
       for (int j = 0; j < kChunks; ++j) {
 #pragma unroll
@@ -372,7 +280,10 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(smem_u32(drained), (round & 1) ^ 1);
 #pragma unroll
         for (int i = 0; i < T::kRegs / 4; ++i) {
-          const float c0 = cs[n + 8 * i], c1 = cs[n + 8 * i + 1];
+          // paired: groups i >= kRegs / 8 are the value half's columns
+          const int cn = kPaired && i >= T::kRegs / 8 ? N + n + 8 * i - kTileN
+                                                      : n + 8 * i;
+          const float c0 = cs[cn], c1 = cs[cn + 1];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float pj = dequant(acc[4 * i + e], r[e >> 1], e & 1 ? c1 : c0);
@@ -403,75 +314,45 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int i = 0; i < T::kRegs; ++i) v[i] = staging[i * kConsumers + t];
       mbar_arrive(smem_u32(drained));
       ++round;
-      epi(v, (tile / n_tiles) * kBM + row_in, (tile % n_tiles) * BN + col_in,
-          M);
+      epi(v, (tile / n_tiles) * kBM + row_in,
+          (tile % n_tiles) * kTileN + col_in, M);
     }
   }
 }
 
 // The CUtensorMap of a row-major [rows, K] int8 operand, loaded as boxes
 // of 128 bytes of K by box_rows rows in the 128-byte swizzle.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 inline cudaError_t encode_rows(CUtensorMap* map, const int8_t* ptr, int K,
                                int rows, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
                              static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<int8_t*>(ptr), dims, strides, box, steps,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Requires K % (128 * kChunks) == 0, N % BN == 0, K-contiguous rows and
-// 16-byte aligned pointers (checked by the Python wrappers); grid is the
-// number of persistent blocks (at most the tile count).
-template <int BN, int kChunks, bool kEpiWarps, class Epi>
+// Requires K % (128 * kChunks) == 0, N % BN == 0 (paired: N % (BN / 2)
+// == 0, W [2N, K]), K-contiguous rows and 16-byte aligned pointers
+// (checked by the Python wrappers); grid is the number of persistent
+// blocks (at most the tile count).
+template <int BN, int kChunks, bool kEpiWarps, bool kPaired = false,
+          class Epi>
 cudaError_t launch_gemm_s8_wgmma(int M, int N, int K, const int8_t* A,
                                  const int8_t* W, const float* rs,
                                  const float* cs, Epi epi, int grid,
                                  cudaStream_t stream) {
   using T = Tile<BN, kEpiWarps>;
-  if (M < 1 || N % BN || K % (kBK * kChunks) || grid < 1)
+  constexpr int kTileN = kPaired ? BN / 2 : BN;
+  if (M < 1 || N % kTileN || K % (kBK * kChunks) || grid < 1)
     return cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
   cudaError_t err = encode_rows(&map_a, A, K, M, kBM);
   if (err != cudaSuccess) return err;
-  err = encode_rows(&map_w, W, K, N, BN);
+  err = encode_rows(&map_w, W, K, kPaired ? 2 * N : N, kTileN);
   if (err != cudaSuccess) return err;
-  auto* kernel = gemm_s8_wgmma_kernel<BN, kChunks, kEpiWarps, Epi>;
+  auto* kernel = gemm_s8_wgmma_kernel<BN, kChunks, kEpiWarps, kPaired, Epi>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return attr;

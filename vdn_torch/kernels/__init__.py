@@ -90,7 +90,7 @@ _SIGNATURES = {
     "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _P),
     "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _P),
     "vdn_flash_attention_qkv_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
-                                    _P, _P),
+                                    _P, _P, _P),
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _P),
@@ -116,7 +116,8 @@ _SIGNATURES = {
     "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
     + (_I,) * 3 + (_P,),
-    "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14,
+    "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
+    + (_I,) * 3 + (_P,),
     "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
     + (_P,) * 4,
     "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 9,

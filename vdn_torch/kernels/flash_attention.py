@@ -33,7 +33,11 @@ Function.  Its forward is A1's training variant (the same kernel with
 ``save_lse``), which also writes the base-2 row log-sum-exp [B, H, T]; its
 backward is D1 (csrc/flash_attn_qkv_bwd.cu), vdn's ``_flash_bwd_cols``:
 the normalized softmax recomputed from the saved log-sum-exp, delta =
-rowsum(dO * O), dqkv in qkv's layout.
+rowsum(dO * O), dqkv in qkv's layout.  On the card a pre-pass writes qs =
+bf16(q * qscale) and delta (beside a copy of the log-sum-exp padded to
+``D1_ROWS``), then a dK / dV and a dQ kernel on wgmma and TMA, each block
+128 keys or q rows of one (frame, head), sum over the other axis in order
+in registers: no atomics, so two launches give the same bits.
 
 C3 replaces ``flash_attention_qkv`` (``_flash_qkv_kernel``): self-attention
 off the fused qkv, written head-major as [B, H, T, D], with its own
@@ -55,6 +59,7 @@ only: no backward.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -65,6 +70,7 @@ from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
                                wants_grad)
 
 MAX_KEY_TILES = 2560  # csrc/flash_attn_bthd.cu: live-tile flags in shared memory
+D1_ROWS = 128         # csrc/flash_attn_qkv_bwd.cu: keys / q rows of a block
 
 
 def _qscale(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -73,6 +79,7 @@ def _qscale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_qscale(scale: float, dtype: torch.dtype = torch.bfloat16
                    ) -> float:
     """The kernels' q factor, scale * log2(e) rounded to the operands'
@@ -245,13 +252,17 @@ def flash_attention_fused_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor,
                          f"{tuple(dout.shape)}, {tuple(lse.shape)} "
                          f"{lse.dtype}")
     scale = d ** -0.5 if scale is None else scale
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=qkv.device)
+    tp = -(-t // D1_ROWS) * D1_ROWS
+    qs = torch.empty_like(out)
+    # the pre-pass's lse (padded rows +inf) and delta (padded rows 0)
+    stats = torch.empty((2, b, h, tp), dtype=torch.float32,
+                        device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    check_kernel_args(name, qkv, out, dout, lse, delta, dqkv)
+    check_kernel_args(name, qkv, out, dout, lse, qs, stats, dqkv)
     launch("vdn_flash_attention_qkv_bwd", qkv.data_ptr(), out.data_ptr(),
            dout.data_ptr(), lse.data_ptr(), b, t, h,
-           _kernel_qscale(scale), float(scale), delta.data_ptr(),
-           dqkv.data_ptr())
+           _kernel_qscale(scale), float(scale), qs.data_ptr(),
+           stats.data_ptr(), dqkv.data_ptr())
     launches[name] += 1
     return dqkv
 

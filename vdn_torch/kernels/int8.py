@@ -22,17 +22,18 @@ symmetric with no zero points:
 
 On the H100 each kernel is a row kernel (LayerNorm or identity, row amax,
 int8 rows and their scales) followed by int8 tile GEMMs with the
-dequantization in their epilogues.  F1, F2, F3 and F5 run their products
-on mma.sync m16n8k32 (csrc/int8_gemm.cuh; csrc/int8_linear.cu,
-csrc/ln_swiglu_int8.cu: F5's w12 GEMM in its dual mode, gate and value
-columns of one output in one thread, and w3 with the per-chunk
-dequantization).  F4 runs on the warp-specialised wgmma + TMA core
-(csrc/int8_wgmma.cuh, persistent blocks over 128-row tiles; see
-``f4_plan``): the row kernel, fc1 with the GELU epilogue (the fp32 hidden
-and its absmax per (row, chunk)), the hidden's quantizer, then fc2, whose
+dequantization in their epilogues.  F1, F2 and F3 run their products on
+mma.sync m16n8k32 (csrc/int8_gemm.cuh, csrc/int8_linear.cu).  F4 and F5
+run on the warp-specialised wgmma + TMA core (csrc/int8_wgmma.cuh,
+persistent blocks over 128-row tiles; see ``f4_plan`` and ``f5_plan``):
+the row kernel, the first product with its epilogue (F4: GELU; F5: the
+core's paired mode, a tile's 64 gate and 64 value columns of the same
+outputs in one thread, SwiGLU), writing the fp32 hidden and its absmax
+per (row, chunk), the hidden's quantizer, then the second product, whose
 K loop dequantizes chunk 0 before chunk 1 accumulates
-(csrc/ln_mlp_int8.cu).  Bound by the int8 products (2 * rows * C * F
-operations each at 1979 TOP/s) at the window's shapes, F3 by its bytes.
+(csrc/int8_tail.cuh, csrc/ln_mlp_int8.cu, csrc/ln_swiglu_int8.cu).
+Bound by the int8 products (2 * rows * C * F operations each at 1979
+TOP/s) at the window's shapes, F3 by its bytes.
 
 A weight argument is a float Linear weight [F, C] (torch layout) or a
 pre-quantized ``(wq int8 [F, C], sw fp32 [F])`` pair, which the model
@@ -69,9 +70,12 @@ F_CHUNKS = 2          # vdn's _F_CHUNKS: hidden scales per (row, F / 2)
 INT8_MIN_ROWS = 1024  # one 518 x 518 image (1370 tokens) qualifies
 K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice
 # csrc/int8_wgmma.cuh: rows and bytes of K of a tile; F4's fc1 tile width
-# (csrc/ln_mlp_int8.cu) and the widest C its row kernel holds in registers
+# (csrc/ln_mlp_int8.cu), F5's output columns of a paired w12 tile
+# (csrc/ln_swiglu_int8.cu), and the widest C their row kernel holds in
+# registers (csrc/int8_tail.cuh)
 WG_ROWS, WG_K = 128, 128
 F4_BN1 = 128
+F5_BN1 = 64
 F4_MAX_C = 2048
 
 Weight = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -270,6 +274,16 @@ def f4_plan(m: int, c: int, f: int, sms: int) -> dict:
             "grid2": min(mt * (c // bn2), sms)}
 
 
+def f5_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """What F5's launch takes: F4's plan for w3 (N = C), and for w12 the
+    persistent blocks over its paired tiles of 128 rows x F5_BN1 outputs
+    (each tile's 128 accumulator columns are the gate and the value
+    columns of those outputs)."""
+    plan = f4_plan(m, c, f, sms)
+    plan["grid1"] = min(-(-m // WG_ROWS) * (f // F5_BN1), sms)
+    return plan
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -400,30 +414,34 @@ def fused_ln_swiglu_residual_int8(x, ln_w, ln_b, w12: Weight, b12,
         return fused_ln_swiglu_residual_int8_plain(
             x, ln_w, ln_b, w12, b12, w3, b3, gamma, eps, operands)
     name = "fused_ln_swiglu_residual_int8"
+    _serving_only(name, x, ln_w, ln_b, b12, b3, gamma)
     (w12q, s12), (w3q, s3) = _quantized(w12), _quantized(w3)
     c = x.shape[-1]
     f = w12q.shape[0] // 2
     _check(name, x, (w12q, c), (w3q, f))
     if (w12q.shape[0] != 2 * f or w3q.shape[0] != c
-            or f % (F_CHUNKS * K_TILE)):
+            or f % (F_CHUNKS * WG_K) or c % WG_K or c > F4_MAX_C):
         raise ValueError(f"{name}: w12 {tuple(w12q.shape)}, w3 "
                          f"{tuple(w3q.shape)}: the kernel takes w12 [2F, C] "
                          f"and w3 [C, F] with F a multiple of "
-                         f"{F_CHUNKS * K_TILE}")
-    _serving_only(name, x, ln_w, ln_b, b12, b3, gamma)
+                         f"{F_CHUNKS * WG_K} and C of {WG_K} up to "
+                         f"{F4_MAX_C}")
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
+    plan = f5_plan(m, c, f, _sm_count(x.device.index))
     args = [*_f32(ln_w, ln_b), w12q.contiguous(), *_f32(s12, b12),
             w3q.contiguous(), *_f32(s3, b3, gamma)]
     yq, sy = _rows_scratch(m, c, x.device)
     h = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    amax = torch.empty((m, F_CHUNKS), dtype=torch.float32, device=x.device)
     hq, sh = _rows_scratch(m, f, x.device, F_CHUNKS)
     out = torch.empty_like(x2)
-    check_kernel_args(name, x2, *args, yq, sy, h, hq, sh, out)
+    check_kernel_args(name, x2, *args, yq, sy, h, amax, hq, sh, out)
     launch("vdn_ln_swiglu_int8", x2.data_ptr(), m, c, f,
            *(t.data_ptr() for t in args[:2]), float(eps),
            *(t.data_ptr() for t in args[2:]),
-           *(t.data_ptr() for t in (yq, sy, h, hq, sh, out)))
+           *(t.data_ptr() for t in (yq, sy, h, amax, hq, sh, out)),
+           plan["bn2"], plan["grid1"], plan["grid2"])
     launches[name] += 1
     _record(operands, yq=yq, sy=sy, hq=hq, sh=sh)
     return out.reshape(x.shape)
