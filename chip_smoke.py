@@ -169,6 +169,21 @@ F4_STAGES = {"row": r"ln_quant_rows", "fc1": r"EpiHidden",
 F5_STAGES = {"row": r"ln_quant_rows", "w12": r"EpiSwigluHidden",
              "hidden": r"quant_hidden", "w3": r"EpiI8Residual"}
 D1_STAGES = {"prepass": r"d1_prepass", "dkdv": r"d1_dkdv", "dq": r"d1_dq"}
+# A2's three launches (csrc/ln_mlp.cu: the LayerNorm row kernel, fc1 with
+# its GELU epilogue, fc2 with the residual) and D3's (csrc/ln_mlp_bwd.cu:
+# the row kernel, the paired product y W1^T / (g gamma) W2 writing h and
+# dhpre, dy = dhpre W1, the LayerNorm backward rows, the column sums)
+A2_STAGES = {"row": r"a2_rows", "fc1": r"EpiFc1Gelu",
+             "fc2": r"EpiFc2Residual"}
+D3_STAGES = {"rows": r"d3_rows", "pair": r"EpiHDhpre", "dy": r"EpiDy",
+             "ln_bwd": r"ln_bwd_rows", "colsum": r"colsum"}
+# A2 beyond its paths' shapes: the v4 step's rows (16 x 1370) and the full
+# window's (32 x 1370) at C 1024, vits' and vitb's C 384 / 768 at the
+# cached window's rows; D3 at B 2 x T 257 (514 rows: a partial last
+# tile) and at vitb's C 768
+A2_EXTRA = (("a2_v4", 16 * 1370, 1024), ("clip_full", 32 * 1370, 1024),
+            ("vits_clip", 22 * 1370, 384), ("vitb_clip", 22 * 1370, 768))
+D3_EXTRA = (("d3_ragged", 2, 257, 1024), ("d3_vitb", 4, 1370, 768))
 # D1 at the v4 shape and at ragged T (B 2): 90 (one 128-row block, two
 # 64-row tiles, the second partial) and 257 (3 blocks, the last nearly
 # empty)
@@ -276,6 +291,23 @@ def build_kernels() -> None:
         dir=kernels.BUILD_DIR)
 
 
+def check_gelu() -> None:
+    """csrc/gelu_check.cu: the tanh GELU and its derivative that A2's, D3's,
+    A4's and F4's epilogues compute (common.cuh, a branch-free 2 / d)
+    against the IEEE form, bit for bit over every fp32 input."""
+    from vdn_torch import kernels
+    bad = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    first = torch.full((2,), -1, dtype=torch.int32, device=DEVICE)
+    kernels.launch("vdn_gelu_check", bad.data_ptr(), first.data_ptr())
+    torch.cuda.synchronize()
+    n = bad.tolist()
+    log("gelu_check", inputs=2 ** 32, gelu_mismatches=n[0],
+        dgelu_mismatches=n[1],
+        first=[hex(v & 0xffffffff) for v in first.tolist()])
+    if any(n):
+        fail(f"GELU differs from its IEEE form at {n} inputs")
+
+
 # ---------------------------------------------------------------- phase 3
 def _rand(rng, shape, scale=1.0, offset=0.0, device=None):
     """fp32 normal draws * scale + offset, made on ``device`` (DEVICE by
@@ -337,11 +369,14 @@ def sdpa_backward(q, k, v, g):
 
 def both_launches_equal(kern, plain, tol="bf16"):
     """A check (see ``case``) that also runs the kernel twice and asks for
-    the same bits (a kernel with no atomics sums in one order)."""
+    the same bits of every output (a kernel with no atomics sums in one
+    order)."""
     def check():
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
-        same = torch.equal(got, again)
+        pairs = (zip(got, again) if isinstance(got, (tuple, list))
+                 else [(got, again)])
+        same = all(torch.equal(a, b) for a, b in pairs)
         err, tol_, scale, finite = _compare(got, want, tol)
         return err, tol_, scale, finite, err <= tol_ and same, {
             "bit_equal": same}
@@ -353,7 +388,7 @@ def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
     A2 at b frames of t tokens; inputs bf16 on the card, parameters fp32 as
     the model stores them."""
     import torch.nn.functional as F
-    from vdn_torch.kernels import flash_attention as fa, mlp
+    from vdn_torch.kernels import flash_attention as fa
     dev, bf = DEVICE, torch.bfloat16
 
     d = 64
@@ -369,21 +404,41 @@ def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
     if not with_a2:
         return
 
-    c, f = 1024, 4096
-    x = _rand(rng, (b, t, c)).to(dev, bf)
-    p = [a.to(dev) for a in (
-        _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
-        _rand(rng, (f, c), c ** -0.5), _rand(rng, (f,), 0.1),
-        _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.1),
-        _rand(rng, (c,), 0.5))]
+    yield a2_case(rng, path, (b, t), 1024)
+
+
+def mlp_params(rng, c, with_b2=True):
+    """The block tail's parameters at width c (F = 4c), fp32 as the model
+    stores them: ln_w, ln_b, w1 [F, C], b1, w2 [C, F], (b2,) gamma."""
+    f = 4 * c
+    p = [_rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
+         _rand(rng, (f, c), c ** -0.5), _rand(rng, (f,), 0.1),
+         _rand(rng, (c, f), f ** -0.5)]
+    if with_b2:
+        p.append(_rand(rng, (c,), 0.1))
+    return p + [_rand(rng, (c,), 0.5)]
+
+
+def a2_case(rng, path, shape, c):
+    """A2 on x of ``shape`` + (c,) bf16, its device time by stage
+    (A2_STAGES); library: its two products in cuBLAS bf16."""
+    from vdn_torch.kernels import mlp
+    x = _rand(rng, (*shape, c)).to(DEVICE, torch.bfloat16)
+    p = mlp_params(rng, c)
     rows = x.numel() // c
-    yield case(
-        "fused_ln_mlp_residual", f"rows {b}x{t} C1024",
+    return case(
+        "fused_ln_mlp_residual", f"rows {'x'.join(map(str, shape))} C{c}",
         lambda x=x, p=p: mlp.fused_ln_mlp_residual(x, *p),
         lambda x=x, p=p: mlp.fused_ln_mlp_residual_plain(x, *p),
-        (2 * _nbytes(x) + _nbytes(*p), [(4 * rows * c * f,
+        (2 * _nbytes(x) + _nbytes(*p), [(16 * rows * c * c,
                                          BF16_TENSOR_FLOPS)]), path,
-        library=two_products(rng, x, p[2], p[4]))
+        library=two_products(rng, x, p[2], p[4]), stages=A2_STAGES)
+
+
+def a2_cases(rng):
+    """A2 at A2_EXTRA's rows and widths."""
+    for path, rows, c in A2_EXTRA:
+        yield a2_case(rng, path, (rows,), c)
 
 
 def two_products(rng, x, w1, w2):
@@ -872,6 +927,7 @@ def kernel_cases(rng):
     image through DepthAnythingV2 and MetricDepthAnythingV2; "cp" (and
     "cp4", "cplong", "cpextra"): E1 on the context-parallel window."""
     yield from encoder_cases(rng, "clip", CACHED_FRAMES)
+    yield from a2_cases(rng)
     yield from motion_cases(rng, "clip", 32)
     yield from upsample_cases(rng, "clip",
                               fusion_passes(32) + [pos_embed_pass()])
@@ -955,10 +1011,11 @@ def train_cases(rng, path="train"):
     tokens; the motion modules at 2 x their tokens, T = 8): A1's training
     forward (its log-sum-exp), D1, D3 (every output) and D4, inputs bf16,
     parameters fp32 as the model stores them; D1 also at ragged T
-    (``d1_cases``).  Library calls: SDPA's forward (A1-train) and backward
-    alone (D1), D3's three products in cuBLAS bf16."""
+    (``d1_cases``), D3 also at D3_EXTRA's shapes.  Library calls: SDPA's
+    forward (A1-train) and backward alone (D1), D3's three products in
+    cuBLAS bf16."""
     import torch.nn.functional as F
-    from vdn_torch.kernels import flash_attention as fa, mlp
+    from vdn_torch.kernels import flash_attention as fa
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
     dev, bf = DEVICE, torch.bfloat16
@@ -976,28 +1033,7 @@ def train_cases(rng, path="train"):
             *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
     del qkv
     yield from d1_cases(rng, path)
-
-    c, f = 1024, 4096
-    x = _rand(rng, (b, t, c)).to(dev, bf)
-    g = _rand(rng, (b, t, c)).to(dev, bf)
-    p = [a.to(dev) for a in (
-        _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
-        _rand(rng, (f, c), c ** -0.5), _rand(rng, (f,), 0.1),
-        _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.5))]
-    rows = b * t
-    # out: dx, y [rows, C]; h, dhpre [rows, F] bf16; dls, dlb, db1 fp32
-    out_bytes = 2 * (2 * rows * c + 2 * rows * f) + 4 * (2 * c + f)
-    # library: the three products (fc1 again, dh = g w2, dx = dhpre w1)
-    w1b, w2b = p[2].to(bf), p[4].to(bf)
-    dh = _rand(rng, (b, t, f)).to(dev, bf)
-    yield case(
-        "fused_ln_mlp_residual_bwd", f"rows {b}x{t} C1024 F4096",
-        lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd(*a),
-        lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd_plain(*a),
-        (_nbytes(x, g, *p) + out_bytes, [(6 * rows * c * f,
-                                          BF16_TENSOR_FLOPS)]), path,
-        library=lambda: [F.linear(x, w1b), F.linear(g, w2b.t()),
-                         F.linear(dh, w1b.t())])
+    yield d3_case(rng, path, b, t, 1024)
 
     for bn, c in MOTION_SHAPES:
         bn *= TRAIN_B
@@ -1017,6 +1053,36 @@ def train_cases(rng, path="train"):
                 ta.temporal_attention_bwd_dx_plain(*a, 8, s),
             (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
             path)
+    for p, bb, tt, c in D3_EXTRA:
+        yield d3_case(rng, p, bb, tt, c)
+
+
+def d3_case(rng, path, b, t, c):
+    """D3 on x, g [b, t, c] bf16 (F = 4c): every output held to the plain
+    version and to its own second launch bit for bit, the device time by
+    stage (D3_STAGES); library: its three products in cuBLAS bf16 (fc1
+    again, dh = g w2, dy = dhpre w1)."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import mlp
+    dev, bf = DEVICE, torch.bfloat16
+    f = 4 * c
+    x = _rand(rng, (b, t, c)).to(dev, bf)
+    g = _rand(rng, (b, t, c)).to(dev, bf)
+    p = mlp_params(rng, c, with_b2=False)
+    rows = b * t
+    # out: dx, y [rows, C]; h, dhpre [rows, F] bf16; dls, dlb, db1 fp32
+    out_bytes = 2 * (2 * rows * c + 2 * rows * f) + 4 * (2 * c + f)
+    w1b, w2b = p[2].to(bf), p[4].to(bf)
+    dh = _rand(rng, (b, t, f)).to(dev, bf)
+    kern = lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd(*a)
+    plain = lambda a=(x, g, *p): mlp.fused_ln_mlp_residual_bwd_plain(*a)
+    return case(
+        "fused_ln_mlp_residual_bwd", f"rows {b}x{t} C{c} F{f}", kern, plain,
+        (_nbytes(x, g, *p) + out_bytes, [(6 * rows * c * f,
+                                          BF16_TENSOR_FLOPS)]), path,
+        library=lambda: [F.linear(x, w1b), F.linear(g, w2b.t()),
+                         F.linear(dh, w1b.t())],
+        check=both_launches_equal(kern, plain), stages=D3_STAGES)
 
 
 def d1_cases(rng, path="train"):
@@ -3494,6 +3560,7 @@ def vitg_phases(frames) -> dict:
 def main() -> None:
     device = environment()
     build_kernels()
+    check_gelu()
     summary = check_kernels()
     summary.update(check_kernels(train_cases(np.random.default_rng(SEED))))
     with exact_fp32():
@@ -3609,11 +3676,14 @@ def ab_tree(tree: str) -> dict:
     """The checkout at ``tree`` (its vdn_torch ahead of this one's on
     sys.path, its kernels built from its own sources) through this
     script's own cases and phases on the same seeds and timers: D1 at the
-    v4 step's shape (d1_cases), F5 at vitg's cached-window rows and at a
-    streamed frame and F4 at vitl's cached window (int8_cases), the v4
-    training step (RefineTrainer b2 t8, median of TRAIN_STEPS after
-    TRAIN_WARMUP) and vitg's int8_static windows (time_windows, on the
-    first window's scales)."""
+    v4 step's shape (d1_cases), A2 at vitl's cached window, D3 at the v4
+    step's shape and A2 at a streamed frame's and a 480 x 640 image's rows
+    (a2_case, d3_case: CUDA events around the call, and the device time of
+    its kernels from the profiler), F5 at vitg's
+    cached-window rows and at a streamed frame and F4 at vitl's cached
+    window (int8_cases), the v4 training step (RefineTrainer b2 t8, median
+    of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 windows and vitg's
+    int8_static windows (time_windows, on the first window's scales)."""
     sys.path.insert(0, os.path.abspath(tree))
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
@@ -3623,9 +3693,20 @@ def ab_tree(tree: str) -> dict:
     build_kernels()
     out = {"tree": tree}
     rng = np.random.default_rng(SEED)
+    image_t = NONSQUARE_GRID[0] * NONSQUARE_GRID[1] + 1
     c = next(d1_cases(rng, "ab"))
     out["d1_v4_ms"] = time_ms(c["kern"], reps=20)
+    for key, c in (("a2_cached_window",
+                    a2_case(rng, "ab", (CACHED_FRAMES, VIT_TOKENS), 1024)),
+                   ("d3_v4", d3_case(rng, "ab", TRAIN_FRAMES, VIT_TOKENS,
+                                     1024)),
+                   ("a2_stream_frame", a2_case(rng, "ab", (1, VIT_TOKENS),
+                                               1024)),
+                   ("a2_image", a2_case(rng, "ab", (1, image_t), 1024))):
+        out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+        out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
     del c
+    torch.cuda.empty_cache()
     with torch.no_grad():
         for enc, rows, key in (
                 ("vitg", CACHED_FRAMES * VIT_TOKENS, "f5_cached_window_ms"),
@@ -3646,6 +3727,11 @@ def ab_tree(tree: str) -> dict:
     del model, trainer, batch
     torch.cuda.empty_cache()
     frames = synthetic_clip()
+    vitl = build_model()
+    out["vitl_bf16_full_window_ms"], out["vitl_bf16_cached_window_ms"] = \
+        time_windows(vitl, frames, "ab_vitl_windows_bf16")
+    del vitl
+    torch.cuda.empty_cache()
     vitg = build_model("vitg")
     q = quantized_model(build_video_depth_anything, vitg, "int8_static",
                         "vitg")

@@ -96,24 +96,28 @@ GROUPS = [
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),
     (r"d1_dq", "D1 dQ (wgmma)"),
-    (r"EpiHpreGelu", "D3 GEMM y W1^T (hpre, h)"),
-    (r"EpiDhpre", "D3 GEMM (g gamma) W2 (dhpre)"),
-    (r"EpiStoreDy", "D3 GEMM dhpre W1 (dy)"),
-    (r"ln_bwd_rows|ln_apply|colsum", "D3 LayerNorm rows and column sums"),
+    # A2 and D3 on the bf16 wgmma core (csrc/bf16_wgmma.cuh, ln_mlp.cu,
+    # ln_mlp_bwd.cu), by kernel or epilogue name
+    (r"a2_rows", "A2 LayerNorm rows"),
+    (r"EpiFc1Gelu", "A2 fc1 bf16 wgmma (GELU epilogue)"),
+    (r"EpiFc2Residual", "A2 fc2 bf16 wgmma (+ b2, x gamma, + x)"),
+    (r"d3_rows", "D3 rows (y, g gamma, LayerNorm statistics)"),
+    (r"EpiHDhpre", "D3 paired bf16 wgmma y W1^T, (g gamma) W2 (h, dhpre)"),
+    (r"EpiDy", "D3 bf16 wgmma dhpre W1 (dy)"),
+    (r"ln_bwd_rows|ln_colsum|colsum_reduce",
+     "D3 LayerNorm backward rows and column sums"),
     (r"ProAddPe.*EpiStoreTemporalBwd", "D4 q / k / v recompute GEMM"),
     (r"EpiStoreTemporalBwd", "D4 doh and dx GEMMs"),
     (r"temporal_bwd_core", "D4 attention core"),
     (r"flash_bthd_kernel<(\(bool\))?(1|true)>",
      "C1 memory cross-attention (column bias)"),
     (r"flash_bthd_kernel", "C2 memory self-attention"),
-    (r"EpiBiasGelu", "A2 fc1 GEMM (LN prologue, GELU epilogue)"),
-    (r"EpiBiasScaleResidual", "A2 fc2 GEMM (+ b2, x gamma, + x)"),
     (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
     (r"temporal_core", "A3 attention core"),
     (r"EpiBias\b", "A3 out-proj GEMM"),
     (r"EpiGeglu", "A4 GEGLU GEMM"),
     (r"EpiResidualBias", "A4 net_2 GEMM"),
-    (r"row_stats", "LayerNorm row statistics (A2, A4, D3)"),
+    (r"row_stats", "LayerNorm row statistics (A4)"),
     (r"resize_island", "A6 fused resize island"),
     (r"resize_rows", "A5a resize_rows"),
     (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),

@@ -130,16 +130,48 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// tanh-form GELU in fp32, the bf16 flavour of vdn/ops/pallas/mlp.py
-// (_gelu_fast_f32): tanh(u) = 1 - 2 / (exp2(2u log2 e) + 1).  2 / d is
-// taken as 2 * rcp_rn(d), the same bits as the correctly rounded quotient
-// (a power of two commutes with rounding; d >= 1) in fewer instructions.
-__device__ __forceinline__ float gelu_tanh(float x) {
+// 2 / d for d >= 1 with the bits of the correctly rounded quotient (as
+// tanh_gelu uses it: gelu_check.cu holds the GELUs below to their IEEE
+// form over every fp32 input) and no branch: rcp.approx, one Newton step
+// in FMA, d clamped to 2^100 (past which 1 - 2 / d rounds to 1 either
+// way).  The IEEE reciprocal's branch to its slow path split a GELU
+// epilogue into a basic block a value, and its values ran one at a time.
+__device__ __forceinline__ float two_over(float d) {
+  d = fminf(d, 0x1p100f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return 2.0f * __fmaf_rn(r, __fmaf_rn(-d, r, 1.0f), r);
+}
+
+// tanh(sqrt(2 / pi) (x + 0.044715 x^3)) as 1 - 2 / (exp2(2u log2 e) + 1),
+// exp2 flushing results below 2^-126 to zero (e + 1 is then 1 as it is
+// unflushed)
+__device__ __forceinline__ float tanh_gelu(float x) {
   const float kA = 0.7978845608028654f;  // sqrt(2 / pi)
   const float kB = 0.044715f;
-  float u = kA * (x + kB * x * x * x);
-  float e = exp2f(u * (2.0f * 1.4426950408889634f));
-  return 0.5f * x * (1.0f + (1.0f - 2.0f * __frcp_rn(e + 1.0f)));
+  const float u = kA * (x + kB * x * x * x);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(e) : "f"(u * (2.0f * 1.4426950408889634f)));
+  return 1.0f - two_over(e + 1.0f);
+}
+
+// tanh-form GELU in fp32, the bf16 flavour of vdn/ops/pallas/mlp.py
+// (_gelu_fast_f32): 0.5 x (1 + tanh(u))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  return 0.5f * x * (1.0f + tanh_gelu(x));
+}
+
+// gelu(x) and gelu'(x) of the tanh form (mlp.py _dgelu_f32, bf16) from
+// one tanh
+__device__ __forceinline__ void gelu_dgelu_tanh(float x, float& g,
+                                                float& dg) {
+  const float kA = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float kB = 0.044715f;
+  const float th = tanh_gelu(x);
+  g = 0.5f * x * (1.0f + th);
+  dg = 0.5f * (1.0f + th) +
+       0.5f * x * (1.0f - th * th) * kA * (1.0f + 3.0f * kB * x * x);
 }
 
 }  // namespace vdn

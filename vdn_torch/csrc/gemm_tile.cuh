@@ -10,11 +10,13 @@
 //       output row (dual mode: the hidden pair and the gate pair of the same
 //       output columns)
 //
-// Replaces the weight-resident VMEM matmuls inside vdn/ops/pallas/mlp.py
-// (_ln_mlp_kernel), geglu.py (_geglu_kernel) and temporal_attention.py
-// (_kernel).  Bound on the H100 by tensor-core issue: the TPU kernels keep
-// the whole weight matrix resident (8 MB for vitl's fc1), a Hopper block has
-// 227 KB of shared memory, so the product is tiled instead -- 128x128 output
+// The products of A4 (ln_geglu.cu: vdn/ops/pallas/geglu.py _geglu_kernel),
+// A3 (temporal_attn.cu: temporal_attention.py _kernel) and D4
+// (temporal_attn_bwd.cu: its backward, _fused_bwd_dx_impl); A2 and D3 moved
+// to the wgmma + TMA core (bf16_wgmma.cuh), which these are to follow.
+// Bound on the H100 by tensor-core issue: the TPU kernels keep the whole
+// weight matrix resident (8 MB for vitl's fc1), a Hopper block has 227 KB
+// of shared memory, so the product is tiled instead -- 128x128 output
 // tiles, K in 32-wide slices, eight warps of 64x32, mma.sync m16n8k16 with
 // fp32 accumulators.  The next K slice is loaded into registers while the
 // current one is multiplied (register double buffering over two shared

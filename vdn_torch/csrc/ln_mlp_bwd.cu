@@ -8,104 +8,118 @@
 // [C] and db1 [F] in fp32.  vitl's training step has M = 16 * 1370 =
 // 21920, C = 1024, F = 4096, bf16.
 //
-// Bound on the H100 by its three products (6 * M * C * F FLOP).  The TPU
-// kernel kept W1 and W2 resident in VMEM, recomputed the forward per row
-// block and carried the column sums across its sequential grid; here, as A2
-// was built (ln_mlp.cu), the work runs as row kernels around three
-// gemm_tile launches, and the column sums are two-pass (per 128-row chunk,
-// then over the chunks) rather than carried:
-//   1. row_stats_kernel (fp32 mean / rstd), then y = bf16(LN(x));
-//   2. GEMM y W1^T with a + b1 epilogue: hpre = bf16(bf16(acc) + b1) kept
-//      in scratch, h = bf16(gelu(hpre)) written;
-//   3. GEMM (g * gamma) W2 (gamma applied in the prologue, rounded to bf16
-//      as vdn's go), the epilogue rounds dh to bf16, multiplies by
-//      gelu'(hpre) in fp32 and writes dhpre rounded to bf16;
-//   4. GEMM dhpre W1 -> dy rounded once to bf16 (mlp.py:313);
-//   5. the LayerNorm backward per row, fp32, with the residual: dx = g +
+// Bound on the H100 by its three products (6 * M * C * F FLOP; 0.558 ms at
+// the v4 shape at 989 TFLOP/s).  The TPU kernel kept W1 and W2 resident in
+// VMEM, recomputed the forward per row block and carried the column sums
+// across its sequential grid; here the products run on the wgmma + TMA
+// core (bf16_wgmma.cuh) between row kernels, and the column sums are
+// two-pass (per row tile, then over the tiles in order), so nothing
+// depends on the order blocks run in and dx repeats bit for bit:
+//   1. d3_rows_kernel, one warp per row held in registers: y = bf16(LN(x))
+//      and go = bf16(g * gamma) (vdn's go), the A operands of step 2 (TMA
+//      cannot apply a prologue), and the row's mean / rstd;
+//   2. the paired product over 128 x 128 tiles of [M, F], K = C: hpre =
+//      y W1^T (W1 [F, C] K-major) and dh = go W2 (W2 [C, F] read MN-major
+//      through the transpose bit) into two accumulators of one tile, whose
+//      epilogue
+//      writes h = bf16(gelu(hpre)) and dhpre = bf16(bf16(dh) * gelu'(hpre))
+//      with hpre = bf16(bf16(acc) + b1) straight from registers (vdn
+//      computes hacc and dh for one F slice back to back, mlp.py:283-296;
+//      no hpre scratch);
+//   3. dy = dhpre W1 (W1 read MN-major), rounded once to bf16 (mlp.py:313);
+//   4. the LayerNorm backward per row, fp32, with the residual: dx = g +
 //      bf16(dxf) (mlp.py:328-335);
-//   6. column sums db1 = sum dhpre, dls = sum dy * xhat, dlb = sum dy.
-// GELU is the tanh form, the bf16 flavour of the forward (_dgelu_f32).  W2
-// and W1 enter products 3 and 4 transposed ([F, C] and [C, F], K
-// contiguous, made by the wrapper), the layout gemm_tile reads.
-#include "gemm_tile.cuh"
+//   5. column sums: db1 = sum dhpre, its first pass per 64-row tile in the
+//      paired product's epilogue (from the staged dhpre tile); dls = sum dy
+//      * xhat and dlb = sum dy per 128-row chunk in one kernel; then the
+//      chunks in order.
+// GELU is the tanh form, the bf16 flavour of the forward (_dgelu_f32).  The
+// weights enter as stored: no transposed copies.
+#include "bf16_wgmma.cuh"
 
 namespace {
 
 using vdn::bf16r;
 using vdn::bf2f;
+namespace wgbf = vdn::wgbf;
 
 constexpr int kColRows = 128;  // rows per partial column sum
+// every product's tiles: 128 rows x kWidth columns; the paired product's
+// split between the consumer warpgroups (cooperative: 64 rows each, two
+// products, 128 fp32 sums a thread), which also give db1's first-pass
+// chunks of 64 rows
+constexpr int kPairRows = 64, kWidth = 128;
 
-// gelu'(x) of the tanh form (vdn/ops/pallas/mlp.py _dgelu_f32, bf16)
-__device__ __forceinline__ float dgelu_tanh(float x) {
-  const float kA = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float kB = 0.044715f;
-  const float u = kA * (x + kB * x * x * x);
-  const float th = 1.0f - 2.0f / (exp2f(u * (2.0f * 1.4426950408889634f)) + 1.0f);
-  return 0.5f * (1.0f + th) +
-         0.5f * x * (1.0f - th * th) * kA * (1.0f + 3.0f * kB * x * x);
-}
-
-// y = bf16(LN(x)) from the row statistics, 8 elements per thread
-__global__ void ln_apply_kernel(const __nv_bfloat16* __restrict__ x, int M,
-                                int C, const float* __restrict__ mean,
-                                const float* __restrict__ rstd,
-                                const float* __restrict__ ln_w,
-                                const float* __restrict__ ln_b,
-                                __nv_bfloat16* __restrict__ y) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (i >= (size_t)M * C) return;
-  const int m = i / C, k = i % C;
-  float f[8];
-  vdn::load_vec<__nv_bfloat16, 8>(x + i, f);
-  vdn::ProLayerNorm{mean, rstd, ln_w, ln_b}(m, k, f);
-  vdn::store_vec<__nv_bfloat16, 8>(y + i, f);
-}
-
-// g * gamma[k] in fp32, rounded to bf16 by gemm_tile: vdn's go
-struct ProScale {
-  static constexpr bool kIdentity = false;
-  const __nv_bfloat16* gamma;
-  __device__ void operator()(int, int k, float (&v)[8]) const {
+// Per row of x, g [M, C]: y = bf16(LN(x)) and go = bf16(g * gamma) [M, C],
+// mean and rstd [M]; C <= 256 kV, one warp per row.
+template <int kV>
+__global__ void __launch_bounds__(256)
+d3_rows_kernel(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ g, int M, int C,
+               const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+               const __nv_bfloat16* __restrict__ gamma, float eps,
+               __nv_bfloat16* __restrict__ y, __nv_bfloat16* __restrict__ go,
+               float* __restrict__ mean, float* __restrict__ rstd) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const size_t off = (size_t)row * C;
+  float v[kV][8], mu, rs;
+  wgbf::ln_row<kV>(x + off, C, lane, ln_w, ln_b, eps, v, mu, rs);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] *= bf2f(gamma[k + i]);
+  for (int i = 0; i < kV; ++i) {
+    const int k = lane * 8 + 256 * i;
+    if (k >= C) continue;
+    vdn::store_vec<__nv_bfloat16, 8>(y + off + k, v[i]);
+    float gv[8];
+    vdn::load_vec<__nv_bfloat16, 8>(g + off + k, gv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gv[j] *= bf2f(gamma[k + j]);
+    vdn::store_vec<__nv_bfloat16, 8>(go + off + k, gv);
   }
-};
+  if (lane == 0) {
+    mean[row] = mu;
+    rstd[row] = rs;
+  }
+}
 
-struct EpiHpreGelu {
+// the paired product's epilogue: hpre = bf16(bf16(hacc) + b1), h =
+// bf16(gelu(hpre)), dhpre = bf16(bf16(dh) * gelu'(hpre)); the column sums
+// of each warpgroup's 64 rows of dhpre (db1's first pass) into colsum
+// [ceil(M / 64), F]
+struct EpiHDhpre {
+  static constexpr int kOuts = 2;  // h, dhpre
+  static constexpr bool kResidual = false;
+  static constexpr int kColSumOut = 1;
   const __nv_bfloat16* b1;
-  __nv_bfloat16* hpre;
-  __nv_bfloat16* h;
-  int F;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    const float h0 = bf16r(bf16r(v0) + bf2f(b1[n]));
-    const float h1 = bf16r(bf16r(v1) + bf2f(b1[n + 1]));
-    const size_t i = (size_t)m * F + n;
-    *reinterpret_cast<uint32_t*>(hpre + i) = vdn::pack_bf16(h0, h1);
-    *reinterpret_cast<uint32_t*>(h + i) =
-        vdn::pack_bf16(vdn::gelu_tanh(h0), vdn::gelu_tanh(h1));
+  float* colsum;
+  __device__ __forceinline__ float2 col(int n) const {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(b1 + n));
+  }
+  __device__ __forceinline__ void operator()(float2 bias, float a0, float a1,
+                                             float d0, float d1,
+                                             uint32_t (&o)[2]) const {
+    const float h0 = bf16r(bf16r(a0) + bias.x);
+    const float h1 = bf16r(bf16r(a1) + bias.y);
+    float g0, g1, dg0, dg1;
+    vdn::gelu_dgelu_tanh(h0, g0, dg0);
+    vdn::gelu_dgelu_tanh(h1, g1, dg1);
+    o[0] = vdn::pack_bf16(g0, g1);
+    o[1] = vdn::pack_bf16(bf16r(d0) * dg0, bf16r(d1) * dg1);
   }
 };
 
-struct EpiDhpre {
-  const __nv_bfloat16* hpre;
-  __nv_bfloat16* dhpre;
-  int F;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    const size_t i = (size_t)m * F + n;
-    const float2 hp = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(hpre + i));
-    *reinterpret_cast<uint32_t*>(dhpre + i) = vdn::pack_bf16(
-        bf16r(v0) * dgelu_tanh(hp.x), bf16r(v1) * dgelu_tanh(hp.y));
-  }
-};
-
-struct EpiStoreDy {
-  __nv_bfloat16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    *reinterpret_cast<uint32_t*>(out + (size_t)m * ld + n) =
-        vdn::pack_bf16(v0, v1);
+// dy = bf16(dhpre W1)
+struct EpiDy {
+  static constexpr int kOuts = 1;
+  static constexpr bool kResidual = false;
+  static constexpr int kColSumOut = -1;
+  struct None {};
+  __device__ __forceinline__ None col(int) const { return {}; }
+  __device__ __forceinline__ void operator()(None, float v0, float v1,
+                                             float2, uint32_t (&o)[1]) const {
+    o[0] = vdn::pack_bf16(v0, v1);
   }
 };
 
@@ -159,42 +173,31 @@ __global__ void ln_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// column sums, pass 1: partial[chunk, n] = sum over the chunk's kColRows
-// rows of val(m, n); one thread per column
-struct ColValue {
-  const __nv_bfloat16* a;
-  int ld;
-  __device__ float operator()(int m, int n) const {
-    return bf2f(a[(size_t)m * ld + n]);
-  }
-};
-
-// dy * xhat, xhat = (x - mean) * rstd (the dls sum)
-struct ColDyXhat {
-  const __nv_bfloat16* dy;
-  const __nv_bfloat16* x;
-  const float* mean;
-  const float* rstd;
-  int ld;
-  __device__ float operator()(int m, int n) const {
-    const size_t i = (size_t)m * ld + n;
-    return bf2f(dy[i]) * ((bf2f(x[i]) - mean[m]) * rstd[m]);
-  }
-};
-
-template <class Val>
-__global__ void colsum_partial_kernel(int M, int N, Val val,
-                                      float* __restrict__ partial) {
+// dls and dlb, pass 1: per kColRows-row chunk and column n < C, the sums
+// of dy * xhat (xhat = (x - mean) * rstd) and of dy over the chunk's rows
+// in row order, into partial[chunk, n] and partial[chunk, C + n]
+__global__ void ln_colsum_kernel(const __nv_bfloat16* __restrict__ dy,
+                                 const __nv_bfloat16* __restrict__ x, int M,
+                                 int C, const float* __restrict__ mean,
+                                 const float* __restrict__ rstd,
+                                 float* __restrict__ partial) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  if (n >= C) return;
   const int m0 = blockIdx.y * kColRows;
   const int m1 = min(M, m0 + kColRows);
-  float acc = 0.f;
-  for (int m = m0; m < m1; ++m) acc += val(m, n);
-  partial[(size_t)blockIdx.y * N + n] = acc;
+  float s_ls = 0.f, s_lb = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    const size_t i = (size_t)m * C + n;
+    const float d = bf2f(dy[i]);
+    s_ls += d * ((bf2f(x[i]) - mean[m]) * rstd[m]);
+    s_lb += d;
+  }
+  partial[(size_t)blockIdx.y * 2 * C + n] = s_ls;
+  partial[(size_t)blockIdx.y * 2 * C + C + n] = s_lb;
 }
 
-// pass 2: out[n] = sum over the chunks, in chunk order
+// pass 2: out[n] = sum over the chunks of partial [chunks, N], in chunk
+// order
 __global__ void colsum_reduce_kernel(const float* __restrict__ partial,
                                      int chunks, int N,
                                      float* __restrict__ out) {
@@ -205,14 +208,8 @@ __global__ void colsum_reduce_kernel(const float* __restrict__ partial,
   out[n] = acc;
 }
 
-template <class Val>
-cudaError_t launch_colsum(int M, int N, Val val, float* partial, float* out,
-                          cudaStream_t s) {
-  const int chunks = (M + kColRows - 1) / kColRows;
-  colsum_partial_kernel<<<dim3((N + 255) / 256, chunks), 256, 0, s>>>(
-      M, N, val, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t launch_reduce(const float* partial, int chunks, int N,
+                          float* out, cudaStream_t s) {
   colsum_reduce_kernel<<<(N + 255) / 256, 256, 0, s>>>(partial, chunks, N,
                                                        out);
   return cudaGetLastError();
@@ -220,50 +217,50 @@ cudaError_t launch_colsum(int M, int N, Val val, float* partial, float* out,
 
 }  // namespace
 
-// x, g [M, C]; w1 [F, C]; b1 [F]; w1t [C, F] (= w1^T); w2t [F, C] (= w2^T,
-// w2 the [C, F] fc2 weight); gamma [C]: bf16.  ln_w [C] fp32.
-// Scratch: mean, rstd [M] fp32; hpre [M, F] bf16; dy [M, C] bf16; partial
-// [ceil(M / 128), F] fp32 (F >= C).  Out: y, dx [M, C] and h, dhpre [M, F]
-// bf16; dls, dlb [C] and db1 [F] fp32.  C, F multiples of 32.
+// x, g [M, C]; w1 [F, C]; b1 [F]; w2 [C, F]; gamma [C]: bf16.  ln_w, ln_b
+// [C] fp32.  Scratch: mean, rstd [M] fp32; go, dy [M, C] bf16; part_f
+// [ceil(M / 64), F] and part_c [ceil(M / 128), 2 C] fp32.  Out: y, dx [M,
+// C] and h, dhpre [M, F] bf16; dls_dlb [2 C] (dls, then dlb) and db1 [F]
+// fp32.  C % 128 == 0, C <= 2048, F % 128 == 0.  grid_f and grid_c: the
+// persistent blocks of the paired product and of dy (128 x 128 tiles).
 extern "C" int vdn_ln_mlp_residual_bwd(
     const void* x, const void* g, int M, int C, int F, const void* ln_w,
-    const void* ln_b, const void* w1, const void* b1, const void* w1t,
-    const void* w2t, const void* gamma, float eps, void* mean, void* rstd,
-    void* hpre, void* dy, void* partial, void* y, void* h, void* dhpre,
-    void* dx, void* dls, void* dlb, void* db1, void* stream) {
+    const void* ln_b, const void* w1, const void* b1, const void* w2,
+    const void* gamma, float eps, void* mean, void* rstd, void* go,
+    void* dy, void* part_f, void* part_c, void* y, void* h, void* dhpre,
+    void* dx, void* dls_dlb, void* db1, int grid_f, int grid_c,
+    void* stream) {
+  if (M < 1 || C % kWidth || C > 2048 || F % kWidth)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const auto* gam = static_cast<const __nv_bfloat16*>(gamma);
   auto* meanf = static_cast<float*>(mean);
   auto* rstdf = static_cast<float*>(rstd);
   auto* yb = static_cast<__nv_bfloat16*>(y);
-  auto* hpreb = static_cast<__nv_bfloat16*>(hpre);
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  auto* dhpreb = static_cast<__nv_bfloat16*>(dhpre);
+  auto* gob = static_cast<__nv_bfloat16*>(go);
   auto* dyb = static_cast<__nv_bfloat16*>(dy);
-  auto* partf = static_cast<float*>(partial);
+  auto* pf = static_cast<float*>(part_f);
+  auto* pc = static_cast<float*>(part_c);
   const auto* lnw = static_cast<const float*>(ln_w);
+  const auto* lnb = static_cast<const float*>(ln_b);
 
-  cudaError_t err = vdn::launch_row_stats(xb, M, C, eps, meanf, rstdf, s);
+  cudaError_t err = wgbf::with_ln_row(C, [&](auto kv) {
+    d3_rows_kernel<decltype(kv)::value><<<(M + 7) / 8, 256, 0, s>>>(
+        xb, gb, M, C, lnw, lnb, gam, eps, yb, gob, meanf, rstdf);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  const size_t vecs = (size_t)M * C / 8;
-  ln_apply_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, s>>>(
-      xb, M, C, meanf, rstdf, lnw, static_cast<const float*>(ln_b), yb);
-  err = cudaGetLastError();
+  void* pair_out[2] = {h, dhpre};
+  err = wgbf::launch_gemm_bf16_wgmma<kWidth, wgbf::kKMajor,
+                                     wgbf::kMNMajor, true>(
+      M, F, C, yb, w1, gob, w2, pair_out, nullptr,
+      EpiHDhpre{static_cast<const __nv_bfloat16*>(b1), pf}, grid_f, s);
   if (err != cudaSuccess) return err;
-  err = vdn::launch_gemm<false>(
-      M, F, C, yb, C, static_cast<const __nv_bfloat16*>(w1),
-      vdn::ProIdentity{},
-      EpiHpreGelu{static_cast<const __nv_bfloat16*>(b1), hpreb, hb, F}, s);
-  if (err != cudaSuccess) return err;
-  err = vdn::launch_gemm<false>(
-      M, F, C, gb, C, static_cast<const __nv_bfloat16*>(w2t),
-      ProScale{static_cast<const __nv_bfloat16*>(gamma)},
-      EpiDhpre{hpreb, dhpreb, F}, s);
-  if (err != cudaSuccess) return err;
-  err = vdn::launch_gemm<false>(
-      M, C, F, dhpreb, F, static_cast<const __nv_bfloat16*>(w1t),
-      vdn::ProIdentity{}, EpiStoreDy{dyb, C}, s);
+  err = wgbf::launch_gemm_bf16_wgmma<kWidth, wgbf::kMNMajor, wgbf::kNoB,
+                                     false>(
+      M, C, F, dhpre, w1, nullptr, nullptr, &dy, nullptr, EpiDy{}, grid_c, s);
   if (err != cudaSuccess) return err;
   const int rows_per_block = 8;
   ln_bwd_rows_kernel<<<(M + rows_per_block - 1) / rows_per_block,
@@ -271,12 +268,13 @@ extern "C" int vdn_ln_mlp_residual_bwd(
       xb, gb, dyb, M, C, meanf, rstdf, lnw, static_cast<__nv_bfloat16*>(dx));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_colsum(M, F, ColValue{dhpreb, F}, partf,
-                      static_cast<float*>(db1), s);
+  const int chunks = (M + kColRows - 1) / kColRows;
+  ln_colsum_kernel<<<dim3((C + 255) / 256, chunks), 256, 0, s>>>(
+      dyb, xb, M, C, meanf, rstdf, pc);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_colsum(M, C, ColDyXhat{dyb, xb, meanf, rstdf, C}, partf,
-                      static_cast<float*>(dls), s);
+  err = launch_reduce(pc, chunks, 2 * C, static_cast<float*>(dls_dlb), s);
   if (err != cudaSuccess) return err;
-  return launch_colsum(M, C, ColValue{dyb, C}, partf,
-                       static_cast<float*>(dlb), s);
+  return launch_reduce(pf, (M + kPairRows - 1) / kPairRows, F,
+                       static_cast<float*>(db1), s);
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels (F4 and
-// F5 on int8_wgmma.cuh, D1 in flash_attn_qkv_bwd.cu): mbarriers with a
-// watchdog, TMA tile loads, wgmma shared-memory descriptors and fences,
+// F5 on int8_wgmma.cuh, A2 and D3 on bf16_wgmma.cuh, D1 in
+// flash_attn_qkv_bwd.cu): mbarriers with a watchdog, TMA tile loads and
+// stores, wgmma shared-memory descriptors and fences, named barriers,
 // setmaxnreg, and the tensor-map encoder.
 //
 // A wait on an mbarrier that outlives kWaitNs traps (a launch failure,
@@ -86,6 +87,37 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2)
       : "memory");
+}
+
+// one 2-D tile from shared memory to global memory (coordinates past a
+// dimension's end are not written), in the thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until the thread's bulk stores have read their shared memory (kRead) or
+// completed
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// shared-memory writes of this thread made visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier ``id`` (1..15) over ``threads`` threads (whole warps)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // wgmma descriptor of a tile in the 128-byte swizzle: rows of 128 bytes,

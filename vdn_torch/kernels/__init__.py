@@ -40,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -98,10 +99,10 @@ _SIGNATURES = {
     + (_L,) * 6 + (_F, _P, _P, _P),
     "vdn_flash_attention_bthd_bwd": (_P,) * 6 + (_I,) * 5 + (_L,) * 6
     + (_F, _F) + (_P,) * 5,
-    "vdn_ln_mlp_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
-                            _P, _P, _P, _P, _P),
-    "vdn_ln_mlp_residual_bwd": (_P, _P, _I, _I, _I) + (_P,) * 7 + (_F,)
-    + (_P,) * 13,
+    "vdn_ln_mlp_residual": (_P, _I, _I, _I) + (_P,) * 7 + (_F,) + (_P,) * 3
+    + (_I,) * 2 + (_P,),
+    "vdn_ln_mlp_residual_bwd": (_P, _P, _I, _I, _I) + (_P,) * 6 + (_F,)
+    + (_P,) * 12 + (_I,) * 2 + (_P,),
     "vdn_ln_geglu_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
                               _P, _P, _P, _P, _P),
     "vdn_temporal_attention": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
@@ -122,6 +123,7 @@ _SIGNATURES = {
     + (_P,) * 4,
     "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 9,
     "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _P),
+    "vdn_gelu_check": (_P, _P, _P),
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)
@@ -250,6 +252,13 @@ def launch(name: str, *args) -> None:
     err = getattr(build(), name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (the kernels' persistent
+    grids)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_kernel_args(name: str, *tensors: torch.Tensor,

@@ -48,14 +48,14 @@ checks.
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Optional, Tuple, Union
 
 import torch
 
 from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
-                               layer_norm_f32, use_kernel, wants_grad)
+                               layer_norm_f32, sm_count, use_kernel,
+                               wants_grad)
 from vdn_torch.kernels.mlp import gelu_f32
 
 __all__ = ["quantize_weight_cols", "quantize_rows", "int8_serving_enabled",
@@ -284,11 +284,6 @@ def f5_plan(m: int, c: int, f: int, sms: int) -> dict:
     return plan
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _linear_launch(name, x, ln, w: Weight, b, eps,
                    operands: Optional[dict]) -> torch.Tensor:
     """F1 (``ln`` = (weight, bias)) or F2 (``ln`` None) on the card."""
@@ -384,7 +379,7 @@ def fused_ln_mlp_residual_int8(x, ln_w, ln_b, w1: Weight, b1, w2: Weight,
                          f"{F4_MAX_C}")
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
-    plan = f4_plan(m, c, f, _sm_count(x.device.index))
+    plan = f4_plan(m, c, f, sm_count(x.device.index))
     args = [*_f32(ln_w, ln_b), w1q.contiguous(), *_f32(s1, b1),
             w2q.contiguous(), *_f32(s2, b2, gamma)]
     yq, sy = _rows_scratch(m, c, x.device)
@@ -428,7 +423,7 @@ def fused_ln_swiglu_residual_int8(x, ln_w, ln_b, w12: Weight, b12,
                          f"{F4_MAX_C}")
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
-    plan = f5_plan(m, c, f, _sm_count(x.device.index))
+    plan = f5_plan(m, c, f, sm_count(x.device.index))
     args = [*_f32(ln_w, ln_b), w12q.contiguous(), *_f32(s12, b12),
             w3q.contiguous(), *_f32(s3, b3, gamma)]
     yq, sy = _rows_scratch(m, c, x.device)

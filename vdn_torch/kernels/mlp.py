@@ -3,14 +3,19 @@
 Replaces vdn/ops/pallas/mlp.py ``fused_ln_mlp_residual``
 (``_ln_mlp_kernel``).  On the H100 the kernel (csrc/ln_mlp.cu) is bound by
 its two products; W1/W2 (8 MB each) cannot stay resident in a block's
-shared memory as they did in VMEM, so it runs as row statistics + two
-tiled GEMMs with a LayerNorm prologue and fused epilogues (see the note
-in the .cu file).  Weights are torch Linear layout: w1 [F, C], w2 [C, F].
+shared memory as they did in VMEM, so it runs as a LayerNorm row kernel
+and two products on the warp-specialised bf16 wgmma + TMA core
+(csrc/bf16_wgmma.cuh: persistent blocks over 128-row tiles, two consumer
+warpgroups in ping-pong so that one's epilogue runs under the other's
+products; ``mlp_plan`` gives the grids).  Weights are torch Linear
+layout: w1 [F, C], w2 [C, F].
 
 Training: with grad enabled and an input requiring it, A2 runs as an
 autograd Function whose backward is vdn's ``_bwd_via_kernel``
 (mlp.py:596-637): D3 (csrc/ln_mlp_bwd.cu, ``_mlp_bwd_dx_pallas``) gives dx,
-y = LN(x), h, dhpre and the column sums dls, dlb, db1; the weight grads
+y = LN(x), h, dhpre and the column sums dls, dlb, db1, its products on the
+same core (y W1^T and (g gamma) W2 paired in one tile, then dhpre W1, the
+weights read as stored, MN-major where transposed); the weight grads
 dW1 = dhpre^T y, S = h^T g, dW2 = (S * gamma)^T, dgamma = colsum(W2^T * S)
 + b2 * sum(g) and db2 = gamma * sum(g) are plain products (``torch.matmul``
 on the working dtype, as vdn leaves them to XLA), taken only for the
@@ -25,9 +30,18 @@ import torch
 
 from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
                                layer_norm_f32, linear_f32acc, same_dispatch,
-                               save_dispatch, use_kernel, wants_grad)
+                               save_dispatch, sm_count, use_kernel,
+                               wants_grad)
 
-COLSUM_ROWS = 128  # csrc/ln_mlp_bwd.cu: rows per partial column sum
+COLSUM_ROWS = 128  # csrc/ln_mlp_bwd.cu: rows per partial sum of dls, dlb
+# csrc/bf16_wgmma.cuh's tiles: WG_ROWS rows, BN columns (every product);
+# the paired tile's halves of PAIR_ROWS rows (its two consumer
+# warpgroups'), db1's first-pass chunks; the widest C the row kernels hold
+# in registers (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu)
+WG_ROWS = 128
+BN = 128
+PAIR_ROWS = 64
+MAX_C = 2048
 
 _GELU_A = math.sqrt(2.0 / math.pi)
 _GELU_B = 0.044715
@@ -57,6 +71,18 @@ def dgelu_f32(x: torch.Tensor, dt: torch.dtype):
     dg = 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * _GELU_A * (
         1.0 + 3.0 * _GELU_B * x * x)
     return 0.5 * x * (1.0 + th), dg
+
+
+def mlp_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """What A2's and D3's launches take for ``m`` rows on a card of ``sms``
+    SMs: each product's persistent grid, min(tiles, sms), ``grid_f`` over
+    the WG_ROWS x BN tiles of [m, f] (A2's fc1, D3's paired product),
+    ``grid_c`` over those of [m, c] (A2's fc2, D3's dy).  The tiles are
+    128 wide even where they number fewer than the SMs (a streamed frame's
+    11 x 8 at C 1024): 64-wide ones were slower there on the H100."""
+    mt = -(-m // WG_ROWS)
+    return {"grid_f": min(mt * (f // BN), sms),
+            "grid_c": min(mt * (c // BN), sms)}
 
 
 def fused_ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, gamma,
@@ -107,7 +133,7 @@ def fused_ln_mlp_residual_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, gamma,
 def fused_ln_mlp_residual_bwd(x, g, ln_w, ln_b, w1, b1, w2, gamma,
                               eps: float = 1e-6):
     """D3: (dx, y, h, dhpre, dls, dlb, db1) as the plain version; kernel
-    for bf16 x with C, F multiples of 32."""
+    for bf16 x with C, F multiples of 128 and C up to MAX_C."""
     if not use_kernel(x):
         return fused_ln_mlp_residual_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2,
                                                gamma, eps)
@@ -119,37 +145,39 @@ def fused_ln_mlp_residual_bwd(x, g, ln_w, ln_b, w1, b1, w2, gamma,
     x2 = x.reshape(-1, c).contiguous()
     g2 = g.reshape(-1, c).to(bf).contiguous()
     m = x2.shape[0]
-    w1b = w1.to(bf).contiguous()
+    plan = mlp_plan(m, c, f, sm_count(x.device.index))
     args = [x2, g2, ln_w.float().contiguous(), ln_b.float().contiguous(),
-            w1b, b1.to(bf).contiguous(), w1b.t().contiguous(),
-            w2.to(bf).t().contiguous(), gamma.to(bf).contiguous()]
+            w1.to(bf).contiguous(), b1.to(bf).contiguous(),
+            w2.to(bf).contiguous(), gamma.to(bf).contiguous()]
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     mean, rstd = torch.empty(m, **f32), torch.empty(m, **f32)
-    hpre = torch.empty((m, f), dtype=bf, device=dev)
-    dy = torch.empty_like(x2)
-    partial = torch.empty((-(-m // COLSUM_ROWS), max(c, f)), **f32)
+    go, dy = torch.empty_like(x2), torch.empty_like(x2)
+    part_f = torch.empty((-(-m // PAIR_ROWS), f), **f32)
+    part_c = torch.empty((-(-m // COLSUM_ROWS), 2 * c), **f32)
     y, dx = torch.empty_like(x2), torch.empty_like(x2)
-    h, dhpre = torch.empty_like(hpre), torch.empty_like(hpre)
-    dls, dlb, db1 = (torch.empty(c, **f32), torch.empty(c, **f32),
-                     torch.empty(f, **f32))
-    outs = [mean, rstd, hpre, dy, partial, y, h, dhpre, dx, dls, dlb, db1]
+    h = torch.empty((m, f), dtype=bf, device=dev)
+    dhpre = torch.empty_like(h)
+    dls_dlb, db1 = torch.empty(2 * c, **f32), torch.empty(f, **f32)
+    outs = [mean, rstd, go, dy, part_f, part_c, y, h, dhpre, dx, dls_dlb,
+            db1]
     check_kernel_args(name, *args, *outs)
     ptr = [a.data_ptr() for a in args]
     launch("vdn_ln_mlp_residual_bwd", ptr[0], ptr[1], m, c, f, *ptr[2:],
-           float(eps), *(o.data_ptr() for o in outs))
+           float(eps), *(o.data_ptr() for o in outs), plan["grid_f"],
+           plan["grid_c"])
     launches[name] += 1
-    return dx.reshape(x.shape), y, h, dhpre, dls, dlb, db1
+    return dx.reshape(x.shape), y, h, dhpre, dls_dlb[:c], dls_dlb[c:], db1
 
 
 def _check_args(name, x, w1, w2) -> None:
     c = x.shape[-1]
     f = w1.shape[0]
     if (x.dtype != torch.bfloat16 or w1.shape != (f, c)
-            or w2.shape != (c, f) or c % 32 or f % 32):
+            or w2.shape != (c, f) or c % 128 or f % 128 or c > MAX_C):
         raise ValueError(f"{name}: kernel takes bf16 x with C, F multiples "
-                         f"of 32, got x {tuple(x.shape)} {x.dtype}, w1 "
-                         f"{tuple(w1.shape)}")
+                         f"of 128 and C up to {MAX_C}, got x "
+                         f"{tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}")
 
 
 def mlp_weight_grads(g, y, h, dhpre, w2, b2, gamma, needs):
@@ -220,17 +248,18 @@ def _forward(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps) -> torch.Tensor:
     bf = torch.bfloat16
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
+    plan = mlp_plan(m, c, f, sm_count(x.device.index))
     args = [x2, ln_w.float().contiguous(), ln_b.float().contiguous(),
             w1.to(bf).contiguous(), b1.to(bf).contiguous(),
             w2.to(bf).contiguous(), b2.to(bf).contiguous(),
             gamma.to(bf).contiguous()]
-    mean = torch.empty(m, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
+    y = torch.empty_like(x2)
     h = torch.empty((m, f), dtype=bf, device=x.device)
     out = torch.empty_like(x2)
-    check_kernel_args("fused_ln_mlp_residual", *args, mean, rstd, h, out)
+    check_kernel_args("fused_ln_mlp_residual", *args, y, h, out)
     ptr = [a.data_ptr() for a in args]
     launch("vdn_ln_mlp_residual", ptr[0], m, c, f, *ptr[1:], float(eps),
-           mean.data_ptr(), rstd.data_ptr(), h.data_ptr(), out.data_ptr())
+           y.data_ptr(), h.data_ptr(), out.data_ptr(), plan["grid_f"],
+           plan["grid_c"])
     launches["fused_ln_mlp_residual"] += 1
     return out.reshape(x.shape)
