@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch / CUDA port (vdn_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT   # D1, F5, F4 and the paths that
-                                        # run them: a parent checkout
-                                        # against this one (ab_tree)
+    python3 chip_smoke.py --ab PARENT [ROUNDS]  # the redesigned kernels
+                                                # and the paths that run
+                                                # them: a parent checkout
+                                                # against this one (ab_tree)
 
 Builds the hand-written CUDA kernels from vdn_torch/csrc, holds each one
 against its plain PyTorch version at the main paths' own shapes (and times
@@ -147,6 +148,11 @@ TF32_TENSOR_FLOPS = 495e12
 # / 48), its rings 384 / 128 lanes wide, its output island at C 192
 VITG_HEADS = 24
 VITG_MOTION_SHAPES = [(1369, 1536), (361, 1536), (1369, 384), (5476, 384)]
+# vits' and vitb's motion modules (nn/dpt_temporal.py: out_channels[2],
+# out_channels[3], features, features): A4 only (A3 takes neither's head
+# widths); C 64 and 192 leave fc2's last 128-wide tile half empty
+VITS_MOTION_SHAPES = [(1369, 192), (361, 384), (1369, 64), (5476, 64)]
+VITB_MOTION_SHAPES = [(1369, 384), (361, 768), (1369, 128), (5476, 128)]
 VITG_RING_SHAPES = [(10952, 384), (2888, 384), (10952, 128), (43808, 128)]
 VITG_ISLAND_C = 192
 VITG_FEATURES = 384
@@ -173,10 +179,18 @@ D1_STAGES = {"prepass": r"d1_prepass", "dkdv": r"d1_dkdv", "dq": r"d1_dq"}
 # its GELU epilogue, fc2 with the residual) and D3's (csrc/ln_mlp_bwd.cu:
 # the row kernel, the paired product y W1^T / (g gamma) W2 writing h and
 # dhpre, dy = dhpre W1, the LayerNorm backward rows, the column sums)
-A2_STAGES = {"row": r"a2_rows", "fc1": r"EpiFc1Gelu",
+A2_STAGES = {"row": r"A2Rows|a2_rows", "fc1": r"EpiFc1Gelu",
              "fc2": r"EpiFc2Residual"}
 D3_STAGES = {"rows": r"d3_rows", "pair": r"EpiHDhpre", "dy": r"EpiDy",
              "ln_bwd": r"ln_bwd_rows", "colsum": r"colsum"}
+# A4's three launches (csrc/ln_geglu.cu: the LayerNorm row kernel, fc1
+# with its GEGLU epilogue, fc2 with + x, + b2) and F3's two
+# (csrc/int8_linear.cu: the row quantizer, the product with its residual
+# epilogue); the row patterns also match the row kernels' earlier names
+# (row_stats, a2_rows), so the script splits an older tree's time alike
+A4_STAGES = {"row": r"A4Rows|row_stats", "fc1": r"EpiGeglu",
+             "fc2": r"EpiResidualBias"}
+F3_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Residual"}
 # A2 beyond its paths' shapes: the v4 step's rows (16 x 1370) and the full
 # window's (32 x 1370) at C 1024, vits' and vitb's C 384 / 768 at the
 # cached window's rows; D3 at B 2 x T 257 (514 rows: a partial last
@@ -226,6 +240,21 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn(), from the wall time of ``calls``
+    calls issued back to back after a warm-up and a synchronize: what the
+    wrapper costs the host where the card finishes each call sooner than
+    the host issues the next (a streamed frame's rows)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def kernel_ms(fn, patterns: dict, reps: int = 10) -> dict:
@@ -454,7 +483,9 @@ def two_products(rng, x, w1, w2):
 
 def motion_cases(rng, path, t, with_a3=True, shapes=None):
     """A3 (unless with_a3 is False) and A4 at the four motion modules'
-    shapes (MOTION_SHAPES, vitl's, by default) over t frames."""
+    shapes (MOTION_SHAPES, vitl's, by default) over t frames; A4 also
+    bit-equal between two launches, its device time by stage
+    (A4_STAGES)."""
     from vdn_torch.kernels import geglu
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
@@ -485,13 +516,14 @@ def motion_cases(rng, path, t, with_a3=True, shapes=None):
             _rand(rng, (c,), 0.1, 1.0), _rand(rng, (c,), 0.1),
             _rand(rng, (2 * f, c), c ** -0.5), _rand(rng, (2 * f,), 0.1),
             _rand(rng, (c, f), f ** -0.5), _rand(rng, (c,), 0.1))]
+        kern = lambda x=x, p=p: geglu.fused_ln_geglu_residual(x, *p)
+        plain = lambda x=x, p=p: geglu.fused_ln_geglu_residual_plain(x, *p)
         yield case(
-            "fused_ln_geglu_residual", f"BN{bn} T{t} C{c}",
-            lambda x=x, p=p: geglu.fused_ln_geglu_residual(x, *p),
-            lambda x=x, p=p: geglu.fused_ln_geglu_residual_plain(x, *p),
+            "fused_ln_geglu_residual", f"BN{bn} T{t} C{c}", kern, plain,
             (2 * _nbytes(x) + _nbytes(*p),
              [(6 * bn * t * c * f, BF16_TENSOR_FLOPS)]), path,
-            library=two_products(rng, x, p[2], p[4]))
+            library=two_products(rng, x, p[2], p[4]),
+            check=both_launches_equal(kern, plain), stages=A4_STAGES)
 
 
 def _taps(w) -> int:
@@ -825,7 +857,8 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)))
     if encoder != "vitl":     # F2: no path of vits, vitb or vitg calls it
         specs[1:2] = []
-    stages = {"fused_ln_mlp_residual_int8": F4_STAGES,
+    stages = {"int8_proj_residual": F3_STAGES,
+              "fused_ln_mlp_residual_int8": F4_STAGES,
               "fused_ln_swiglu_residual_int8": F5_STAGES}
     for name, keys, kern, plain, work, weights, bf16 in specs:
         ops = {}
@@ -967,6 +1000,13 @@ def kernel_cases(rng):
     yield from attention_int8_cases(rng)
     yield from vitg_cases(rng)
     yield from e1_cases(rng)
+    # A4 at vits' and vitb's motion widths (last: the earlier cases keep
+    # their draws of the seed)
+    for enc, shapes in (("vits", VITS_MOTION_SHAPES),
+                        ("vitb", VITB_MOTION_SHAPES)):
+        for path, t in (("clip", 32), ("stream", 1)):
+            yield from motion_cases(rng, f"{enc}_{path}", t, with_a3=False,
+                                    shapes=shapes)
 
 
 def vitg_cases(rng):
@@ -3679,11 +3719,18 @@ def ab_tree(tree: str) -> dict:
     v4 step's shape (d1_cases), A2 at vitl's cached window, D3 at the v4
     step's shape and A2 at a streamed frame's and a 480 x 640 image's rows
     (a2_case, d3_case: CUDA events around the call, and the device time of
-    its kernels from the profiler), F5 at vitg's
-    cached-window rows and at a streamed frame and F4 at vitl's cached
-    window (int8_cases), the v4 training step (RefineTrainer b2 t8, median
-    of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 windows and vitg's
-    int8_static windows (time_windows, on the first window's scales)."""
+    its kernels from the profiler), A4 at vitl's four motion shapes over a
+    window (each, and summed) and over a streamed frame (summed;
+    motion_cases, also with device ms), F5 at vitg's
+    cached-window rows and at a streamed frame, F4 and F3 at vitl's cached
+    window and at a streamed frame (int8_cases, also with device ms; at a
+    frame's rows, and A4's, also the host's microseconds a call, host_us),
+    the v4 training step (RefineTrainer b2 t8, median
+    of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
+    windows and vitg's int8_static windows (time_windows, the int8 ones
+    on the first window's scales), and vitl's bf16 and int8_static
+    streams at k = 1 (run_stream over N_STREAM frames, the median frame
+    wall after the first; int8_static calibrating on its first frame)."""
     sys.path.insert(0, os.path.abspath(tree))
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
@@ -3708,13 +3755,41 @@ def ab_tree(tree: str) -> dict:
     del c
     torch.cuda.empty_cache()
     with torch.no_grad():
+        for t, key in ((32, "a4_window"), (1, "a4_stream_frame")):
+            total = {"ms": 0.0, "device_ms": 0.0}
+            if t == 1:
+                total["host_us"] = 0.0
+            for c in motion_cases(rng, "ab", t, with_a3=False):
+                ms = time_ms(c["kern"], reps=20)
+                dev = sum(kernel_ms(c["kern"], {}).values())
+                total["ms"] += ms
+                total["device_ms"] += dev
+                if t == 1:
+                    total["host_us"] += host_us(c["kern"])
+                if t == 32:
+                    shape = c["label"].split()
+                    out[f"a4_{shape[0]}_{shape[2]}_ms"] = ms
+                    out[f"a4_{shape[0]}_{shape[2]}_device_ms"] = dev
+            for k, v in total.items():
+                out[f"{key}_{k}"] = v
+            del c
+            torch.cuda.empty_cache()
         for enc, rows, key in (
-                ("vitg", CACHED_FRAMES * VIT_TOKENS, "f5_cached_window_ms"),
-                ("vitg", VIT_TOKENS, "f5_stream_frame_ms"),
-                ("vitl", CACHED_FRAMES * VIT_TOKENS, "f4_cached_window_ms")):
+                ("vitg", CACHED_FRAMES * VIT_TOKENS, "f5_cached_window"),
+                ("vitg", VIT_TOKENS, "f5_stream_frame"),
+                ("vitl", CACHED_FRAMES * VIT_TOKENS, "f4_cached_window"),
+                ("vitl", VIT_TOKENS, "f4_stream_frame"),
+                ("vitl", CACHED_FRAMES * VIT_TOKENS, "f3_cached_window"),
+                ("vitl", VIT_TOKENS, "f3_stream_frame")):
+            name = ("int8_proj_residual" if key.startswith("f3")
+                    else "fused_ln_")
             for c in int8_cases(rng, "ab", rows, enc):
-                if c["name"].startswith("fused_ln_"):
-                    out[key] = time_ms(c["kern"], reps=20)
+                if c["name"].startswith(name):
+                    out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+                    out[f"{key}_device_ms"] = sum(
+                        kernel_ms(c["kern"], {}).values())
+                    if key.endswith("stream_frame"):
+                        out[f"{key}_host_us"] = host_us(c["kern"])
             del c
             torch.cuda.empty_cache()
     batch = train_batch(np.random.default_rng(SEED))
@@ -3730,7 +3805,21 @@ def ab_tree(tree: str) -> dict:
     vitl = build_model()
     out["vitl_bf16_full_window_ms"], out["vitl_bf16_cached_window_ms"] = \
         time_windows(vitl, frames, "ab_vitl_windows_bf16")
+    with torch.no_grad():
+        walls = run_stream(vitl, frames[:N_STREAM], 1)[1]
+    out["vitl_bf16_stream_k1_ms"] = statistics.median(walls[1:])
+    q = quantized_model(build_video_depth_anything, vitl, "int8_static")
     del vitl
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        with quant_calibration(q):
+            q.forward_window(window_input(frames))
+        out["vitl_int8_static_full_window_ms"], \
+            out["vitl_int8_static_cached_window_ms"] = time_windows(
+                q, frames, "ab_vitl_windows_int8_static")
+        walls = fresh_stream(q, frames[:N_STREAM], 1)[1]
+        out["vitl_int8_static_stream_k1_ms"] = statistics.median(walls[1:])
+    del q
     torch.cuda.empty_cache()
     vitg = build_model("vitg")
     q = quantized_model(build_video_depth_anything, vitg, "int8_static",
@@ -3746,15 +3835,16 @@ def ab_tree(tree: str) -> dict:
     return out
 
 
-def ab(parent: str) -> None:
-    """``python3 chip_smoke.py --ab PARENT``: ab_tree of a parent checkout
-    (unpacked under a git-ignored directory) and of this one in turns,
-    parent, change, change, parent, each in a process of its own; then
-    each number's two runs per tree and their median."""
+def ab(parent: str, rounds: int = 1) -> None:
+    """``python3 chip_smoke.py --ab PARENT [ROUNDS]``: ab_tree of a parent
+    checkout (unpacked under a git-ignored directory) and of this one in
+    turns, parent, change, change, parent, ``rounds`` times, each in a
+    process of its own; then each number's runs per tree (two a round)
+    and their median."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     for who, tree in (("parent", parent), ("change", here),
-                      ("change", here), ("parent", parent)):
+                      ("change", here), ("parent", parent)) * rounds:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--ab-tree", tree], timeout=900,
                              capture_output=True, text=True)
@@ -3772,7 +3862,7 @@ def ab(parent: str) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        ab(sys.argv[2])
+        ab(sys.argv[2], *map(int, sys.argv[3:4]))
     elif sys.argv[1:2] == ["--ab-tree"]:
         print("AB " + json.dumps(ab_tree(sys.argv[2])), flush=True)
     else:

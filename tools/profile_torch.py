@@ -76,34 +76,42 @@ GROUPS = [
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
     (r"flash_bwd_dq_f32", "D2 dQ"),
     (r"flash_bwd_delta_f32", "D2 delta"),
-    # F4 / F5 on the wgmma core (csrc/int8_tail.cuh, ln_mlp_int8.cu,
-    # ln_swiglu_int8.cu): F4's fc2 and F5's w3 are one instantiation
+    # F3, F4 and F5 on the wgmma core (csrc/int8_tail.cuh, int8_linear.cu,
+    # ln_mlp_int8.cu, ln_swiglu_int8.cu): F3's rows skip the LayerNorm,
+    # its product takes one K chunk; F4's fc2 and F5's w3 (two chunks) are
+    # one instantiation
+    (r"ln_quant_rows_kernel<\d+, (false|\(bool\)0)>", "F3 quantize rows"),
+    (r"gemm_s8_wgmma_kernel<\d+, 1, .*EpiI8Residual",
+     "F3 proj int8 wgmma (+ b, x gamma, + residual)"),
     (r"ln_quant_rows_kernel", "F4 / F5 LayerNorm + quantize rows"),
     (r"quant_hidden_kernel", "F4 / F5 hidden quantize (per row and F / 2)"),
     (r"EpiHidden", "F4 fc1 int8 wgmma (GELU epilogue)"),
     (r"EpiSwigluHidden", "F5 w12 int8 wgmma (paired, SwiGLU epilogue)"),
     (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
      "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
-    # F1-F3 on the mma.sync template (csrc/int8_gemm.cuh, int8_linear.cu)
+    # F1 and F2 on the mma.sync template (csrc/int8_gemm.cuh,
+    # int8_linear.cu)
     (r"quant_rows_kernel<(true|\(bool\)1)>", "F1 LayerNorm + quantize rows"),
-    (r"quant_rows_kernel", "F2 / F3 quantize rows"),
+    (r"quant_rows_kernel", "F2 quantize rows"),
     (r"EpiI8Bias", "F1 qkv / F2 int8 GEMM"),
-    (r"gemm_s8_kernel<.*EpiI8Residual",
-     "F3 proj int8 GEMM (+ b, x gamma, + residual)"),
     (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
      "A1-train flash attention (+ log-sum-exp)"),
     (r"flash_qkv_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),
     (r"d1_dq", "D1 dQ (wgmma)"),
-    # A2 and D3 on the bf16 wgmma core (csrc/bf16_wgmma.cuh, ln_mlp.cu,
-    # ln_mlp_bwd.cu), by kernel or epilogue name
-    (r"a2_rows", "A2 LayerNorm rows"),
+    # A2, D3 and A4 on the bf16 wgmma core (csrc/bf16_wgmma.cuh,
+    # ln_mlp.cu, ln_mlp_bwd.cu, ln_geglu.cu), by kernel or epilogue name;
+    # A2 and A4 share the row kernel, told apart by its caller tag
+    (r"ln_rows_kernel<.*A2Rows", "A2 LayerNorm rows"),
+    (r"ln_rows_kernel<.*A4Rows", "A4 LayerNorm rows"),
     (r"EpiFc1Gelu", "A2 fc1 bf16 wgmma (GELU epilogue)"),
     (r"EpiFc2Residual", "A2 fc2 bf16 wgmma (+ b2, x gamma, + x)"),
     (r"d3_rows", "D3 rows (y, g gamma, LayerNorm statistics)"),
     (r"EpiHDhpre", "D3 paired bf16 wgmma y W1^T, (g gamma) W2 (h, dhpre)"),
     (r"EpiDy", "D3 bf16 wgmma dhpre W1 (dy)"),
+    (r"EpiGeglu", "A4 fc1 bf16 wgmma (hidden / gate halves, GEGLU)"),
+    (r"EpiResidualBias", "A4 fc2 bf16 wgmma (x + o, + b2)"),
     (r"ln_bwd_rows|ln_colsum|colsum_reduce",
      "D3 LayerNorm backward rows and column sums"),
     (r"ProAddPe.*EpiStoreTemporalBwd", "D4 q / k / v recompute GEMM"),
@@ -115,9 +123,6 @@ GROUPS = [
     (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
     (r"temporal_core", "A3 attention core"),
     (r"EpiBias\b", "A3 out-proj GEMM"),
-    (r"EpiGeglu", "A4 GEGLU GEMM"),
-    (r"EpiResidualBias", "A4 net_2 GEMM"),
-    (r"row_stats", "LayerNorm row statistics (A4)"),
     (r"resize_island", "A6 fused resize island"),
     (r"resize_rows", "A5a resize_rows"),
     (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),

@@ -1,5 +1,6 @@
 // The warp-specialised bf16 GEMM core on Hopper's wgmma and TMA (A2 in
-// ln_mlp.cu and D3 in ln_mlp_bwd.cu; A4, A3 and D4 are to adopt it):
+// ln_mlp.cu, D3 in ln_mlp_bwd.cu, A4 in ln_geglu.cu; A3 and D4 are to
+// adopt it):
 //   outs = epi( A @ B^T )                 one product
 //   outs = epi( A @ B^T, A2 @ B2^T )      the paired mode: two products over
 //                                         the same [M, N] tiles and K
@@ -7,11 +8,14 @@
 //   A, A2  [M, K] bf16, K contiguous (token rows)
 //   B, B2  either K-major [N, K] (a torch Linear weight as it is stored) or
 //          MN-major [K, N], N contiguous (a Linear weight [out, in] used as
-//          its transpose), read through wgmma's transpose bit
+//          its transpose), read through wgmma's transpose bit; or (B only)
+//          kHalves: K-major [2N, K], a gated layer's two halves (A4's w0:
+//          hidden rows [0, N), gate rows [N, 2N))
 //   outs   Epi::kOuts bf16 tensors [M, N] (Epi the epilogue functor, below)
 //
 // Replaces the mma.sync template (gemm_tile.cuh) for the products of
-// vdn/ops/pallas/mlp.py's _ln_mlp_kernel and _mlp_bwd_dx_kernel.  One
+// vdn/ops/pallas/mlp.py's _ln_mlp_kernel and _mlp_bwd_dx_kernel and
+// geglu.py's _geglu_kernel.  One
 // persistent block per SM walks the TM x BN output tiles (tile t: rows (t /
 // n_tiles) * TM, columns (t % n_tiles) * BN; block b takes t = b, b +
 // grid, ..., so neighbouring blocks share A's rows in L2 and the weights
@@ -39,10 +43,24 @@
 //     PERF.md, section 6).
 // setmaxnreg moves registers from the producer to the consumers.
 //
+// kHalves gives a tile BN / 2 output columns [n0, n0 + BN / 2): its B stage
+// holds rows [n0, n0 + BN / 2) of the first half and [N + n0, ...) of the
+// second, two TMA boxes of BN / 2 rows on one mbarrier (the 128-byte
+// swizzle repeats every 8 rows, so they lie as one BN-row box would).  A
+// thread's sums at accumulator columns c and c + BN / 2 (col_in_tile + 8 i
+// covers both halves) are then one output's two halves, which the epilogue
+// pairs in registers, as the paired mode pairs its two products.
+//
+// With Epi::kEdge, N need only be a multiple of 64: the last column tile
+// may be half empty (A4's fc2 at C 64 / 192).  TMA loads B's rows past N
+// as zeros, no column past N is loaded into the staging tile or stored,
+// and Epi::col reads no bias past N.  Without it (every other epilogue)
+// the tile width divides N and the kernel has no such checks.
+//
 // The epilogue: Epi::col(n) gives what a column pair reads (biases,
 // scales), then Epi(col, sums, residual, outs) maps a thread's two adjacent
-// sums of one row (the paired mode: and the second product's) to a bf16
-// pair of each output.  The pairs go to the warpgroup's staging tile in
+// sums of one row (the paired mode and kHalves: and the second product's or
+// half's) to a bf16 pair of each output.  The pairs go to the warpgroup's staging tile in
 // shared memory (the TMA layout, 128-byte swizzle: a warp's stores hit 32
 // banks) and one thread stores it with TMA, which writes no row past M; a
 // second output's pairs wait in the second product's registers until the
@@ -79,7 +97,7 @@ constexpr int kTM = 128;        // rows of a block tile
 constexpr int kSmemMax = 232448;  // an H100 block's dynamic shared memory
 
 // how a product's B operand lies in device memory
-enum BLayout : int { kKMajor = 0, kMNMajor = 1, kNoB = 2 };
+enum BLayout : int { kKMajor = 0, kMNMajor = 1, kNoB = 2, kHalves = 3 };
 
 // A block tile: kTM rows by BN columns; in ping-pong (!kCoop) a consumer
 // warpgroup takes it whole (WR = 128 rows), in the cooperative mode the
@@ -92,6 +110,9 @@ struct Tile {
   static_assert(kB1 != kNoB, "the first product");
   static constexpr bool kPaired = kB2 != kNoB;
   static_assert(kOuts == 1 || (kOuts == 2 && kPaired), "outputs");
+  static_assert(kB2 != kHalves && (kB1 != kHalves || !kPaired),
+                "kHalves: one product");
+  static constexpr int kTileN = kB1 == kHalves ? BN / 2 : BN;  // outputs
   static constexpr int TM = kTM;
   static constexpr int WR = kCoop ? kTM / 2 : kTM;  // a warpgroup's rows
   static constexpr int kBlocks = WR / 64;  // m64 row blocks of a warpgroup
@@ -102,15 +123,15 @@ struct Tile {
   static constexpr int kBBytes = BN * kRowBytes;   // either layout
   static constexpr int kStageBytes =
       (kPaired ? 2 : 1) * (kABytes + kBBytes);     // 1024-aligned
-  // a warpgroup's staging tile: BN / 64 atoms of WR rows x 128 bytes,
+  // a warpgroup's staging tile: kTileN / 64 atoms of WR rows x 128 bytes,
   // which its outputs pass through one after the other
-  static constexpr int kOutBytes = WR * BN * 2;
+  static constexpr int kOutBytes = WR * kTileN * 2;
   static constexpr int kStaging = 2 * kOutBytes;
   // barriers: full and empty per stage, two turns, two residual loads
   static constexpr int kBarrierBytes = 8 * 64;
   static constexpr int kFit =
       (kSmemMax - 1024 - kBarrierBytes - kStaging) / kStageBytes;
-  // ping-pong 128 x 128: 5 stages; cooperative paired 128 x 128: 3
+  // ping-pong 128 x 128: 5 stages (kHalves: 6); cooperative paired: 3
   static constexpr int kStages = kFit > 8 ? 8 : kFit;
   static_assert(kStages >= 3, "a ring of at least three stages");
   static_assert(2 * kStages + 4 <= kBarrierBytes / 8, "barrier slots");
@@ -127,12 +148,12 @@ struct Tile {
 };
 
 // The descriptor of a B operand step of 16 along K at ``base`` (a stage's
-// B region): K-major, 32 bytes along each 128-byte row; MN-major, 16 rows
-// of 128 bytes (2048 bytes), the second 64 N values (BN 128) one atom
-// (kAtomBytes) on, the leading byte offset.
+// B region): K-major (and kHalves), 32 bytes along each 128-byte row;
+// MN-major, 16 rows of 128 bytes (2048 bytes), the second 64 N values (BN
+// 128) one atom (kAtomBytes) on, the leading byte offset.
 template <int kB>
 __device__ __forceinline__ uint64_t desc_b(uint32_t base, int kk) {
-  if constexpr (kB == kKMajor) return desc_sw128(base + 32 * kk);
+  if constexpr (kB != kMNMajor) return desc_sw128(base + 32 * kk);
   const uint64_t d = desc_sw128(base + 2048 * kk);
   return (d & ~(static_cast<uint64_t>(0x3FFF) << 16)) |
          (static_cast<uint64_t>(kAtomBytes >> 4) << 16);
@@ -185,26 +206,21 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
 }
 
 // A stage's B operand: K-major, one box of BN rows of 64 K values;
-// MN-major, BN / 64 boxes of 64 K rows x 64 N values, kAtomBytes apart.
+// kHalves, two boxes of BN / 2 such rows, at n0 and N + n0; MN-major, BN /
+// 64 boxes of 64 K rows x 64 N values, kAtomBytes apart.
 template <int BN, int kB>
 __device__ __forceinline__ void load_b(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int k0, int n0) {
+                                       uint32_t bar, int k0, int n0, int N) {
   if constexpr (kB == kKMajor) {
     tma_load_2d(dst, map, bar, k0, n0);
+  } else if constexpr (kB == kHalves) {
+    tma_load_2d(dst, map, bar, k0, n0);
+    tma_load_2d(dst + (BN / 2) * kRowBytes, map, bar, k0, N + n0);
   } else {
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j)
       tma_load_2d(dst + j * kAtomBytes, map, bar, n0 + 64 * j, k0);
   }
-}
-
-// The byte of (row, col) in a staging tile of WR rows: atom col / 64, its
-// 16-byte chunk (col % 64) / 8 XOR row % 8 (TMA's 128-byte swizzle)
-template <int WR>
-__device__ __forceinline__ uint32_t staged(uint32_t tile, int row, int col) {
-  const int c = col & 63;
-  return tile + (col >> 6) * (WR * kRowBytes) + row * kRowBytes +
-         ((((c >> 3) ^ (row & 7)) << 4) | ((c & 7) << 1));
 }
 
 // The maps of the products' operands, the outputs and the residual.
@@ -220,6 +236,8 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
   constexpr int TM = T::TM;
   constexpr int WR = T::WR;
   constexpr bool kPaired = T::kPaired;
+  constexpr bool kHalf = kB1 == kHalves;
+  constexpr int kTileN = T::kTileN;
   constexpr int kBlocks = T::kBlocks;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -232,7 +250,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
   uint64_t* turn = empty + T::kStages;  // [w]: warpgroup w may issue
   uint64_t* resid = turn + 2;           // [w]: w's residual tile loaded
 
-  const int n_tiles = N / BN;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
   const int tiles = ((M + TM - 1) / TM) * n_tiles;
   const int slices = K / kBK;
   const int wgi = threadIdx.x / kWarpgroup;
@@ -263,17 +281,17 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = (tile / n_tiles) * TM;
-        const int n0 = (tile % n_tiles) * BN;
+        const int n0 = (tile % n_tiles) * kTileN;
         for (int kb = 0; kb < slices; ++kb) {
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t bar = smem_u32(&full[stage]);
           const uint32_t dst = ring + stage * T::kStageBytes;
           mbar_expect_tx(bar, T::kStageBytes);
           tma_load_2d(dst, &maps.a, bar, kb * kBK, m0);
-          load_b<BN, kB1>(dst + kOffB, &maps.b, bar, kb * kBK, n0);
+          load_b<BN, kB1>(dst + kOffB, &maps.b, bar, kb * kBK, n0, N);
           if constexpr (kPaired) {
             tma_load_2d(dst + kOffA2, &maps.a2, bar, kb * kBK, m0);
-            load_b<BN, kB2>(dst + kOffB2, &maps.b2, bar, kb * kBK, n0);
+            load_b<BN, kB2>(dst + kOffB2, &maps.b2, bar, kb * kBK, n0, N);
           }
           if (++stage == T::kStages) {
             stage = 0;
@@ -303,16 +321,18 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
   for (int tile = blockIdx.x + j * gridDim.x; tile < tiles;
        tile += kStep * gridDim.x, j += kStep) {
     const int m0 = (tile / n_tiles) * TM + a_row;  // the warpgroup's rows
-    const int n0 = (tile % n_tiles) * BN;
+    const int n0 = (tile % n_tiles) * kTileN;
     const int round = j / kStep;  // the warpgroup's tiles before this one
+    // the tile's 64-column atoms that lie inside N
+    const int atoms =
+        Epi::kEdge ? min(kTileN / 64, (N - n0) / 64) : kTileN / 64;
     if (leader) {
       // the staging tile is free once the last tile's stores read it
       bulk_wait<true>();
       if constexpr (Epi::kResidual) {
         const uint32_t bar = smem_u32(&resid[wgi]);
-        mbar_expect_tx(bar, T::kOutBytes);
-#pragma unroll
-        for (int a = 0; a < BN / 64; ++a)
+        mbar_expect_tx(bar, atoms * WR * kRowBytes);
+        for (int a = 0; a < atoms; ++a)
           tma_load_2d(stage_out + a * WR * kRowBytes, &maps.res, bar,
                       n0 + 64 * a, m0);
       }
@@ -393,20 +413,27 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
       if (q > 0 && leader) bulk_wait<true>();
       // every thread past the leader's wait for the last stores
       named_sync(1 + wgi, kWarpgroup);
+      // kHalves: group i's columns pair with group i + kTileN / 8's.  In
+      // a half-empty last tile (kEdge) the groups past N read the last
+      // column pair's Epi::col and are not stored (no branch in the loop).
 #pragma unroll
-      for (int i = 0; i < T::kRegs / 4; ++i) {
+      for (int i = 0; i < kTileN / 8; ++i) {
         const int col = col_in + 8 * i;
-        const auto c = epi.col(n0 + col);
+        const auto c = epi.col(Epi::kEdge ? min(n0 + col, N - 2) : n0 + col);
 #pragma unroll
         for (int r = 0; r < kBlocks; ++r)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = 64 * r + row_in + 8 * h;
             const int e = 4 * i + 2 * h;
-            const uint32_t dst = staged<WR>(stage_out, row, col);
+            const uint32_t dst = staged_tile<WR>(stage_out, row, col);
             uint32_t o[Epi::kOuts];
             if (q == 0) {
-              if constexpr (kPaired) {
+              if constexpr (kHalf) {
+                constexpr int g = T::kRegs / 2;  // the second half's sums
+                epi(c, acc[r][e], acc[r][e + 1], acc[r][e + g],
+                    acc[r][e + g + 1], o);
+              } else if constexpr (kPaired) {
                 epi(c, acc[r][e], acc[r][e + 1], acc2[r][e], acc2[r][e + 1],
                     o);
                 if constexpr (Epi::kOuts == 2)
@@ -432,8 +459,7 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
       fence_async_shared();
       named_sync(1 + wgi, kWarpgroup);
       if (leader) {
-#pragma unroll
-        for (int a = 0; a < BN / 64; ++a)
+        for (int a = 0; a < atoms; ++a)
           tma_store_2d(&maps.out[q], stage_out + a * WR * kRowBytes,
                        n0 + 64 * a, m0);
         bulk_commit();
@@ -444,13 +470,13 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
         // order, into colsum [ceil(M / WR), N]
         const int rows = min(WR, M - m0);
 #pragma unroll 1
-        for (int c = t; c < BN; c += kWarpgroup) {
+        for (int c = t; c < 64 * atoms; c += kWarpgroup) {
           float s = 0.f;
 #pragma unroll 4
           for (int row = 0; row < rows; ++row) {
             unsigned short bits;
             asm volatile("ld.shared.u16 %0, [%1];\n"
-                         : "=h"(bits) : "r"(staged<WR>(stage_out, row, c)));
+                         : "=h"(bits) : "r"(staged_tile<WR>(stage_out, row, c)));
             s += __bfloat162float(__ushort_as_bfloat16(bits));
           }
           epi.colsum[(size_t)(m0 / WR) * N + n0 + c] = s;
@@ -461,31 +487,20 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ Maps maps, int M, int N,
   if (leader) bulk_wait<false>();
 }
 
-// The CUtensorMap of a row-major bf16 [rows, inner] tensor, moved as boxes
-// of 64 inner values (128 bytes) by box_rows rows in the 128-byte swizzle;
-// rows past ``rows`` load as zeros and are not stored.
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* ptr, int inner,
-                               int rows, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims,
-                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// B's map: K-major [N, K] as BN-row boxes, MN-major [K, N] as 64 x 64 boxes
+// B's map: K-major [N, K] as BN-row boxes, kHalves [2N, K] as BN / 2-row
+// boxes, MN-major [K, N] as 64 x 64 boxes
 template <int BN, int kB>
 inline cudaError_t encode_b(CUtensorMap* map, const void* ptr, int N,
                             int K) {
-  return kB == kKMajor ? encode_bf16(map, ptr, K, N, BN)
-                       : encode_bf16(map, ptr, N, K, 64);
+  return kB == kKMajor   ? encode_bf16(map, ptr, K, N, BN)
+         : kB == kHalves ? encode_bf16(map, ptr, K, 2 * N, BN / 2)
+                         : encode_bf16(map, ptr, N, K, 64);
 }
 
-// Requires K % 64 == 0, N % BN == 0, 16-byte aligned pointers (checked by
-// the Python wrappers); grid is the number of persistent blocks (at most
-// the tile count).  A2 / B2 are read in the paired mode only, out[1] with
+// Requires K % 64 == 0, N a multiple of the tile's output columns (of 64
+// with Epi::kEdge), 16-byte aligned pointers (checked by the Python
+// wrappers); grid is the number of persistent blocks (at most the tile
+// count).  A2 / B2 are read in the paired mode only, out[1] with
 // two outputs, res with Epi::kResidual ([M, N] bf16).
 template <int BN, int kB1, int kB2, bool kCoop, class Epi>
 cudaError_t launch_gemm_bf16_wgmma(int M, int N, int K, const void* A,
@@ -494,7 +509,8 @@ cudaError_t launch_gemm_bf16_wgmma(int M, int N, int K, const void* A,
                                    const void* res, Epi epi, int grid,
                                    cudaStream_t stream) {
   using T = Tile<BN, kB1, kB2, kCoop, Epi::kOuts>;
-  if (M < 1 || N % BN || K % kBK || grid < 1) return cudaErrorInvalidValue;
+  if (M < 1 || N % (Epi::kEdge ? 64 : T::kTileN) || K % kBK || grid < 1)
+    return cudaErrorInvalidValue;
   Maps maps;
   cudaError_t err = encode_bf16(&maps.a, A, K, M, T::TM);
   if (err == cudaSuccess) err = encode_b<BN, kB1>(&maps.b, B, N, K);
@@ -518,9 +534,10 @@ cudaError_t launch_gemm_bf16_wgmma(int M, int N, int K, const void* A,
 // What TMA cannot do: the LayerNorm prologue of an A operand.  Row ``row``
 // of x [M, C] bf16 into registers, lane l holding the 8-value groups at l *
 // 8 + 256 i (kV of them, C <= 256 kV), and its fp32 LayerNorm ((x - mean)
-// * rstd) * w + b in place, with the sums, the approximate rsqrt and the
-// expression of gemm_tile.cuh's row_stats_kernel and ProLayerNorm (the
-// values A2's and D3's products read before this core).  One warp per row.
+// * rstd) * w + b in place: the mean as the sum of value pairs over the
+// lane's groups, then across the warp, / C; the variance likewise from the
+// squared deviations; rstd = rsqrtf(var + eps), the approximate rsqrt.
+// One warp per row.
 template <int kV>
 __device__ __forceinline__ void ln_row(const __nv_bfloat16* __restrict__ xr,
                                        int C, int lane,
@@ -569,6 +586,44 @@ inline cudaError_t with_ln_row(int C, Fn&& f) {
          : C <= 1024 ? f(std::integral_constant<int, 4>{})
                      : f(std::integral_constant<int, 8>{});
 }
+
+namespace {
+
+// y = bf16(LN(x)) per row of x [M, C] (C <= 256 kV), the A operand of A2's
+// fc1 and A4's: one warp per row, the row held in registers.  Internal
+// linkage, a copy in each source that launches it; Caller, an empty tag
+// type of that source (A2Rows, A4Rows), puts its name in the kernel's, so
+// a profiler's trace files each caller's rows apart.
+template <int kV, class Caller>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
+               const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+               float eps, __nv_bfloat16* __restrict__ y) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float v[kV][8], mu, rstd;
+  ln_row<kV>(x + (size_t)row * C, C, lane, ln_w, ln_b, eps, v, mu, rstd);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int k = lane * 8 + 256 * i;
+    if (k < C) store_vec<__nv_bfloat16, 8>(y + (size_t)row * C + k, v[i]);
+  }
+}
+
+template <class Caller>
+inline cudaError_t launch_ln_rows(const __nv_bfloat16* x, int M, int C,
+                                  const float* ln_w, const float* ln_b,
+                                  float eps, __nv_bfloat16* y,
+                                  cudaStream_t s) {
+  return with_ln_row(C, [&](auto kv) {
+    ln_rows_kernel<decltype(kv)::value, Caller><<<(M + 7) / 8, 256, 0, s>>>(
+        x, M, C, ln_w, ln_b, eps, y);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
 
 }  // namespace wgbf
 }  // namespace vdn

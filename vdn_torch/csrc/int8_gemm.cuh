@@ -1,4 +1,4 @@
-// One tiled int8 GEMM for the W8A8 serving kernels F1, F2 and F3 (F4 and
+// One tiled int8 GEMM for the W8A8 serving kernels F1 and F2 (F3, F4 and
 // F5 run on the wgmma + TMA core, int8_wgmma.cuh, which these adopt in
 // turn):
 //   out = epi( (float(A @ W^T) * rs[m]) * cs[n] )
@@ -11,7 +11,7 @@
 //       output row
 //
 // Replaces the int8 MXU dots of vdn/ops/pallas/int8.py (_int8_dot inside
-// _ln_linear_kernel, _linear_kernel and _proj_residual_kernel).  The TPU
+// _ln_linear_kernel and _linear_kernel).  The TPU
 // kernels keep the whole int8 weight in VMEM; a Hopper block has 227 KB, so the product is tiled as the bf16 template
 // (gemm_tile.cuh) tiles it: 128 x 128 output tiles, K in 64-byte slices,
 // eight warps of 64 x 32, mma.sync m16n8k32 s8 x s8 -> s32, the next slice
@@ -178,26 +178,6 @@ cudaError_t launch_gemm_s8(int M, int N, int K, const int8_t* A, int lda,
   return cudaGetLastError();
 }
 
-// res + bf16(((v + b) * gamma)) in bf16, the epilogue of F3, F4 and F5:
-// LayerScale and the block residual (int8.py:201-215, :331-332).  res
-// [M, ld] bf16 may not alias out.
-struct EpiI8Residual {
-  const float* b;
-  const float* gamma;
-  const __nv_bfloat16* res;
-  __nv_bfloat16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    const size_t i = (size_t)m * ld + n;
-    const float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(res + i));
-    const float o0 = __fmul_rn(__fadd_rn(v0, b[n]), gamma[n]);
-    const float o1 = __fmul_rn(__fadd_rn(v1, b[n + 1]), gamma[n + 1]);
-    *reinterpret_cast<uint32_t*>(out + i) =
-        pack_bf16(r.x + bf16r(o0), r.y + bf16r(o1));
-  }
-};
-
 // Eight consecutive elements of a bf16 or fp32 row, as fp32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -216,7 +196,7 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// Row quantizer of F1, F2 and F3: per row of x [M, C] bf16, optionally
+// Row quantizer of F1 and F2: per row of x [M, C] bf16, optionally
 // vdn's fp32 LayerNorm ((x - mean) * rsqrt(var + eps)) * w + b (two-pass
 // statistics), then s = max(amax / 127, 1e-30) and q = round_half_even(y *
 // (1 / s)), written as int8 q [M, C] and fp32 s [M].  One warp per row, 8

@@ -1,7 +1,8 @@
 // The stages that F4 (ln_mlp_int8.cu) and F5 (ln_swiglu_int8.cu) share
-// around their first product: the LayerNorm + quantize row kernel, the
-// hidden's quantizer, and the second product with its residual epilogue
-// on the wgmma core (int8_wgmma.cuh).  Internal linkage: each source that
+// around their first product: the LayerNorm + quantize row kernel (F3's
+// row quantizer too, without the LayerNorm: int8_linear.cu), the hidden's
+// quantizer, and the second product with its residual epilogue on the
+// wgmma core (int8_wgmma.cuh).  Internal linkage: each source that
 // includes it gets its own copy.
 #pragma once
 
@@ -10,12 +11,14 @@
 namespace {
 
 // Per row of x [M, C] bf16: vdn's fp32 LayerNorm ((x - mean) * rsqrt(var +
-// eps)) * w + b (two-pass statistics), then s = max(amax / 127, 1e-30) and
-// q = round_half_even(y * (1 / s)) into yq [M, C] and sy [M]: the sums and
-// roundings of quant_rows_kernel<true> (int8_gemm.cuh) in the same
-// order, lane l holding the 8-value groups at l * 8 + 256 i (kV of them,
-// C <= 256 kV) from one read of the row.  One warp per row.
-template <int kV>
+// eps)) * w + b (two-pass statistics; kLn false: y = x, F3's rows), then s
+// = max(amax / 127, 1e-30) and q = round_half_even(y * (1 / s)) into yq
+// [M, C] and sy [M]: the sums and roundings of quant_rows_kernel<kLn>
+// (int8_gemm.cuh) in the same order, lane l holding the 8-value groups at
+// l * 8 + 256 i (kV of them, C <= 256 kV) from one read of the row.  One
+// warp per row.  With the LayerNorm it also zeroes the row's two slots of
+// fc1's hidden absmax (F4 / F5).
+template <int kV, bool kLn>
 __global__ void __launch_bounds__(256)
 ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
                      const float* __restrict__ ln_w,
@@ -31,36 +34,42 @@ ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
   for (int i = 0; i < kV; ++i) {
     if (lane * 8 + 256 * i < C) vdn::load8(xr + lane * 8 + 256 * i, v[i]);
   }
-  float acc = 0.f;
+  if constexpr (kLn) {
+    float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    if (lane * 8 + 256 * i >= C) continue;
+    for (int i = 0; i < kV; ++i) {
+      if (lane * 8 + 256 * i >= C) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc += v[i][j];
+      for (int j = 0; j < 8; ++j) acc += v[i][j];
+    }
+    const float mu = vdn::warp_sum(acc) / C;
+    acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (lane * 8 + 256 * i >= C) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += (v[i][j] - mu) * (v[i][j] - mu);
+    }
+    const float rstd = 1.f / sqrtf(vdn::warp_sum(acc) / C + eps);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int k = lane * 8 + 256 * i;
+      if (k >= C) continue;
+      float w[8], b[8];
+      vdn::load8(ln_w + k, w);
+      vdn::load8(ln_b + k, b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j] - mu, rstd), w[j]),
+                            b[j]);
+    }
   }
-  const float mu = vdn::warp_sum(acc) / C;
-  acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    if (lane * 8 + 256 * i >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc += (v[i][j] - mu) * (v[i][j] - mu);
-  }
-  const float rstd = 1.f / sqrtf(vdn::warp_sum(acc) / C + eps);
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kV; ++i) {
-    const int k = lane * 8 + 256 * i;
-    if (k >= C) continue;
-    float w[8], b[8];
-    vdn::load8(ln_w + k, w);
-    vdn::load8(ln_b + k, b);
+    if (lane * 8 + 256 * i >= C) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j] - mu, rstd), w[j]),
-                          b[j]);
-      amax = fmaxf(amax, fabsf(v[i][j]));
-    }
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
   }
   const float sc = fmaxf(vdn::warp_max(amax) / 127.f, 1e-30f);
   const float inv = 1.f / sc;
@@ -79,29 +88,31 @@ ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
   if (lane == 0) {
     s[row] = sc;
     // the row's two slots of fc1's atomicMax (stage 2)
-    hidden_amax[2 * row] = hidden_amax[2 * row + 1] = 0u;
+    if constexpr (kLn) hidden_amax[2 * row] = hidden_amax[2 * row + 1] = 0u;
   }
 }
 
-template <int kV>
+template <int kV, bool kLn>
 cudaError_t launch_ln_quant_rows(const __nv_bfloat16* x, int M, int C,
                                  const float* ln_w, const float* ln_b,
                                  float eps, int8_t* q, float* s,
                                  unsigned* amax, cudaStream_t stream) {
-  ln_quant_rows_kernel<kV><<<(M + 7) / 8, 256, 0, stream>>>(
+  ln_quant_rows_kernel<kV, kLn><<<(M + 7) / 8, 256, 0, stream>>>(
       x, M, C, ln_w, ln_b, eps, q, s, amax);
   return cudaGetLastError();
 }
 
-// the row kernel at the least kV that holds C (C % 128 == 0, C <= 2048)
+// the row kernel at the least kV that holds C (C % 128 == 0, C <= 2048);
+// kLn false (F3) takes no LayerNorm parameters and no absmax
+template <bool kLn = true>
 cudaError_t launch_rows(const __nv_bfloat16* x, int M, int C,
                         const float* w, const float* b, float eps, int8_t* q,
                         float* s, unsigned* amax, cudaStream_t st) {
-  return C <= 512    ? launch_ln_quant_rows<2>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 768  ? launch_ln_quant_rows<3>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 1024 ? launch_ln_quant_rows<4>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 1536 ? launch_ln_quant_rows<6>(x, M, C, w, b, eps, q, s, amax, st)
-                     : launch_ln_quant_rows<8>(x, M, C, w, b, eps, q, s, amax, st);
+  return C <= 512    ? launch_ln_quant_rows<2, kLn>(x, M, C, w, b, eps, q, s, amax, st)
+         : C <= 768  ? launch_ln_quant_rows<3, kLn>(x, M, C, w, b, eps, q, s, amax, st)
+         : C <= 1024 ? launch_ln_quant_rows<4, kLn>(x, M, C, w, b, eps, q, s, amax, st)
+         : C <= 1536 ? launch_ln_quant_rows<6, kLn>(x, M, C, w, b, eps, q, s, amax, st)
+                     : launch_ln_quant_rows<8, kLn>(x, M, C, w, b, eps, q, s, amax, st);
 }
 
 // hq = round(h * (1 / s)) with s = max(amax / 127, 1e-30) per (row, F / 2
@@ -132,7 +143,7 @@ __global__ void quant_hidden_kernel(const float* __restrict__ h,
   if (col % half == 0) sh[(size_t)row * 2 + chunk] = s;
 }
 
-cudaError_t launch_quant_hidden(const float* h, const unsigned* amax, int M,
+inline cudaError_t launch_quant_hidden(const float* h, const unsigned* amax, int M,
                                int F, int8_t* hq, float* sh,
                                cudaStream_t s) {
   const size_t groups = (size_t)M * F / 8;
@@ -141,22 +152,45 @@ cudaError_t launch_quant_hidden(const float* h, const unsigned* amax, int M,
   return cudaGetLastError();
 }
 
-template <int BN2>
+// res + bf16((v + b) * gamma) in bf16, the second product's epilogue
+// (F3, F4, F5): LayerScale and the block residual (int8.py:201-215,
+// :331-332), on the core's inline path (a residual pair staged by TMA).
+struct EpiI8Residual {
+  const float* b;
+  const float* gamma;
+  __device__ __forceinline__ float4 col(int n) const {
+    return make_float4(b[n], b[n + 1], gamma[n], gamma[n + 1]);
+  }
+  __device__ __forceinline__ uint32_t operator()(float4 c, float v0,
+                                                 float v1, float2 r) const {
+    const float o0 = __fmul_rn(__fadd_rn(v0, c.x), c.z);
+    const float o1 = __fmul_rn(__fadd_rn(v1, c.y), c.w);
+    return vdn::pack_bf16(r.x + vdn::bf16r(o0), r.y + vdn::bf16r(o1));
+  }
+};
+
+template <int BN2, int kChunks>
 cudaError_t launch_fc2_at(int M, int C, int F, const int8_t* hq,
-                       const int8_t* w2q, const float* sh, const float* s2,
-                       vdn::EpiI8Residual epi, int grid, cudaStream_t s) {
-  return vdn::wg::launch_gemm_s8_wgmma<BN2, 2, false>(
-      M, C, F, hq, w2q, sh, s2, vdn::wg::PairEpi<vdn::EpiI8Residual>{epi},
-      grid, s);
+                          const int8_t* w2q, const float* sh,
+                          const float* s2, EpiI8Residual epi,
+                          const __nv_bfloat16* res, __nv_bfloat16* out,
+                          int grid, cudaStream_t s) {
+  return vdn::wg::launch_gemm_s8_wgmma<BN2, kChunks, false>(
+      M, C, F, hq, w2q, sh, s2, epi, grid, s, res, out);
 }
 
-// the second product, out = x + bf16(((hq w2^T) dequantized by chunk + b2)
-// * gamma), at tile width bn2 (128 or 64)
+// the second product, out = res + bf16(((hq w2^T) dequantized by chunk +
+// b2) * gamma), res and out [M, C], at tile width bn2 (128 or 64), the K
+// loop in kChunks chunks with a row scale each (F4 / F5: the hidden's
+// two; F3 calls launch_fc2_at<128, 1>: one)
+template <int kChunks = 2>
 cudaError_t launch_fc2(int bn2, int M, int C, int F, const int8_t* hq,
                        const int8_t* w2q, const float* sh, const float* s2,
-                       vdn::EpiI8Residual epi, int grid, cudaStream_t s) {
-  return bn2 == 128
-             ? launch_fc2_at<128>(M, C, F, hq, w2q, sh, s2, epi, grid, s)
-             : launch_fc2_at<64>(M, C, F, hq, w2q, sh, s2, epi, grid, s);
+                       EpiI8Residual epi, const __nv_bfloat16* res,
+                       __nv_bfloat16* out, int grid, cudaStream_t s) {
+  return bn2 == 128 ? launch_fc2_at<128, kChunks>(M, C, F, hq, w2q, sh, s2,
+                                                  epi, res, out, grid, s)
+                    : launch_fc2_at<64, kChunks>(M, C, F, hq, w2q, sh, s2,
+                                                 epi, res, out, grid, s);
 }
 }  // namespace

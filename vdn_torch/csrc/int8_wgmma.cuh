@@ -1,5 +1,5 @@
-// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F4 and
-// F5; F3 and F1 adopt it in their turn):
+// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F3, F4
+// and F5; F1 adopts it in its turn):
 //   out = epi( sum_j (float(A_j @ W_j^T) * rs[m, j]) * cs[n] )
 //
 //   A   [M, K] int8, K contiguous (rows quantized by a row kernel)
@@ -10,11 +10,11 @@
 //       each summed exactly in int32 and dequantized on its own
 //   cs  fp32 column scales [N] (paired: [2N]), the weight's
 //       per-output-channel scales
-//   epi epilogue functor, epi(v, m, n, M) over one consumer thread's
-//       dequantized values of a tile (layout below)
+//   epi epilogue functor (below)
 //
 // Replaces the mma.sync template (int8_gemm.cuh) for the products of
-// vdn/ops/pallas/int8.py's _ln_mlp_int8_kernel and _ln_swiglu_int8_kernel:
+// vdn/ops/pallas/int8.py's _proj_residual_kernel, _ln_mlp_int8_kernel and
+// _ln_swiglu_int8_kernel:
 // int8 wgmma takes K-major operands only, which A and W already are.  One
 // persistent block per SM walks the 128 x BN output tiles (tile t: rows
 // (t / n_tiles) * 128, columns (t % n_tiles) * BN, paired BN / 2; block b
@@ -37,15 +37,24 @@
 // value column of the same output, paired by the epilogue in registers.
 //
 // The epilogue runs in one of two places.  Inline, in the consumers after
-// their K loop (fc2's residual epilogue, light).  Or, with kEpiWarps, in
-// two more warpgroups: the consumers drop a tile's dequantized values
+// their K loop: a residual epilogue (F3's product, F4's fc2, F5's w3),
+// out = epi(epi.col(n), v0, v1, res) for two adjacent values of one row,
+// whose residual tile [128, BN] bf16 one consumer thread loads by TMA into
+// a swizzled staging tile at the tile's start, under the K loop; the
+// pairs go back into the tile in place and one thread stores it with TMA
+// (from registers, four bytes a thread, the residual loads and output
+// stores took 0.13 of F3's 0.19 ms at the cached window on the H100:
+// PERF.md, section 6).  Or, with kEpiWarps, epi(v, m, n, M) over one
+// consumer thread's values of a tile, in two more warpgroups: the
+// consumers drop a tile's dequantized values
 // into a shared staging buffer, laid out [value][consumer thread], and go
 // on with the next tile's products, while epilogue thread i takes consumer
 // thread i's values (the same rows and columns) and runs the epilogue
 // (fc1's GELU or w12's SwiGLU, about 25 dependent instructions a value; on
 // the card the products did not overlap an epilogue that the consumers ran
 // between a wgmma group's issue and its wait).  TMA zero-fills rows past
-// M; nothing past M is stored.
+// M; nothing past M is stored.  v[4i + e] of a thread is row m + 8 (e /
+// 2), column n + 8 i + e % 2 (row_in_tile, col_in_tile).
 //
 // The int32 sums are exact, so the order of the K loop changes nothing;
 // the dequantization keeps vdn's order, (float(acc) * rs) * cs per chunk,
@@ -73,10 +82,14 @@ struct Tile {
   static constexpr int kBBytes = BN * kBK;
   static constexpr int kStageBytes = kABytes + kBBytes;  // 1024-aligned
   static constexpr int kStages = kEpiWarps ? 4 : BN == 128 ? 6 : 8;
-  static constexpr int kStaging = kEpiWarps ? kRegs * kConsumers * 4 : 0;
+  // the fp32 values handed to the epilogue warpgroups, or the bf16
+  // residual / output tile of the inline epilogue (1024-aligned)
+  static constexpr int kStaging =
+      kEpiWarps ? kRegs * kConsumers * 4 : kBM * BN * 2;
   static constexpr int kBarriers = 2 * kStages + 2;
-  // the ring, the staging buffer (192 KB together at every width), 1024
-  // bytes of alignment slack and the barriers
+  // the ring and the staging buffer (192 KB together with the epilogue
+  // warpgroups, 224 / 208 KB inline), 1024 bytes of alignment slack and
+  // the barriers
   static constexpr int kSmem =
       kStages * kStageBytes + kStaging + 1024 + 8 * kBarriers;
   static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
@@ -145,29 +158,13 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da,
   else wgmma_s8_n128(d, da, db, accumulate);
 }
 
-// A pair epilogue (int8_gemm.cuh's functors: e(m, n, v0, v1) for two
-// adjacent columns of one row) over a consumer thread's values: v[4i + e]
-// is row m + 8 (e / 2), column n + 8 i + e % 2; rows >= M are skipped.
-template <class E>
-struct PairEpi {
-  E e;
-  template <int kR>
-  __device__ __forceinline__ void operator()(const float (&v)[kR], int m,
-                                             int n, int M) const {
-#pragma unroll
-    for (int i = 0; i < kR / 4; ++i)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (m + 8 * r < M) e(m + 8 * r, n + 8 * i, v[4 * i + 2 * r],
-                             v[4 * i + 2 * r + 1]);
-  }
-};
-
 template <int BN, int kChunks, bool kEpiWarps, bool kPaired, class Epi>
 __global__ void __launch_bounds__((Tile<BN, kEpiWarps>::kThreads), 1)
 gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_w, int M, int N,
-                     int K, const float* __restrict__ rs,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_res,
+                     const __grid_constant__ CUtensorMap map_out, int M,
+                     int N, int K, const float* __restrict__ rs,
                      const float* __restrict__ cs, Epi epi) {
   using T = Tile<BN, kEpiWarps>;
   static_assert(!kEpiWarps || kChunks == 1, "staged tiles take one chunk");
@@ -177,10 +174,12 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t ring = (raw + 1023u) & ~1023u;
   uint8_t* base = smem_raw + (ring - raw);
   float* staging = reinterpret_cast<float*>(base + T::kStages * T::kStageBytes);
+  const uint32_t stage_res = ring + T::kStages * T::kStageBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(
       base + T::kStages * T::kStageBytes + T::kStaging);
   uint64_t* empty = full + T::kStages;
-  uint64_t* staged = empty + T::kStages;    // values in the staging buffer
+  // values in the staging buffer (inline: the residual tile loaded)
+  uint64_t* staged = empty + T::kStages;
   uint64_t* drained = staged + 1;           // staging buffer read
 
   const int n_tiles = N / kTileN;
@@ -194,7 +193,7 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), kConsumers);  // every consumer thread
     }
-    mbar_init(smem_u32(staged), kConsumers);
+    mbar_init(smem_u32(staged), kEpiWarps ? kConsumers : 1);
     mbar_init(smem_u32(drained), T::kEpiThreads);  // every epilogue thread
     mbar_fence_init();
   }
@@ -237,8 +236,23 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t phase = 0;
     uint32_t round = 0;  // tiles staged
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m = (tile / n_tiles) * kBM + row_in;
-      const int n = (tile % n_tiles) * kTileN + col_in;
+      const int m0 = (tile / n_tiles) * kBM;
+      const int n0 = (tile % n_tiles) * kTileN;
+      const int m = m0 + row_in;
+      const int n = n0 + col_in;
+      if constexpr (!kEpiWarps) {
+        if (threadIdx.x == 0) {
+          // the residual tile, once the last tile's store has read the
+          // staging tile
+          bulk_wait<true>();
+          const uint32_t bar = smem_u32(staged);
+          mbar_expect_tx(bar, T::kStaging);
+#pragma unroll
+          for (int a = 0; a < BN / 64; ++a)
+            tma_load_2d(stage_res + a * kBM * 128, &map_res, bar,
+                        n0 + 64 * a, m0);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kChunks; ++j) {
 #pragma unroll
@@ -296,11 +310,40 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       }
       if constexpr (kEpiWarps) {
         mbar_arrive(smem_u32(staged));
-        ++round;
       } else {
-        epi(val, m, n, M);
+        // each pair against its residual pair, in place in the staging
+        // tile, then one TMA store of the tile (no row past M)
+        mbar_wait(smem_u32(staged), round & 1);
+#pragma unroll
+        for (int i = 0; i < T::kRegs / 4; ++i) {
+          const int col = col_in + 8 * i;
+          const auto c = epi.col(n0 + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t at = staged_tile<kBM>(stage_res, row_in + 8 * h,
+                                                 col);
+            uint32_t bits;
+            asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(bits) : "r"(at));
+            const float2 res = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&bits));
+            bits = epi(c, val[4 * i + 2 * h], val[4 * i + 2 * h + 1], res);
+            asm volatile("st.shared.b32 [%0], %1;\n"
+                         :: "r"(at), "r"(bits) : "memory");
+          }
+        }
+        fence_async_shared();
+        named_sync(1, kConsumers);
+        if (threadIdx.x == 0) {
+#pragma unroll
+          for (int a = 0; a < BN / 64; ++a)
+            tma_store_2d(&map_out, stage_res + a * kBM * 128, n0 + 64 * a,
+                         m0);
+          bulk_commit();
+        }
       }
+      ++round;
     }
+    if (!kEpiWarps && threadIdx.x == 0) bulk_wait<false>();
   } else if constexpr (kEpiWarps) {
     // ---- epilogue: thread t mirrors consumer thread t
     regs_inc<T::kEpilogueRegs>();
@@ -336,28 +379,37 @@ inline cudaError_t encode_rows(CUtensorMap* map, const int8_t* ptr, int K,
 // Requires K % (128 * kChunks) == 0, N % BN == 0 (paired: N % (BN / 2)
 // == 0, W [2N, K]), K-contiguous rows and 16-byte aligned pointers
 // (checked by the Python wrappers); grid is the number of persistent
-// blocks (at most the tile count).
+// blocks (at most the tile count).  The inline epilogue (no kEpiWarps)
+// reads the residual res and writes out, both [M, N] bf16.
 template <int BN, int kChunks, bool kEpiWarps, bool kPaired = false,
           class Epi>
 cudaError_t launch_gemm_s8_wgmma(int M, int N, int K, const int8_t* A,
                                  const int8_t* W, const float* rs,
                                  const float* cs, Epi epi, int grid,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream,
+                                 const void* res = nullptr,
+                                 void* out = nullptr) {
   using T = Tile<BN, kEpiWarps>;
   constexpr int kTileN = kPaired ? BN / 2 : BN;
+  static_assert(kEpiWarps || !kPaired, "the inline epilogue's tile");
   if (M < 1 || N % kTileN || K % (kBK * kChunks) || grid < 1)
     return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w;
+  CUtensorMap map_a, map_w, map_res{}, map_out{};
   cudaError_t err = encode_rows(&map_a, A, K, M, kBM);
   if (err != cudaSuccess) return err;
   err = encode_rows(&map_w, W, K, kPaired ? 2 * N : N, kTileN);
+  if (err == cudaSuccess && !kEpiWarps)
+    err = encode_bf16(&map_res, res, N, M, kBM);
+  if (err == cudaSuccess && !kEpiWarps)
+    err = encode_bf16(&map_out, out, N, M, kBM);
   if (err != cudaSuccess) return err;
   auto* kernel = gemm_s8_wgmma_kernel<BN, kChunks, kEpiWarps, kPaired, Epi>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(map_a, map_w, M, N, K, rs,
-                                                  cs, epi);
+  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(map_a, map_w, map_res,
+                                                  map_out, M, N, K, rs, cs,
+                                                  epi);
   return cudaGetLastError();
 }
 

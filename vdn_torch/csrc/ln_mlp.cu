@@ -10,9 +10,9 @@
 // kept W1 and W2 (8 MB each in bf16) resident in VMEM and never wrote the
 // hidden activations; a Hopper block holds 227 KB, so the tail runs as
 // three launches, the products on the wgmma + TMA core (bf16_wgmma.cuh):
-//   1. a2_rows_kernel: y = bf16(LN(x)) [rows, C], one warp per row, the row
-//      held in registers (the value the products read: TMA cannot apply a
-//      LayerNorm prologue);
+//   1. ln_rows_kernel (bf16_wgmma.cuh, shared with A4): y = bf16(LN(x))
+//      [rows, C], one warp per row, the row held in registers (the value
+//      the products read: TMA cannot apply a LayerNorm prologue);
 //   2. fc1 on 128 x 128 tiles, W1 [F, C] K-major, the + b1, GELU epilogue
 //      writing h [rows, F] bf16 (the TPU kernel's rounding point anyway);
 //   3. fc2 on 128 x 128 tiles, W2 [C, F] K-major, the + b2, x gamma, + x
@@ -32,31 +32,14 @@ using vdn::bf2f;
 namespace wgbf = vdn::wgbf;
 
 constexpr int kBN = 128;  // fc1's and fc2's tile width
-
-// y = bf16(LN(x)) per row of x [M, C]; C <= 256 kV
-template <int kV>
-__global__ void __launch_bounds__(256)
-a2_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
-               const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-               float eps, __nv_bfloat16* __restrict__ y) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  float v[kV][8], mu, rstd;
-  wgbf::ln_row<kV>(x + (size_t)row * C, C, lane, ln_w, ln_b, eps, v, mu,
-                   rstd);
-#pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    const int k = lane * 8 + 256 * i;
-    if (k < C) vdn::store_vec<__nv_bfloat16, 8>(y + (size_t)row * C + k, v[i]);
-  }
-}
+struct A2Rows {};         // the row kernel's caller tag
 
 // fc1's epilogue: h = bf16(gelu(bf16(bf16(acc) + b1)))
 struct EpiFc1Gelu {
   static constexpr int kOuts = 1;
   static constexpr bool kResidual = false;
   static constexpr int kColSumOut = -1;
+  static constexpr bool kEdge = false;
   const __nv_bfloat16* b;
   __device__ __forceinline__ float2 col(int n) const {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + n));
@@ -75,6 +58,7 @@ struct EpiFc2Residual {
   static constexpr int kOuts = 1;
   static constexpr bool kResidual = true;
   static constexpr int kColSumOut = -1;
+  static constexpr bool kEdge = false;
   const __nv_bfloat16* b;
   const __nv_bfloat16* gamma;
   __device__ __forceinline__ float4 col(int n) const {
@@ -113,11 +97,7 @@ extern "C" int vdn_ln_mlp_residual(const void* x, int M, int C, int F,
   auto* hb = static_cast<__nv_bfloat16*>(h);
   const auto* w = static_cast<const float*>(ln_w);
   const auto* b = static_cast<const float*>(ln_b);
-  cudaError_t err = wgbf::with_ln_row(C, [&](auto kv) {
-    a2_rows_kernel<decltype(kv)::value><<<(M + 7) / 8, 256, 0, s>>>(
-        xb, M, C, w, b, eps, yb);
-    return cudaGetLastError();
-  });
+  cudaError_t err = wgbf::launch_ln_rows<A2Rows>(xb, M, C, w, b, eps, yb, s);
   if (err != cudaSuccess) return err;
   void* hout = hb;
   err = wgbf::launch_gemm_bf16_wgmma<kBN, wgbf::kKMajor, wgbf::kNoB, false>(

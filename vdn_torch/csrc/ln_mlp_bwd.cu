@@ -91,6 +91,7 @@ struct EpiHDhpre {
   static constexpr int kOuts = 2;  // h, dhpre
   static constexpr bool kResidual = false;
   static constexpr int kColSumOut = 1;
+  static constexpr bool kEdge = false;
   const __nv_bfloat16* b1;
   float* colsum;
   __device__ __forceinline__ float2 col(int n) const {
@@ -115,6 +116,7 @@ struct EpiDy {
   static constexpr int kOuts = 1;
   static constexpr bool kResidual = false;
   static constexpr int kColSumOut = -1;
+  static constexpr bool kEdge = false;
   struct None {};
   __device__ __forceinline__ None col(int) const { return {}; }
   __device__ __forceinline__ void operator()(None, float v0, float v1,

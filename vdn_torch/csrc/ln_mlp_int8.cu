@@ -24,7 +24,8 @@
 //   4. fc2 on 128 x 128 tiles (128 x 64 when 128 x 128 would leave SMs
 //      idle: the Python wrapper's plan), whose K loop dequantizes chunk 0,
 //      (acc0 * sh0) * s2, into fp32 before chunk 1 adds its own; then + b2
-//      and x + bf16(o * gamma) (int8.py:201-215).
+//      and x + bf16(o * gamma) (int8.py:201-215), x's tile staged and the
+//      output stored by TMA (int8_tail.cuh, shared with F3 and F5).
 // Bound by the two products, 4 * rows * C * F int8 operations (0.256 ms
 // per layer for the cached window at 1979 TOP/s).  The fp32 hidden costs
 // 1.1 GB a layer (written, read back, its int8 copy written), 0.33 ms at
@@ -117,9 +118,9 @@ extern "C" int vdn_ln_mlp_int8(const void* x, int M, int C, int F,
   if (err != cudaSuccess) return err;
   err = launch_quant_hidden(hf, am, M, F, h8, scale, s);
   if (err != cudaSuccess) return err;
-  const vdn::EpiI8Residual epi{static_cast<const float*>(b2),
-                               static_cast<const float*>(gamma), xb,
-                               static_cast<__nv_bfloat16*>(out), C};
-  return launch_fc2(bn2, M, C, F, h8, static_cast<const int8_t*>(w2q),
-                    scale, static_cast<const float*>(s2), epi, grid2, s);
+  const EpiI8Residual epi{static_cast<const float*>(b2),
+                          static_cast<const float*>(gamma)};
+  return launch_fc2(bn2, M, C, F, h8, static_cast<const int8_t*>(w2q), scale,
+                    static_cast<const float*>(s2), epi, xb,
+                    static_cast<__nv_bfloat16*>(out), grid2, s);
 }

@@ -25,7 +25,8 @@
 //   3. quant_hidden_kernel: hq = round(h / s), int8 [rows, F], sh [rows, 2];
 //   4. w3 on 128 x 128 (or 128 x 64: the plan, int8.f5_plan) tiles, whose
 //      K loop dequantizes chunk 0, (acc0 * sh0) * s3, into fp32 before
-//      chunk 1 adds its own; then + b3 and x + bf16(o * gamma).
+//      chunk 1 adds its own; then + b3 and x + bf16(o * gamma), x's tile
+//      staged and the output stored by TMA.
 // Bound by the two products, 6 * rows * C * F int8 operations (0.575 ms per
 // layer for the cached window at 1979 TOP/s); the fp32 hidden round trip
 // (rows * F * 4 bytes out and back, plus its int8 copy) is the price of not
@@ -122,9 +123,9 @@ extern "C" int vdn_ln_swiglu_int8(const void* x, int M, int C, int F,
   if (err != cudaSuccess) return err;
   err = launch_quant_hidden(hf, am, M, F, h8, scale, s);
   if (err != cudaSuccess) return err;
-  const vdn::EpiI8Residual epi{static_cast<const float*>(b3),
-                               static_cast<const float*>(gamma), xb,
-                               static_cast<__nv_bfloat16*>(out), C};
+  const EpiI8Residual epi{static_cast<const float*>(b3),
+                          static_cast<const float*>(gamma)};
   return launch_fc2(bn2, M, C, F, h8, static_cast<const int8_t*>(w3q), scale,
-                    static_cast<const float*>(s3), epi, grid2, s);
+                    static_cast<const float*>(s3), epi, xb,
+                    static_cast<__nv_bfloat16*>(out), grid2, s);
 }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the warp-specialised kernels (F4 and
-// F5 on int8_wgmma.cuh, A2 and D3 on bf16_wgmma.cuh, D1 in
+// Hopper (sm_90a) building blocks of the warp-specialised kernels (F3-F5
+// on int8_wgmma.cuh, A2, D3 and A4 on bf16_wgmma.cuh, D1 in
 // flash_attn_qkv_bwd.cu): mbarriers with a watchdog, TMA tile loads and
 // stores, wgmma shared-memory descriptors and fences, named barriers,
-// setmaxnreg, and the tensor-map encoder.
+// setmaxnreg, the tensor-map encoders and the swizzled bf16 staging
+// tile's addressing.
 //
 // A wait on an mbarrier that outlives kWaitNs traps (a launch failure,
 // never a hang).  Tensor maps are encoded on the host at every launch
@@ -221,6 +222,30 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The CUtensorMap of a row-major bf16 [rows, inner] tensor, moved as boxes
+// of 64 inner values (128 bytes) by box_rows rows in the 128-byte swizzle;
+// rows past ``rows`` load as zeros and are not stored.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* ptr, int inner,
+                               int rows, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The byte of bf16 element (row, col) in a staging tile of WR rows laid out
+// as encode_bf16's boxes land: atom col / 64 (WR rows of 128 bytes), its
+// 16-byte chunk (col % 64) / 8 XOR row % 8 (TMA's 128-byte swizzle)
+template <int WR>
+__device__ __forceinline__ uint32_t staged_tile(uint32_t tile, int row,
+                                                int col) {
+  const int c = col & 63;
+  return tile + (col >> 6) * (WR * 128) + row * 128 +
+         ((((c >> 3) ^ (row & 7)) << 4) | ((c & 7) << 1));
 }
 
 }  // namespace wg

@@ -161,7 +161,7 @@ extern "C" int vdn_temporal_attention(const void* x, int BN, int T, int C,
     return cudaErrorInvalidValue;
   auto* qkvb = static_cast<__nv_bfloat16*>(qkv);
   auto* pvb = static_cast<__nv_bfloat16*>(pv);
-  cudaError_t err = vdn::launch_gemm<false>(
+  cudaError_t err = vdn::launch_gemm(
       M, 3 * C, C, static_cast<const __nv_bfloat16*>(x), C,
       static_cast<const __nv_bfloat16*>(wqkv),
       vdn::ProAddPe{static_cast<const __nv_bfloat16*>(pe), T, C},
@@ -175,7 +175,7 @@ extern "C" int vdn_temporal_attention(const void* x, int BN, int T, int C,
     default: err = launch_core<32>(qkvb, BN, T, C, heads, scale, pvb, s);
   }
   if (err != cudaSuccess) return err;
-  return vdn::launch_gemm<false>(
+  return vdn::launch_gemm(
       M, C, C, pvb, C, static_cast<const __nv_bfloat16*>(wo),
       vdn::ProIdentity{},
       EpiBias{static_cast<const __nv_bfloat16*>(bo),

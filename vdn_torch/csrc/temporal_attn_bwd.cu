@@ -174,13 +174,13 @@ extern "C" int vdn_temporal_attention_bwd(
   auto* qkvb = static_cast<__nv_bfloat16*>(qkv);
   auto* dohb = static_cast<__nv_bfloat16*>(doh);
   auto* dqkvb = static_cast<__nv_bfloat16*>(dqkv);
-  cudaError_t err = vdn::launch_gemm<false>(
+  cudaError_t err = vdn::launch_gemm(
       M, 3 * C, C, static_cast<const __nv_bfloat16*>(x), C,
       static_cast<const __nv_bfloat16*>(wqkv),
       vdn::ProAddPe{static_cast<const __nv_bfloat16*>(pe), T, C},
       EpiStoreTemporalBwd{qkvb, 3 * C}, s);
   if (err != cudaSuccess) return err;
-  err = vdn::launch_gemm<false>(
+  err = vdn::launch_gemm(
       M, C, C, static_cast<const __nv_bfloat16*>(g), C,
       static_cast<const __nv_bfloat16*>(woT), vdn::ProIdentity{},
       EpiStoreTemporalBwd{dohb, C}, s);
@@ -189,7 +189,7 @@ extern "C" int vdn_temporal_attention_bwd(
   else if (dh == 64) err = launch_core<64>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, s);
   else err = launch_core<32>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, s);
   if (err != cudaSuccess) return err;
-  return vdn::launch_gemm<false>(
+  return vdn::launch_gemm(
       M, C, 3 * C, dqkvb, 3 * C, static_cast<const __nv_bfloat16*>(wqkvT),
       vdn::ProIdentity{},
       EpiStoreTemporalBwd{static_cast<__nv_bfloat16*>(dx), C}, s);

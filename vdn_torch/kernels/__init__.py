@@ -103,8 +103,8 @@ _SIGNATURES = {
     + (_I,) * 2 + (_P,),
     "vdn_ln_mlp_residual_bwd": (_P, _P, _I, _I, _I) + (_P,) * 6 + (_F,)
     + (_P,) * 12 + (_I,) * 2 + (_P,),
-    "vdn_ln_geglu_residual": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
-                              _P, _P, _P, _P, _P),
+    "vdn_ln_geglu_residual": (_P, _I, _I, _I) + (_P,) * 6 + (_F,)
+    + (_P,) * 3 + (_I,) * 2 + (_P,),
     "vdn_temporal_attention": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
                                _P, _P, _P),
     "vdn_temporal_attention_bwd": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -114,7 +114,7 @@ _SIGNATURES = {
     "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _F, _P, _P),
     "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 7,
-    "vdn_int8_proj_residual": (_P, _P, _I, _I, _I) + (_P,) * 8,
+    "vdn_int8_proj_residual": (_P, _P, _I, _I) + (_P,) * 7 + (_I, _P),
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
     + (_I,) * 3 + (_P,),
     "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14

@@ -2,11 +2,14 @@
 
 Replaces vdn/ops/pallas/geglu.py ``fused_ln_geglu_residual``
 (``_geglu_kernel``).  On the H100 the kernel (csrc/ln_geglu.cu) is bound by
-its two products; w0 and w2 are tiled rather than VMEM-resident, as row
-statistics + a dual-B GEMM whose blocks multiply matching column tiles of
-the hidden and gate halves of w0 (so the GEGLU gating is an epilogue) +
-a GEMM with a residual epilogue.  Weights are torch Linear layout:
-w0 [2F, C] (hidden rows first, then gate rows), w2 [C, F].
+its two products at C 1024 and above, by its bytes below; w0 and w2 are
+tiled rather than VMEM-resident, as a LayerNorm row kernel and two
+products on the bf16 wgmma + TMA core (csrc/bf16_wgmma.cuh, persistent
+blocks, two consumer warpgroups in ping-pong; ``geglu_plan`` gives the
+grids): fc1 in the core's kHalves mode, whose tiles take w0's hidden rows
+and the matching gate rows (so the GEGLU gating is an epilogue), then fc2
+with a residual epilogue.  Weights are torch Linear layout: w0 [2F, C]
+(hidden rows first, then gate rows), w2 [C, F].
 
 Training: vdn gives A4 no backward kernel (its vjp recomputes the plain
 math, geglu.py:136-199).  With grad enabled and an input requiring it, A4
@@ -20,9 +23,24 @@ import torch
 
 from vdn_torch.kernels import (check_kernel_args, grads_of_plain, launch,
                                launches, layer_norm_f32, linear_f32acc,
-                               same_dispatch, save_dispatch, use_kernel,
-                               wants_grad)
-from vdn_torch.kernels.mlp import gelu_f32
+                               same_dispatch, save_dispatch, sm_count,
+                               use_kernel, wants_grad)
+from vdn_torch.kernels.mlp import BN, MAX_C, WG_ROWS, gelu_f32
+
+# fc1's output columns per tile: BN rows of w0's B stage, half hidden and
+# half gate (csrc/bf16_wgmma.cuh's kHalves); fc2's tiles are BN wide
+HALF_BN = BN // 2
+WIDTH = 64  # C and F must be multiples of it (one TMA box of bf16)
+
+
+def geglu_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """What A4's launches take for ``m`` rows on a card of ``sms`` SMs: each
+    product's persistent grid, min(tiles, sms), ``grid_f`` over fc1's
+    WG_ROWS x HALF_BN output tiles of [m, f], ``grid_c`` over fc2's WG_ROWS
+    x BN tiles of [m, c] (the last one half empty where c % BN is 64)."""
+    mt = -(-m // WG_ROWS)
+    return {"grid_f": min(mt * (f // HALF_BN), sms),
+            "grid_c": min(mt * -(-c // BN), sms)}
 
 
 def fused_ln_geglu_residual_plain(x, ln_w, ln_b, w0, b0, w2, b2,
@@ -73,23 +91,25 @@ def _forward(x, ln_w, ln_b, w0, b0, w2, b2, eps) -> torch.Tensor:
     c = x.shape[-1]
     f = w2.shape[1]
     if (x.dtype != torch.bfloat16 or w0.shape != (2 * f, c)
-            or w2.shape != (c, f) or c % 32 or f % 32):
+            or w2.shape != (c, f) or c % WIDTH or f % WIDTH or c > MAX_C):
         raise ValueError(f"fused_ln_geglu_residual: kernel takes bf16 x with "
-                         f"C, F multiples of 32, got x {tuple(x.shape)} "
-                         f"{x.dtype}, w0 {tuple(w0.shape)}")
+                         f"C, F multiples of {WIDTH} and C up to {MAX_C}, "
+                         f"got x {tuple(x.shape)} {x.dtype}, w0 "
+                         f"{tuple(w0.shape)}")
     bf = torch.bfloat16
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
+    plan = geglu_plan(m, c, f, sm_count(x.device.index))
     args = [x2, ln_w.float().contiguous(), ln_b.float().contiguous(),
             w0.to(bf).contiguous(), b0.to(bf).contiguous(),
             w2.to(bf).contiguous(), b2.to(bf).contiguous()]
-    mean = torch.empty(m, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
+    y = torch.empty_like(x2)
     h = torch.empty((m, f), dtype=bf, device=x.device)
     out = torch.empty_like(x2)
-    check_kernel_args("fused_ln_geglu_residual", *args, mean, rstd, h, out)
+    check_kernel_args("fused_ln_geglu_residual", *args, y, h, out)
     ptr = [a.data_ptr() for a in args]
     launch("vdn_ln_geglu_residual", ptr[0], m, c, f, *ptr[1:], float(eps),
-           mean.data_ptr(), rstd.data_ptr(), h.data_ptr(), out.data_ptr())
+           y.data_ptr(), h.data_ptr(), out.data_ptr(), plan["grid_f"],
+           plan["grid_c"])
     launches["fused_ln_geglu_residual"] += 1
     return out.reshape(x.shape)

@@ -22,10 +22,13 @@ symmetric with no zero points:
 
 On the H100 each kernel is a row kernel (LayerNorm or identity, row amax,
 int8 rows and their scales) followed by int8 tile GEMMs with the
-dequantization in their epilogues.  F1, F2 and F3 run their products on
-mma.sync m16n8k32 (csrc/int8_gemm.cuh, csrc/int8_linear.cu).  F4 and F5
-run on the warp-specialised wgmma + TMA core (csrc/int8_wgmma.cuh,
-persistent blocks over 128-row tiles; see ``f4_plan`` and ``f5_plan``):
+dequantization in their epilogues.  F1 and F2 run their products on
+mma.sync m16n8k32 (csrc/int8_gemm.cuh, csrc/int8_linear.cu).  F3, F4 and
+F5 run on the warp-specialised wgmma + TMA core (csrc/int8_wgmma.cuh,
+persistent blocks over 128-row tiles; see ``f3_plan``, ``f4_plan`` and
+``f5_plan``).  F3 is F4's last two stages (csrc/int8_tail.cuh): the row
+quantizer without the LayerNorm, then the product with one K chunk and
+the residual epilogue.  F4 and F5:
 the row kernel, the first product with its epilogue (F4: GELU; F5: the
 core's paired mode, a tile's 64 gate and 64 value columns of the same
 outputs in one thread, SwiGLU), writing the fp32 hidden and its absmax
@@ -68,12 +71,13 @@ __all__ = ["quantize_weight_cols", "quantize_rows", "int8_serving_enabled",
 
 F_CHUNKS = 2          # vdn's _F_CHUNKS: hidden scales per (row, F / 2)
 INT8_MIN_ROWS = 1024  # one 518 x 518 image (1370 tokens) qualifies
-K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice
+K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice (F1, F2)
 # csrc/int8_wgmma.cuh: rows and bytes of K of a tile; F4's fc1 tile width
 # (csrc/ln_mlp_int8.cu), F5's output columns of a paired w12 tile
-# (csrc/ln_swiglu_int8.cu), and the widest C their row kernel holds in
-# registers (csrc/int8_tail.cuh)
+# (csrc/ln_swiglu_int8.cu), and the widest C their row kernel (and F3's)
+# holds in registers (csrc/int8_tail.cuh)
 WG_ROWS, WG_K = 128, 128
+F3_BN = 128           # F3's product tile width (csrc/int8_linear.cu)
 F4_BN1 = 128
 F5_BN1 = 64
 F4_MAX_C = 2048
@@ -274,6 +278,15 @@ def f4_plan(m: int, c: int, f: int, sms: int) -> dict:
             "grid2": min(mt * (c // bn2), sms)}
 
 
+def f3_plan(m: int, c: int, sms: int) -> dict:
+    """What F3's launch takes for ``m`` rows on a card of ``sms`` SMs: the
+    product's persistent grid, min(tiles, sms), over tiles of 128 rows x
+    F3_BN columns of N = C.  The tiles are 128 wide even where they number
+    fewer than the SMs (a streamed frame's 11 x 8 at C 1024, the 480 x 640
+    image's 15 x 8): 64-wide ones were 12% slower there on the H100."""
+    return {"grid": min(-(-m // WG_ROWS) * (c // F3_BN), sms)}
+
+
 def f5_plan(m: int, c: int, f: int, sms: int) -> dict:
     """What F5's launch takes: F4's plan for w3 (N = C), and for w12 the
     persistent blocks over its paired tiles of 128 rows x F5_BN1 outputs
@@ -338,19 +351,24 @@ def int8_proj_residual(x, residual, w: Weight, b, gamma,
     f = wq.shape[0]
     _check(name, x, (wq, c))
     _serving_only(name, x, residual, b, gamma)
+    if f != c or c % WG_K or c > F4_MAX_C:
+        raise ValueError(f"{name}: weight {tuple(wq.shape)}: the kernel "
+                         f"takes [C, C] with C a multiple of {WG_K} up to "
+                         f"{F4_MAX_C}")
     if residual.dtype != x.dtype or residual.shape[-1] != f:
         raise ValueError(f"{name}: residual {tuple(residual.shape)} "
                          f"{residual.dtype} does not match the output")
     x2 = x.reshape(-1, c).contiguous()
     r2 = residual.reshape(-1, f).contiguous()
     m = x2.shape[0]
+    plan = f3_plan(m, c, sm_count(x.device.index))
     args = [x2, r2, wq.contiguous(), *_f32(sw, b, gamma)]
     xq, sx = _rows_scratch(m, c, x.device)
     out = torch.empty_like(r2)
     check_kernel_args(name, *args, xq, sx, out)
-    launch("vdn_int8_proj_residual", x2.data_ptr(), r2.data_ptr(), m, c, f,
+    launch("vdn_int8_proj_residual", x2.data_ptr(), r2.data_ptr(), m, c,
            *(t.data_ptr() for t in args[2:]), xq.data_ptr(), sx.data_ptr(),
-           out.data_ptr())
+           out.data_ptr(), plan["grid"])
     launches[name] += 1
     _record(operands, xq=xq, sx=sx)
     return out.reshape(residual.shape)
