@@ -75,8 +75,9 @@ distance from fp32, measured both on the float path and on the int8 path.
 F1-F6 are held to their plain versions with a gate of their own
 (int8_check: operands equal but at ties), F1, F3 and F4 also at vits' and
 vitb's widths, F6 in each mode at the cached and full windows, a frame,
-the 480 x 640 image and vitg's window; D1 also at ragged T, and two of its
-launches must give the same bits; C3, the
+the 480 x 640 image and vitg's window; A1 also at the full window, vits'
+and vitb's heads and ragged T (with its training forward), D1 also at
+ragged T, and two launches of each must give the same bits; C3, the
 head-major fused-qkv attention that no path calls, at the window.  Prints one line
 per phase; the line before the last is a JSON summary of the kernels, and
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -191,6 +192,10 @@ D3_STAGES = {"rows": r"d3_rows", "pair": r"EpiHDhpre", "dy": r"EpiDy",
 A4_STAGES = {"row": r"A4Rows|row_stats", "fc1": r"EpiGeglu",
              "fc2": r"EpiResidualBias"}
 F3_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Residual"}
+# F1's and F2's two (csrc/int8_linear.cu: the row quantizer, the product
+# with its bias epilogue); A1's one kernel, its device time
+F1_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Linear"}
+A1_STAGES = {"device": r"a1_flash_kernel"}
 # A2 beyond its paths' shapes: the v4 step's rows (16 x 1370) and the full
 # window's (32 x 1370) at C 1024, vits' and vitb's C 384 / 768 at the
 # cached window's rows; D3 at B 2 x T 257 (514 rows: a partial last
@@ -412,28 +417,58 @@ def both_launches_equal(kern, plain, tol="bf16"):
     return check
 
 
+def a1_case(rng, path, b, t=VIT_TOKENS, h=16, lse=False):
+    """A1 (``lse``: its training forward, out and the log-sum-exp) at b
+    frames of t tokens and h heads, bf16: held to the plain version and to
+    its own second launch bit for bit, its device time (A1_STAGES) beside
+    the time with the host; library: SDPA's forward on the same q, k, v."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    dev, bf, d = DEVICE, torch.bfloat16, 64
+    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
+    out = torch.empty((b, t, h * d), dtype=bf, device=dev)
+    stats = ([torch.empty((b, h, t), dtype=torch.float32, device=dev)]
+             if lse else [])
+    if lse:
+        kern = lambda: fa._fused_qkv_forward(qkv, None, True)
+        plain = lambda: fa.flash_attention_fused_qkv_lse_plain(qkv)
+    else:
+        kern = lambda: fa.flash_attention_fused_qkv(qkv)
+        plain = lambda: fa.flash_attention_fused_qkv_plain(qkv)
+    return case(
+        "flash_attention_fused_qkv_train" if lse
+        else "flash_attention_fused_qkv",
+        f"B{b} T{t} H{h} D64" + (" (lse)" if lse else ""), kern, plain,
+        (_nbytes(qkv, out, *stats), [(4 * b * h * t * t * d,
+                                      BF16_TENSOR_FLOPS)]), path,
+        library=lambda: F.scaled_dot_product_attention(
+            *(qkv[:, :, i].transpose(1, 2) for i in range(3))),
+        check=both_launches_equal(kern, plain), stages=A1_STAGES)
+
+
 def encoder_cases(rng, path, b, t=VIT_TOKENS, h=16, with_a2=True):
     """A1 over h heads and (unless with_a2 is False: vitg's FFN is SwiGLU)
     A2 at b frames of t tokens; inputs bf16 on the card, parameters fp32 as
     the model stores them."""
-    import torch.nn.functional as F
-    from vdn_torch.kernels import flash_attention as fa
-    dev, bf = DEVICE, torch.bfloat16
-
-    d = 64
-    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
-    out = torch.empty((b, t, h * d), dtype=bf, device=dev)
-    yield case(
-        "flash_attention_fused_qkv", f"B{b} T{t} H{h} D64",
-        lambda qkv=qkv: fa.flash_attention_fused_qkv(qkv),
-        lambda qkv=qkv: fa.flash_attention_fused_qkv_plain(qkv),
-        (_nbytes(qkv, out), [(4 * b * h * t * t * d, BF16_TENSOR_FLOPS)]),
-        path, library=lambda qkv=qkv: F.scaled_dot_product_attention(
-            *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
+    yield a1_case(rng, path, b, t, h)
     if not with_a2:
         return
 
     yield a2_case(rng, path, (b, t), 1024)
+
+
+def a1_extra_cases(rng):
+    """A1 beyond the shapes of encoder_cases: the full window (B 32),
+    vits' and vitb's 6 and 12 heads at the cached window, and B 2 at the
+    ragged T of D1_RAGGED (90: one q tile and one key tile, 38 rows and
+    keys past T; 257: three, the last with one key), there also its
+    training forward."""
+    yield a1_case(rng, "clip_full", 32)
+    yield a1_case(rng, "vits_clip", CACHED_FRAMES, h=6)
+    yield a1_case(rng, "vitb_clip", CACHED_FRAMES, h=12)
+    for t in D1_RAGGED:
+        for lse in (False, True):
+            yield a1_case(rng, "a1_ragged", 2, t, lse=lse)
 
 
 def mlp_params(rng, c, with_b2=True):
@@ -857,7 +892,8 @@ def int8_cases(rng, path, rows, encoder="vitl"):
             lambda: mlp.fused_ln_mlp_residual(x, *ln, w1, b1, w2, b2, g2)))
     if encoder != "vitl":     # F2: no path of vits, vitb or vitg calls it
         specs[1:2] = []
-    stages = {"int8_proj_residual": F3_STAGES,
+    stages = {"int8_ln_linear": F1_STAGES, "int8_linear": F1_STAGES,
+              "int8_proj_residual": F3_STAGES,
               "fused_ln_mlp_residual_int8": F4_STAGES,
               "fused_ln_swiglu_residual_int8": F5_STAGES}
     for name, keys, kern, plain, work, weights, bf16 in specs:
@@ -1007,6 +1043,9 @@ def kernel_cases(rng):
         for path, t in (("clip", 32), ("stream", 1)):
             yield from motion_cases(rng, f"{enc}_{path}", t, with_a3=False,
                                     shapes=shapes)
+    # A1 at the full window, vits' and vitb's heads and ragged T (last, as
+    # A4's above)
+    yield from a1_extra_cases(rng)
 
 
 def vitg_cases(rng):
@@ -1054,26 +1093,12 @@ def train_cases(rng, path="train"):
     (``d1_cases``), D3 also at D3_EXTRA's shapes.  Library calls: SDPA's
     forward (A1-train) and backward alone (D1), D3's three products in
     cuBLAS bf16."""
-    import torch.nn.functional as F
-    from vdn_torch.kernels import flash_attention as fa
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
     dev, bf = DEVICE, torch.bfloat16
-    b, t, h, d = TRAIN_FRAMES, VIT_TOKENS, 16, 64
-    qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
-    out = torch.empty((b, t, h, d), dtype=bf, device=dev)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
-    yield case(
-        "flash_attention_fused_qkv_train", f"B{b} T{t} H16 D64 (lse)",
-        lambda qkv=qkv: fa._fused_qkv_forward(qkv, None, True),
-        lambda qkv=qkv: fa.flash_attention_fused_qkv_lse_plain(qkv),
-        (_nbytes(qkv, out, lse), [(4 * b * h * t * t * d,
-                                   BF16_TENSOR_FLOPS)]), path,
-        library=lambda qkv=qkv: F.scaled_dot_product_attention(
-            *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
-    del qkv
+    yield a1_case(rng, path, TRAIN_FRAMES, lse=True)
     yield from d1_cases(rng, path)
-    yield d3_case(rng, path, b, t, 1024)
+    yield d3_case(rng, path, TRAIN_FRAMES, VIT_TOKENS, 1024)
 
     for bn, c in MOTION_SHAPES:
         bn *= TRAIN_B
@@ -3722,9 +3747,12 @@ def ab_tree(tree: str) -> dict:
     its kernels from the profiler), A4 at vitl's four motion shapes over a
     window (each, and summed) and over a streamed frame (summed;
     motion_cases, also with device ms), F5 at vitg's
-    cached-window rows and at a streamed frame, F4 and F3 at vitl's cached
-    window and at a streamed frame (int8_cases, also with device ms; at a
-    frame's rows, and A4's, also the host's microseconds a call, host_us),
+    cached-window rows and at a streamed frame, F4, F3 and F1 at vitl's
+    cached window and at a streamed frame (int8_cases, also with device
+    ms; at a frame's rows, and A4's, also the host's microseconds a call,
+    host_us), A1 at the cached window, a streamed frame (also host_us) and
+    the 480 x 640 image and A1-train at the v4 shape (a1_case, with device
+    ms),
     the v4 training step (RefineTrainer b2 t8, median
     of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
     windows and vitg's int8_static windows (time_windows, the int8 ones
@@ -3780,9 +3808,11 @@ def ab_tree(tree: str) -> dict:
                 ("vitl", CACHED_FRAMES * VIT_TOKENS, "f4_cached_window"),
                 ("vitl", VIT_TOKENS, "f4_stream_frame"),
                 ("vitl", CACHED_FRAMES * VIT_TOKENS, "f3_cached_window"),
-                ("vitl", VIT_TOKENS, "f3_stream_frame")):
-            name = ("int8_proj_residual" if key.startswith("f3")
-                    else "fused_ln_")
+                ("vitl", VIT_TOKENS, "f3_stream_frame"),
+                ("vitl", CACHED_FRAMES * VIT_TOKENS, "f1_cached_window"),
+                ("vitl", VIT_TOKENS, "f1_stream_frame")):
+            name = {"f3": "int8_proj_residual",
+                    "f1": "int8_ln_linear"}.get(key[:2], "fused_ln_")
             for c in int8_cases(rng, "ab", rows, enc):
                 if c["name"].startswith(name):
                     out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
@@ -3790,6 +3820,18 @@ def ab_tree(tree: str) -> dict:
                         kernel_ms(c["kern"], {}).values())
                     if key.endswith("stream_frame"):
                         out[f"{key}_host_us"] = host_us(c["kern"])
+            del c
+            torch.cuda.empty_cache()
+        for key, args in (("a1_cached_window", (CACHED_FRAMES,)),
+                          ("a1_stream_frame", (1,)),
+                          ("a1_image", (1, image_t)),
+                          ("a1_train_v4", (TRAIN_FRAMES, VIT_TOKENS, 16,
+                                           True))):
+            c = a1_case(rng, "ab", *args)
+            out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+            out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
+            if key == "a1_stream_frame":
+                out[f"{key}_host_us"] = host_us(c["kern"])
             del c
             torch.cuda.empty_cache()
     batch = train_batch(np.random.default_rng(SEED))

@@ -1,10 +1,11 @@
-"""F3's host-side plan (vdn_torch/kernels/int8.py ``f3_plan``) and the
-per-tile arithmetic of its wgmma + TMA kernel (csrc/int8_linear.cu on
-csrc/int8_wgmma.cuh and csrc/int8_tail.cuh), on the CPU.
+"""F3's host-side plan (vdn_torch/kernels/int8.py ``linear_plan`` at N =
+C) and the per-tile arithmetic of its wgmma + TMA kernel
+(csrc/int8_linear.cu on csrc/int8_wgmma.cuh and csrc/int8_tail.cuh), on
+the CPU.
 
 The kernel needs the card; what the wrapper computes in Python, the
-persistent grid by row count over tiles int8.F3_BN wide, is held here at the main
-path's row counts (a streamed frame, 1,370; the 480 x 640 image, 1,814;
+persistent grid by row count over tiles int8.LINEAR_BN wide, is held here
+at the main path's row counts (a streamed frame, 1,370; the 480 x 640 image, 1,814;
 the cached window, 22 x 1,370; the full window, 32 x 1,370) and every
 model's C (384, 768, 1024, 1536): the persistent blocks' walk covers
 every output exactly once.
@@ -58,19 +59,19 @@ def test_plan_covers_and_fits(path, c):
     every output once, at the width the kernel is built for, with a block
     a tile up to the card's SMs."""
     m = ROWS[path]
-    plan = int8.f3_plan(m, c, SMS)
-    assert set(plan) == {"grid"} and c % int8.F3_BN == 0
-    assert plan["grid"] == min(-(-m // int8.WG_ROWS) * (c // int8.F3_BN),
+    plan = int8.linear_plan(m, c, SMS)
+    assert set(plan) == {"grid"} and c % int8.LINEAR_BN == 0
+    assert plan["grid"] == min(-(-m // int8.WG_ROWS) * (c // int8.LINEAR_BN),
                                SMS)
-    assert covers_once(m, c, int8.F3_BN, plan["grid"])
+    assert covers_once(m, c, int8.LINEAR_BN, plan["grid"])
 
 
 def test_plan_small_card():
     """A card of 4 SMs and one of more SMs than tiles still cover once."""
     for c in (384, 1024):
         for sms in (4, 10 ** 4):
-            plan = int8.f3_plan(300, c, sms)
-            assert covers_once(300, c, int8.F3_BN, plan["grid"])
+            plan = int8.linear_plan(300, c, sms)
+            assert covers_once(300, c, int8.LINEAR_BN, plan["grid"])
 
 
 def replay(x, res, w, b, gamma, plan):
@@ -83,10 +84,10 @@ def replay(x, res, w, b, gamma, plan):
     s = torch.clamp_min(xf.abs().amax(1) / torch.tensor(127.0), 1e-30)
     xq = torch.round(xf * torch.reciprocal(s)[:, None]).to(torch.int8)
     out = torch.full_like(res, float("nan"))
-    for tiles in tiles_of(m, c, int8.F3_BN, plan["grid"]):
+    for tiles in tiles_of(m, c, int8.LINEAR_BN, plan["grid"]):
         for r0, c0 in tiles:
             rows = slice(r0, min(r0 + int8.WG_ROWS, m))
-            cols = slice(c0, c0 + int8.F3_BN)
+            cols = slice(c0, c0 + int8.LINEAR_BN)
             acc = (xq[rows].double() @ wq[cols].double().t()).float()
             v = acc * s[rows, None] * sw[cols]
             o = ((v + b[cols]) * gamma[cols]).to(x.dtype)
@@ -108,7 +109,7 @@ def test_replay_is_the_plain_version(m, c, sms):
 
     x, res = t(m, c).to(torch.bfloat16), t(m, c).to(torch.bfloat16)
     w, b, gamma = t(c, c, scale=c ** -0.5), t(c, scale=0.1), t(c, scale=0.5)
-    got, xq, sx = replay(x, res, w, b, gamma, int8.f3_plan(m, c, sms))
+    got, xq, sx = replay(x, res, w, b, gamma, int8.linear_plan(m, c, sms))
     ops = {}
     want = int8.int8_proj_residual_plain(x, res, w, b, gamma, operands=ops)
     assert torch.equal(got, want)

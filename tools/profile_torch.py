@@ -76,11 +76,15 @@ GROUPS = [
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
     (r"flash_bwd_dq_f32", "D2 dQ"),
     (r"flash_bwd_delta_f32", "D2 delta"),
-    # F3, F4 and F5 on the wgmma core (csrc/int8_tail.cuh, int8_linear.cu,
-    # ln_mlp_int8.cu, ln_swiglu_int8.cu): F3's rows skip the LayerNorm,
-    # its product takes one K chunk; F4's fc2 and F5's w3 (two chunks) are
-    # one instantiation
-    (r"ln_quant_rows_kernel<\d+, (false|\(bool\)0)>", "F3 quantize rows"),
+    # F1-F5 on the wgmma core (csrc/int8_tail.cuh, int8_linear.cu,
+    # ln_mlp_int8.cu, ln_swiglu_int8.cu): F1's rows by their caller tag,
+    # F2's and F3's skip the LayerNorm; F1 / F2's product by its bias
+    # epilogue, F3's takes one K chunk; F4's fc2 and F5's w3 (two chunks)
+    # are one instantiation
+    (r"ln_quant_rows_kernel<.*F1Rows", "F1 LayerNorm + quantize rows"),
+    (r"ln_quant_rows_kernel<\d+, (false|\(bool\)0),",
+     "F2 / F3 quantize rows"),
+    (r"EpiI8Linear", "F1 qkv / F2 int8 wgmma (+ b)"),
     (r"gemm_s8_wgmma_kernel<\d+, 1, .*EpiI8Residual",
      "F3 proj int8 wgmma (+ b, x gamma, + residual)"),
     (r"ln_quant_rows_kernel", "F4 / F5 LayerNorm + quantize rows"),
@@ -89,14 +93,9 @@ GROUPS = [
     (r"EpiSwigluHidden", "F5 w12 int8 wgmma (paired, SwiGLU epilogue)"),
     (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
      "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
-    # F1 and F2 on the mma.sync template (csrc/int8_gemm.cuh,
-    # int8_linear.cu)
-    (r"quant_rows_kernel<(true|\(bool\)1)>", "F1 LayerNorm + quantize rows"),
-    (r"quant_rows_kernel", "F2 quantize rows"),
-    (r"EpiI8Bias", "F1 qkv / F2 int8 GEMM"),
-    (r"flash_qkv_kernel<(\(bool\))?(1|true)>",
+    (r"a1_flash_kernel<(\(bool\))?(1|true)>",
      "A1-train flash attention (+ log-sum-exp)"),
-    (r"flash_qkv_kernel", "A1 flash attention"),
+    (r"a1_flash_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),
     (r"d1_dq", "D1 dQ (wgmma)"),

@@ -16,9 +16,8 @@
 // (2 * 8214 * 64 * 2 B = 2.1 MB for C1) and took an exact full-K softmax
 // over three [B, T, H, D] -> [BH, T, D] copies.  Neither carries over:
 //   - one block of four warps per (batch, head, 64-row q tile) streams
-//     64-key tiles with an online fp32 softmax, as A1 (flash_attn_qkv.cu)
-//     does, the next K/V tile arriving by cp.async while the current one is
-//     multiplied;
+//     64-key tiles with an online fp32 softmax, the next K/V tile arriving
+//     by cp.async while the current one is multiplied;
 //   - q, k, v and out are indexed in place through the row stride H * D and
 //     the head offset h * D: no transpose copies in or out;
 //   - the arithmetic is A1's: scale * log2(e) rounded to bf16 and folded

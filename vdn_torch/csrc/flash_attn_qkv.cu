@@ -2,249 +2,391 @@
 //
 // Replaces vdn/ops/pallas/flash_attention.py flash_attention_fused_qkv
 // (_flash_cols_kernel via _flash_cols_call): qkv [B, T, 3, H, D] ->
-// out [B, T, H, D], at vitl's B = 22 or 32 frames, T = 1370, H = 16,
-// D = 64, bf16.
+// out [B, T, H, D], D = 64, bf16; vitl's B = 22 or 32 frames, T = 1370,
+// H = 16 (vits 6, vitb 12, vitg 24 heads; T 1814 at a 480 x 640 image).
 //
 // Bound on the H100 by the two tensor-core products (4 * B * H * T^2 * D
-// FLOP) and the exp2 of every logit.  The TPU kernel held one head's whole
-// K and V (2 * 1370 * 64 * 2 B = 350 KB) in VMEM and took an exact full-K
-// softmax; that does not fit a Hopper block's shared memory, so this kernel
-// streams 64-key tiles with an online softmax (FlashAttention-2):
-//   - one block of four warps per (frame, head, 64-row q tile), each warp
-//     owning 16 q rows; q, k and v are read through strides straight out of
-//     [B, T, 3C] (no split or transpose copies, the point of the TPU
-//     kernel), the next K/V tile arriving by cp.async while the current one
-//     is multiplied;
-//   - S = q k^T and O += P V with mma.sync m16n8k16, fp32 accumulators;
-//     P's accumulator fragments are reused as the A operand of P V, and V's
-//     B fragments come from ldmatrix.trans;
-//   - fp32 running max and sum, base 2: scale * log2(e) is rounded to bf16
-//     and folded into q in bf16, as the TPU kernel; p is rounded to bf16
-//     before P V and the row sum is taken from the rounded p;
-//   - the ragged tail (T = 1370 = 21 * 64 + 26) is masked: q rows >= T are
-//     zero and never stored, key columns >= T get -inf logits and zero V.
+// FLOP) and, as much, by the exp2 of every logit: at D = 64 the two
+// products of a 64-row x 128-key tile take ~512 clocks of an SM's tensor
+// cores and its 8,192 exp2 as many of its MUFU (16 a clock).  The TPU
+// kernel held one head's whole K and V in VMEM and took an exact full-K
+// softmax; here the keys stream through shared memory with an online
+// softmax, and one warpgroup's softmax runs under the other's products
+// (FlashAttention-3's ping-pong), on wgmma and TMA (sm90.cuh):
+//   - persistent blocks (the Python plan's grid, one per SM) walk the
+//     work items (frame, head, 128-row q tile), the q tiles of one head on
+//     neighbouring blocks, so that its K and V stay in L2;
+//   - a producer warp keeps TMA loads in flight: each item's q tile (two
+//     buffers, so the next item's loads run under this one's products) and
+//     a ring of kStages stages, a 128-key K tile and its V tile each, all
+//     128-byte rows in the 128-byte swizzle behind full / empty mbarriers.
+//     The tensor maps keep the frame as a dimension of its own ([B, T,
+//     3C]), so TMA zero-fills rows >= T of the ragged tail (1370 = 10 *
+//     128 + 90) and never reads the next frame's;
+//   - two consumer warpgroups own 64 q rows each.  Each scales its rows in
+//     shared memory in place, qs = bf16(q * bf16(scale * log2 e)) as the
+//     TPU kernel folds it, and then per key tile j, in its turn, issues O
+//     += P_{j-1} V_{j-1} (register-A wgmma m64n64k16: P as bf16 A
+//     fragments, V read MN-major through the descriptor's transpose bit)
+//     and S_j = qs K_j^T (wgmma m64n128k16 from shared memory), hands the
+//     turn to the other warpgroup (named barriers), waits for both
+//     products, and runs the online softmax of S_j in registers while the
+//     other warpgroup's products run: the running max m, alpha = exp2(m_old
+//     - m) on O, p = bf16(exp2(S - m)) by the MUFU's ex2.approx.ftz.  qs
+//     stays in shared memory: as A fragments its 16 registers a thread
+//     would not fit beside S (64), P (32) and O (36) in the 168 that ptxas
+//     gives a thread of 288;
+//   - the row sum l of the rounded p comes from the tensor cores: P V runs
+//     as m64n72k16, V's 64 columns and 8 of a constant tile of ones in
+//     shared memory (its second swizzle atom along N, reached through the
+//     descriptor's leading byte offset), so O's columns 64-71 hold l in
+//     fp32 and the online rescale scales it with O.  Summed in registers
+//     (unpack and add, four instructions a pair of p) the row sums cost
+//     more than the exp2 (tools/a1_variants.py, PERF.md section 6);
+//   - the epilogue: O * (1 / l) to bf16 into the warpgroup's swizzled
+//     staging tile, stored by TMA through a 3-D map of out (rows >= T are
+//     not written).
 // Online rescaling rounds p against the running max instead of the final
-// one, so results differ from the TPU kernel by a few bf16 ulps at most.
+// one, so results differ from the TPU kernel's by a few bf16 ulps at most.
 //
-// The training forward (_flash_cols_call(save_lse=True)) is the same kernel
-// with kLse: it also writes each row's base-2 log-sum-exp m + log2(l) in
-// fp32 from the final running max and sum, laid out [B, H, T] (vdn's
-// [B, n_colblocks, hb, T] is a TPU lane constraint).  The backward (D1,
-// flash_attn_qkv_bwd.cu) recomputes the normalized softmax from it.
+// The training forward (_flash_cols_call(save_lse=True)) is the same
+// kernel with kLse: it also writes each row's base-2 log-sum-exp m +
+// log2(l) in fp32 from the final running max and sum, laid out [B, H, T]
+// (vdn's [B, n_colblocks, hb, T] is a TPU lane constraint).  The backward
+// (D1, flash_attn_qkv_bwd.cu) recomputes the normalized softmax from it.
 #include <math.h>
 
-#include "common.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kTile = 64;      // q rows and keys per tile
-constexpr int kLd = kD + 8;    // 144-byte rows: conflict-free loads
-constexpr int kThreads = 128;  // four warps of 16 q rows
+constexpr int kD = 64;          // head width: one 128-byte swizzle row
+constexpr int kRows = 128;      // q rows of a work item, keys of a stage
+constexpr int kTileBytes = kRows * kD * 2;  // 16 KB, 1024-aligned
+constexpr int kOutBytes = 64 * kD * 2;      // a warpgroup's staging tile
+constexpr int kStages = 4;
+// consumers: warpgroups 0 and 1; producer: one warp
+constexpr int kThreads = 288;
+constexpr int kConsumers = 256;
+constexpr int kBarriers = 2 * kStages + 4;
+// two q tiles, two staging tiles, the ring, the tile of ones, the
+// barriers, 1024 bytes of alignment
+constexpr int kSmem = 1024 + 2 * kTileBytes + 2 * kOutBytes +
+                      kStages * 2 * kTileBytes + kTileBytes + 8 * kBarriers;
+static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
+// named barriers: kTurn + w, warpgroup w's turn at the tensor cores;
+// kOwn + w, warpgroup w's own 128 threads
+constexpr int kTurn = 1, kOwn = 3;
+
+// D += A B, 64 x 72 x 16 bf16 -> fp32, A from registers (wgmma_rs's
+// fragments), B MN-major in shared memory: its columns 64-71 one swizzle
+// atom on, at the descriptor's leading byte offset
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, "
+      "p, 1, 1, 1;\n}\n"
+      : VDN_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The online softmax of one 64 x 128 tile S (accumulator layout; key0 the
+// key of this thread's first column, keys >= T masked where kMask): the
+// running max of the thread's two rows, O (and with it the row sums in its
+// columns 64-71) rescaled, and P = bf16(exp2(S - m)) as the A fragments
+// of the P V product.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[64],
+                                             uint32_t (&pa)[8][4],
+                                             float (&o)[36],
+                                             float (&m_run)[2], int key0,
+                                             int T) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask && key0 + 8 * i + (e & 1) >= T) s[4 * i + e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 36; ++i) o[i] *= alpha[(i >> 1) & 1];
+  // slice kk's fragment q: columns 16 kk + 8 (q / 2) + c2 (+1) of the
+  // thread's row q % 2
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = q & 1;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(
+          ex2(s[8 * kk + 2 * q] - m_run[r]),
+          ex2(s[8 * kk + 2 * q + 1] - m_run[r]));
+      pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+}
+
+// One turn's products: O += P [V | 1] (kPV, V at v_s, the ones at
+// ones_s) and S = qs K^T (kS, qs at qw, K at k_s), each a wgmma group of
+// its own.
+template <bool kPV, bool kS>
+__device__ __forceinline__ void issue(float (&o)[36], float (&s)[64],
+                                      const uint32_t (&pa)[8][4],
+                                      uint32_t v_s, uint32_t ones_s,
+                                      uint32_t qw, uint32_t k_s) {
+  wgmma_fence();
+  if constexpr (kPV) {
+    // the leading byte offset: the ones' atom, ones_s - v_s bytes on
+    const uint64_t lbo = static_cast<uint64_t>((ones_s - v_s) >> 4) << 16;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_n72(o, pa[kk],
+                   (desc_sw128(v_s + 2048 * kk) & ~(0x3FFFull << 16)) | lbo);
+    wgmma_commit();
+  }
+  if constexpr (kS) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(s, desc_sw128(qw + 32 * kk), desc_sw128(k_s + 32 * kk),
+                    kk);
+    wgmma_commit();
+  }
+}
 
 template <bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_qkv_kernel(const __nv_bfloat16* __restrict__ qkv, int T, int H,
-                 float qscale, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kLd];
+__global__ void __launch_bounds__(kThreads, 1)
+a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                const __grid_constant__ CUtensorMap map_out, int B, int T,
+                int H, float qscale, float* __restrict__ lse) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;                     // two q tiles
+  const uint32_t out_s = base + 2 * kTileBytes;  // two staging tiles
+  const uint32_t ring = out_s + 2 * kOutBytes;   // stage s: K, then V
+  const uint32_t ones_s = ring + kStages * 2 * kTileBytes;  // bf16 1.0
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      gbase + (ones_s - base) + kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* q_empty = q_full + 2;
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int C = H * kD, ld = 3 * C;
-  const __nv_bfloat16* base = qkv + (size_t)b * T * ld + h * kD;
+  const int C = H * kD;
+  const int n_t = (T + kRows - 1) / kRows;  // q tiles, and key tiles
+  const int items = B * H * n_t;
+  const int wgi = threadIdx.x >> 7;
 
-  auto load_kv = [&](int tile, int buf) {
-    const int k0 = tile * kTile;
-    for (int c = tid; c < 2 * kTile * (kD / 8); c += kThreads) {
-      const int which = c / (kTile * (kD / 8));  // 0: K, 1: V
-      const int r = (c / (kD / 8)) % kTile;
-      const int d = (c % (kD / 8)) * 8;
-      const int row = k0 + r;
-      const __nv_bfloat16* src =
-          base + (size_t)(row < T ? row : T - 1) * ld + (which + 1) * C + d;
-      __nv_bfloat16* dst = (which ? Vs[buf] : Ks[buf]) + r * kLd + d;
-      vdn::cp_async_16(dst, src, row < T ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumers);
     }
-    vdn::cp_async_commit();
-  };
-
-  const int n_tiles = (T + kTile - 1) / kTile;
-  load_kv(0, 0);
-
-  // q tile, pre-scaled by bf16(scale * log2 e) and rounded to bf16
-  for (int c = tid; c < kTile * (kD / 8); c += kThreads) {
-    const int r = c / (kD / 8), d = (c % (kD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T) {
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * ld + d);
-      __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(hv[j]);
-        hv[j] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
-      }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(smem_u32(&q_full[i]), 1);
+      mbar_init(smem_u32(&q_empty[i]), kConsumers);
     }
-    *reinterpret_cast<uint4*>(&Qs[r * kLd + d]) = v;
+    mbar_fence_init();
   }
+  for (int c = threadIdx.x; c < kTileBytes / 16; c += kThreads)
+    asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n"
+                 :: "r"(ones_s + 16 * c), "r"(0x3F803F80u) : "memory");
+  fence_async_shared();
   __syncthreads();
 
-  uint32_t qf[kD / 16][4];
-  {
-    const int r = warp * 16 + g;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(&Qs[r * kLd + c]);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r + 8) * kLd + c]);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(&Qs[r * kLd + c + 8]);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(&Qs[(r + 8) * kLd + c + 8]);
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+        const int qt = it % n_t, h = (it / n_t) % H, b = it / (n_t * H);
+        const int qb = i & 1;
+        const uint32_t qbar = smem_u32(&q_full[qb]);
+        mbar_wait(smem_u32(&q_empty[qb]), ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(qbar, kTileBytes);
+        tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
+                    qt * kRows, b);
+        for (int j = 0; j < n_t; ++j) {
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t bar = smem_u32(&full[stage]);
+          const uint32_t dst = ring + stage * 2 * kTileBytes;
+          mbar_expect_tx(bar, 2 * kTileBytes);
+          tma_load_3d(dst, &map_qkv, bar, C + h * kD, j * kRows, b);
+          tma_load_3d(dst + kTileBytes, &map_qkv, bar, 2 * C + h * kD,
+                      j * kRows, b);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
+    return;
   }
 
-  float o[kD / 8][4];
+  // ---- consumers: warpgroup wgi owns q rows [64 wgi, 64 wgi + 64) of
+  // each item's tile
+  const int t = threadIdx.x;
+  const int lt = t & 127;
+  const int c2 = 2 * (t & 3);
+  const int row = wg_row(t);  // and row + 8
+  const uint32_t stage_o = out_s + wgi * kOutBytes;
+  if (wgi == 1) named_arrive(kTurn, kConsumers);  // warpgroup 0 goes first
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+    const int qt = it % n_t, h = (it / n_t) % H, b = it / (n_t * H);
+    const int qb = i & 1;
+    const uint32_t qw = q_s + qb * kTileBytes + wgi * (kTileBytes / 2);
+    mbar_wait(smem_u32(&q_full[qb]), (i >> 1) & 1);
+    // qs = bf16(q * qscale) in place, 16 bytes a step
 #pragma unroll
-  for (int nd = 0; nd < kD / 8; ++nd)
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t at = qw + 16 * (lt + 128 * c);
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(at));
+      __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[nd][q] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv(j + 1, buf ^ 1);
-      vdn::cp_async_wait<1>();
-    } else {
-      vdn::cp_async_wait<0>();
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(hv[k]);
+        hv[k] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(at), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
     }
-    __syncthreads();
-    const __nv_bfloat16* ks = Ks[buf];
-    const __nv_bfloat16* vs = Vs[buf];
+    fence_async_shared();
+    named_sync(kOwn + wgi, 128);
 
-    float s[kTile / 8][4];
+    float o[36], s[64];  // O: columns 64-71 the row sums
+    uint32_t pa[8][4];
 #pragma unroll
-    for (int nj = 0; nj < kTile / 8; ++nj)
+    for (int k = 0; k < 36; ++k) o[k] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    int prev = 0;  // the stage of P's V
+    // turn j: P_{j-1} V_{j-1} (j > 0) and S_j (j < n_t)
+#pragma unroll 1
+    for (int j = 0; j <= n_t; ++j) {
+      const uint32_t k_s = ring + stage * 2 * kTileBytes;
+      const uint32_t v_s = ring + prev * 2 * kTileBytes + kTileBytes;
+      if (j < n_t) mbar_wait(smem_u32(&full[stage]), phase);
+      named_sync(kTurn + wgi, kConsumers);
+      if (j == 0)
+        issue<false, true>(o, s, pa, v_s, ones_s, qw, k_s);
+      else if (j < n_t)
+        issue<true, true>(o, s, pa, v_s, ones_s, qw, k_s);
+      else
+        issue<true, false>(o, s, pa, v_s, ones_s, qw, k_s);
+      named_arrive(kTurn + (wgi ^ 1), kConsumers);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) s[nj][q] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-#pragma unroll
-      for (int nj = 0; nj < kTile / 8; ++nj) {
-        const int r = nj * 8 + g;
-        uint32_t bfr[2];
-        bfr[0] = *reinterpret_cast<const uint32_t*>(&ks[r * kLd + c]);
-        bfr[1] = *reinterpret_cast<const uint32_t*>(&ks[r * kLd + c + 8]);
-        vdn::mma_bf16_16816(s[nj], qf[kk], bfr);
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+      if (j > 0) mbar_arrive(smem_u32(&empty[prev]));
+      if (j == n_t) break;
+      if ((j + 1) * kRows > T)
+        softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, T);
+      else
+        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
+    mbar_arrive(smem_u32(&q_empty[qb]));
 
-    // mask, running max, p = bf16(exp2(s - m))
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nj = 0; nj < kTile / 8; ++nj) {
-      const int key = j * kTile + nj * 8 + 2 * t;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (key + (q & 1) >= T) s[nj][q] = -INFINITY;
-        mx[q >> 1] = fmaxf(mx[q >> 1], s[nj][q]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nj = 0; nj < kTile / 8; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float p = vdn::bf16r(exp2f(s[nj][q] - m_run[q >> 1]));
-        s[nj][q] = p;
-        l_run[q >> 1] += p;
-      }
-#pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) o[nd][q] *= alpha[q >> 1];
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = vdn::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = vdn::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = vdn::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = vdn::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int mat = lane >> 3;
-      const int key = kk * 16 + (mat & 1) * 8 + (lane & 7);
-#pragma unroll
-      for (int nd = 0; nd < kD / 16; ++nd) {
-        uint32_t v4[4];
-        vdn::ldmatrix_x4_trans(v4, &vs[key * kLd + (2 * nd + (mat >> 1)) * 8]);
-        const uint32_t b0[2] = {v4[0], v4[1]};
-        const uint32_t b1[2] = {v4[2], v4[3]};
-        vdn::mma_bf16_16816(o[2 * nd], a, b0);
-        vdn::mma_bf16_16816(o[2 * nd + 1], a, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row >= T) continue;
-    const float l = l_run[r];
+    // ---- epilogue: O * (1 / l) into the staging tile, one TMA store of
+    // the warpgroup's 64 rows
+    const float l[2] = {o[32], o[34]};  // rows row and row + 8
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    const int row0 = qt * kRows + wgi * 64;
     if constexpr (kLse) {
-      if (t == 0) lse[((size_t)b * H + h) * T + row] = m_run[r] + log2f(l);
-    }
-    __nv_bfloat16* dst = out + ((size_t)b * T + row) * C + h * kD + 2 * t;
+      if ((t & 3) == 0) {
 #pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(dst + nd * 8) =
-          vdn::pack_bf16(o[nd][2 * r] / l, o[nd][2 * r + 1] / l);
+        for (int r = 0; r < 2; ++r) {
+          const int q = row0 + row + 8 * r;
+          if (q < T)
+            lse[((size_t)b * H + h) * T + q] = m_run[r] + log2f(l[r]);
+        }
+      }
+    }
+    if (lt == 0) bulk_wait<true>();  // the last item's store has read it
+    named_sync(kOwn + wgi, 128);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t at =
+            staged_tile<64>(stage_o, row + 8 * r, 8 * n8 + c2);
+        const uint32_t bits = vdn::pack_bf16(o[4 * n8 + 2 * r] * inv[r],
+                                             o[4 * n8 + 2 * r + 1] * inv[r]);
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(at), "r"(bits) : "memory");
+      }
+    fence_async_shared();
+    named_sync(kOwn + wgi, 128);
+    if (lt == 0 && row0 < T) {
+      tma_store_3d(&map_out, stage_o, h * kD, row0, b);
+      bulk_commit();
+    }
   }
+  if (wgi == 0) named_sync(kTurn, kConsumers);  // warpgroup 1's last turn
+  if (lt == 0) bulk_wait<false>();
+}
+
+template <bool kLse>
+cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
+                       void* out, float* lse, int grid, cudaStream_t s) {
+  if (B < 1 || T < 1 || H < 1 || grid < 1) return cudaErrorInvalidValue;
+  CUtensorMap map_qkv, map_out;
+  cudaError_t err = encode_rows_bf16(&map_qkv, qkv, B, T, 3 * H * kD, kRows);
+  if (err == cudaSuccess)
+    err = encode_rows_bf16(&map_out, out, B, T, H * kD, 64);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      a1_flash_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (attr != cudaSuccess) return attr;
+  a1_flash_kernel<kLse><<<grid, kThreads, kSmem, s>>>(map_qkv, map_out, B,
+                                                      T, H, qscale, lse);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv [B, T, 3 * H * 64] bf16 -> out [B, T, H * 64] bf16.  qscale is
-// bf16(scale * log2 e).  Head width 64 only.
+// bf16(scale * log2 e); grid the persistent blocks (the Python plan's).
+// Head width 64 only.
 extern "C" int vdn_flash_attention_qkv(const void* qkv, int B, int T, int H,
-                                       float qscale, void* out,
+                                       float qscale, void* out, int grid,
                                        void* stream) {
-  dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_qkv_kernel<false>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(qkv), T, H, qscale,
-          static_cast<__nv_bfloat16*>(out), nullptr);
-  return cudaGetLastError();
+  return launch_fwd<false>(qkv, B, T, H, qscale, out, nullptr, grid,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: as above, and lse [B, H, T] fp32, the base-2
 // log-sum-exp of each row's logits (scaled by qscale).
 extern "C" int vdn_flash_attention_qkv_lse(const void* qkv, int B, int T,
                                            int H, float qscale, void* out,
-                                           void* lse, void* stream) {
-  dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_qkv_kernel<true>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(qkv), T, H, qscale,
-          static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse));
-  return cudaGetLastError();
+                                           void* lse, int grid,
+                                           void* stream) {
+  return launch_fwd<true>(qkv, B, T, H, qscale, out, static_cast<float*>(lse),
+                          grid, static_cast<cudaStream_t>(stream));
 }

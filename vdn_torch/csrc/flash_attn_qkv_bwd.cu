@@ -54,12 +54,9 @@
 
 #include <type_traits>
 
-#include "common.cuh"
-#include "sm90.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
-
-using namespace vdn::wg;
 
 constexpr int kD = 64;         // head width: one 128-byte swizzle row
 constexpr int kRows = 64;      // rows of one TMA box (q rows or keys)
@@ -87,87 +84,6 @@ constexpr int kStagesQ = 6;
 constexpr int kSmemQ = 1024 + 2 * kBlockRows * kD * 2
                        + kStagesQ * 2 * kTileBytes + 8 * (2 * kStagesQ + 1);
 static_assert(kSmemQ <= 232448, "an H100 block's dynamic shared memory");
-
-#define VDN_D32(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-#define VDN_R32                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// D (+)= A B, 64 x 64 x 16 bf16 -> fp32, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VDN_R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : VDN_D32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (+)= A B, A from registers (the A fragment layout of a 64 x 16 slice:
-// that of mma.sync m16n8k16 for warp w's rows 16 w .. 16 w + 15, which the
-// m64n64 accumulator layout is, rounded to bf16 pairs), B in shared memory,
-// K-major or (kTransB) MN-major
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VDN_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : VDN_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate), "n"(kTransB));
-}
-
-// The A fragments (16 rows x 64 columns a warp, four 16-wide K slices) of
-// a 64-row bf16 tile in the 128-byte swizzle (TMA's layout: 16-byte chunk
-// c of row r at r * 128 + ((c ^ (r % 8)) * 16)), by ldmatrix: lane l
-// gives the row of matrix l / 8 (rows +8 for matrices 1 and 3, the second
-// 8 columns of the slice for 2 and 3)
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4],
-                                             uint32_t tile, int warp,
-                                             int lane) {
-  const int r = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = 2 * kk + (lane >> 4);
-    const uint32_t addr = tile + r * 128 + ((c ^ (r & 7)) << 4);
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
-        : "r"(addr));
-  }
-}
-
-// 2^x, flushing results below 2^-126 to zero (p's smallest contributions)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The A fragments of the 64 x 64 product x (accumulator layout) in bf16,
-// one per 16-wide K slice kk: columns 16 kk + 2 (l % 4) (+1) and + 8
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
-                                           const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = vdn::pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    a[kk][1] = vdn::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = vdn::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = vdn::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
 
 // qs, delta and the padded lse: 8 threads per (b, t, h) row, d [8 j, 8 j +
 // 8) each; rows t in [T, Tp) write the pads only
@@ -222,12 +138,6 @@ __global__ void d1_prepass_kernel(const __nv_bfloat16* __restrict__ qkv,
     delta[st] = acc;
     lse2[st] = lse[((size_t)b * H + h) * T + t];
   }
-}
-
-// this consumer thread's row (key or q row) within its warpgroup's 64 and
-// its first column
-__device__ __forceinline__ int wg_row(int t) {
-  return ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -535,19 +445,6 @@ d1_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
   }
 }
 
-// [B, T, width] bf16 loaded as 64 x 64 boxes (one frame, 64 rows of the
-// head's 64 columns) in the 128-byte swizzle
-cudaError_t encode_rows_bf16(CUtensorMap* map, const void* ptr, int B, int T,
-                             int width) {
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
-                                 (cuuint64_t)width * 2 * T};
-  const cuuint32_t box[3] = {kD, kRows, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims,
-                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 // [B * H, Tp] fp32 loaded as 64-value rows
 cudaError_t encode_stats(CUtensorMap* map, const float* ptr, int rows,
                          int Tp) {
@@ -586,9 +483,11 @@ extern "C" int vdn_flash_attention_qkv_bwd(const void* qkv, const void* out,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap map_qkv, map_qs, map_do, map_lse, map_delta;
-  if ((err = encode_rows_bf16(&map_qkv, qkv, B, T, 3 * C)) != cudaSuccess ||
-      (err = encode_rows_bf16(&map_qs, qs, B, T, C)) != cudaSuccess ||
-      (err = encode_rows_bf16(&map_do, dout, B, T, C)) != cudaSuccess ||
+  if ((err = encode_rows_bf16(&map_qkv, qkv, B, T, 3 * C, kRows)) !=
+          cudaSuccess ||
+      (err = encode_rows_bf16(&map_qs, qs, B, T, C, kRows)) != cudaSuccess ||
+      (err = encode_rows_bf16(&map_do, dout, B, T, C, kRows)) !=
+          cudaSuccess ||
       (err = encode_stats(&map_lse, lse2, B * H, Tp)) != cudaSuccess ||
       (err = encode_stats(&map_delta, delta, B * H, Tp)) != cudaSuccess)
     return err;

@@ -1,8 +1,8 @@
 // The stages that F4 (ln_mlp_int8.cu) and F5 (ln_swiglu_int8.cu) share
-// around their first product: the LayerNorm + quantize row kernel (F3's
-// row quantizer too, without the LayerNorm: int8_linear.cu), the hidden's
-// quantizer, and the second product with its residual epilogue on the
-// wgmma core (int8_wgmma.cuh).  Internal linkage: each source that
+// around their first product: the LayerNorm + quantize row kernel (F1's
+// too, and without the LayerNorm F2's and F3's: int8_linear.cu), the
+// hidden's quantizer, and the second product with its residual epilogue
+// on the wgmma core (int8_wgmma.cuh).  Internal linkage: each source that
 // includes it gets its own copy.
 #pragma once
 
@@ -11,14 +11,16 @@
 namespace {
 
 // Per row of x [M, C] bf16: vdn's fp32 LayerNorm ((x - mean) * rsqrt(var +
-// eps)) * w + b (two-pass statistics; kLn false: y = x, F3's rows), then s
-// = max(amax / 127, 1e-30) and q = round_half_even(y * (1 / s)) into yq
-// [M, C] and sy [M]: the sums and roundings of quant_rows_kernel<kLn>
-// (int8_gemm.cuh) in the same order, lane l holding the 8-value groups at
-// l * 8 + 256 i (kV of them, C <= 256 kV) from one read of the row.  One
-// warp per row.  With the LayerNorm it also zeroes the row's two slots of
-// fc1's hidden absmax (F4 / F5).
-template <int kV, bool kLn>
+// eps)) * w + b (two-pass statistics, mean then squared deviations; kLn
+// false: y = x, F2's and F3's rows), then s = max(amax / 127, 1e-30) and q
+// = round_half_even(y * (1 / s)) into yq [M, C] and sy [M], lane l holding
+// the 8-value groups at l * 8 + 256 i (kV of them, C <= 256 kV) from one
+// read of the row.  One warp per row.  Where hidden_amax is given (F4 /
+// F5: with the LayerNorm) it also zeroes the row's two slots of fc1's
+// hidden absmax.  Caller, an empty tag type of the source that launches
+// it (F1Rows), or void, puts its name in the kernel's, so a profiler's
+// trace files F1's rows apart from F4's and F5's.
+template <int kV, bool kLn, class Caller = void>
 __global__ void __launch_bounds__(256)
 ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
                      const float* __restrict__ ln_w,
@@ -88,31 +90,35 @@ ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int M, int C,
   if (lane == 0) {
     s[row] = sc;
     // the row's two slots of fc1's atomicMax (stage 2)
-    if constexpr (kLn) hidden_amax[2 * row] = hidden_amax[2 * row + 1] = 0u;
+    if (hidden_amax != nullptr)
+      hidden_amax[2 * row] = hidden_amax[2 * row + 1] = 0u;
   }
 }
 
-template <int kV, bool kLn>
-cudaError_t launch_ln_quant_rows(const __nv_bfloat16* x, int M, int C,
-                                 const float* ln_w, const float* ln_b,
-                                 float eps, int8_t* q, float* s,
-                                 unsigned* amax, cudaStream_t stream) {
-  ln_quant_rows_kernel<kV, kLn><<<(M + 7) / 8, 256, 0, stream>>>(
-      x, M, C, ln_w, ln_b, eps, q, s, amax);
-  return cudaGetLastError();
-}
-
 // the row kernel at the least kV that holds C (C % 128 == 0, C <= 2048);
-// kLn false (F3) takes no LayerNorm parameters and no absmax
-template <bool kLn = true>
+// kLn false (F2, F3) takes no LayerNorm parameters; amax null: no hidden
+// absmax (F1, F2, F3)
+template <bool kLn = true, class Caller = void>
 cudaError_t launch_rows(const __nv_bfloat16* x, int M, int C,
                         const float* w, const float* b, float eps, int8_t* q,
                         float* s, unsigned* amax, cudaStream_t st) {
-  return C <= 512    ? launch_ln_quant_rows<2, kLn>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 768  ? launch_ln_quant_rows<3, kLn>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 1024 ? launch_ln_quant_rows<4, kLn>(x, M, C, w, b, eps, q, s, amax, st)
-         : C <= 1536 ? launch_ln_quant_rows<6, kLn>(x, M, C, w, b, eps, q, s, amax, st)
-                     : launch_ln_quant_rows<8, kLn>(x, M, C, w, b, eps, q, s, amax, st);
+  const unsigned grid = (M + 7) / 8;
+  if (C <= 512)
+    ln_quant_rows_kernel<2, kLn, Caller><<<grid, 256, 0, st>>>(
+        x, M, C, w, b, eps, q, s, amax);
+  else if (C <= 768)
+    ln_quant_rows_kernel<3, kLn, Caller><<<grid, 256, 0, st>>>(
+        x, M, C, w, b, eps, q, s, amax);
+  else if (C <= 1024)
+    ln_quant_rows_kernel<4, kLn, Caller><<<grid, 256, 0, st>>>(
+        x, M, C, w, b, eps, q, s, amax);
+  else if (C <= 1536)
+    ln_quant_rows_kernel<6, kLn, Caller><<<grid, 256, 0, st>>>(
+        x, M, C, w, b, eps, q, s, amax);
+  else
+    ln_quant_rows_kernel<8, kLn, Caller><<<grid, 256, 0, st>>>(
+        x, M, C, w, b, eps, q, s, amax);
+  return cudaGetLastError();
 }
 
 // hq = round(h * (1 / s)) with s = max(amax / 127, 1e-30) per (row, F / 2
@@ -156,6 +162,7 @@ inline cudaError_t launch_quant_hidden(const float* h, const unsigned* amax, int
 // (F3, F4, F5): LayerScale and the block residual (int8.py:201-215,
 // :331-332), on the core's inline path (a residual pair staged by TMA).
 struct EpiI8Residual {
+  static constexpr bool kResidual = true;
   const float* b;
   const float* gamma;
   __device__ __forceinline__ float4 col(int n) const {

@@ -1,5 +1,4 @@
-// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F3, F4
-// and F5; F1 adopts it in its turn):
+// The warp-specialised int8 GEMM core on Hopper's wgmma and TMA (F1-F5):
 //   out = epi( sum_j (float(A_j @ W_j^T) * rs[m, j]) * cs[n] )
 //
 //   A   [M, K] int8, K contiguous (rows quantized by a row kernel)
@@ -12,8 +11,8 @@
 //       per-output-channel scales
 //   epi epilogue functor (below)
 //
-// Replaces the mma.sync template (int8_gemm.cuh) for the products of
-// vdn/ops/pallas/int8.py's _proj_residual_kernel, _ln_mlp_int8_kernel and
+// The products of vdn/ops/pallas/int8.py's _ln_linear_kernel,
+// _linear_kernel, _proj_residual_kernel, _ln_mlp_int8_kernel and
 // _ln_swiglu_int8_kernel:
 // int8 wgmma takes K-major operands only, which A and W already are.  One
 // persistent block per SM walks the 128 x BN output tiles (tile t: rows
@@ -37,14 +36,16 @@
 // value column of the same output, paired by the epilogue in registers.
 //
 // The epilogue runs in one of two places.  Inline, in the consumers after
-// their K loop: a residual epilogue (F3's product, F4's fc2, F5's w3),
-// out = epi(epi.col(n), v0, v1, res) for two adjacent values of one row,
-// whose residual tile [128, BN] bf16 one consumer thread loads by TMA into
-// a swizzled staging tile at the tile's start, under the K loop; the
-// pairs go back into the tile in place and one thread stores it with TMA
-// (from registers, four bytes a thread, the residual loads and output
-// stores took 0.13 of F3's 0.19 ms at the cached window on the H100:
-// PERF.md, section 6).  Or, with kEpiWarps, epi(v, m, n, M) over one
+// their K loop, out = epi(epi.col(n), v0, v1[, res]) for two adjacent
+// values of one row into a swizzled staging tile [128, BN] bf16 that one
+// thread stores with TMA (from registers, four bytes a thread, the
+// residual loads and output stores took 0.13 of F3's 0.19 ms at the
+// cached window on the H100: PERF.md, section 6).  With Epi::kResidual
+// (F3's product, F4's fc2, F5's w3) one consumer thread first loads the
+// residual tile into the staging tile by TMA, at the tile's start, under
+// the K loop, and the pairs go back into it in place; without (F1's and
+// F2's bias epilogue) the consumers only wait for the last tile's store
+// to have read it.  Or, with kEpiWarps, epi(v, m, n, M) over one
 // consumer thread's values of a tile, in two more warpgroups: the
 // consumers drop a tile's dequantized values
 // into a shared staging buffer, laid out [value][consumer thread], and go
@@ -241,16 +242,18 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       const int m = m0 + row_in;
       const int n = n0 + col_in;
       if constexpr (!kEpiWarps) {
-        if (threadIdx.x == 0) {
-          // the residual tile, once the last tile's store has read the
-          // staging tile
-          bulk_wait<true>();
-          const uint32_t bar = smem_u32(staged);
-          mbar_expect_tx(bar, T::kStaging);
+        if constexpr (Epi::kResidual) {
+          if (threadIdx.x == 0) {
+            // the residual tile, once the last tile's store has read the
+            // staging tile
+            bulk_wait<true>();
+            const uint32_t bar = smem_u32(staged);
+            mbar_expect_tx(bar, T::kStaging);
 #pragma unroll
-          for (int a = 0; a < BN / 64; ++a)
-            tma_load_2d(stage_res + a * kBM * 128, &map_res, bar,
-                        n0 + 64 * a, m0);
+            for (int a = 0; a < BN / 64; ++a)
+              tma_load_2d(stage_res + a * kBM * 128, &map_res, bar,
+                          n0 + 64 * a, m0);
+          }
         }
       }
 #pragma unroll
@@ -311,9 +314,14 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       if constexpr (kEpiWarps) {
         mbar_arrive(smem_u32(staged));
       } else {
-        // each pair against its residual pair, in place in the staging
-        // tile, then one TMA store of the tile (no row past M)
-        mbar_wait(smem_u32(staged), round & 1);
+        // each pair (against its residual pair, in place) into the
+        // staging tile, then one TMA store of the tile (no row past M)
+        if constexpr (Epi::kResidual) {
+          mbar_wait(smem_u32(staged), round & 1);
+        } else {
+          if (threadIdx.x == 0) bulk_wait<true>();  // the last tile's store
+          named_sync(1, kConsumers);
+        }
 #pragma unroll
         for (int i = 0; i < T::kRegs / 4; ++i) {
           const int col = col_in + 8 * i;
@@ -323,10 +331,15 @@ gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
             const uint32_t at = staged_tile<kBM>(stage_res, row_in + 8 * h,
                                                  col);
             uint32_t bits;
-            asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(bits) : "r"(at));
-            const float2 res = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&bits));
-            bits = epi(c, val[4 * i + 2 * h], val[4 * i + 2 * h + 1], res);
+            if constexpr (Epi::kResidual) {
+              asm volatile("ld.shared.b32 %0, [%1];\n"
+                           : "=r"(bits) : "r"(at));
+              const float2 res = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&bits));
+              bits = epi(c, val[4 * i + 2 * h], val[4 * i + 2 * h + 1], res);
+            } else {
+              bits = epi(c, val[4 * i + 2 * h], val[4 * i + 2 * h + 1]);
+            }
             asm volatile("st.shared.b32 [%0], %1;\n"
                          :: "r"(at), "r"(bits) : "memory");
           }
@@ -380,7 +393,8 @@ inline cudaError_t encode_rows(CUtensorMap* map, const int8_t* ptr, int K,
 // == 0, W [2N, K]), K-contiguous rows and 16-byte aligned pointers
 // (checked by the Python wrappers); grid is the number of persistent
 // blocks (at most the tile count).  The inline epilogue (no kEpiWarps)
-// reads the residual res and writes out, both [M, N] bf16.
+// writes out and, with Epi::kResidual, reads the residual res, both [M,
+// N] bf16.
 template <int BN, int kChunks, bool kEpiWarps, bool kPaired = false,
           class Epi>
 cudaError_t launch_gemm_s8_wgmma(int M, int N, int K, const int8_t* A,
@@ -398,8 +412,10 @@ cudaError_t launch_gemm_s8_wgmma(int M, int N, int K, const int8_t* A,
   cudaError_t err = encode_rows(&map_a, A, K, M, kBM);
   if (err != cudaSuccess) return err;
   err = encode_rows(&map_w, W, K, kPaired ? 2 * N : N, kTileN);
-  if (err == cudaSuccess && !kEpiWarps)
-    err = encode_bf16(&map_res, res, N, M, kBM);
+  if constexpr (!kEpiWarps) {
+    if (err == cudaSuccess && Epi::kResidual)
+      err = encode_bf16(&map_res, res, N, M, kBM);
+  }
   if (err == cudaSuccess && !kEpiWarps)
     err = encode_bf16(&map_out, out, N, M, kBM);
   if (err != cudaSuccess) return err;

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks of the warp-specialised kernels (F3-F5
-// on int8_wgmma.cuh, A2, D3 and A4 on bf16_wgmma.cuh, D1 in
-// flash_attn_qkv_bwd.cu): mbarriers with a watchdog, TMA tile loads and
-// stores, wgmma shared-memory descriptors and fences, named barriers,
-// setmaxnreg, the tensor-map encoders and the swizzled bf16 staging
-// tile's addressing.
+// Hopper (sm_90a) building blocks of the warp-specialised kernels (F1-F5
+// on int8_wgmma.cuh, A2, D3 and A4 on bf16_wgmma.cuh, A1 and D1 in
+// flash_attn_qkv.cu and flash_attn_qkv_bwd.cu): mbarriers with a
+// watchdog, TMA tile loads and stores, wgmma shared-memory descriptors and
+// fences, named barriers, setmaxnreg, the tensor-map encoders and the
+// swizzled bf16 staging tile's addressing.
 //
 // A wait on an mbarrier that outlives kWaitNs traps (a launch failure,
 // never a hang).  Tensor maps are encoded on the host at every launch
@@ -100,6 +100,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -119,6 +129,11 @@ __device__ __forceinline__ void fence_async_shared() {
 // barrier ``id`` (1..15) over ``threads`` threads (whole warps)
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+// arrive at barrier ``id`` without waiting (a producer of the barrier's
+// phase, against the threads that named_sync on it)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // wgmma descriptor of a tile in the 128-byte swizzle: rows of 128 bytes,
@@ -158,6 +173,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 template <int R>

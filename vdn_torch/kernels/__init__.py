@@ -88,8 +88,8 @@ launches = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _P),
-    "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _P),
+    "vdn_flash_attention_qkv": (_P, _I, _I, _I, _F, _P, _I, _P),
+    "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _I, _P),
     "vdn_flash_attention_qkv_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
                                     _P, _P, _P),
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
@@ -113,7 +113,7 @@ _SIGNATURES = {
     "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _F, _P, _P),
-    "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 7,
+    "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 6 + (_I,),
     "vdn_int8_proj_residual": (_P, _P, _I, _I) + (_P,) * 7 + (_I, _P),
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
     + (_I,) * 3 + (_P,),

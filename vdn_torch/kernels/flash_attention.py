@@ -3,10 +3,13 @@
 A1 replaces vdn/ops/pallas/flash_attention.py ``flash_attention_fused_qkv``
 (the TPU's full-K ``_flash_cols_kernel``): ViT self-attention read off the
 fused qkv projection.  On the H100 the kernel (csrc/flash_attn_qkv.cu) is
-bound by its two tensor-core products and the exp2 of every logit; one
-head's K/V (350 KB at T = 1370) does not fit a block's shared memory, so it
-streams 64-key tiles with an online softmax and masks the ragged tail
-itself.  See the note in the .cu file.
+bound by its two tensor-core products and, as much, by the exp2 of every
+logit; one head's K/V (350 KB at T = 1370) does not fit a block's shared
+memory, so it streams 128-key tiles through a TMA ring with an online
+softmax, two consumer warpgroups of 64 q rows taking turns at the wgmma
+products so that one's softmax runs under the other's products.
+Persistent blocks walk the (frame, head, 128-row q tile) items
+(``a1_plan``).  See the note in the .cu file.
 
 C2 replaces ``flash_attention`` (``_flash_kernel``) and C1
 ``flash_attention_colbias`` (``_flash_colbias_kernel``): attention over
@@ -66,11 +69,23 @@ from typing import Optional
 import torch
 
 from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
-                               same_dispatch, save_dispatch, use_kernel,
-                               wants_grad)
+                               same_dispatch, save_dispatch, sm_count,
+                               use_kernel, wants_grad)
 
 MAX_KEY_TILES = 2560  # csrc/flash_attn_bthd.cu: live-tile flags in shared memory
 D1_ROWS = 128         # csrc/flash_attn_qkv_bwd.cu: keys / q rows of a block
+A1_ROWS = 128         # csrc/flash_attn_qkv.cu: q rows of an item, keys a tile
+
+
+def a1_plan(b: int, t: int, h: int, sms: int) -> dict:
+    """A1's launch for b frames of t tokens and h heads on a card of
+    ``sms`` SMs: its work items, (frame, head, A1_ROWS-row q tile) in that
+    order with the q tile fastest (item i: tile i % n, head (i // n) % h,
+    frame i // (n h)), and the persistent blocks, min(items, sms); block k
+    takes items k, k + grid, ...  Each item walks the t keys in
+    A1_ROWS-key tiles."""
+    items = b * h * -(-t // A1_ROWS)
+    return {"items": items, "grid": min(items, sms)}
 
 
 def _qscale(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -220,14 +235,15 @@ def _fused_qkv_forward(qkv: torch.Tensor, scale: Optional[float],
     # scale * log2(e) rounded to bf16, as the plain version folds it
     qscale = _kernel_qscale(scale)
     out = torch.empty((b, t, h, d), dtype=qkv.dtype, device=qkv.device)
+    grid = a1_plan(b, t, h, sm_count(qkv.device.index))["grid"]
     if not save_lse:
         launch("vdn_flash_attention_qkv", qkv.data_ptr(), b, t, h, qscale,
-               out.data_ptr())
+               out.data_ptr(), grid)
         launches["flash_attention_fused_qkv"] += 1
         return out
     lse = torch.empty((b, h, t), dtype=torch.float32, device=qkv.device)
     launch("vdn_flash_attention_qkv_lse", qkv.data_ptr(), b, t, h, qscale,
-           out.data_ptr(), lse.data_ptr())
+           out.data_ptr(), lse.data_ptr(), grid)
     launches["flash_attention_fused_qkv_train"] += 1
     return out, lse
 

@@ -22,13 +22,14 @@ symmetric with no zero points:
 
 On the H100 each kernel is a row kernel (LayerNorm or identity, row amax,
 int8 rows and their scales) followed by int8 tile GEMMs with the
-dequantization in their epilogues.  F1 and F2 run their products on
-mma.sync m16n8k32 (csrc/int8_gemm.cuh, csrc/int8_linear.cu).  F3, F4 and
-F5 run on the warp-specialised wgmma + TMA core (csrc/int8_wgmma.cuh,
-persistent blocks over 128-row tiles; see ``f3_plan``, ``f4_plan`` and
-``f5_plan``).  F3 is F4's last two stages (csrc/int8_tail.cuh): the row
-quantizer without the LayerNorm, then the product with one K chunk and
-the residual epilogue.  F4 and F5:
+dequantization in their epilogues, all on the warp-specialised wgmma +
+TMA core (csrc/int8_wgmma.cuh, persistent blocks over 128-row tiles; see
+``linear_plan``, ``f4_plan`` and ``f5_plan``) and F4's register-resident
+row kernel (csrc/int8_tail.cuh).  F1, F2 and F3 (csrc/int8_linear.cu) are
+the row kernel (F1 with the LayerNorm, F2 and F3 without), then the
+product with one K chunk and its epilogue through a staging tile stored
+by TMA: F1 and F2 add the bias, F3 LayerScale and the residual (its tile
+loaded by TMA).  F4 and F5:
 the row kernel, the first product with its epilogue (F4: GELU; F5: the
 core's paired mode, a tile's 64 gate and 64 value columns of the same
 outputs in one thread, SwiGLU), writing the fp32 hidden and its absmax
@@ -71,13 +72,12 @@ __all__ = ["quantize_weight_cols", "quantize_rows", "int8_serving_enabled",
 
 F_CHUNKS = 2          # vdn's _F_CHUNKS: hidden scales per (row, F / 2)
 INT8_MIN_ROWS = 1024  # one 518 x 518 image (1370 tokens) qualifies
-K_TILE = 64           # csrc/int8_gemm.cuh: bytes of K per slice (F1, F2)
-# csrc/int8_wgmma.cuh: rows and bytes of K of a tile; F4's fc1 tile width
-# (csrc/ln_mlp_int8.cu), F5's output columns of a paired w12 tile
-# (csrc/ln_swiglu_int8.cu), and the widest C their row kernel (and F3's)
-# holds in registers (csrc/int8_tail.cuh)
+# csrc/int8_wgmma.cuh: rows and bytes of K of a tile; F1-F3's product tile
+# width (csrc/int8_linear.cu), F4's fc1 tile width (csrc/ln_mlp_int8.cu),
+# F5's output columns of a paired w12 tile (csrc/ln_swiglu_int8.cu), and
+# the widest C their row kernel holds in registers (csrc/int8_tail.cuh)
 WG_ROWS, WG_K = 128, 128
-F3_BN = 128           # F3's product tile width (csrc/int8_linear.cu)
+LINEAR_BN = 128
 F4_BN1 = 128
 F5_BN1 = 64
 F4_MAX_C = 2048
@@ -245,13 +245,14 @@ def _serving_only(name: str, *tensors) -> None:
 
 
 def _check(name: str, x, *pairs) -> None:
-    """bf16 x and int8 weights [F, K] whose K takes whole 64-byte slices."""
+    """bf16 x and int8 weights [F, K] whose K takes whole 128-byte slices
+    (WG_K), up to the row kernel's F4_MAX_C."""
     for wq, k in pairs:
         if (x.dtype != torch.bfloat16 or wq.dtype != torch.int8
-                or wq.shape[1] != k or k % K_TILE or wq.shape[0] % 8):
+                or wq.shape[1] != k or k % WG_K or wq.shape[0] % 8):
             raise ValueError(
                 f"{name}: kernel takes bf16 x and int8 weights [F, K] with K "
-                f"a multiple of {K_TILE} and F of 8, got x "
+                f"a multiple of {WG_K} and F of 8, got x "
                 f"{tuple(x.shape)} {x.dtype}, weight {tuple(wq.shape)} "
                 f"{wq.dtype}")
 
@@ -278,13 +279,14 @@ def f4_plan(m: int, c: int, f: int, sms: int) -> dict:
             "grid2": min(mt * (c // bn2), sms)}
 
 
-def f3_plan(m: int, c: int, sms: int) -> dict:
-    """What F3's launch takes for ``m`` rows on a card of ``sms`` SMs: the
-    product's persistent grid, min(tiles, sms), over tiles of 128 rows x
-    F3_BN columns of N = C.  The tiles are 128 wide even where they number
-    fewer than the SMs (a streamed frame's 11 x 8 at C 1024, the 480 x 640
-    image's 15 x 8): 64-wide ones were 12% slower there on the H100."""
-    return {"grid": min(-(-m // WG_ROWS) * (c // F3_BN), sms)}
+def linear_plan(m: int, n: int, sms: int) -> dict:
+    """What the product of F1, F2 (N = F: 3C for the qkv projection) and
+    F3 (N = C) takes for ``m`` rows on a card of ``sms`` SMs: the
+    persistent grid, min(tiles, sms), over tiles of 128 rows x LINEAR_BN
+    columns of N.  The tiles are 128 wide even where they number fewer
+    than the SMs (F3 at a streamed frame, 11 x 8 at C 1024, and the 480 x
+    640 image, 15 x 8): 64-wide ones were 12% slower there on the H100."""
+    return {"grid": min(-(-m // WG_ROWS) * (n // LINEAR_BN), sms)}
 
 
 def f5_plan(m: int, c: int, f: int, sms: int) -> dict:
@@ -300,15 +302,20 @@ def f5_plan(m: int, c: int, f: int, sms: int) -> dict:
 def _linear_launch(name, x, ln, w: Weight, b, eps,
                    operands: Optional[dict]) -> torch.Tensor:
     """F1 (``ln`` = (weight, bias)) or F2 (``ln`` None) on the card."""
+    _serving_only(name, x, *(ln or ()), b)
     wq, sw = _quantized(w)
     c = x.shape[-1]
     f = wq.shape[0]
     _check(name, x, (wq, c))
-    _serving_only(name, x, *(ln or ()), b)
+    if f % LINEAR_BN or c > F4_MAX_C:
+        raise ValueError(f"{name}: weight {tuple(wq.shape)}: the kernel "
+                         f"takes [F, C] with F a multiple of {LINEAR_BN} "
+                         f"and C up to {F4_MAX_C}")
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
     if b is None:
         b = torch.zeros(f, device=x.device)
+    plan = linear_plan(m, f, sm_count(x.device.index))
     args = [x2, wq.contiguous(), *_f32(sw, b)]
     lnw = _f32(*ln) if ln is not None else []
     xq, sx = _rows_scratch(m, c, x.device)
@@ -317,7 +324,7 @@ def _linear_launch(name, x, ln, w: Weight, b, eps,
     launch("vdn_int8_ln_linear", x2.data_ptr(), m, c, f,
            *(t.data_ptr() for t in lnw) if lnw else (None, None),
            float(eps), *(t.data_ptr() for t in args[1:]), xq.data_ptr(),
-           sx.data_ptr(), out.data_ptr())
+           sx.data_ptr(), out.data_ptr(), plan["grid"])
     launches[name] += 1
     _record(operands, xq=xq, sx=sx)
     return out.reshape(*x.shape[:-1], f)
@@ -346,11 +353,11 @@ def int8_proj_residual(x, residual, w: Weight, b, gamma,
     if not use_kernel(x):
         return int8_proj_residual_plain(x, residual, w, b, gamma, operands)
     name = "int8_proj_residual"
+    _serving_only(name, x, residual, b, gamma)
     wq, sw = _quantized(w)
     c = x.shape[-1]
     f = wq.shape[0]
     _check(name, x, (wq, c))
-    _serving_only(name, x, residual, b, gamma)
     if f != c or c % WG_K or c > F4_MAX_C:
         raise ValueError(f"{name}: weight {tuple(wq.shape)}: the kernel "
                          f"takes [C, C] with C a multiple of {WG_K} up to "
@@ -361,7 +368,7 @@ def int8_proj_residual(x, residual, w: Weight, b, gamma,
     x2 = x.reshape(-1, c).contiguous()
     r2 = residual.reshape(-1, f).contiguous()
     m = x2.shape[0]
-    plan = f3_plan(m, c, sm_count(x.device.index))
+    plan = linear_plan(m, c, sm_count(x.device.index))
     args = [x2, r2, wq.contiguous(), *_f32(sw, b, gamma)]
     xq, sx = _rows_scratch(m, c, x.device)
     out = torch.empty_like(r2)
