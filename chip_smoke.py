@@ -196,6 +196,10 @@ F3_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Residual"}
 # with its bias epilogue); A1's one kernel, its device time
 F1_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Linear"}
 A1_STAGES = {"device": r"a1_flash_kernel"}
+# F6's two launches (csrc/flash_attn_int8.cu: the pre-pass writing the
+# codes and scales, the attention); C3's one (A1's kernel in its kC3 form)
+F6_STAGES = {"prepass": r"quantize_qkv_kernel", "attn": r"f6_flash_kernel"}
+C3_STAGES = {"device": r"a1_flash_kernel"}
 # A2 beyond its paths' shapes: the v4 step's rows (16 x 1370) and the full
 # window's (32 x 1370) at C 1024, vits' and vitb's C 384 / 768 at the
 # cached window's rows; D3 at B 2 x T 257 (514 rows: a partial last
@@ -922,7 +926,8 @@ def f6_cases(rng, path, b, t=VIT_TOKENS, h=16, modes=F6_MODES):
     shape; library: SDPA.  The input carries vdn's channel-mean outliers on
     k and v (test_flash_attention.py:205-207), which the centring takes
     out of the codes' range.  Bound: each product once (F6 computes QK^T
-    twice), int8 where quantized, bf16 where not, on the tensor cores."""
+    twice), int8 where quantized, bf16 where not, on the tensor cores.
+    Device ms by stage: F6_STAGES."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     dev, bf, d = DEVICE, torch.bfloat16, 64
@@ -950,12 +955,13 @@ def f6_cases(rng, path, b, t=VIT_TOKENS, h=16, modes=F6_MODES):
             library=lambda: F.scaled_dot_product_attention(
                 *(qkv[:, :, i].transpose(1, 2) for i in range(3))),
             check=int8_check(kern, plain, keys, f6_row_view),
-            bf16=lambda: fa.flash_attention_fused_qkv(qkv))
+            bf16=lambda: fa.flash_attention_fused_qkv(qkv), stages=F6_STAGES)
 
 
 def c3_cases(rng, path, b, t=VIT_TOKENS, h=16):
     """C3 over b frames of t tokens and h heads, [B, H, T, D] out; library:
-    SDPA on the [B, H, T, D] views; bf16 counterpart: A1."""
+    SDPA on the [B, H, T, D] views; bf16 counterpart: A1; device ms
+    (C3_STAGES)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     dev, bf, d = DEVICE, torch.bfloat16, 64
@@ -968,7 +974,7 @@ def c3_cases(rng, path, b, t=VIT_TOKENS, h=16):
         (_nbytes(qkv, out), [(4 * b * h * t * t * d, BF16_TENSOR_FLOPS)]),
         path, library=lambda: F.scaled_dot_product_attention(
             *(qkv[:, :, i].transpose(1, 2) for i in range(3))),
-        bf16=lambda: fa.flash_attention_fused_qkv(qkv))
+        bf16=lambda: fa.flash_attention_fused_qkv(qkv), stages=C3_STAGES)
 
 
 def attention_int8_cases(rng):
@@ -3532,7 +3538,7 @@ SOURCES = {
     "flash_attention_int8_fused_qkv": (
         "vdn_torch/csrc/flash_attn_int8.cu",
         "vdn/ops/pallas/flash_attention.py:920"),
-    "flash_attention_qkv": ("vdn_torch/csrc/flash_attn_bthd.cu",
+    "flash_attention_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
                             "vdn/ops/pallas/flash_attention.py:964"),
 }
 INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
@@ -3752,7 +3758,9 @@ def ab_tree(tree: str) -> dict:
     ms; at a frame's rows, and A4's, also the host's microseconds a call,
     host_us), A1 at the cached window, a streamed frame (also host_us) and
     the 480 x 640 image and A1-train at the v4 shape (a1_case, with device
-    ms),
+    ms), F6 in "all" at the cached window (with SDPA's time on the same
+    q, k, v) and at a streamed frame (also host_us), C3 at the cached
+    window (f6_cases, c3_cases, with device ms),
     the v4 training step (RefineTrainer b2 t8, median
     of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
     windows and vitg's int8_static windows (time_windows, the int8 ones
@@ -3832,6 +3840,21 @@ def ab_tree(tree: str) -> dict:
             out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
             if key == "a1_stream_frame":
                 out[f"{key}_host_us"] = host_us(c["kern"])
+            del c
+            torch.cuda.empty_cache()
+        for key, c in (
+                ("f6_all_cached_window",
+                 next(f6_cases(rng, "ab", CACHED_FRAMES, modes=("all",)))),
+                ("f6_all_stream_frame",
+                 next(f6_cases(rng, "ab", 1, modes=("all",)))),
+                ("c3_cached_window", next(c3_cases(rng, "ab",
+                                                   CACHED_FRAMES)))):
+            out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+            out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
+            if key.endswith("stream_frame"):
+                out[f"{key}_host_us"] = host_us(c["kern"])
+            else:
+                out[f"{key}_sdpa_ms"] = time_ms(c["library"], reps=20)
             del c
             torch.cuda.empty_cache()
     batch = train_batch(np.random.default_rng(SEED))

@@ -19,6 +19,14 @@ tiles, the last with one key; 1370: eleven, the last with 90) the replay
 must sit within chip_smoke.py's tolerance (KERNEL_ULPS bf16 ulps at each
 output's scale) of the plain version, and of vdn's kernel run in Pallas
 interpret mode as tests/test_torch_kernels.py runs it.
+
+C3 (``flash_attention_qkv``) is the same kernel in its kC3 form, on the
+same items: q is not scaled, S = q K^T in fp32, the running max m in S's
+units, alpha = exp2((m_old - m) c) and p = exp2(S c - m c) with c =
+scale * log2 e in fp32 (vdn's exp(s - m) with s = S * scale), the row
+sum l of the unrounded p kept in registers, O += bf16(p) V, out = O / l,
+written [B, H, T, D].  Its replay is held to ``flash_attention_qkv_plain``
+and to vdn's ``flash_attention_qkv`` at the same T.
 """
 
 import math
@@ -30,6 +38,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from vdn.ops.pallas import flash_attention as jfa
+from vdn_torch.kernels import LOG2E
 from vdn_torch.kernels import flash_attention as fa
 
 KERNEL_ULPS = 4    # chip_smoke.py: kernel vs plain, bf16 ulps at the scale
@@ -92,6 +101,37 @@ def replay(qkv: torch.Tensor, scale=None):
     return out[:, :t].to(qkv.dtype), lse[..., :t]
 
 
+def replay_c3(qkv: torch.Tensor, scale=None) -> torch.Tensor:
+    """C3's out [B, H, T, D] by the kernel's items, tiles and order."""
+    b, t, _, h, d = qkv.shape
+    scale = d ** -0.5 if scale is None else scale
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    rows = fa.A1_ROWS
+    tp = -(-t // rows) * rows
+    pad = lambda x: torch.cat([x, x.new_zeros((b, tp - t, h, d))], 1)
+    q, k, v = (pad(qkv[:, :, i]).float() for i in range(3))
+    out = torch.full((b, h, tp, d), math.nan)
+    for block in walk(b, t, h, SMS):
+        for bi, hi, qt in block:
+            for w in range(rows // WG_ROWS):
+                r = slice(qt * rows + w * WG_ROWS,
+                          qt * rows + (w + 1) * WG_ROWS)
+                o = torch.zeros((WG_ROWS, d))
+                m = torch.full((WG_ROWS,), -math.inf)
+                l = torch.zeros((WG_ROWS,))
+                for k0 in range(0, tp, rows):
+                    s = q[bi, r, hi] @ k[bi, k0:k0 + rows, hi].t()
+                    s[:, torch.arange(k0, k0 + rows) >= t] = -math.inf
+                    m_new = torch.maximum(m, s.amax(1))
+                    alpha = torch.exp2((m - m_new) * c)
+                    o, l, m = o * alpha[:, None], l * alpha, m_new
+                    p = torch.exp2(s * c - (m * c)[:, None])
+                    l = l + p.sum(1)                  # the unrounded p
+                    o = o + _bf(p) @ v[bi, k0:k0 + rows, hi]
+                out[bi, hi, r] = o / l[:, None]
+    return out[:, :, :t].to(qkv.dtype)
+
+
 def _close(got: torch.Tensor, want, what: str) -> None:
     if isinstance(want, torch.Tensor):
         want = want.float()
@@ -148,3 +188,18 @@ def test_replay_matches_vdn(t):
     out, lse = replay(qkv)
     _close(out, want_out, "out")
     _close(lse, np.asarray(want_lse).reshape(1, 2, t), "lse")
+
+
+@pytest.mark.parametrize("t", [90, 257, 1370])
+def test_c3_replay_matches_plain_and_vdn(t):
+    """C3's replayed schedule within KERNEL_ULPS bf16 ulps of
+    flash_attention_qkv_plain and of vdn's flash_attention_qkv (Pallas in
+    interpret mode), [B, H, T, D]."""
+    a = _qkv(t, t + 2)
+    qkv = torch.from_numpy(a).to(torch.bfloat16)
+    out = replay_c3(qkv)
+    _close(out, fa.flash_attention_qkv_plain(qkv), "plain")
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention_qkv(jnp.asarray(a, jnp.bfloat16),
+                                       block_q=128)
+    _close(out, want, "vdn")

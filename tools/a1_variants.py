@@ -54,10 +54,11 @@ def _sub(src: str, pairs) -> str:
 
 
 def _softmax_calls(new: str):
-    return [("""      if ((j + 1) * kRows > T)
+    return [("""      } else if ((j + 1) * kRows > T) {
         softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, T);
-      else
-        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);""", new)]
+      } else {
+        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);
+      }""", "      } else {\n" + new + "\n      }")]
 
 
 def variants(src: str) -> dict:
@@ -75,7 +76,9 @@ def variants(src: str) -> dict:
         "register_sums": _sub(src, [
             ("float (&m_run)[2], int key0,",
              "float (&m_run)[2], float (&lreg)[2], int key0,"),
-            ("    m_run[r] = m_new;\n",
+            ("    alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile\n"
+             "    m_run[r] = m_new;\n",
+             "    alpha[r] = ex2(m_run[r] - m_new);\n"
              "    m_run[r] = m_new;\n    lreg[r] *= alpha[r];\n"),
             ("      pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);",
              "      pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);\n"
@@ -84,16 +87,16 @@ def variants(src: str) -> dict:
             ("    float m_run[2] = {-INFINITY, -INFINITY};",
              "    float m_run[2] = {-INFINITY, -INFINITY};\n"
              "    float lreg[2] = {0.f, 0.f};"),
-            ("m_run, j * kRows + c2, T);\n      else",
-             "m_run, lreg, j * kRows + c2, T);\n      else"),
-            ("m_run, j * kRows + c2, T);\n      prev",
-             "m_run, lreg, j * kRows + c2, T);\n      prev"),
-            ("    const float l[2] = {o[32], o[34]};",
-             "    for (int r = 0; r < 2; ++r) {\n"
-             "      lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 1);\n"
-             "      lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 2);\n"
-             "    }\n"
-             "    const float l[2] = {lreg[0], lreg[1]};")]),
+            ("m_run, j * kRows + c2, T);\n      } else {",
+             "m_run, lreg, j * kRows + c2, T);\n      } else {"),
+            ("m_run, j * kRows + c2, T);\n      }\n      prev",
+             "m_run, lreg, j * kRows + c2, T);\n      }\n      prev"),
+            ("      l[0] = o[32];\n      l[1] = o[34];",
+             "      for (int r = 0; r < 2; ++r) {\n"
+             "        lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 1);\n"
+             "        lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 2);\n"
+             "        l[r] = lreg[r];\n"
+             "      }")]),
         "no_pingpong": _sub(src, [
             ("      named_sync(kTurn + wgi, kConsumers);\n", ""),
             ("      named_arrive(kTurn + (wgi ^ 1), kConsumers);\n", ""),

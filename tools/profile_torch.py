@@ -70,7 +70,7 @@ import chip_smoke as cs  # noqa: E402
 # kernel-name patterns -> readable group (the first match wins)
 GROUPS = [
     (r"quantize_qkv_kernel", "F6 pre-pass (q / k / v codes and scales)"),
-    (r"flash_int8_kernel", "F6 int8 flash attention"),
+    (r"f6_flash_kernel", "F6 int8 flash attention (wgmma)"),
     (r"ring_step_kernel", "E1 ring-attention step (CP motion modules)"),
     (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
     (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
@@ -93,8 +93,10 @@ GROUPS = [
     (r"EpiSwigluHidden", "F5 w12 int8 wgmma (paired, SwiGLU epilogue)"),
     (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
      "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
-    (r"a1_flash_kernel<(\(bool\))?(1|true)>",
-     "A1-train flash attention (+ log-sum-exp)"),
+    # A1's kernel by its form (csrc/flash_attn_qkv.cu: kA1 0, kA1Lse 1,
+    # kC3 2)
+    (r"a1_flash_kernel<1>", "A1-train flash attention (+ log-sum-exp)"),
+    (r"a1_flash_kernel<2>", "C3 head-major fused-qkv attention"),
     (r"a1_flash_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),

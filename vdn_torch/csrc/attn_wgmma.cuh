@@ -1,8 +1,8 @@
-// The wgmma pieces of A1's forward (flash_attn_qkv.cu) and D1's backward
-// (flash_attn_qkv_bwd.cu): bf16 products of 64-row tiles from shared
-// memory or register A fragments, the conversion of an fp32 accumulator
-// into A fragments, the MUFU's exp2, a consumer thread's row, and the 3-D
-// tensor map of a [B, T, width] bf16 tensor.  Internal linkage: each
+// The wgmma pieces of A1's forward (flash_attn_qkv.cu), D1's backward
+// (flash_attn_qkv_bwd.cu) and F6 (flash_attn_int8.cu): bf16 products of
+// 64-row tiles from shared memory or register A fragments, the conversion
+// of an fp32 accumulator into A fragments, the MUFU's exp2, a consumer
+// thread's row, and the 3-D tensor map of a [B, T, width] bf16 tensor.  Internal linkage: each
 // source that includes it gets its own copy.
 #pragma once
 
@@ -79,6 +79,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "r"(accumulate), "n"(kTransB));
 }
 
+// D += A B, 64 x 72 x 16 bf16 -> fp32, A from registers (wgmma_rs's
+// fragments), B MN-major in shared memory: its columns 64-71 one swizzle
+// atom on, at the descriptor's leading byte offset (A1's and F6's P V
+// beside a tile of ones: columns 64-71 sum P's rows)
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, "
+      "p, 1, 1, 1;\n}\n"
+      : VDN_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The A fragments (16 rows x 64 columns a warp, four 16-wide K slices) of
 // a 64-row bf16 tile in the 128-byte swizzle (TMA's layout: 16-byte chunk
 // c of row r at r * 128 + ((c ^ (r % 8)) * 16)), by ldmatrix: lane l
@@ -117,6 +135,15 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
     a[kk][2] = vdn::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
     a[kk][3] = vdn::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
+}
+
+// x / l rounded to nearest, from r = 1 / l rounded to nearest (one
+// reciprocal per row): q = x r, e = x - l q exactly (FMA), q + e r is the
+// correctly rounded quotient (Markstein's theorem; x, l finite and normal
+// or x zero), three instructions in place of a division's subroutine
+__device__ __forceinline__ float div_rn(float x, float l, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-l, q, x), r, q);
 }
 
 // this consumer thread's row (key or q row) within its warpgroup's 64

@@ -35,15 +35,6 @@
 //     logits and zero V.
 // Online rescaling rounds p against the running max instead of the final
 // one, so results differ from the TPU kernels by a few bf16 ulps at most.
-//
-// C3, the kNat case, replaces flash_attention_qkv (_flash_qkv_kernel):
-// qkv [B, T, 3, H, D] -> out [B, H, T, D], read off the fused projection
-// through its row stride 3 * H * D and written head-major.  Its arithmetic
-// is vdn's for that kernel, in natural units: s = (q k^T) * scale in fp32
-// (the scale after the product, q not rounded again), p = exp(s - m) in
-// fp32, the row sum l from the unrounded p, p rounded to bf16 for P V only,
-// out = (P V) / l.  The online softmax moves p's rounding as above.  No
-// model path calls it; it bounds as C2.
 #include <math.h>
 
 #include "common.cuh"
@@ -59,7 +50,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // per key tile, dynamic) fill the rest of the 48 KB a block gets by default
 constexpr int kMaxTiles = 2560;
 
-template <bool kBias, bool kNat>
+template <bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -75,8 +66,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // row stride of q, k, v: [B, T, H, D], or C3's fused [B, T, 3, H, D]
-  const int ld = (kNat ? 3 : 1) * H * kD;
+  const int ld = H * kD;  // row stride of q, k, v: [B, T, H, D]
   const __nv_bfloat16* qb = q + (size_t)b * Tq * ld + h * kD;
   const __nv_bfloat16* kb = k + (size_t)b * Tk * ld + h * kD;
   const __nv_bfloat16* vb = v + (size_t)b * Tk * ld + h * kD;
@@ -124,20 +114,17 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   int j = next_live(0);
   if (j < n_tiles) load_kv(j, 0);
 
-  // q tile, pre-scaled by bf16(scale * log2 e) and rounded to bf16 (C3:
-  // as it is; its scale multiplies the product)
+  // q tile, pre-scaled by bf16(scale * log2 e) and rounded to bf16
   for (int c = tid; c < kTile * (kD / 8); c += kThreads) {
     const int r = c / (kD / 8), d = (c % (kD / 8)) * 8;
     uint4 x = make_uint4(0, 0, 0, 0);
     if (q0 + r < Tq) {
       x = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * ld + d);
-      if (!kNat) {
-        __nv_bfloat162* hx = reinterpret_cast<__nv_bfloat162*>(&x);
+      __nv_bfloat162* hx = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(hx[i]);
-          hx[i] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
-        }
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(hx[i]);
+        hx[i] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
       }
     }
     *reinterpret_cast<uint4*>(&Qs[r * kLd + d]) = x;
@@ -196,8 +183,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // C3's scale, bias, mask, running max, p = bf16(exp2(s - m)) (C3:
-    // exp(s - m))
+    // bias, mask, running max, p = bf16(exp2(s - m))
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nj = 0; nj < kTile / 8; ++nj) {
@@ -207,7 +193,6 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
       if (kBias) bv = *reinterpret_cast<const float2*>(&Bs[buf][col]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (kNat) s[nj][i] = __fmul_rn(s[nj][i], qscale);
         if (kBias)
           s[nj][i] = __fadd_rn(s[nj][i],
                                __fmul_rn((i & 1) ? bv.y : bv.x, kLog2e));
@@ -224,9 +209,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
       // while no finite logit has been seen, nothing is accumulated yet:
       // keep the sums as they are and shift by 0, so every p is exp2(-inf)
       const bool none = m_new == -INFINITY;
-      alpha[r] = none    ? 1.f
-                 : kNat ? expf(m_run[r] - m_new)
-                        : exp2f(m_run[r] - m_new);
+      alpha[r] = none ? 1.f : exp2f(m_run[r] - m_new);
       m_use[r] = none ? 0.f : m_new;
       m_run[r] = m_new;
       l_run[r] *= alpha[r];
@@ -235,9 +218,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nj = 0; nj < kTile / 8; ++nj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        // C3: l from the unrounded p, p rounded for P V (pack_bf16)
-        const float p = kNat ? expf(s[nj][i] - m_use[i >> 1])
-                             : vdn::bf16r(exp2f(s[nj][i] - m_use[i >> 1]));
+        const float p = vdn::bf16r(exp2f(s[nj][i] - m_use[i >> 1]));
         s[nj][i] = p;
         l_run[i >> 1] += p;
       }
@@ -282,8 +263,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
     if (row >= Tq) continue;
     const float l = l_run[r];
     __nv_bfloat16* dst =
-        kNat ? out + (((size_t)b * H + h) * Tq + row) * kD + 2 * t
-             : out + ((size_t)b * Tq + row) * ld + h * kD + 2 * t;
+        out + ((size_t)b * Tq + row) * ld + h * kD + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < kD / 8; ++nd)
       *reinterpret_cast<uint32_t*>(dst + nd * 8) =
@@ -291,7 +271,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool kBias, bool kNat = false>
+template <bool kBias>
 int launch_bthd(const void* q, const void* k, const void* v,
                 const void* bias, int B, int Tq, int Tk, int H, float qscale,
                 void* out, void* stream) {
@@ -299,7 +279,7 @@ int launch_bthd(const void* q, const void* k, const void* v,
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || n_tiles > kMaxTiles)
     return cudaErrorInvalidValue;
   dim3 grid((Tq + kTile - 1) / kTile, H, B);
-  flash_bthd_kernel<kBias, kNat>
+  flash_bthd_kernel<kBias>
       <<<grid, kThreads, kBias ? n_tiles : 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(q),
@@ -332,13 +312,3 @@ extern "C" int vdn_flash_attention_colbias(const void* q, const void* k,
   return launch_bthd<true>(q, k, v, bias, B, Tq, Tk, H, qscale, out, stream);
 }
 
-// C3: qkv [B, T, 3 * H * 64] bf16 -> out [B, H, T, 64] bf16, scale the
-// softmax scale in natural units.  Head width 64 only.
-extern "C" int vdn_flash_attention_qkv_heads(const void* qkv, int B, int T,
-                                             int H, float scale, void* out,
-                                             void* stream) {
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
-  const int C = H * kD;
-  return launch_bthd<false, true>(x, x + C, x + 2 * C, nullptr, B, T, T, H,
-                                  scale, out, stream);
-}

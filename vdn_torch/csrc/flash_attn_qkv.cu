@@ -49,11 +49,24 @@
 // Online rescaling rounds p against the running max instead of the final
 // one, so results differ from the TPU kernel's by a few bf16 ulps at most.
 //
-// The training forward (_flash_cols_call(save_lse=True)) is the same
-// kernel with kLse: it also writes each row's base-2 log-sum-exp m +
-// log2(l) in fp32 from the final running max and sum, laid out [B, H, T]
-// (vdn's [B, n_colblocks, hb, T] is a TPU lane constraint).  The backward
-// (D1, flash_attn_qkv_bwd.cu) recomputes the normalized softmax from it.
+// The kernel has three forms (kForm):
+//   - kA1, the forward above;
+//   - kA1Lse, the training forward (_flash_cols_call(save_lse=True)): it
+//     also writes each row's base-2 log-sum-exp m + log2(l) in fp32 from
+//     the final running max and sum, laid out [B, H, T] (vdn's [B,
+//     n_colblocks, hb, T] is a TPU lane constraint).  The backward (D1,
+//     flash_attn_qkv_bwd.cu) recomputes the normalized softmax from it;
+//   - kC3, C3: replaces flash_attention_qkv (_flash_qkv_kernel), the same
+//     function written head-major, out [B, H, T, D], with vdn's
+//     natural-unit arithmetic for it: q is not scaled, s = fp32(q k^T) *
+//     scale, p = exp(s - m) in fp32 (as exp2(S c - m c) with c = scale *
+//     log2 e, one rounding fewer than vdn's steps: within an fp32 ulp or
+//     two of p), the row sum l of the unrounded p taken in registers (the
+//     ones column would sum the rounded p), p rounded to bf16 for P V only
+//     (m64n64k16), out = O / l, stored through a 3-D map of out as [B * H,
+//     T, 64].  No model path calls it.
+// Each form is a template case: A1's instructions and registers are the
+// same with or without the others.
 #include <math.h>
 
 #include "attn_wgmma.cuh"
@@ -77,23 +90,9 @@ static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
 // named barriers: kTurn + w, warpgroup w's turn at the tensor cores;
 // kOwn + w, warpgroup w's own 128 threads
 constexpr int kTurn = 1, kOwn = 3;
-
-// D += A B, 64 x 72 x 16 bf16 -> fp32, A from registers (wgmma_rs's
-// fragments), B MN-major in shared memory: its columns 64-71 one swizzle
-// atom on, at the descriptor's leading byte offset
-__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, "
-      "p, 1, 1, 1;\n}\n"
-      : VDN_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+constexpr float kLog2e = 1.4426950408889634f;
+// the kernel's forms (see the note above)
+constexpr int kA1 = 0, kA1Lse = 1, kC3 = 2;
 
 // The online softmax of one 64 x 128 tile S (accumulator layout; key0 the
 // key of this thread's first column, keys >= T masked where kMask): the
@@ -139,6 +138,77 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64],
     }
 }
 
+// C3's online softmax of one 64 x 128 tile S = q K^T (accumulator layout),
+// scale in natural units: the running max m of the thread's two rows in
+// S's units (scale > 0 keeps the order), O and the thread's share of the
+// row sums l rescaled, p = exp(s - m) = exp2(S c - m c), c = scale * log2
+// e, added to l unrounded (four chains) and rounded to bf16 into the A
+// fragments of P V.
+template <bool kMask>
+__device__ __forceinline__ void softmax_nat(float (&s)[64],
+                                            uint32_t (&pa)[8][4],
+                                            float (&o)[32], float (&m_run)[2],
+                                            float (&l_run)[2], int key0,
+                                            int T, float c) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask && key0 + 8 * i + (e & 1) >= T) s[4 * i + e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
+    }
+  float alpha[2], ml[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    alpha[r] = ex2((m_run[r] - m_new) * c);  // 0 on the first tile
+    m_run[r] = m_new;
+    ml[r] = m_new * c;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+  float ls[4] = {0.f, 0.f, 0.f, 0.f};  // by fragment q: row q % 2
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = q & 1;
+      const float p0 = ex2(fmaf(s[8 * kk + 2 * q], c, -ml[r]));
+      const float p1 = ex2(fmaf(s[8 * kk + 2 * q + 1], c, -ml[r]));
+      ls[q] += p0 + p1;
+      pa[kk][q] = vdn::pack_bf16(p0, p1);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] += ls[r] + ls[r + 2];
+}
+
+// C3's products: O += P V (kPV; m64n64k16, V read MN-major) and S = q K^T
+// (kS), each a wgmma group of its own.
+template <bool kPV, bool kS>
+__device__ __forceinline__ void issue_nat(float (&o)[32], float (&s)[64],
+                                          const uint32_t (&pa)[8][4],
+                                          uint32_t v_s, uint32_t qw,
+                                          uint32_t k_s) {
+  wgmma_fence();
+  if constexpr (kPV) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs<1>(o, pa[kk], desc_sw128(v_s + 2048 * kk), 1);
+    wgmma_commit();
+  }
+  if constexpr (kS) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(s, desc_sw128(qw + 32 * kk), desc_sw128(k_s + 32 * kk),
+                    kk);
+    wgmma_commit();
+  }
+}
+
 // One turn's products: O += P [V | 1] (kPV, V at v_s, the ones at
 // ones_s) and S = qs K^T (kS, qs at qw, K at k_s), each a wgmma group of
 // its own.
@@ -166,11 +236,16 @@ __device__ __forceinline__ void issue(float (&o)[36], float (&s)[64],
   }
 }
 
-template <bool kLse>
+// qscale: kA1 / kA1Lse bf16(scale * log2 e), folded into q; kC3 the
+// softmax scale, applied to the product
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 1)
 a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
                 const __grid_constant__ CUtensorMap map_out, int B, int T,
                 int H, float qscale, float* __restrict__ lse) {
+  constexpr bool kLse = kForm == kA1Lse, kNat = kForm == kC3;
+  // O: A1's columns 64-71 the row sums
+  constexpr int kO = kNat ? 32 : 36;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -252,9 +327,9 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
     const int qb = i & 1;
     const uint32_t qw = q_s + qb * kTileBytes + wgi * (kTileBytes / 2);
     mbar_wait(smem_u32(&q_full[qb]), (i >> 1) & 1);
-    // qs = bf16(q * qscale) in place, 16 bytes a step
+    // qs = bf16(q * qscale) in place, 16 bytes a step (C3: q as it is)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < (kNat ? 0 : 4); ++c) {
       const uint32_t at = qw + 16 * (lt + 128 * c);
       uint4 v;
       asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
@@ -273,11 +348,12 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
     fence_async_shared();
     named_sync(kOwn + wgi, 128);
 
-    float o[36], s[64];  // O: columns 64-71 the row sums
+    float o[kO], s[64];
     uint32_t pa[8][4];
 #pragma unroll
-    for (int k = 0; k < 36; ++k) o[k] = 0.f;
+    for (int k = 0; k < kO; ++k) o[k] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // C3: the thread's share of the row sums
     int prev = 0;  // the stage of P's V
     // turn j: P_{j-1} V_{j-1} (j > 0) and S_j (j < n_t)
 #pragma unroll 1
@@ -286,12 +362,20 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
       const uint32_t v_s = ring + prev * 2 * kTileBytes + kTileBytes;
       if (j < n_t) mbar_wait(smem_u32(&full[stage]), phase);
       named_sync(kTurn + wgi, kConsumers);
-      if (j == 0)
+      if constexpr (kNat) {
+        if (j == 0)
+          issue_nat<false, true>(o, s, pa, v_s, qw, k_s);
+        else if (j < n_t)
+          issue_nat<true, true>(o, s, pa, v_s, qw, k_s);
+        else
+          issue_nat<true, false>(o, s, pa, v_s, qw, k_s);
+      } else if (j == 0) {
         issue<false, true>(o, s, pa, v_s, ones_s, qw, k_s);
-      else if (j < n_t)
+      } else if (j < n_t) {
         issue<true, true>(o, s, pa, v_s, ones_s, qw, k_s);
-      else
+      } else {
         issue<true, false>(o, s, pa, v_s, ones_s, qw, k_s);
+      }
       named_arrive(kTurn + (wgi ^ 1), kConsumers);
       wgmma_wait<0>();
       fence_regs(o);
@@ -300,10 +384,18 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
       for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
       if (j > 0) mbar_arrive(smem_u32(&empty[prev]));
       if (j == n_t) break;
-      if ((j + 1) * kRows > T)
+      if constexpr (kNat) {
+        if ((j + 1) * kRows > T)
+          softmax_nat<true>(s, pa, o, m_run, l_run, j * kRows + c2, T,
+                            qscale * kLog2e);
+        else
+          softmax_nat<false>(s, pa, o, m_run, l_run, j * kRows + c2, T,
+                             qscale * kLog2e);
+      } else if ((j + 1) * kRows > T) {
         softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, T);
-      else
+      } else {
         softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);
+      }
       prev = stage;
       if (++stage == kStages) {
         stage = 0;
@@ -312,10 +404,22 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
     }
     mbar_arrive(smem_u32(&q_empty[qb]));
 
-    // ---- epilogue: O * (1 / l) into the staging tile, one TMA store of
-    // the warpgroup's 64 rows
-    const float l[2] = {o[32], o[34]};  // rows row and row + 8
+    // ---- epilogue: O * (1 / l) (C3: O / l, correctly rounded by
+    // div_rn) into the staging tile, one TMA store of the warpgroup's 64
+    // rows
+    float l[2];  // rows row and row + 8
+    if constexpr (kNat) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l_run[r] + __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+    } else {
+      l[0] = o[32];
+      l[1] = o[34];
+    }
     const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};  // C3
     const int row0 = qt * kRows + wgi * 64;
     if constexpr (kLse) {
       if ((t & 3) == 0) {
@@ -335,15 +439,21 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
       for (int r = 0; r < 2; ++r) {
         const uint32_t at =
             staged_tile<64>(stage_o, row + 8 * r, 8 * n8 + c2);
-        const uint32_t bits = vdn::pack_bf16(o[4 * n8 + 2 * r] * inv[r],
-                                             o[4 * n8 + 2 * r + 1] * inv[r]);
+        const float* x = &o[4 * n8 + 2 * r];
+        const uint32_t bits =
+            kNat ? vdn::pack_bf16(div_rn(x[0], l[r], rl[r]),
+                                  div_rn(x[1], l[r], rl[r]))
+                 : vdn::pack_bf16(x[0] * inv[r], x[1] * inv[r]);
         asm volatile("st.shared.b32 [%0], %1;\n"
                      :: "r"(at), "r"(bits) : "memory");
       }
     fence_async_shared();
     named_sync(kOwn + wgi, 128);
     if (lt == 0 && row0 < T) {
-      tma_store_3d(&map_out, stage_o, h * kD, row0, b);
+      if constexpr (kNat)
+        tma_store_3d(&map_out, stage_o, 0, row0, b * H + h);
+      else
+        tma_store_3d(&map_out, stage_o, h * kD, row0, b);
       bulk_commit();
     }
   }
@@ -351,21 +461,22 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
   if (lt == 0) bulk_wait<false>();
 }
 
-template <bool kLse>
+template <int kForm>
 cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
                        void* out, float* lse, int grid, cudaStream_t s) {
   if (B < 1 || T < 1 || H < 1 || grid < 1) return cudaErrorInvalidValue;
   CUtensorMap map_qkv, map_out;
   cudaError_t err = encode_rows_bf16(&map_qkv, qkv, B, T, 3 * H * kD, kRows);
   if (err == cudaSuccess)
-    err = encode_rows_bf16(&map_out, out, B, T, H * kD, 64);
+    err = kForm == kC3 ? encode_rows_bf16(&map_out, out, B * H, T, kD, 64)
+                       : encode_rows_bf16(&map_out, out, B, T, H * kD, 64);
   if (err != cudaSuccess) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      a1_flash_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      a1_flash_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (attr != cudaSuccess) return attr;
-  a1_flash_kernel<kLse><<<grid, kThreads, kSmem, s>>>(map_qkv, map_out, B,
-                                                      T, H, qscale, lse);
+  a1_flash_kernel<kForm><<<grid, kThreads, kSmem, s>>>(map_qkv, map_out, B,
+                                                       T, H, qscale, lse);
   return cudaGetLastError();
 }
 
@@ -377,8 +488,8 @@ cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
 extern "C" int vdn_flash_attention_qkv(const void* qkv, int B, int T, int H,
                                        float qscale, void* out, int grid,
                                        void* stream) {
-  return launch_fwd<false>(qkv, B, T, H, qscale, out, nullptr, grid,
-                           static_cast<cudaStream_t>(stream));
+  return launch_fwd<kA1>(qkv, B, T, H, qscale, out, nullptr, grid,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: as above, and lse [B, H, T] fp32, the base-2
@@ -387,6 +498,16 @@ extern "C" int vdn_flash_attention_qkv_lse(const void* qkv, int B, int T,
                                            int H, float qscale, void* out,
                                            void* lse, int grid,
                                            void* stream) {
-  return launch_fwd<true>(qkv, B, T, H, qscale, out, static_cast<float*>(lse),
-                          grid, static_cast<cudaStream_t>(stream));
+  return launch_fwd<kA1Lse>(qkv, B, T, H, qscale, out,
+                            static_cast<float*>(lse), grid,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// C3: qkv [B, T, 3 * H * 64] bf16 -> out [B, H, T, 64] bf16, scale the
+// softmax scale in natural units; grid as above.  Head width 64 only.
+extern "C" int vdn_flash_attention_qkv_heads(const void* qkv, int B, int T,
+                                             int H, float scale, void* out,
+                                             int grid, void* stream) {
+  return launch_fwd<kC3>(qkv, B, T, H, scale, out, nullptr, grid,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -121,8 +121,9 @@ _SIGNATURES = {
     + (_I,) * 3 + (_P,),
     "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
     + (_P,) * 4,
-    "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 9,
-    "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _P),
+    "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 8
+    + (_I, _P),
+    "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _I, _P),
     "vdn_gelu_check": (_P, _P, _P),
 }
 

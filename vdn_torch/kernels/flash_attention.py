@@ -46,8 +46,9 @@ C3 replaces ``flash_attention_qkv`` (``_flash_qkv_kernel``): self-attention
 off the fused qkv, written head-major as [B, H, T, D], with its own
 arithmetic in natural units (s = (q k^T) * scale in fp32, p = exp(s - m),
 the row sum from the unrounded p, out = (bf16(p) V) / l).  No model path
-calls it, in vdn or here; its kernel is a case of csrc/flash_attn_bthd.cu
-that reads the fused qkv through its row stride and writes [B, H, T, D].
+calls it, in vdn or here; its kernel is a form of A1's (csrc/
+flash_attn_qkv.cu, ``kC3``) on the same plan: the row sums in registers,
+out stored [B, H, T, D] through a tensor map of [B * H, T, D].
 
 F6 replaces ``flash_attention_int8_fused_qkv`` (``_flash_cols_int8_kernel``
 via ``_flash_int8_call``): A1 with the QK^T and / or the P V product in
@@ -56,8 +57,10 @@ read at each call: "qk" quantizes q per row and the token-centred k per
 (batch, head), "pv" the softmax probabilities with the fixed scale 127 and
 the token-centred v per channel, "all" both; any other value (default
 "0") is A1.  See ``flash_attention_int8_fused_qkv_plain`` for the
-rounding points and csrc/flash_attn_int8.cu for the kernel.  Serving
-only: no backward.
+rounding points and csrc/flash_attn_int8.cu for the kernels: a pre-pass
+writes the codes and scales, then A1's skeleton on s8 wgmma walks each
+item's keys twice (the exact row max, then the sums), on ``a1_plan``'s
+items.  Serving only: no backward.
 """
 
 from __future__ import annotations
@@ -524,7 +527,8 @@ def flash_attention_qkv(qkv: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     launch("vdn_flash_attention_qkv_heads", qkv.data_ptr(), b, t, h,
-           float(scale), out.data_ptr())
+           float(scale), out.data_ptr(),
+           a1_plan(b, t, h, sm_count(qkv.device.index))["grid"])
     launches[name] += 1
     return out
 
@@ -532,7 +536,7 @@ def flash_attention_qkv(qkv: torch.Tensor,
 # ------------------------------------------------------------------- F6
 INT8_FLASH_MODES = ("qk", "pv", "all")
 _MODE_BITS = {"qk": 1, "pv": 2, "all": 3}   # csrc/flash_attn_int8.cu
-INT8_TILE = 64          # the kernel's token tile: its scratch is padded to it
+INT8_TILE = A1_ROWS     # the kernel's key tile: its scratch is padded to it
 # log2(127): exp2(s - (m - this)) is 127 * exp2(s - m), vdn's fold of the
 # fixed probability scale into the exponential
 LOG2_127 = 6.988684686772166
@@ -558,6 +562,17 @@ def _int8_route(qkv: torch.Tensor, mode: Optional[str]) -> Optional[str]:
     if mode not in INT8_FLASH_MODES or not int8_heads_ok(*qkv.shape[-2:]):
         return None
     return mode
+
+
+def vt_key_order(tp: int) -> torch.Tensor:
+    """The position of each of ``tp`` keys in F6's transposed v codes
+    (vt, csrc/flash_attn_int8.cu ``vt_pos``): within each 32-key group,
+    key 2t + 8 (q // 2) + q % 2 + 16 hf sits at 4t + q + 16 hf, the byte
+    of the s8 wgmma A fragment that holds it, so that each thread packs
+    its own accumulator's codes."""
+    k = torch.arange(tp)
+    return ((k & ~31) | (k & 16) | ((k & 6) << 1) | ((k & 8) >> 2)
+            | (k & 1))
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -670,8 +685,8 @@ def flash_attention_int8_fused_qkv(qkv: torch.Tensor,
     off (any value but "qk", "pv", "all") or a head config vdn's gate
     turns away, this is A1 (``flash_attention_fused_qkv``) unchanged.
     ``operands`` receives what the plain version records, but pi (the
-    kernel keeps the probabilities in registers).  Serving only: on the
-    card an input that requires grad raises."""
+    kernel keeps the probabilities in registers), vi in key order.
+    Serving only: on the card an input that requires grad raises."""
     route = _int8_route(qkv, mode)
     if route is None:
         return flash_attention_fused_qkv(qkv, scale)
@@ -706,12 +721,13 @@ def flash_attention_int8_fused_qkv(qkv: torch.Tensor,
     launch("vdn_flash_attention_int8", qkv.data_ptr(), b, t, h,
            _MODE_BITS[route], float(scale * LOG2E), _kernel_qscale(scale),
            *(None if x is None else x.data_ptr() for x in bufs),
-           out.data_ptr())
+           out.data_ptr(), a1_plan(b, t, h, sm_count(dev.index))["grid"])
     launches[name] += 1
     if operands is not None:
         if qk:
             operands.update(qi=qi[:, :, :t], aq=aq[:, :, :t], ki=ki[:, :, :t],
                             ak=ak)
         if pv:
-            operands.update(vi=vt[..., :t].transpose(-1, -2), av=av, mu=mu)
+            vi = vt.index_select(-1, vt_key_order(tp)[:t].to(dev))
+            operands.update(vi=vi.transpose(-1, -2), av=av, mu=mu)
     return out
