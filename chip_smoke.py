@@ -195,11 +195,16 @@ F3_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Residual"}
 # F1's and F2's two (csrc/int8_linear.cu: the row quantizer, the product
 # with its bias epilogue); A1's one kernel, its device time
 F1_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Linear"}
-A1_STAGES = {"device": r"a1_flash_kernel"}
+A1_STAGES = {"device": r"a1_flash_kernel<[01]>"}
 # F6's two launches (csrc/flash_attn_int8.cu: the pre-pass writing the
-# codes and scales, the attention); C3's one (A1's kernel in its kC3 form)
+# codes and scales, the attention); C3's and C2's one (A1's kernel in its
+# kC3 and kBthd forms)
 F6_STAGES = {"prepass": r"quantize_qkv_kernel", "attn": r"f6_flash_kernel"}
-C3_STAGES = {"device": r"a1_flash_kernel"}
+C3_STAGES = {"device": r"a1_flash_kernel<2>"}
+C2_STAGES = {"device": r"a1_flash_kernel<3>"}
+# D2's three launches (csrc/flash_attn_bthd_bwd.cu: delta beside the
+# padded lse, the dK / dV blocks, the dQ blocks)
+D2_STAGES = {"delta": r"d2_delta", "dkdv": r"d2_dkdv", "dq": r"d2_dq"}
 # A2 beyond its paths' shapes: the v4 step's rows (16 x 1370) and the full
 # window's (32 x 1370) at C 1024, vits' and vitb's C 384 / 768 at the
 # cached window's rows; D3 at B 2 x T 257 (514 rows: a partial last
@@ -381,17 +386,18 @@ def bound(work) -> tuple:
 
 
 def case(name, label, kern, plain, work, path, library=None, tol="bf16",
-         check=None, bf16=None, stages=None):
+         check=None, bf16=None, stages=None, host=False):
     """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
     tuple of tensors (each held to the tolerance at its own scale); the
     library time is ``library``'s.  ``check``, where
     given, replaces that comparison (the int8 kernels' gate, int8_check);
     ``bf16`` is the bf16 counterpart timed beside an int8 kernel;
     ``stages``, where given, {stage: kernel name pattern}: the device time
-    of each stage's kernels, from the profiler (kernel_ms)."""
+    of each stage's kernels, from the profiler (kernel_ms); ``host``: also
+    the wrapper's host microseconds a call (host_us)."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
                 path=path, library=library, tol=tol, check=check, bf16=bf16,
-                stages=stages)
+                stages=stages, host=host)
 
 
 def sdpa_backward(q, k, v, g):
@@ -520,11 +526,44 @@ def two_products(rng, x, w1, w2):
     return lambda: [F.linear(x, w1b), F.linear(hid, w2b)]
 
 
+def temporal_library(x, pe, w, bo, heads, scale):
+    """A3's function as library calls (its ``library_ms``): x + pe, the q,
+    k and v products as one cuBLAS bf16 call against the stacked [3C, C]
+    weights, SDPA over the T frames of each (token, head), the out product
+    with its bias: three calls beside the pe add and the layout views."""
+    import torch.nn.functional as F
+    bn, t, c = x.shape
+    dt = x.dtype
+    wqkv = torch.cat(w[:3]).to(dt)
+    wo, b, p = w[3].to(dt), bo.to(dt), pe.to(dt)
+
+    def run(xx):
+        qkv = F.linear(xx + p, wqkv).reshape(bn, t, 3, heads, c // heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(bn, t, c), wo, b)
+    return run
+
+
+def temporal_library_backward(x, pe, g, w, heads, scale):
+    """D4's function as library calls: the backward of temporal_library
+    to x alone (the weights take no gradient) under autograd, the graph
+    built once here and the returned call running only
+    ``torch.autograd.grad`` (retain_graph): the out product's, SDPA's and
+    the qkv product's backwards."""
+    xr = x.detach().requires_grad_()
+    with torch.enable_grad():
+        out = temporal_library(xr, pe, w, torch.zeros_like(w[3][0]), heads,
+                               scale)(xr)
+    return lambda: torch.autograd.grad(out, [xr], g, retain_graph=True)
+
+
 def motion_cases(rng, path, t, with_a3=True, shapes=None):
     """A3 (unless with_a3 is False) and A4 at the four motion modules'
     shapes (MOTION_SHAPES, vitl's, by default) over t frames; A4 also
     bit-equal between two launches, its device time by stage
-    (A4_STAGES)."""
+    (A4_STAGES).  Library calls: A3's products in cuBLAS and SDPA
+    (temporal_library), A4's two products."""
     from vdn_torch.kernels import geglu
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
@@ -546,7 +585,9 @@ def motion_cases(rng, path, t, with_a3=True, shapes=None):
             lambda x=x, pe=pe, w=w, bo=bo, s=scale:
                 ta.temporal_attention_block_plain(x, pe, *w, bo, 8, s),
             (2 * _nbytes(x) + _nbytes(pe, bo, *w),
-             [(flops, BF16_TENSOR_FLOPS)]), path)
+             [(flops, BF16_TENSOR_FLOPS)]), path,
+            library=lambda x=x, f=temporal_library(x, pe, w, bo, 8, scale):
+                f(x))
 
     for bn, c in shapes:
         f = 4 * c
@@ -657,7 +698,9 @@ def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None,
     default) at c channels (ISLAND_C by default), 8 x the grid in and 14 x
     out (with sigmoid: the metric head's activation in place of the ReLU),
     and with h_pass its A5a H pass alone (the input's rows into A6's
-    zero-padded plan)."""
+    zero-padded plan).  A6's library calls: ``F.interpolate`` to the
+    output size, the 3 x 3 and 1 x 1 ``conv2d`` on bf16 operands, each
+    followed by its ReLU (the last, with sigmoid, by the sigmoid)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import resize as rz
     from vdn_torch.kernels import resize_island as ri
@@ -699,13 +742,22 @@ def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None,
             BF16_TENSOR_FLOPS),
            (2 * n * h_out * wd * c * 2, FP32_FLOPS)]
     args = (feat, w1, b1, w2, b2, (h_out, w_out), sigmoid, 1.0)
+    cw1, cb1 = w1.permute(3, 2, 0, 1).to(bf), b1.to(bf)
+    cw2, cb2 = w2.t()[:, :, None, None].to(bf), b2.to(bf)
+
+    def library(x=feat.permute(0, 3, 1, 2)):
+        y = F.interpolate(x, size=(h_out, w_out), mode="bilinear",
+                          align_corners=True)
+        y = F.relu(F.conv2d(y, cw1, cb1, padding=1))
+        y = F.conv2d(y, cw2, cb2)
+        return torch.sigmoid(y) if sigmoid else F.relu(y)
     yield case(
         "fused_resize_island",
         f"[{n}, {h}, {wd}, {c}] -> [{n}, {h_out}, {w_out}, 1]"
         + (" sigmoid" if sigmoid else ""),
         lambda a=args: ri.fused_resize_island(*a),
         lambda a=args: ri.fused_resize_island_plain(*a),
-        (_nbytes(feat, w1, b1, w2, b2, out), ops), path)
+        (_nbytes(feat, w1, b1, w2, b2, out), ops), path, library=library)
 
 
 def memory_cases(rng, path, h=MEM_HEADS):
@@ -713,7 +765,8 @@ def memory_cases(rng, path, h=MEM_HEADS):
     37 x 37 token grid with the bank's masks of 1, 3 and 6 written slots,
     and the 37 x 49 grid of the non-square image with 2.  The bound counts
     what the mask leaves: the live slots' keys and values, and their
-    products."""
+    products.  C2 (A1's kernel, kBthd) also with its device time
+    (C2_STAGES) and the wrapper's host time."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     from vdn_torch.nn.memory import slot_bias
@@ -732,7 +785,8 @@ def memory_cases(rng, path, h=MEM_HEADS):
             (_nbytes(q, ks, vs, q), [(4 * h * hw * hw * d,
                                       BF16_TENSOR_FLOPS)]), path,
             library=lambda a=(q, ks, vs): F.scaled_dot_product_attention(
-                *(t.transpose(1, 2) for t in a)))
+                *(t.transpose(1, 2) for t in a)), stages=C2_STAGES,
+            host=True)
         for count in counts:
             bias = slot_bias(cap, hw, count, torch.device(dev)).reshape(-1)
             mask = bias.to(bf).reshape(1, 1, 1, -1)
@@ -1098,7 +1152,7 @@ def train_cases(rng, path="train"):
     parameters fp32 as the model stores them; D1 also at ragged T
     (``d1_cases``), D3 also at D3_EXTRA's shapes.  Library calls: SDPA's
     forward (A1-train) and backward alone (D1), D3's three products in
-    cuBLAS bf16."""
+    cuBLAS bf16, D4's library calls' backward (temporal_library_backward)."""
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
     dev, bf = DEVICE, torch.bfloat16
@@ -1123,7 +1177,7 @@ def train_cases(rng, path="train"):
             lambda a=(x, pe, g, *w), s=scale:
                 ta.temporal_attention_bwd_dx_plain(*a, 8, s),
             (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
-            path)
+            path, library=temporal_library_backward(x, pe, g, w, 8, scale))
     for p, bb, tt, c in D3_EXTRA:
         yield d3_case(rng, p, bb, tt, c)
 
@@ -1231,6 +1285,8 @@ def check_kernels(cases=None) -> dict:
             extra["bf16_ms"] = f"{bf16_ms:.4f}"
         for k, v in stage_ms.items():
             extra[f"{k}_ms"] = f"{v:.4f}"
+        if c["host"]:
+            extra["host_us"] = f"{host_us(c['kern']):.2f}"
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -3068,8 +3124,9 @@ def all_launches(want: dict) -> dict:
 def v1_attention_cases(rng, path="v1"):
     """C2 at fp32 / D 96 and D2 on hieradet's global blocks: q, k, v read
     in place off the fused qkv [16, T, 3, 4, 96] fp32, at T = 256 (256 px)
-    and 324 (288 px: ragged tiles).  Library calls: SDPA's forward, and
-    its backward alone (``sdpa_backward``), in fp32.
+    and 324 (288 px: ragged tiles); D2's device time by launch
+    (D2_STAGES).  Library calls: SDPA's forward, and its backward alone
+    (``sdpa_backward``), in fp32.
     Bounds: three times the products' operations at the TF32 tensor-core
     rate, the least work that keeps fp32 accuracy on the tensor cores
     (3xTF32, which C2 runs)."""
@@ -3108,7 +3165,8 @@ def v1_attention_cases(rng, path="v1"):
             (_nbytes(q, k, v, o, lse, dout) + 3 * _nbytes(o),
              [(3 * 10 * b * h * t * t * d, TF32_TENSOR_FLOPS)]), path,
             tol="fp32", library=sdpa_backward(*sdpa_in,
-                                              dout.transpose(1, 2)))
+                                              dout.transpose(1, 2)),
+            stages=D2_STAGES)
 
 
 def v1_resize_passes():
@@ -3507,7 +3565,7 @@ SOURCES = {
                     "vdn/ops/pallas/resize.py:218"),
     "fused_resize_island": ("vdn_torch/csrc/resize_island.cu",
                             "vdn/ops/pallas/resize_island.py:244"),
-    "flash_attention": ("vdn_torch/csrc/flash_attn_bthd.cu",
+    "flash_attention": ("vdn_torch/csrc/flash_attn_qkv.cu",
                         "vdn/ops/pallas/flash_attention.py:270"),
     "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_bthd.cu",
                                 "vdn/ops/pallas/flash_attention.py:157"),
@@ -3760,9 +3818,13 @@ def ab_tree(tree: str) -> dict:
     the 480 x 640 image and A1-train at the v4 shape (a1_case, with device
     ms), F6 in "all" at the cached window (with SDPA's time on the same
     q, k, v) and at a streamed frame (also host_us), C3 at the cached
-    window (f6_cases, c3_cases, with device ms),
-    the v4 training step (RefineTrainer b2 t8, median
-    of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
+    window (f6_cases, c3_cases, with device ms), C2 (bf16) at the memory
+    block's two token grids (ms, device ms, host_us, SDPA's ms) and C1
+    summed over its four cases (memory_cases), C2 in fp32 with its
+    log-sum-exp at T 256 and D2 at v1's two shapes (with SDPA's backward
+    alone; v1_attention_cases), the v1 step (V1Trainer b2 x s8, median of
+    V1_STEPS after V1_WARMUP), the v4 training step (RefineTrainer b2 t8,
+    median of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
     windows and vitg's int8_static windows (time_windows, the int8 ones
     on the first window's scales), and vitl's bf16 and int8_static
     streams at k = 1 (run_stream over N_STREAM frames, the median frame
@@ -3857,6 +3919,51 @@ def ab_tree(tree: str) -> dict:
                 out[f"{key}_sdpa_ms"] = time_ms(c["library"], reps=20)
             del c
             torch.cuda.empty_cache()
+        # C2 (bf16) at the memory block's two token grids; C1 summed over
+        # its four cases
+        out["c1_image_ms"] = out["c1_image_device_ms"] = 0.0
+        for c in memory_cases(rng, "ab"):
+            ms = time_ms(c["kern"], reps=20)
+            dev = sum(kernel_ms(c["kern"], {}).values())
+            if c["name"] == "flash_attention_colbias":
+                out["c1_image_ms"] += ms
+                out["c1_image_device_ms"] += dev
+                continue
+            key = f"c2_t{c['label'].split()[0][2:]}"
+            out[f"{key}_ms"], out[f"{key}_device_ms"] = ms, dev
+            out[f"{key}_host_us"] = host_us(c["kern"])
+            out[f"{key}_sdpa_ms"] = time_ms(c["library"], reps=20)
+        del c
+        torch.cuda.empty_cache()
+    # C2 in fp32 with its log-sum-exp at T 256, and D2 at v1's two shapes
+    with exact_fp32():
+        for c in v1_attention_cases(np.random.default_rng(SEED + 7), "ab"):
+            t = c["label"].split()[1].lower()
+            if c["name"] == "flash_attention_bwd":
+                key = f"d2_{t}"
+                out[f"{key}_sdpa_backward_ms"] = time_ms(c["library"],
+                                                         reps=20)
+            elif c["path"] == "ab_lse" and t == "t256":
+                key = "c2_f32_lse_t256"
+            else:
+                continue
+            out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+            out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
+        del c
+        torch.cuda.empty_cache()
+        # the v1 step ([v1_train]'s trainer and batch, median of V1_STEPS
+        # after V1_WARMUP)
+        from vdn_torch.train.trainer import V1Trainer
+        batch = v1_batch(np.random.default_rng(SEED + 7))
+        model = build_v1_model()
+        trainer = V1Trainer(model, initial_lr=V1_LR,
+                            weight_decay=V1_WEIGHT_DECAY)
+        for _ in range(V1_WARMUP):
+            trainer.train_step(batch)
+        walls = timed_steps(lambda: trainer.train_step(batch), V1_STEPS)[1]
+        out["v1_step_ms"] = statistics.median(walls)
+        del model, trainer, batch
+        torch.cuda.empty_cache()
     batch = train_batch(np.random.default_rng(SEED))
     model = build_refine_model(batch)[0]
     trainer = RefineTrainer(model, initial_lr=TRAIN_LR)

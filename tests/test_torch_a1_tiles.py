@@ -20,6 +20,15 @@ must sit within chip_smoke.py's tolerance (KERNEL_ULPS bf16 ulps at each
 output's scale) of the plain version, and of vdn's kernel run in Pallas
 interpret mode as tests/test_torch_kernels.py runs it.
 
+C2 (``flash_attention`` in bf16 at D 64, the memory block's attention) is
+the same kernel in its kBthd form: A1's arithmetic on separate q [B, Tq,
+H, 64] and k, v [B, Tk, H, 64], the items of ``a1_plan(b, Tq, h)`` over
+the q tiles of Tq, each walking the Tk keys in 128-key tiles (the tail's
+keys past Tk masked to -inf, their V rows zero; q rows past Tq zeros and
+never stored).  Its replay is held to ``flash_attention_plain`` and to
+vdn's ``flash_attention`` at the memory block's (Tq, Tk) = (1369, 1369)
+and (1813, 1813), and at (90, 257), where Tq and Tk differ.
+
 C3 (``flash_attention_qkv``) is the same kernel in its kC3 form, on the
 same items: q is not scaled, S = q K^T in fp32, the running max m in S's
 units, alpha = exp2((m_old - m) c) and p = exp2(S c - m c) with c =
@@ -65,31 +74,38 @@ def walk(b: int, t: int, h: int, sms: int) -> list:
             for k in range(plan["grid"])]
 
 
-def replay(qkv: torch.Tensor, scale=None):
-    """(out [B, T, H, D], lse [B, H, T]) by the kernel's items, tiles and
-    order."""
-    b, t, _, h, d = qkv.shape
+def _pad(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """[B, T, H, D] with rows past T as zeros up to a multiple of ``rows``
+    (as TMA loads the tiles)."""
+    b, t, h, d = x.shape
+    return torch.cat([x, x.new_zeros((b, -(-t // rows) * rows - t, h, d))],
+                     1)
+
+
+def replay_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale=None):
+    """(out [B, Tq, H, D], lse [B, H, Tq]) by the kernel's items, tiles and
+    order: A1 (q, k, v off the fused qkv, Tq = Tk) and C2 (kBthd)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
     rows = fa.A1_ROWS
-    tp = -(-t // rows) * rows
-    # as TMA loads the tiles: rows and keys past T are zeros
-    pad = lambda x: torch.cat([x, x.new_zeros((b, tp - t, h, d))], 1)
-    qs = pad(qkv[:, :, 0] * fa._qscale(qkv, scale)).float()
-    k, v = pad(qkv[:, :, 1]).float(), pad(qkv[:, :, 2]).float()
-    out = torch.full((b, tp, h, d), math.nan)
-    lse = torch.full((b, h, tp), math.nan)
-    for block in walk(b, t, h, SMS):
+    qs = _pad(q * fa._qscale(q, scale), rows).float()
+    k, v = _pad(k, rows).float(), _pad(v, rows).float()
+    out = torch.full(qs.shape, math.nan)
+    lse = torch.full((b, h, qs.shape[1]), math.nan)
+    for block in walk(b, tq, h, SMS):
         for bi, hi, qt in block:
             for w in range(rows // WG_ROWS):
                 r = slice(qt * rows + w * WG_ROWS,
                           qt * rows + (w + 1) * WG_ROWS)
-                q = qs[bi, r, hi]
+                qw = qs[bi, r, hi]
                 o = torch.zeros((WG_ROWS, d))
                 m = torch.full((WG_ROWS,), -math.inf)
                 l = torch.zeros((WG_ROWS,))
-                for k0 in range(0, tp, rows):
-                    s = q @ k[bi, k0:k0 + rows, hi].t()
-                    s[:, torch.arange(k0, k0 + rows) >= t] = -math.inf
+                for k0 in range(0, k.shape[1], rows):
+                    s = qw @ k[bi, k0:k0 + rows, hi].t()
+                    s[:, torch.arange(k0, k0 + rows) >= tk] = -math.inf
                     m_new = torch.maximum(m, s.amax(1))
                     alpha = torch.exp2(m - m_new)
                     o, l, m = o * alpha[:, None], l * alpha, m_new
@@ -98,7 +114,13 @@ def replay(qkv: torch.Tensor, scale=None):
                     o = o + p @ v[bi, k0:k0 + rows, hi]
                 out[bi, r, hi] = o * (1.0 / l)[:, None]
                 lse[bi, hi, r] = m + torch.log2(l)
-    return out[:, :t].to(qkv.dtype), lse[..., :t]
+    return out[:, :tq].to(q.dtype), lse[..., :tq]
+
+
+def replay(qkv: torch.Tensor, scale=None):
+    """A1: (out [B, T, H, D], lse [B, H, T]) by the kernel's items, tiles
+    and order."""
+    return replay_bthd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale)
 
 
 def replay_c3(qkv: torch.Tensor, scale=None) -> torch.Tensor:
@@ -150,10 +172,12 @@ def _qkv(t: int, seed: int, h: int = 2) -> np.ndarray:
 @pytest.mark.parametrize("b,t,h", [(22, 1370, 16), (32, 1370, 16),
                                    (1, 1370, 16), (1, 37 * 49 + 1, 16),
                                    (22, 1370, 24), (22, 1370, 6),
-                                   (22, 1370, 12), (16, 1370, 16)])
+                                   (22, 1370, 12), (16, 1370, 16),
+                                   (1, 1369, 16), (1, 37 * 49, 16)])
 def test_plan_covers_every_item_once(b, t, h):
     """The persistent blocks' walk takes every (frame, head, q tile) of
-    the main path's shapes exactly once, with no more blocks than SMs."""
+    the main path's shapes exactly once, with no more blocks than SMs
+    (C2: the memory block's Tq 1369 and 1813 at one frame)."""
     plan = fa.a1_plan(b, t, h, SMS)
     n = -(-t // fa.A1_ROWS)
     assert plan["items"] == b * h * n
@@ -202,4 +226,26 @@ def test_c3_replay_matches_plain_and_vdn(t):
     with pltpu.force_tpu_interpret_mode():
         want = jfa.flash_attention_qkv(jnp.asarray(a, jnp.bfloat16),
                                        block_q=128)
+    _close(out, want, "vdn")
+
+
+def _bthd(tq: int, tk: int, seed: int, h: int = 2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, t, h, 64)).astype(np.float32)
+            for t in (tq, tk, tk)]
+
+
+@pytest.mark.parametrize("tq,tk", [(1369, 1369), (1813, 1813), (90, 257)])
+def test_c2_replay_matches_plain_and_vdn(tq, tk):
+    """C2's replayed schedule (A1's kernel in its kBthd form: separate q,
+    k, v, the q tiles over Tq and the keys over Tk) within KERNEL_ULPS
+    bf16 ulps of flash_attention_plain and of vdn's flash_attention
+    (Pallas in interpret mode), [B, Tq, H, D]."""
+    a = _bthd(tq, tk, tq + tk)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in a)
+    out, _ = replay_bthd(q, k, v)
+    _close(out, fa.flash_attention_plain(q, k, v), "plain")
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                     for x in a))
     _close(out, want, "vdn")

@@ -54,10 +54,10 @@ def _sub(src: str, pairs) -> str:
 
 
 def _softmax_calls(new: str):
-    return [("""      } else if ((j + 1) * kRows > T) {
-        softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, T);
+    return [("""      } else if ((j + 1) * kRows > Tk) {
+        softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, Tk);
       } else {
-        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);
+        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, Tk);
       }""", "      } else {\n" + new + "\n      }")]
 
 
@@ -87,10 +87,10 @@ def variants(src: str) -> dict:
             ("    float m_run[2] = {-INFINITY, -INFINITY};",
              "    float m_run[2] = {-INFINITY, -INFINITY};\n"
              "    float lreg[2] = {0.f, 0.f};"),
-            ("m_run, j * kRows + c2, T);\n      } else {",
-             "m_run, lreg, j * kRows + c2, T);\n      } else {"),
-            ("m_run, j * kRows + c2, T);\n      }\n      prev",
-             "m_run, lreg, j * kRows + c2, T);\n      }\n      prev"),
+            ("m_run, j * kRows + c2, Tk);\n      } else {",
+             "m_run, lreg, j * kRows + c2, Tk);\n      } else {"),
+            ("m_run, j * kRows + c2, Tk);\n      }\n      prev",
+             "m_run, lreg, j * kRows + c2, Tk);\n      }\n      prev"),
             ("      l[0] = o[32];\n      l[1] = o[34];",
              "      for (int r = 0; r < 2; ++r) {\n"
              "        lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 1);\n"

@@ -73,9 +73,9 @@ GROUPS = [
     (r"f6_flash_kernel", "F6 int8 flash attention (wgmma)"),
     (r"ring_step_kernel", "E1 ring-attention step (CP motion modules)"),
     (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
-    (r"flash_bwd_dkdv_f32", "D2 dK / dV"),
-    (r"flash_bwd_dq_f32", "D2 dQ"),
-    (r"flash_bwd_delta_f32", "D2 delta"),
+    (r"d2_dkdv", "D2 dK / dV (3xTF32 mma.sync, TMA)"),
+    (r"d2_dq", "D2 dQ (3xTF32 mma.sync, TMA)"),
+    (r"d2_delta", "D2 delta (+ padded lse)"),
     # F1-F5 on the wgmma core (csrc/int8_tail.cuh, int8_linear.cu,
     # ln_mlp_int8.cu, ln_swiglu_int8.cu): F1's rows by their caller tag,
     # F2's and F3's skip the LayerNorm; F1 / F2's product by its bias
@@ -94,9 +94,10 @@ GROUPS = [
     (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
      "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
     # A1's kernel by its form (csrc/flash_attn_qkv.cu: kA1 0, kA1Lse 1,
-    # kC3 2)
+    # kC3 2, kBthd 3)
     (r"a1_flash_kernel<1>", "A1-train flash attention (+ log-sum-exp)"),
     (r"a1_flash_kernel<2>", "C3 head-major fused-qkv attention"),
+    (r"a1_flash_kernel<3>", "C2 memory self-attention"),
     (r"a1_flash_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),
@@ -118,9 +119,7 @@ GROUPS = [
     (r"ProAddPe.*EpiStoreTemporalBwd", "D4 q / k / v recompute GEMM"),
     (r"EpiStoreTemporalBwd", "D4 doh and dx GEMMs"),
     (r"temporal_bwd_core", "D4 attention core"),
-    (r"flash_bthd_kernel<(\(bool\))?(1|true)>",
-     "C1 memory cross-attention (column bias)"),
-    (r"flash_bthd_kernel", "C2 memory self-attention"),
+    (r"flash_bthd_kernel", "C1 memory cross-attention (column bias)"),
     (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
     (r"temporal_core", "A3 attention core"),
     (r"EpiBias\b", "A3 out-proj GEMM"),

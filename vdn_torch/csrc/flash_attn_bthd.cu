@@ -1,20 +1,21 @@
-// C1 and C2: attention over [B, T, H, D] tensors, with or without an
-// additive bias per key column.
+// C1: attention over [B, T, H, D] tensors with an additive bias per key
+// column (the memory bank's slot mask).
 //
-// Replaces vdn/ops/pallas/flash_attention.py flash_attention
-// (_flash_kernel via _flash_bhtd) and flash_attention_colbias
+// Replaces vdn/ops/pallas/flash_attention.py flash_attention_colbias
 // (_flash_colbias_kernel via _flash_bhtd_colbias): q [B, Tq, H, D],
-// k / v [B, Tk, H, D] -> out [B, Tq, H, D], bf16, D = 64.  On the
-// single-image depth path: memory self-attention at Tq = Tk = 1369 (C2) and
-// the cross-attention to the memory bank at Tk = 6 * 1369 = 8214 keys with
-// the bank's slot mask as the bias (C1; 0 for written slots, -inf for the
-// leading empty ones), H = 16.
+// k / v [B, Tk, H, D], bias [Tk] -> out [B, Tq, H, D], bf16, D = 64.  On
+// the single-image depth path: the cross-attention to the memory bank at
+// Tq = 1369 (1813 at a 480 x 640 image) and Tk = 6 * Tq keys with the
+// bank's slot mask as the bias (0 for written slots, -inf for the leading
+// empty ones), H = 16.  (C2, the same attention without a bias, runs A1's
+// kernel in its kBthd form: flash_attn_qkv.cu.)
 //
 // Bound on the H100 by the two tensor-core products (4 * B * H * Tq * Tk *
-// D FLOP) and the exp2 of every logit; q, k, v and out together are read
-// and written once.  The TPU kernels held one head's whole K and V in VMEM
-// (2 * 8214 * 64 * 2 B = 2.1 MB for C1) and took an exact full-K softmax
-// over three [B, T, H, D] -> [BH, T, D] copies.  Neither carries over:
+// D FLOP over the live keys) and the exp2 of every logit; q, k, v and out
+// together are read and written once.  The TPU kernel held one head's
+// whole K and V in VMEM (2 * 8214 * 64 * 2 B = 2.1 MB) and took an exact
+// full-K softmax over three [B, T, H, D] -> [BH, T, D] copies.  Neither
+// carries over:
 //   - one block of four warps per (batch, head, 64-row q tile) streams
 //     64-key tiles with an online fp32 softmax, the next K/V tile arriving
 //     by cp.async while the current one is multiplied;
@@ -22,19 +23,20 @@
 //     the head offset h * D: no transpose copies in or out;
 //   - the arithmetic is A1's: scale * log2(e) rounded to bf16 and folded
 //     into q in bf16, S = q k^T and O += P V with mma.sync m16n8k16 in fp32,
-//     p = bf16(exp2(s - m)), the row sum taken from the rounded p;
-//   - C1 adds bias * log2(e) to the logits in fp32.  A key tile whose
-//     columns are all -inf is skipped without being loaded (its p would be
-//     0; with one slot of six written that is 5/6 of the keys); a first
-//     pass over the bias marks the live tiles in shared memory.  A live
-//     tile has a finite column for every row, so the running max is finite
-//     from the first tile that is multiplied; the rescale is guarded all
-//     the same, so that -inf - (-inf) is never evaluated;
+//     bias * log2(e) added to the logits in fp32, p = bf16(exp2(s - m)),
+//     the row sum taken from the rounded p;
+//   - a key tile whose columns are all -inf is skipped without being
+//     loaded (its p would be 0; with one slot of six written that is 5/6
+//     of the keys); a first pass over the bias marks the live tiles in
+//     shared memory.  A live tile has a finite column for every row, so the
+//     running max is finite from the first tile that is multiplied; the
+//     rescale is guarded all the same, so that -inf - (-inf) is never
+//     evaluated;
 //   - ragged tails (Tq = 1369 = 21 * 64 + 25, Tk = 8214 = 128 * 64 + 22):
 //     q rows >= Tq are zero and never stored, key columns >= Tk get -inf
 //     logits and zero V.
 // Online rescaling rounds p against the running max instead of the final
-// one, so results differ from the TPU kernels by a few bf16 ulps at most.
+// one, so results differ from the TPU kernel by a few bf16 ulps at most.
 #include <math.h>
 
 #include "common.cuh"
@@ -50,7 +52,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 // per key tile, dynamic) fill the rest of the 48 KB a block gets by default
 constexpr int kMaxTiles = 2560;
 
-template <bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -61,7 +62,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kLd];
   __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kLd];
   __shared__ __align__(16) float Bs[2][kTile];
-  extern __shared__ unsigned char live[];  // [n_tiles], C1 only
+  extern __shared__ unsigned char live[];  // [n_tiles]
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -72,19 +73,16 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)b * Tk * ld + h * kD;
   const int n_tiles = (Tk + kTile - 1) / kTile;
 
-  if (kBias) {
-    // a tile is live if any of its columns can carry weight
-    for (int j = tid; j < n_tiles; j += kThreads) {
-      const int k1 = min((j + 1) * kTile, Tk);
-      bool any = false;
-      for (int c = j * kTile; c < k1; ++c) any |= bias[c] > -INFINITY;
-      live[j] = any;
-    }
-    __syncthreads();
+  // a tile is live if any of its columns can carry weight
+  for (int j = tid; j < n_tiles; j += kThreads) {
+    const int k1 = min((j + 1) * kTile, Tk);
+    bool any = false;
+    for (int c = j * kTile; c < k1; ++c) any |= bias[c] > -INFINITY;
+    live[j] = any;
   }
+  __syncthreads();
   auto next_live = [&](int j) {
-    if (kBias)
-      while (j < n_tiles && !live[j]) ++j;
+    while (j < n_tiles && !live[j]) ++j;
     return j;
   };
 
@@ -100,7 +98,7 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
       __nv_bfloat16* dst = (which ? Vs[buf] : Ks[buf]) + r * kLd + d;
       vdn::cp_async_16(dst, src, row < Tk ? 16 : 0);
     }
-    if (kBias && tid < kTile / 4) {
+    if (tid < kTile / 4) {
       // 16 bytes = 4 columns; the chunk that straddles Tk is cut short and
       // zero-filled (those columns are masked below)
       const int c0 = k0 + tid * 4;
@@ -189,13 +187,11 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nj = 0; nj < kTile / 8; ++nj) {
       const int col = nj * 8 + 2 * t;
       const int key = j * kTile + col;
-      float2 bv = make_float2(0.f, 0.f);
-      if (kBias) bv = *reinterpret_cast<const float2*>(&Bs[buf][col]);
+      const float2 bv = *reinterpret_cast<const float2*>(&Bs[buf][col]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (kBias)
-          s[nj][i] = __fadd_rn(s[nj][i],
-                               __fmul_rn((i & 1) ? bv.y : bv.x, kLog2e));
+        s[nj][i] = __fadd_rn(s[nj][i],
+                             __fmul_rn((i & 1) ? bv.y : bv.x, kLog2e));
         if (key + (i & 1) >= Tk) s[nj][i] = -INFINITY;
         mx[i >> 1] = fmaxf(mx[i >> 1], s[nj][i]);
       }
@@ -271,44 +267,27 @@ flash_bthd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool kBias>
-int launch_bthd(const void* q, const void* k, const void* v,
-                const void* bias, int B, int Tq, int Tk, int H, float qscale,
-                void* out, void* stream) {
-  const int n_tiles = (Tk + kTile - 1) / kTile;
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || n_tiles > kMaxTiles)
-    return cudaErrorInvalidValue;
-  dim3 grid((Tq + kTile - 1) / kTile, H, B);
-  flash_bthd_kernel<kBias>
-      <<<grid, kThreads, kBias ? n_tiles : 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const float*>(bias), Tq, Tk, H, qscale,
-          static_cast<__nv_bfloat16*>(out));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// q [B, Tq, H * 64], k / v [B, Tk, H * 64] bf16 -> out [B, Tq, H * 64] bf16.
-// qscale is bf16(scale * log2 e).  Head width 64 only; Tk up to 64 * 2560.
-extern "C" int vdn_flash_attention_bthd(const void* q, const void* k,
-                                        const void* v, int B, int Tq, int Tk,
-                                        int H, float qscale, void* out,
-                                        void* stream) {
-  return launch_bthd<false>(q, k, v, nullptr, B, Tq, Tk, H, qscale, out,
-                            stream);
-}
-
-// The same with bias [Tk] fp32 (natural-log units, -inf allowed) added to
-// every row's logits.  At least one column must be finite.
+// q [B, Tq, H * 64], k / v [B, Tk, H * 64] bf16 and bias [Tk] fp32
+// (natural-log units, -inf allowed, at least one column finite) added to
+// every row's logits -> out [B, Tq, H * 64] bf16.  qscale is bf16(scale *
+// log2 e).  Head width 64 only; Tk up to 64 * 2560.
 extern "C" int vdn_flash_attention_colbias(const void* q, const void* k,
                                            const void* v, const void* bias,
                                            int B, int Tq, int Tk, int H,
                                            float qscale, void* out,
                                            void* stream) {
-  return launch_bthd<true>(q, k, v, bias, B, Tq, Tk, H, qscale, out, stream);
+  const int n_tiles = (Tk + kTile - 1) / kTile;
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || n_tiles > kMaxTiles)
+    return cudaErrorInvalidValue;
+  dim3 grid((Tq + kTile - 1) / kTile, H, B);
+  flash_bthd_kernel<<<grid, kThreads, n_tiles,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const float*>(bias), Tq, Tk, H, qscale,
+      static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
 }
-

@@ -49,7 +49,7 @@
 // Online rescaling rounds p against the running max instead of the final
 // one, so results differ from the TPU kernel's by a few bf16 ulps at most.
 //
-// The kernel has three forms (kForm):
+// The kernel has four forms (kForm):
 //   - kA1, the forward above;
 //   - kA1Lse, the training forward (_flash_cols_call(save_lse=True)): it
 //     also writes each row's base-2 log-sum-exp m + log2(l) in fp32 from
@@ -64,7 +64,14 @@
 //     two of p), the row sum l of the unrounded p taken in registers (the
 //     ones column would sum the rounded p), p rounded to bf16 for P V only
 //     (m64n64k16), out = O / l, stored through a 3-D map of out as [B * H,
-//     T, 64].  No model path calls it.
+//     T, 64].  No model path calls it;
+//   - kBthd, C2: replaces flash_attention (_flash_kernel via _flash_bhtd),
+//     attention over separate q [B, Tq, H * 64] and k, v [B, Tk, H * 64]
+//     (the memory block's self-attention, Tq = Tk = 1369 or 1813, H 16):
+//     A1's arithmetic unchanged, q, k and v each read through a 3-D map of
+//     its own ([B, T, H * 64], the box at column h * 64), the q tiles
+//     counted over Tq and the key tiles over Tk, keys >= Tk masked in the
+//     tail tile, out [B, Tq, H * 64] through A1's out map.
 // Each form is a template case: A1's instructions and registers are the
 // same with or without the others.
 #include <math.h>
@@ -92,7 +99,7 @@ static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
 constexpr int kTurn = 1, kOwn = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 // the kernel's forms (see the note above)
-constexpr int kA1 = 0, kA1Lse = 1, kC3 = 2;
+constexpr int kA1 = 0, kA1Lse = 1, kC3 = 2, kBthd = 3;
 
 // The online softmax of one 64 x 128 tile S (accumulator layout; key0 the
 // key of this thread's first column, keys >= T masked where kMask): the
@@ -236,14 +243,20 @@ __device__ __forceinline__ void issue(float (&o)[36], float (&s)[64],
   }
 }
 
-// qscale: kA1 / kA1Lse bf16(scale * log2 e), folded into q; kC3 the
-// softmax scale, applied to the product
+// qscale: kA1 / kA1Lse / kBthd bf16(scale * log2 e), folded into q; kC3
+// the softmax scale, applied to the product.  map_qkv holds q (kBthd) or
+// all of qkv; map_k and map_v, and Tk, are read by kBthd alone (the other
+// forms take their keys off map_qkv, Tk = T).
 template <int kForm>
 __global__ void __launch_bounds__(kThreads, 1)
 a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_out, int B, int T,
-                int H, float qscale, float* __restrict__ lse) {
+                int Tk_bthd, int H, float qscale, float* __restrict__ lse) {
   constexpr bool kLse = kForm == kA1Lse, kNat = kForm == kC3;
+  constexpr bool kSep = kForm == kBthd;
+  const int Tk = kSep ? Tk_bthd : T;  // keys
   // O: A1's columns 64-71 the row sums
   constexpr int kO = kNat ? 32 : 36;
   extern __shared__ uint8_t smem_raw[];
@@ -261,7 +274,8 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
   uint64_t* q_empty = q_full + 2;
 
   const int C = H * kD;
-  const int n_t = (T + kRows - 1) / kRows;  // q tiles, and key tiles
+  const int n_t = (T + kRows - 1) / kRows;    // q tiles
+  const int n_k = (Tk + kRows - 1) / kRows;   // key tiles
   const int items = B * H * n_t;
   const int wgi = threadIdx.x >> 7;
 
@@ -294,14 +308,19 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
         mbar_expect_tx(qbar, kTileBytes);
         tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
                     qt * kRows, b);
-        for (int j = 0; j < n_t; ++j) {
+        for (int j = 0; j < n_k; ++j) {
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t bar = smem_u32(&full[stage]);
           const uint32_t dst = ring + stage * 2 * kTileBytes;
           mbar_expect_tx(bar, 2 * kTileBytes);
-          tma_load_3d(dst, &map_qkv, bar, C + h * kD, j * kRows, b);
-          tma_load_3d(dst + kTileBytes, &map_qkv, bar, 2 * C + h * kD,
-                      j * kRows, b);
+          if constexpr (kSep) {
+            tma_load_3d(dst, &map_k, bar, h * kD, j * kRows, b);
+            tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, j * kRows, b);
+          } else {
+            tma_load_3d(dst, &map_qkv, bar, C + h * kD, j * kRows, b);
+            tma_load_3d(dst + kTileBytes, &map_qkv, bar, 2 * C + h * kD,
+                        j * kRows, b);
+          }
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -355,23 +374,23 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // C3: the thread's share of the row sums
     int prev = 0;  // the stage of P's V
-    // turn j: P_{j-1} V_{j-1} (j > 0) and S_j (j < n_t)
+    // turn j: P_{j-1} V_{j-1} (j > 0) and S_j (j < n_k)
 #pragma unroll 1
-    for (int j = 0; j <= n_t; ++j) {
+    for (int j = 0; j <= n_k; ++j) {
       const uint32_t k_s = ring + stage * 2 * kTileBytes;
       const uint32_t v_s = ring + prev * 2 * kTileBytes + kTileBytes;
-      if (j < n_t) mbar_wait(smem_u32(&full[stage]), phase);
+      if (j < n_k) mbar_wait(smem_u32(&full[stage]), phase);
       named_sync(kTurn + wgi, kConsumers);
       if constexpr (kNat) {
         if (j == 0)
           issue_nat<false, true>(o, s, pa, v_s, qw, k_s);
-        else if (j < n_t)
+        else if (j < n_k)
           issue_nat<true, true>(o, s, pa, v_s, qw, k_s);
         else
           issue_nat<true, false>(o, s, pa, v_s, qw, k_s);
       } else if (j == 0) {
         issue<false, true>(o, s, pa, v_s, ones_s, qw, k_s);
-      } else if (j < n_t) {
+      } else if (j < n_k) {
         issue<true, true>(o, s, pa, v_s, ones_s, qw, k_s);
       } else {
         issue<true, false>(o, s, pa, v_s, ones_s, qw, k_s);
@@ -383,18 +402,18 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
       if (j > 0) mbar_arrive(smem_u32(&empty[prev]));
-      if (j == n_t) break;
+      if (j == n_k) break;
       if constexpr (kNat) {
-        if ((j + 1) * kRows > T)
-          softmax_nat<true>(s, pa, o, m_run, l_run, j * kRows + c2, T,
+        if ((j + 1) * kRows > Tk)
+          softmax_nat<true>(s, pa, o, m_run, l_run, j * kRows + c2, Tk,
                             qscale * kLog2e);
         else
-          softmax_nat<false>(s, pa, o, m_run, l_run, j * kRows + c2, T,
+          softmax_nat<false>(s, pa, o, m_run, l_run, j * kRows + c2, Tk,
                              qscale * kLog2e);
-      } else if ((j + 1) * kRows > T) {
-        softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, T);
+      } else if ((j + 1) * kRows > Tk) {
+        softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, Tk);
       } else {
-        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, T);
+        softmax_tile<false>(s, pa, o, m_run, j * kRows + c2, Tk);
       }
       prev = stage;
       if (++stage == kStages) {
@@ -462,6 +481,20 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
 }
 
 template <int kForm>
+cudaError_t launch_maps(const CUtensorMap& map_qkv, const CUtensorMap& map_k,
+                        const CUtensorMap& map_v, const CUtensorMap& map_out,
+                        int B, int T, int Tk, int H, float qscale, float* lse,
+                        int grid, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      a1_flash_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (attr != cudaSuccess) return attr;
+  a1_flash_kernel<kForm><<<grid, kThreads, kSmem, s>>>(
+      map_qkv, map_k, map_v, map_out, B, T, Tk, H, qscale, lse);
+  return cudaGetLastError();
+}
+
+template <int kForm>
 cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
                        void* out, float* lse, int grid, cudaStream_t s) {
   if (B < 1 || T < 1 || H < 1 || grid < 1) return cudaErrorInvalidValue;
@@ -471,13 +504,9 @@ cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
     err = kForm == kC3 ? encode_rows_bf16(&map_out, out, B * H, T, kD, 64)
                        : encode_rows_bf16(&map_out, out, B, T, H * kD, 64);
   if (err != cudaSuccess) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      a1_flash_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (attr != cudaSuccess) return attr;
-  a1_flash_kernel<kForm><<<grid, kThreads, kSmem, s>>>(map_qkv, map_out, B,
-                                                       T, H, qscale, lse);
-  return cudaGetLastError();
+  // the keys come off map_qkv: map_k and map_v are not read
+  return launch_maps<kForm>(map_qkv, map_qkv, map_qkv, map_out, B, T, T, H,
+                            qscale, lse, grid, s);
 }
 
 }  // namespace
@@ -510,4 +539,26 @@ extern "C" int vdn_flash_attention_qkv_heads(const void* qkv, int B, int T,
                                              int grid, void* stream) {
   return launch_fwd<kC3>(qkv, B, T, H, scale, out, nullptr, grid,
                          static_cast<cudaStream_t>(stream));
+}
+
+// C2: q [B, Tq, H * 64], k / v [B, Tk, H * 64] bf16 (contiguous, 16-byte
+// aligned) -> out [B, Tq, H * 64] bf16.  qscale is bf16(scale * log2 e);
+// grid the persistent blocks (the Python plan's, over the q tiles of Tq).
+// Head width 64 only.
+extern "C" int vdn_flash_attention_bthd(const void* q, const void* k,
+                                        const void* v, int B, int Tq, int Tk,
+                                        int H, float qscale, void* out,
+                                        int grid, void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || grid < 1)
+    return cudaErrorInvalidValue;
+  const int C = H * kD;
+  CUtensorMap map_q, map_k, map_v, map_out;
+  cudaError_t err = encode_rows_bf16(&map_q, q, B, Tq, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_k, k, B, Tk, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_v, v, B, Tk, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_out, out, B, Tq, C, 64);
+  if (err != cudaSuccess) return err;
+  return launch_maps<kBthd>(map_q, map_k, map_v, map_out, B, Tq, Tk, H,
+                            qscale, nullptr, grid,
+                            static_cast<cudaStream_t>(stream));
 }

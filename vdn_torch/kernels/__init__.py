@@ -92,7 +92,8 @@ _SIGNATURES = {
     "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _I, _P),
     "vdn_flash_attention_qkv_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
                                     _P, _P, _P),
-    "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+    "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _I,
+                                 _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _P),
     "vdn_flash_attention_bthd_f32": (_P, _P, _P, _I, _I, _I, _I, _I)
@@ -249,8 +250,12 @@ def build() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call one C entry point on the current stream; raise on a CUDA error."""
-    err = getattr(build(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call one C entry point on the current stream; raise on a CUDA error.
+    The stream is read as its raw handle: ``torch.cuda.current_stream()``
+    builds a Stream object, 5-8 us of host time against 0.3
+    (tools/d2_variants.py, ``host_pieces``)."""
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    err = getattr(build(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
 

@@ -15,21 +15,25 @@ C2 replaces ``flash_attention`` (``_flash_kernel``) and C1
 ``flash_attention_colbias`` (``_flash_colbias_kernel``): attention over
 separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
-In bf16 at D = 64 both run csrc/flash_attn_bthd.cu, A1's arithmetic read
-through the [B, T, H, D] strides, with whole -inf key tiles skipped.  C2
-also runs fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, its products on the
-tensor cores in 3xTF32, which keeps fp32 accuracy): hieradet's global
-blocks on the v1 model, whose q, k and v it reads in place as slices of
-the fused qkv projection.
+In bf16 at D = 64, C2 is A1's kernel in its ``kBthd`` form (csrc/
+flash_attn_qkv.cu: q, k and v each through a tensor map of its own, Tq
+and Tk apart, on ``a1_plan``'s items over the q tiles), and C1 runs
+csrc/flash_attn_bthd.cu (A1's arithmetic on mma.sync, read through the
+[B, T, H, D] strides, with whole -inf key tiles skipped).  C2 also runs
+fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, its products on the tensor
+cores in 3xTF32, which keeps fp32 accuracy): hieradet's global blocks on
+the v1 model, whose q, k and v it reads in place as slices of the fused
+qkv projection.
 
 Training through C2: with grad enabled and q, k or v requiring it, C2 runs
 as an autograd Function.  Its forward also writes the base-2 row
 log-sum-exp [B, H, Tq]; its backward is D2 (csrc/flash_attn_bthd_bwd.cu),
 vdn's ``_flash_bwd_bhtd``: delta = rowsum(dO * O), dV = P^T dO, dS = P (dP
 - delta), dQ = dS K * scale, dK = dS^T q * scale, with P recomputed from
-the saved log-sum-exp.  D2 covers fp32 at D = 96; C1 and C2's bf16 kernel
-are inference kernels, and on the card an input that requires grad raises
-there.
+the saved log-sum-exp, its products in 3xTF32 on the tensor cores
+(mma.sync) from tiles that TMA streams in.  D2 covers fp32 at D = 96; C1
+and C2's bf16 kernel are inference kernels, and on the card an input that
+requires grad raises there.
 
 Training: with grad enabled and qkv requiring it, A1 runs as an autograd
 Function.  Its forward is A1's training variant (the same kernel with
@@ -75,7 +79,7 @@ from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
                                same_dispatch, save_dispatch, sm_count,
                                use_kernel, wants_grad)
 
-MAX_KEY_TILES = 2560  # csrc/flash_attn_bthd.cu: live-tile flags in shared memory
+MAX_KEY_TILES = 2560  # C1 (csrc/flash_attn_bthd.cu): live-tile flags in smem
 D1_ROWS = 128         # csrc/flash_attn_qkv_bwd.cu: keys / q rows of a block
 A1_ROWS = 128         # csrc/flash_attn_qkv.cu: q rows of an item, keys a tile
 
@@ -86,7 +90,8 @@ def a1_plan(b: int, t: int, h: int, sms: int) -> dict:
     order with the q tile fastest (item i: tile i % n, head (i // n) % h,
     frame i // (n h)), and the persistent blocks, min(items, sms); block k
     takes items k, k + grid, ...  Each item walks the t keys in
-    A1_ROWS-key tiles."""
+    A1_ROWS-key tiles (C2, the kernel's kBthd form: t is Tq, and each item
+    walks the Tk keys)."""
     items = b * h * -(-t // A1_ROWS)
     return {"items": items, "grid": min(items, sms)}
 
@@ -316,15 +321,19 @@ def flash_attention_fused_qkv(qkv: torch.Tensor,
 
 
 def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
+    """C2 (``col_bias`` None: A1's kernel, kBthd) or C1 in bf16 at D = 64
+    on contiguous, 16-byte aligned q, k, v (row stride H * 64)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    limit = col_bias is not None and tk > 64 * MAX_KEY_TILES
     if (d != 64 or q.dtype != torch.bfloat16 or k.dtype != q.dtype
             or v.dtype != q.dtype or k.shape != (b, tk, h, d)
-            or v.shape != k.shape or tk > 64 * MAX_KEY_TILES):
+            or v.shape != k.shape or limit):
         raise ValueError(
             f"{name}: kernel takes bf16 q [B, Tq, H, 64] and k, v "
-            f"[B, Tk, H, 64] with Tk <= {64 * MAX_KEY_TILES}"
-            + (" (C2 also fp32 at D = 96)" if col_bias is None else "")
+            f"[B, Tk, H, 64]"
+            + (" (C2 also fp32 at D = 96)" if col_bias is None
+               else f" with Tk <= {64 * MAX_KEY_TILES}")
             + f", got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
             f"{k.dtype}, v {tuple(v.shape)} {v.dtype}")
     if wants_grad(q, k, v):
@@ -338,7 +347,8 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     if col_bias is None:
         check_kernel_args(name, q, k, v, out)
         launch("vdn_flash_attention_bthd", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), b, tq, tk, h, qscale, out.data_ptr())
+               v.data_ptr(), b, tq, tk, h, qscale, out.data_ptr(),
+               a1_plan(b, tq, h, sm_count(q.device.index))["grid"])
     else:
         if col_bias.shape != (tk,) or col_bias.dtype != torch.float32:
             raise ValueError(f"{name}: col_bias must be fp32 [{tk}], got "
@@ -352,6 +362,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
 
 
 F32_HEAD_DIMS = (96,)   # csrc/flash_attn_bthd_f32.cu, flash_attn_bthd_bwd.cu
+D2_ROWS = 64            # csrc/flash_attn_bthd_bwd.cu: keys / q rows of a block
 
 
 def _is_f32_case(q, k, v) -> bool:
@@ -403,7 +414,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, scale: Optional[float] = None):
     """D2: (dq, dk, dv) of C2 from the forward's out and base-2 lse
-    [B, H, Tq]; kernel for fp32 at D = 96 (q, k, v read in place)."""
+    [B, H, Tq]; kernel for fp32 at D = 96 (q, k, v read in place through
+    tensor maps: rows and bases 16-byte aligned)."""
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, out, dout, scale)
     name = "flash_attention_bwd"
@@ -423,15 +435,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[B, H, Tq], got {tuple(out.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    # the delta launch's lse copy (padded rows +inf) and delta (padded 0)
+    tp = -(-tq // D2_ROWS) * D2_ROWS
+    stats = torch.empty((2, b, h, tp), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    check_kernel_args(name, out, dout, lse, delta, dq, dk, dv)
+    check_kernel_args(name, out, dout, lse, stats, dq, dk, dv)
     launch("vdn_flash_attention_bthd_bwd", q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), b,
            tq, tk, h, d, *strides, _kernel_qscale(scale, torch.float32),
-           float(scale), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           float(scale), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr())
     launches[name] += 1
     return dq, dk, dv
