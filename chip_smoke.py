@@ -192,6 +192,15 @@ D3_STAGES = {"rows": r"d3_rows", "pair": r"EpiHDhpre", "dy": r"EpiDy",
 A4_STAGES = {"row": r"A4Rows|row_stats", "fc1": r"EpiGeglu",
              "fc2": r"EpiResidualBias"}
 F3_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Residual"}
+# A3's four launches (csrc/temporal_attn.cu: the + pe rows, the qkv
+# product, the T x T core, the out product with + bo) and D4's five
+# (csrc/temporal_attn_bwd.cu: the + pe rows, the qkv product, doh = g Wo,
+# the core, dx); the old tree's kernels (gemm_tile's products, one core)
+# fall to "other"
+A3_STAGES = {"row": r"A3Rows", "qkv": r"A3Qkv", "core": r"a3_core_kernel",
+             "out": r"EpiOutBias"}
+D4_STAGES = {"row": r"D4Rows", "qkv": r"D4Qkv", "doh": r"D4Doh",
+             "core": r"d4_core_kernel", "dx": r"D4Dx"}
 # F1's and F2's two (csrc/int8_linear.cu: the row quantizer, the product
 # with its bias epilogue); A1's one kernel, its device time
 F1_STAGES = {"rows": r"quant_rows", "gemm": r"EpiI8Linear"}
@@ -558,36 +567,55 @@ def temporal_library_backward(x, pe, g, w, heads, scale):
     return lambda: torch.autograd.grad(out, [xr], g, retain_graph=True)
 
 
-def motion_cases(rng, path, t, with_a3=True, shapes=None):
-    """A3 (unless with_a3 is False) and A4 at the four motion modules'
-    shapes (MOTION_SHAPES, vitl's, by default) over t frames; A4 also
-    bit-equal between two launches, its device time by stage
-    (A4_STAGES).  Library calls: A3's products in cuBLAS and SDPA
-    (temporal_library), A4's two products."""
-    from vdn_torch.kernels import geglu
+def a3_case(rng, path, bn, t, c, heads=8):
+    """A3 on x [bn, t, c] bf16 with ``heads`` heads: held to the plain
+    version and to its own second launch bit for bit, its device time by
+    stage (A3_STAGES), the wrapper's host time where t is 1 (a streamed
+    frame); library: its products in cuBLAS and SDPA (temporal_library)."""
     from vdn_torch.kernels import temporal_attention as ta
     from vdn_torch.nn.motion import sinusoidal_positional_encoding
+    dev, bf = DEVICE, torch.bfloat16
+    x = _rand(rng, (bn, t, c)).to(dev, bf)
+    pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:t]).to(dev)
+    w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
+    bo = _rand(rng, (c,), 0.1).to(dev)
+    scale = (c // heads) ** -0.5
+    flops = 8 * bn * t * c * c + 4 * bn * t * t * c
+    kern = lambda: ta.temporal_attention_block(x, pe, *w, bo, heads, scale)
+    plain = lambda: ta.temporal_attention_block_plain(x, pe, *w, bo, heads,
+                                                      scale)
+    return case(
+        "temporal_attention_block", f"BN{bn} T{t} C{c}", kern, plain,
+        (2 * _nbytes(x) + _nbytes(pe, bo, *w), [(flops, BF16_TENSOR_FLOPS)]),
+        path,
+        library=lambda f=temporal_library(x, pe, w, bo, heads, scale): f(x),
+        check=both_launches_equal(kern, plain), stages=A3_STAGES,
+        host=t == 1)
+
+
+def a3_extra_cases(rng):
+    """A3 and D4 beyond their paths' shapes: dh 64 (C 512, 8 heads: the
+    one head width no model's motion module has), A3 over a window, the
+    training step's T 8 and a streamed frame, D4 at T 8; A3 at vitg's dh
+    192 and 48 at T 8."""
+    for t in (32, TRAIN_T, 1):
+        yield a3_case(rng, "a3_extra", 1369, t, 512)
+    yield d4_case(rng, "a3_extra", TRAIN_B * 1369, 512)
+    for bn, c in VITG_MOTION_SHAPES[::2]:
+        yield a3_case(rng, "a3_extra", TRAIN_B * bn, TRAIN_T, c)
+
+
+def motion_cases(rng, path, t, with_a3=True, shapes=None):
+    """A3 (unless with_a3 is False: a3_case) and A4 at the four motion
+    modules' shapes (MOTION_SHAPES, vitl's, by default) over t frames; A4
+    also bit-equal between two launches, its device time by stage
+    (A4_STAGES), its library call its two products."""
+    from vdn_torch.kernels import geglu
     dev, bf = DEVICE, torch.bfloat16
     shapes = shapes or MOTION_SHAPES
 
     for bn, c in shapes if with_a3 else ():
-        x = _rand(rng, (bn, t, c)).to(dev, bf)
-        pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:t]).to(
-            dev)
-        w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
-        bo = _rand(rng, (c,), 0.1).to(dev)
-        scale = (c // 8) ** -0.5
-        flops = 8 * bn * t * c * c + 4 * bn * t * t * c
-        yield case(
-            "temporal_attention_block", f"BN{bn} T{t} C{c}",
-            lambda x=x, pe=pe, w=w, bo=bo, s=scale:
-                ta.temporal_attention_block(x, pe, *w, bo, 8, s),
-            lambda x=x, pe=pe, w=w, bo=bo, s=scale:
-                ta.temporal_attention_block_plain(x, pe, *w, bo, 8, s),
-            (2 * _nbytes(x) + _nbytes(pe, bo, *w),
-             [(flops, BF16_TENSOR_FLOPS)]), path,
-            library=lambda x=x, f=temporal_library(x, pe, w, bo, 8, scale):
-                f(x))
+        yield a3_case(rng, path, bn, t, c)
 
     for bn, c in shapes:
         f = 4 * c
@@ -1106,6 +1134,8 @@ def kernel_cases(rng):
     # A1 at the full window, vits' and vitb's heads and ragged T (last, as
     # A4's above)
     yield from a1_extra_cases(rng)
+    # A3 and D4 at dh 64, A3 at vitg's widths at T 8 (last, as A4's above)
+    yield from a3_extra_cases(rng)
 
 
 def vitg_cases(rng):
@@ -1152,34 +1182,41 @@ def train_cases(rng, path="train"):
     parameters fp32 as the model stores them; D1 also at ragged T
     (``d1_cases``), D3 also at D3_EXTRA's shapes.  Library calls: SDPA's
     forward (A1-train) and backward alone (D1), D3's three products in
-    cuBLAS bf16, D4's library calls' backward (temporal_library_backward)."""
-    from vdn_torch.kernels import temporal_attention as ta
-    from vdn_torch.nn.motion import sinusoidal_positional_encoding
-    dev, bf = DEVICE, torch.bfloat16
+    cuBLAS bf16, D4's library calls' backward (temporal_library_backward);
+    then A3's forward at the step's shapes (T 8)."""
     yield a1_case(rng, path, TRAIN_FRAMES, lse=True)
     yield from d1_cases(rng, path)
     yield d3_case(rng, path, TRAIN_FRAMES, VIT_TOKENS, 1024)
-
     for bn, c in MOTION_SHAPES:
-        bn *= TRAIN_B
-        tt = TRAIN_T
-        x = _rand(rng, (bn, tt, c)).to(dev, bf)
-        g = _rand(rng, (bn, tt, c)).to(dev, bf)
-        pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:tt]).to(
-            dev)
-        w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
-        scale = (c // 8) ** -0.5
-        flops = bn * tt * c * (14 * c + 10 * tt)
-        yield case(
-            "temporal_attention_block_bwd", f"BN{bn} T{tt} C{c}",
-            lambda a=(x, pe, g, *w), s=scale: ta.temporal_attention_bwd_dx(
-                *a, 8, s),
-            lambda a=(x, pe, g, *w), s=scale:
-                ta.temporal_attention_bwd_dx_plain(*a, 8, s),
-            (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
-            path, library=temporal_library_backward(x, pe, g, w, 8, scale))
+        yield d4_case(rng, path, bn * TRAIN_B, c)
     for p, bb, tt, c in D3_EXTRA:
         yield d3_case(rng, p, bb, tt, c)
+    # last: the earlier cases keep their draws of the seed
+    for bn, c in MOTION_SHAPES:
+        yield a3_case(rng, path, bn * TRAIN_B, TRAIN_T, c)
+
+
+def d4_case(rng, path, bn, c, tt=TRAIN_T):
+    """D4 on x, g [bn, tt, c] bf16 (8 heads): held to the plain version and
+    to its own second launch bit for bit, the device time by stage
+    (D4_STAGES); library: A3's library calls' backward to x
+    (temporal_library_backward)."""
+    from vdn_torch.kernels import temporal_attention as ta
+    from vdn_torch.nn.motion import sinusoidal_positional_encoding
+    dev, bf = DEVICE, torch.bfloat16
+    x = _rand(rng, (bn, tt, c)).to(dev, bf)
+    g = _rand(rng, (bn, tt, c)).to(dev, bf)
+    pe = torch.from_numpy(sinusoidal_positional_encoding(c, 32)[:tt]).to(dev)
+    w = [_rand(rng, (c, c), c ** -0.5).to(dev) for _ in range(4)]
+    scale = (c // 8) ** -0.5
+    flops = bn * tt * c * (14 * c + 10 * tt)
+    kern = lambda: ta.temporal_attention_bwd_dx(x, pe, g, *w, 8, scale)
+    plain = lambda: ta.temporal_attention_bwd_dx_plain(x, pe, g, *w, 8, scale)
+    return case(
+        "temporal_attention_block_bwd", f"BN{bn} T{tt} C{c}", kern, plain,
+        (3 * _nbytes(x) + _nbytes(pe, *w), [(flops, BF16_TENSOR_FLOPS)]),
+        path, library=temporal_library_backward(x, pe, g, w, 8, scale),
+        check=both_launches_equal(kern, plain), stages=D4_STAGES)
 
 
 def d3_case(rng, path, b, t, c):
@@ -3686,19 +3723,26 @@ def vitg_phases(frames) -> dict:
     return out
 
 
+def merge_summary(summary: dict, more: dict) -> None:
+    """check_kernels' ``more`` into ``summary``: a kernel's paths side by
+    side (A3 has clip paths and the training step's), the larger error."""
+    for name, s in more.items():
+        merged = summary.setdefault(name, {"max_abs_err": 0.0})
+        merged["max_abs_err"] = max(merged["max_abs_err"],
+                                    s.pop("max_abs_err"))
+        merged.update(s)
+
+
 def main() -> None:
     device = environment()
     build_kernels()
     check_gelu()
     summary = check_kernels()
-    summary.update(check_kernels(train_cases(np.random.default_rng(SEED))))
+    merge_summary(summary,
+                  check_kernels(train_cases(np.random.default_rng(SEED))))
     with exact_fp32():
-        for name, s in check_kernels(
-                v1_cases(np.random.default_rng(SEED + 7))).items():
-            merged = summary.setdefault(name, {"max_abs_err": 0.0})
-            merged["max_abs_err"] = max(merged["max_abs_err"],
-                                        s.pop("max_abs_err"))
-            merged.update(s)
+        merge_summary(summary, check_kernels(
+            v1_cases(np.random.default_rng(SEED + 7))))
     check_no_backward_raises()
     model = build_model()
     frames = synthetic_clip()
@@ -3810,7 +3854,9 @@ def ab_tree(tree: str) -> dict:
     (a2_case, d3_case: CUDA events around the call, and the device time of
     its kernels from the profiler), A4 at vitl's four motion shapes over a
     window (each, and summed) and over a streamed frame (summed;
-    motion_cases, also with device ms), F5 at vitg's
+    motion_cases, also with device ms), A3 likewise (a3_case; at a frame
+    also host_us) and D4 at the v4 step's four shapes (d4_case, each and
+    summed, with device ms), F5 at vitg's
     cached-window rows and at a streamed frame, F4, F3 and F1 at vitl's
     cached window and at a streamed frame (int8_cases, also with device
     ms; at a frame's rows, and A4's, also the host's microseconds a call,
@@ -3872,6 +3918,31 @@ def ab_tree(tree: str) -> dict:
                 out[f"{key}_{k}"] = v
             del c
             torch.cuda.empty_cache()
+        # A3 at vitl's four motion shapes over a window (each, and summed)
+        # and over a streamed frame (summed, with the host's µs a call); D4
+        # at the v4 step's four (each, and summed); device ms too
+        for t, key in ((32, "a3_window"), (1, "a3_stream_frame"),
+                       (TRAIN_T, "d4_step")):
+            total = {"ms": 0.0, "device_ms": 0.0}
+            if t == 1:
+                total["host_us"] = 0.0
+            for bn, cw in MOTION_SHAPES:
+                c = (d4_case(rng, "ab", bn * TRAIN_B, cw) if key == "d4_step"
+                     else a3_case(rng, "ab", bn, t, cw))
+                ms = time_ms(c["kern"], reps=20)
+                dev = sum(kernel_ms(c["kern"], {}).values())
+                total["ms"] += ms
+                total["device_ms"] += dev
+                if t == 1:
+                    total["host_us"] += host_us(c["kern"])
+                else:
+                    shape = c["label"].split()
+                    name = f"{key.split('_')[0]}_{shape[0]}_{shape[2]}"
+                    out[f"{name}_ms"], out[f"{name}_device_ms"] = ms, dev
+                del c
+                torch.cuda.empty_cache()
+            for k, v in total.items():
+                out[f"{key}_{k}"] = v
         for enc, rows, key in (
                 ("vitg", CACHED_FRAMES * VIT_TOKENS, "f5_cached_window"),
                 ("vitg", VIT_TOKENS, "f5_stream_frame"),

@@ -116,13 +116,19 @@ GROUPS = [
     (r"EpiResidualBias", "A4 fc2 bf16 wgmma (x + o, + b2)"),
     (r"ln_bwd_rows|ln_colsum|colsum_reduce",
      "D3 LayerNorm backward rows and column sums"),
-    (r"ProAddPe.*EpiStoreTemporalBwd", "D4 q / k / v recompute GEMM"),
-    (r"EpiStoreTemporalBwd", "D4 doh and dx GEMMs"),
-    (r"temporal_bwd_core", "D4 attention core"),
+    # A3 and D4 (csrc/temporal_attn.cu, temporal_attn_bwd.cu): the + pe
+    # rows by their caller tag, each product by its epilogue's tag, the
+    # cores by name
+    (r"pe_rows_kernel<.*A3Rows", "A3 + pe rows"),
+    (r"EpiStore<.*A3Qkv", "A3 qkv bf16 wgmma"),
+    (r"a3_core_kernel", "A3 T x T core (mma.sync)"),
+    (r"EpiOutBias", "A3 out bf16 wgmma (+ bo)"),
+    (r"pe_rows_kernel<.*D4Rows", "D4 + pe rows"),
+    (r"EpiStore<.*D4Qkv", "D4 qkv recompute bf16 wgmma"),
+    (r"EpiStore<.*D4Doh", "D4 doh = g Wo bf16 wgmma"),
+    (r"d4_core_kernel", "D4 T x T core (mma.sync)"),
+    (r"EpiStore<.*D4Dx", "D4 dx bf16 wgmma"),
     (r"flash_bthd_kernel", "C1 memory cross-attention (column bias)"),
-    (r"ProAddPe", "A3 qkv GEMM (+ pe prologue)"),
-    (r"temporal_core", "A3 attention core"),
-    (r"EpiBias\b", "A3 out-proj GEMM"),
     (r"resize_island", "A6 fused resize island"),
     (r"resize_rows", "A5a resize_rows"),
     (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),

@@ -1,6 +1,6 @@
 // The warp-specialised bf16 GEMM core on Hopper's wgmma and TMA (A2 in
-// ln_mlp.cu, D3 in ln_mlp_bwd.cu, A4 in ln_geglu.cu; A3 and D4 are to
-// adopt it):
+// ln_mlp.cu, D3 in ln_mlp_bwd.cu, A4 in ln_geglu.cu, A3 in
+// temporal_attn.cu, D4 in temporal_attn_bwd.cu):
 //   outs = epi( A @ B^T )                 one product
 //   outs = epi( A @ B^T, A2 @ B2^T )      the paired mode: two products over
 //                                         the same [M, N] tiles and K
@@ -13,9 +13,10 @@
 //          hidden rows [0, N), gate rows [N, 2N))
 //   outs   Epi::kOuts bf16 tensors [M, N] (Epi the epilogue functor, below)
 //
-// Replaces the mma.sync template (gemm_tile.cuh) for the products of
-// vdn/ops/pallas/mlp.py's _ln_mlp_kernel and _mlp_bwd_dx_kernel and
-// geglu.py's _geglu_kernel.  One
+// It runs the products of vdn/ops/pallas/mlp.py's _ln_mlp_kernel and
+// _mlp_bwd_dx_kernel, geglu.py's _geglu_kernel and temporal_attention.py's
+// _kernel and _bwd_kernel (A3's qkv and out products, D4's qkv, doh and
+// dx), which ran on an mma.sync tile template before.  One
 // persistent block per SM walks the TM x BN output tiles (tile t: rows (t /
 // n_tiles) * TM, columns (t % n_tiles) * BN; block b takes t = b, b +
 // grid, ..., so neighbouring blocks share A's rows in L2 and the weights

@@ -9,188 +9,271 @@
 //
 // Bound on the H100 by its C x C products: the recomputed q / k / v
 // projection (6 * BN * T * C^2 FLOP), doh = g Wo (2 *) and the three
-// unprojections (6 *); the T x T core is 10 * BN * T^2 * C.  The TPU kernel
-// kept the four weights in VMEM and did the whole backward per token
-// block; here, as A3 (temporal_attn.cu), the products go through gemm_tile
-// and the core is one small block per (token, head), four launches:
-//   1. gemm_tile with the + pe prologue against [wq | wk | wv]: q, k, v
-//      [BN * T, 3C] rounded to bf16 (the forward's first launch again);
-//   2. gemm_tile g Wo -> doh [BN * T, C] rounded to bf16;
-//   3. temporal_bwd_core_kernel: q, k, v and doh of one (token, head) in
-//      shared memory, one warp per query row with lane j holding key j:
-//      logits and the fp32 softmax (exp, not exp2, as the forward), dp =
-//      doh v^T, delta = sum dp * probs, ds = bf16(probs (dp - delta)
-//      scale), then dv = bf16(probs)^T doh, dq = ds k and dk = ds^T q, each
-//      summed in fp32 and rounded to bf16 into dqkv [BN * T, 3C];
-//   4. gemm_tile dqkv [wq; wk; wv] -> dx: one fp32 sum over K = 3C,
-//      rounded once -- vdn's three unprojections summed in fp32
-//      (temporal_attention.py:199-205).
-// Wo and [wq; wk; wv] enter launches 2 and 4 transposed (made by the
-// wrapper), the K-contiguous layout gemm_tile reads.
-#include <math.h>
-
-#include "gemm_tile.cuh"
+// unprojections (6 *); the T x T core is 10 * BN * T^2 * C FLOP, bound by
+// its bytes (qkv and doh in, dqkv out: 7 * BN * T * C * 2).  The TPU
+// kernel kept the four weights in VMEM and did the whole backward per
+// token block; here, as A3 (temporal_attn.cu), the products run on the
+// bf16 wgmma + TMA core (bf16_wgmma.cuh, ping-pong, 128 x 128 tiles) and
+// the core on mma.sync, five launches from one host call:
+//   1. pe_rows_kernel: xp = bf16(x + pe[row % T]) [M, C] (in doh's buffer,
+//      which the qkv product has read before doh is written);
+//   2. qkv = xp [wq; wk; wv]^T, K-major as stored, rounded to bf16 (the
+//      forward's q, k, v);
+//   3. doh = bf16(g Wo), to_out's weight as stored read MN-major (the
+//      core's transpose bit: no transposed copy);
+//   4. d4_core_kernel, one warp per (token, head) (temporal_attn.cuh): S =
+//      q k^T and dP = doh v^T on mma.sync, the fp32 softmax P (expf, a true
+//      division, as the forward), delta = sum dP * P, ds = bf16(P (dP -
+//      delta) scale); bf16(P) and ds into shared memory, whence
+//      ldmatrix.trans reads the A fragments of dv = bf16(P)^T doh and dk =
+//      ds^T q, while dq = ds k takes ds's A fragments from the registers;
+//      the operands' B fragments by ldmatrix.trans; dq, dk and dv rounded
+//      to bf16 into dqkv [M, 3C];
+//   5. dx = dqkv [wq; wk; wv], the stacked weight as stored read MN-major:
+//      one fp32 sum over K = 3C, rounded once -- vdn's three unprojections
+//      summed in fp32 (temporal_attention.py:199-205).
+#include "temporal_attn.cuh"
 
 namespace {
 
-using vdn::bf16r;
+namespace wgbf = vdn::wgbf;
+namespace ta = vdn::tattn;
 
-struct EpiStoreTemporalBwd {
-  __nv_bfloat16* out;
-  int ld;
-  __device__ void operator()(int m, int n, float v0, float v1) const {
-    *reinterpret_cast<uint32_t*>(out + (size_t)m * ld + n) =
-        vdn::pack_bf16(v0, v1);
-  }
-};
+constexpr int kBN = 128;  // the products' tile width
+struct D4Rows {};         // the row kernel's caller tag
+struct D4Qkv {};          // the products' epilogue tags
+struct D4Doh {};
+struct D4Dx {};
 
-constexpr int kMaxT = 32;
-constexpr int kCoreThreads = 128;
+// a warp's bf16(P) and ds tiles [16 KT, 16 KT + 8] (rows: queries)
+template <int KT>
+constexpr int kPdLd = 16 * KT + 8;
+template <int KT>
+constexpr int kPdBytes = 2 * 16 * KT * kPdLd<KT> * 2;
 
-// qkv [BN * T, 3C], doh [BN * T, C] -> dqkv [BN * T, 3C], one (token,
-// head) per block
-template <int DH>
-__global__ void __launch_bounds__(kCoreThreads)
-temporal_bwd_core_kernel(const __nv_bfloat16* __restrict__ qkv,
-                         const __nv_bfloat16* __restrict__ doh, int T, int C,
-                         float scale, __nv_bfloat16* __restrict__ dqkv) {
-  constexpr int LD = DH + 2;  // odd word stride: lane j reads row j conflict-free
-  __shared__ __align__(16) __nv_bfloat16 qs[kMaxT * LD];
-  __shared__ __align__(16) __nv_bfloat16 ks[kMaxT * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMaxT * LD];
-  __shared__ __align__(16) __nv_bfloat16 gs[kMaxT * LD];
-  __shared__ float ps[kMaxT][kMaxT + 1];   // bf16(probs)
-  __shared__ float dss[kMaxT][kMaxT + 1];  // bf16(ds)
+template <int DH, int KT>
+using Bwd = ta::Core<DH, KT, 4, kPdBytes<KT>>;
 
-  const int token = blockIdx.x, head = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row0 = (size_t)token * T;
-  const int ld3 = 3 * C;
-
-  // stage q / k / v / doh of this head; rows >= T are zero
-  constexpr int kChunks = DH / 8;
-  for (int c = tid; c < 4 * kMaxT * kChunks; c += kCoreThreads) {
-    const int which = c / (kMaxT * kChunks);
-    const int r = (c / kChunks) % kMaxT;
-    const int d = (c % kChunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < T) {
-      const __nv_bfloat16* src =
-          which < 3 ? qkv + (row0 + r) * ld3 + which * C + head * DH + d
-                    : doh + (row0 + r) * C + head * DH + d;
-      v = *reinterpret_cast<const uint4*>(src);
-    }
-    __nv_bfloat16* dst =
-        (which == 0 ? qs : which == 1 ? ks : which == 2 ? vs : gs) + r * LD + d;
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// qkv [M, 3C], doh [M, C] -> dqkv [M, 3C]: items token * heads + head,
+// each a warp's
+template <int DH, int KT>
+__global__ void __launch_bounds__(Bwd<DH, KT>::kThreads, 1)
+d4_core_kernel(const __nv_bfloat16* __restrict__ qkv,
+               const __nv_bfloat16* __restrict__ doh, int items, int heads,
+               int T, int C, float scale, __nv_bfloat16* __restrict__ dqkv) {
+  using F = Bwd<DH, KT>;
+  constexpr int LD = F::LD;
+  constexpr int PL = kPdLd<KT>;
+  constexpr int CT = F::kCT;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint8_t* mine = smem_raw + warp * F::kWarpBytes;
+  __nv_bfloat16* slots = reinterpret_cast<__nv_bfloat16*>(mine);
+  __nv_bfloat16* pd_s = slots + F::kStages * F::kSlot;  // bf16(P)
+  __nv_bfloat16* ds_s = pd_s + F::kRows * PL;           // ds
+  ta::zero_tail<LD>(slots, 4 * F::kStages, F::kTensor, F::kRows, T, lane);
+  __syncwarp();
+  const size_t ld = 3 * (size_t)C;
+  // q, k, v, doh of item ``it`` into slot ``st``; one cp.async group
+  auto fetch = [&](int it, int st) {
+    if (it < items) {
+      const int token = it / heads, head = it - token * heads;
+      const size_t row0 = (size_t)token * T;
+      __nv_bfloat16* dst = slots + st * F::kSlot;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      reinterpret_cast<__nv_bfloat162*>(dst)[j] = h[j];
-  }
-  __syncthreads();
-
-  // warp w takes query rows w, w + 4, ...; lane = key
-  for (int i = warp; i < T; i += kCoreThreads / 32) {
-    float s = -INFINITY, dp = 0.f;
-    if (lane < T) {
-      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qs + i * LD);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(ks + lane * LD);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(gs + i * LD);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(vs + lane * LD);
-      float acc = 0.f, dacc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH / 2; ++d) {
-        const float2 a = __bfloat1622float2(q2[d]);
-        const float2 b = __bfloat1622float2(k2[d]);
-        const float2 gg = __bfloat1622float2(g2[d]);
-        const float2 vv = __bfloat1622float2(v2[d]);
-        acc += a.x * b.x + a.y * b.y;
-        dacc += gg.x * vv.x + gg.y * vv.y;
+      for (int w = 0; w < 3; ++w)
+        ta::load_rows<DH, LD>(dst + w * F::kTensor,
+                              qkv + row0 * ld + w * C + head * DH, ld, T,
+                              lane);
+      ta::load_rows<DH, LD>(dst + 3 * F::kTensor, doh + row0 * C + head * DH,
+                            C, T, lane);
+    }
+    vdn::cp_async_commit();
+  };
+  const int g = lane >> 2, t = lane & 3;
+  const int stride = gridDim.x * F::kWarps;
+  int item = blockIdx.x * F::kWarps + warp;
+  fetch(item, 0);
+#pragma unroll 1
+  for (int n = 0; item < items; ++n, item += stride) {
+    fetch(item + stride, (n + 1) % F::kStages);
+    vdn::cp_async_wait<1>();
+    __syncwarp();
+    __nv_bfloat16* qs = slots + (n % F::kStages) * F::kSlot;
+    __nv_bfloat16* ks = qs + F::kTensor;
+    __nv_bfloat16* vs = qs + 2 * F::kTensor;
+    __nv_bfloat16* gs = qs + 3 * F::kTensor;  // doh
+    float p[KT][2 * KT][4], dp[KT][2 * KT][4];
+    ta::rows_by_keys<DH, KT, LD>(p, qs, ks, lane);
+    ta::rows_by_keys<DH, KT, LD>(dp, gs, vs, lane);
+    ta::softmax_rows<KT>(p, T, scale, lane);
+    // delta = sum_j dP P (fp32 P) per row, across the quad; ds = bf16(P
+    // (dP - delta) scale) into dp; bf16(P) and ds into their tiles
+#pragma unroll
+    for (int mi = 0; mi < KT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float delta = 0.f;
+#pragma unroll
+        for (int nj = 0; nj < 2 * KT; ++nj)
+          delta += dp[mi][nj][2 * h] * p[mi][nj][2 * h] +
+                   dp[mi][nj][2 * h + 1] * p[mi][nj][2 * h + 1];
+        delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+        delta += __shfl_xor_sync(0xffffffffu, delta, 2);
+        const int row = 16 * mi + g + 8 * h;
+#pragma unroll
+        for (int nj = 0; nj < 2 * KT; ++nj) {
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e)
+            dp[mi][nj][e] =
+                vdn::bf16r(p[mi][nj][e] * (dp[mi][nj][e] - delta) * scale);
+          const int at = row * PL + 8 * nj + 2 * t;
+          *reinterpret_cast<uint32_t*>(pd_s + at) =
+              vdn::pack_bf16(p[mi][nj][2 * h], p[mi][nj][2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + at) =
+              vdn::pack_bf16(dp[mi][nj][2 * h], dp[mi][nj][2 * h + 1]);
+        }
       }
-      s = acc * scale;
-      dp = dacc;
+    uint32_t da[KT][KT][4];  // ds as A fragments (rows: queries)
+    ta::pack_a<KT>(da, dp);
+    __syncwarp();  // the tiles written; v's reads done (dv is staged there)
+    float acc[KT][CT][4];
+    // dv = bf16(P)^T doh: rows keys, k over the queries
+#pragma unroll
+    for (int c0 = 0; c0 < DH / 8; c0 += CT) {
+      ta::zero(acc);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[KT][4];
+#pragma unroll
+        for (int mj = 0; mj < KT; ++mj)
+          ta::frag_a_t<PL>(a[mj], pd_s, mj, kk, lane);
+#pragma unroll
+        for (int nd = 0; nd < CT; nd += 2) {
+          uint32_t b[4];
+          ta::frag_b_t<LD>(b, gs, kk, c0 + nd, lane);
+#pragma unroll
+          for (int mj = 0; mj < KT; ++mj) {
+            ta::mma(acc[mj][nd], a[mj], b[0], b[1]);
+            ta::mma(acc[mj][nd + 1], a[mj], b[2], b[3]);
+          }
+        }
+      }
+      ta::stage_pairs<KT, CT, LD>(vs, acc, 8 * c0, lane);
     }
-    const float m = vdn::warp_max(s);
-    const float e = lane < T ? expf(s - m) : 0.f;
-    const float p = e / vdn::warp_sum(e);
-    const float delta = vdn::warp_sum(dp * p);
-    ps[i][lane] = bf16r(p);
-    dss[i][lane] = bf16r(p * (dp - delta) * scale);
-  }
-  __syncthreads();
-
-  // thread -> one column pair of one row: dq_i = sum_j ds_ij k_j, dk_i =
-  // sum_j ds_ji q_j, dv_i = sum_j bf16(p)_ji doh_j
-  constexpr int kPairs = DH / 2;
-  const int cp = tid % kPairs;
-  for (int i = tid / kPairs; i < T; i += kCoreThreads / kPairs) {
-    float dq0 = 0.f, dq1 = 0.f, dk0 = 0.f, dk1 = 0.f, dv0 = 0.f, dv1 = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float2 kv = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(ks + j * LD)[cp]);
-      const float2 qv = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(qs + j * LD)[cp]);
-      const float2 gv = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(gs + j * LD)[cp]);
-      const float a = dss[i][j], b = dss[j][i], p = ps[j][i];
-      dq0 += a * kv.x;
-      dq1 += a * kv.y;
-      dk0 += b * qv.x;
-      dk1 += b * qv.y;
-      dv0 += p * gv.x;
-      dv1 += p * gv.y;
+    __syncwarp();  // doh's reads done: dq is staged there
+    // dq = ds k: rows queries, k over the keys
+#pragma unroll
+    for (int c0 = 0; c0 < DH / 8; c0 += CT) {
+      ta::zero(acc);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int nd = 0; nd < CT; nd += 2) {
+          uint32_t b[4];
+          ta::frag_b_t<LD>(b, ks, kk, c0 + nd, lane);
+#pragma unroll
+          for (int mi = 0; mi < KT; ++mi) {
+            ta::mma(acc[mi][nd], da[mi][kk], b[0], b[1]);
+            ta::mma(acc[mi][nd + 1], da[mi][kk], b[2], b[3]);
+          }
+        }
+      ta::stage_pairs<KT, CT, LD>(gs, acc, 8 * c0, lane);
     }
-    __nv_bfloat16* dst = dqkv + (row0 + i) * ld3 + head * DH + 2 * cp;
-    *reinterpret_cast<uint32_t*>(dst) = vdn::pack_bf16(dq0, dq1);
-    *reinterpret_cast<uint32_t*>(dst + C) = vdn::pack_bf16(dk0, dk1);
-    *reinterpret_cast<uint32_t*>(dst + 2 * C) = vdn::pack_bf16(dv0, dv1);
+    __syncwarp();  // k's reads done: dk is staged there
+    // dk = ds^T q: rows keys, k over the queries
+#pragma unroll
+    for (int c0 = 0; c0 < DH / 8; c0 += CT) {
+      ta::zero(acc);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[KT][4];
+#pragma unroll
+        for (int mj = 0; mj < KT; ++mj)
+          ta::frag_a_t<PL>(a[mj], ds_s, mj, kk, lane);
+#pragma unroll
+        for (int nd = 0; nd < CT; nd += 2) {
+          uint32_t b[4];
+          ta::frag_b_t<LD>(b, qs, kk, c0 + nd, lane);
+#pragma unroll
+          for (int mj = 0; mj < KT; ++mj) {
+            ta::mma(acc[mj][nd], a[mj], b[0], b[1]);
+            ta::mma(acc[mj][nd + 1], a[mj], b[2], b[3]);
+          }
+        }
+      }
+      ta::stage_pairs<KT, CT, LD>(ks, acc, 8 * c0, lane);
+    }
+    __syncwarp();
+    const int token = item / heads, head = item - token * heads;
+    __nv_bfloat16* dst = dqkv + (size_t)token * T * ld + head * DH;
+    ta::store_rows<DH, LD>(dst, gs, ld, T, lane);         // dq
+    ta::store_rows<DH, LD>(dst + C, ks, ld, T, lane);     // dk
+    ta::store_rows<DH, LD>(dst + 2 * C, vs, ld, T, lane); // dv
+    __syncwarp();  // the slot's and the tiles' reads done
   }
+  vdn::cp_async_wait<0>();
 }
 
 template <int DH>
 cudaError_t launch_core(const __nv_bfloat16* qkv, const __nv_bfloat16* doh,
                         int BN, int T, int C, int heads, float scale,
-                        __nv_bfloat16* dqkv, cudaStream_t s) {
-  temporal_bwd_core_kernel<DH><<<dim3(BN, heads), kCoreThreads, 0, s>>>(
-      qkv, doh, T, C, scale, dqkv);
-  return cudaGetLastError();
+                        __nv_bfloat16* dqkv, int grid, cudaStream_t s) {
+  return ta::with_kt(T, [&](auto kt) {
+    constexpr int KT = decltype(kt)::value;
+    using F = Bwd<DH, KT>;
+    auto* kernel = d4_core_kernel<DH, KT>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+    if (attr != cudaSuccess) return attr;
+    kernel<<<grid, F::kThreads, F::kSmem, s>>>(qkv, doh, BN * heads, heads,
+                                               T, C, scale, dqkv);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // x, g, dx [BN * T, C]; pe [T, C]; wqkv [3C, C] (to_q | to_k | to_v
-// weights); woT [C, C] (= to_out weight^T); wqkvT [C, 3C] (= wqkv^T); all
-// bf16.  Scratch: qkv and dqkv [BN * T, 3C], doh [BN * T, C].  T <= 32 and
-// C / heads in {32, 64, 128}; other shapes return cudaErrorInvalidValue.
+// weights); wo [C, C] (to_out's weight); all bf16, the weights as stored.
+// Scratch: qkv and dqkv [BN * T, 3C], doh [BN * T, C] (xp first).  T <= 32,
+// C % 128 == 0 and C / heads in {32, 64, 128}; other shapes return
+// cudaErrorInvalidValue.  grid_qkv, grid_c and grid_core: the persistent
+// blocks of the qkv product, of the doh and dx products and of the core
+// (kernels/temporal_attention.py temporal_plan).
 extern "C" int vdn_temporal_attention_bwd(
     const void* x, const void* g, int BN, int T, int C, int heads,
-    const void* pe, const void* wqkv, const void* woT, const void* wqkvT,
-    float scale, void* qkv, void* doh, void* dqkv, void* dx, void* stream) {
+    const void* pe, const void* wqkv, const void* wo, float scale, void* qkv,
+    void* doh, void* dqkv, void* dx, int grid_qkv, int grid_c, int grid_core,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = BN * T;
-  const int dh = C / heads;
-  if (T > kMaxT || dh * heads != C || (dh != 32 && dh != 64 && dh != 128))
+  const int dh = heads > 0 ? C / heads : 0;
+  if (BN < 1 || T < 1 || T > ta::kMaxT || C % kBN || dh * heads != C ||
+      (dh != 32 && dh != 64 && dh != 128) || grid_core < 1)
     return cudaErrorInvalidValue;
   auto* qkvb = static_cast<__nv_bfloat16*>(qkv);
   auto* dohb = static_cast<__nv_bfloat16*>(doh);
   auto* dqkvb = static_cast<__nv_bfloat16*>(dqkv);
-  cudaError_t err = vdn::launch_gemm(
-      M, 3 * C, C, static_cast<const __nv_bfloat16*>(x), C,
-      static_cast<const __nv_bfloat16*>(wqkv),
-      vdn::ProAddPe{static_cast<const __nv_bfloat16*>(pe), T, C},
-      EpiStoreTemporalBwd{qkvb, 3 * C}, s);
+  cudaError_t err = vdn::launch_pe_rows<D4Rows>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(pe), M, T, C, dohb, s);
   if (err != cudaSuccess) return err;
-  err = vdn::launch_gemm(
-      M, C, C, static_cast<const __nv_bfloat16*>(g), C,
-      static_cast<const __nv_bfloat16*>(woT), vdn::ProIdentity{},
-      EpiStoreTemporalBwd{dohb, C}, s);
+  void* out = qkvb;
+  err = wgbf::launch_gemm_bf16_wgmma<kBN, wgbf::kKMajor, wgbf::kNoB, false>(
+      M, 3 * C, C, dohb, wqkv, nullptr, nullptr, &out, nullptr,
+      vdn::EpiStore<D4Qkv>{}, grid_qkv, s);
   if (err != cudaSuccess) return err;
-  if (dh == 128) err = launch_core<128>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, s);
-  else if (dh == 64) err = launch_core<64>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, s);
-  else err = launch_core<32>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, s);
+  out = dohb;
+  err = wgbf::launch_gemm_bf16_wgmma<kBN, wgbf::kMNMajor, wgbf::kNoB, false>(
+      M, C, C, g, wo, nullptr, nullptr, &out, nullptr,
+      vdn::EpiStore<D4Doh>{}, grid_c, s);
   if (err != cudaSuccess) return err;
-  return vdn::launch_gemm(
-      M, C, 3 * C, dqkvb, 3 * C, static_cast<const __nv_bfloat16*>(wqkvT),
-      vdn::ProIdentity{},
-      EpiStoreTemporalBwd{static_cast<__nv_bfloat16*>(dx), C}, s);
+  if (dh == 128) err = launch_core<128>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, grid_core, s);
+  else if (dh == 64) err = launch_core<64>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, grid_core, s);
+  else err = launch_core<32>(qkvb, dohb, BN, T, C, heads, scale, dqkvb, grid_core, s);
+  if (err != cudaSuccess) return err;
+  return wgbf::launch_gemm_bf16_wgmma<kBN, wgbf::kMNMajor, wgbf::kNoB, false>(
+      M, C, 3 * C, dqkvb, wqkv, nullptr, nullptr, &dx, nullptr,
+      vdn::EpiStore<D4Dx>{}, grid_c, s);
 }

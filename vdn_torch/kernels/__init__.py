@@ -107,9 +107,9 @@ _SIGNATURES = {
     "vdn_ln_geglu_residual": (_P, _I, _I, _I) + (_P,) * 6 + (_F,)
     + (_P,) * 3 + (_I,) * 2 + (_P,),
     "vdn_temporal_attention": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
-                               _P, _P, _P),
-    "vdn_temporal_attention_bwd": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                   _F, _P, _P, _P, _P, _P),
+                               _P, _P, _I, _I, _I, _P),
+    "vdn_temporal_attention_bwd": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _F,
+                                   _P, _P, _P, _P, _I, _I, _I, _P),
     "vdn_resize_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
