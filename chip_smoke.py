@@ -129,9 +129,9 @@ MEM_HEADS = 16
 IMAGE_LAUNCHES = {"flash_attention_colbias": 4, "flash_attention": 4,
                   "flash_attention_fused_qkv": 24,
                   "fused_ln_mlp_residual": 24, "fused_resize_island": 1,
-                  "resize_rows": 5, "resize_mid_axis": 4}
+                  "resize_rows": 4, "resize_mid_axis": 4}
 IMAGE_FIRST = {"flash_attention_colbias": 0, "flash_attention": 8}
-IMAGE_NONSQUARE = {"resize_rows": 7, "resize_mid_axis": 6}
+IMAGE_NONSQUARE = {"resize_rows": 6, "resize_mid_axis": 6}
 METRIC_LAUNCHES = {**IMAGE_LAUNCHES, "flash_attention_colbias": 0,
                    "flash_attention": 0}
 MEMORY_PROBE = 7     # the 8th frame: the bank is full and has shifted once
@@ -211,6 +211,9 @@ A1_STAGES = {"device": r"a1_flash_kernel<[01]>"}
 F6_STAGES = {"prepass": r"quantize_qkv_kernel", "attn": r"f6_flash_kernel"}
 C3_STAGES = {"device": r"a1_flash_kernel<2>"}
 C2_STAGES = {"device": r"a1_flash_kernel<3>"}
+C1_STAGES = {"device": r"a1_flash_kernel<4>"}
+# A6's one launch (csrc/resize_island.cu; the old tree's too)
+A6_STAGES = {"device": r"island_kernel"}
 # D2's three launches (csrc/flash_attn_bthd_bwd.cu: delta beside the
 # padded lse, the dK / dV blocks, the dQ blocks)
 D2_STAGES = {"delta": r"d2_delta", "dkdv": r"d2_dkdv", "dq": r"d2_dq"}
@@ -395,7 +398,7 @@ def bound(work) -> tuple:
 
 
 def case(name, label, kern, plain, work, path, library=None, tol="bf16",
-         check=None, bf16=None, stages=None, host=False):
+         check=None, bf16=None, stages=None, host=False, timings=None):
     """One kernel at one shape.  ``kern`` and ``plain`` return a tensor or a
     tuple of tensors (each held to the tolerance at its own scale); the
     library time is ``library``'s.  ``check``, where
@@ -403,10 +406,11 @@ def case(name, label, kern, plain, work, path, library=None, tol="bf16",
     ``bf16`` is the bf16 counterpart timed beside an int8 kernel;
     ``stages``, where given, {stage: kernel name pattern}: the device time
     of each stage's kernels, from the profiler (kernel_ms); ``host``: also
-    the wrapper's host microseconds a call (host_us)."""
+    the wrapper's host microseconds a call (host_us); ``timings``, where
+    given, {key: call}: each call's time, logged as ``<key>_ms``."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
                 path=path, library=library, tol=tol, check=check, bf16=bf16,
-                stages=stages, host=host)
+                stages=stages, host=host, timings=timings or {})
 
 
 def sdpa_backward(q, k, v, g):
@@ -720,42 +724,22 @@ def upsample_cases(rng, path, passes):
             tol=tol)
 
 
-def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None,
-                 c=None):
+def island_cases(rng, path, n, sigmoid=False, grid=None, c=None):
     """A6 over n frames of a ``grid`` of tokens (the square VIT_GRID by
     default) at c channels (ISLAND_C by default), 8 x the grid in and 14 x
-    out (with sigmoid: the metric head's activation in place of the ReLU),
-    and with h_pass its A5a H pass alone (the input's rows into A6's
-    zero-padded plan).  A6's library calls: ``F.interpolate`` to the
-    output size, the 3 x 3 and 1 x 1 ``conv2d`` on bf16 operands, each
-    followed by its ReLU (the last, with sigmoid, by the sigmoid)."""
+    out (with sigmoid: the metric head's activation in place of the ReLU):
+    held to the plain version and to its own second launch bit for bit,
+    with its device time (A6_STAGES) and the wrapper's host time.  A6 takes
+    its H pass in itself: the bound counts feat read once and the output
+    written once.  Its library calls: ``F.interpolate`` to the output
+    size, the 3 x 3 and 1 x 1 ``conv2d`` on bf16 operands, each followed
+    by its ReLU (the last, with sigmoid, by the sigmoid)."""
     import torch.nn.functional as F
-    from vdn_torch.kernels import resize as rz
     from vdn_torch.kernels import resize_island as ri
-    from vdn_torch.ops.resize import plan_axis
     dev, bf = DEVICE, torch.bfloat16
     c = c or ISLAND_C
     grid = grid or (VIT_GRID, VIT_GRID)
     (h, wd), (h_out, w_out) = ([8 * g for g in grid], [14 * g for g in grid])
-    hp = -(-h_out // ri.TILE_ROWS) * ri.TILE_ROWS + 2
-    idx, w = ri.padded_h_plan(*plan_axis(h_out, h, "bilinear", True, None),
-                               h_out, hp)
-    if h_pass:
-        pidx, pw = rz.rows_plan(idx, w, dev)
-        x = _rand(rng, (n, h, wd, c)).to(dev, bf)
-        y = torch.empty((n, hp, wd, c), dtype=bf, device=dev)
-        yield case(
-            "resize_rows",
-            f"island H pass {h} -> {hp} padded rows W{wd} N{n} C{c}",
-            lambda x=x, idx=idx, w=w, o=hp: rz.resize_rows(x, idx, w, o),
-            lambda x=x, pidx=pidx, pw=pw: rz.resize_rows_plain(x, pidx, pw),
-            (_nbytes(x, y), [(2 * n * wd * c * _taps(w), FP32_FLOPS)]), path,
-            # the same rows without the padding
-            library=lambda x=x: F.interpolate(x.permute(0, 3, 1, 2),
-                                              size=(h_out, wd),
-                                              mode="bilinear",
-                                              align_corners=True))
-
     o = 32
     feat = _rand(rng, (n, h, wd, c)).to(dev, bf)
     w1 = _rand(rng, (3, 3, c, o), (9 * c) ** -0.5).to(dev)
@@ -779,13 +763,14 @@ def island_cases(rng, path, n, h_pass=True, sigmoid=False, grid=None,
         y = F.relu(F.conv2d(y, cw1, cb1, padding=1))
         y = F.conv2d(y, cw2, cb2)
         return torch.sigmoid(y) if sigmoid else F.relu(y)
+    kern = lambda a=args: ri.fused_resize_island(*a)
+    plain = lambda a=args: ri.fused_resize_island_plain(*a)
     yield case(
         "fused_resize_island",
         f"[{n}, {h}, {wd}, {c}] -> [{n}, {h_out}, {w_out}, 1]"
-        + (" sigmoid" if sigmoid else ""),
-        lambda a=args: ri.fused_resize_island(*a),
-        lambda a=args: ri.fused_resize_island_plain(*a),
-        (_nbytes(feat, w1, b1, w2, b2, out), ops), path, library=library)
+        + (" sigmoid" if sigmoid else ""), kern, plain,
+        (_nbytes(feat, w1, b1, w2, b2, out), ops), path, library=library,
+        check=both_launches_equal(kern, plain), stages=A6_STAGES, host=True)
 
 
 def memory_cases(rng, path, h=MEM_HEADS):
@@ -793,8 +778,12 @@ def memory_cases(rng, path, h=MEM_HEADS):
     37 x 37 token grid with the bank's masks of 1, 3 and 6 written slots,
     and the 37 x 49 grid of the non-square image with 2.  The bound counts
     what the mask leaves: the live slots' keys and values, and their
-    products.  C2 (A1's kernel, kBthd) also with its device time
-    (C2_STAGES) and the wrapper's host time."""
+    products.  C2 (A1's kernel, kBthd) and C1 (kC1) held to their plain
+    versions and to their own second launch bit for bit, with their device
+    time (C2_STAGES, C1_STAGES) and the wrapper's host time; C1's library
+    call is SDPA with the float mask, and beside it (``sdpa_live_ms``)
+    SDPA over the live keys' slice alone, the same function once the
+    masked keys are dropped."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     from vdn_torch.nn.memory import slot_bias
@@ -819,17 +808,24 @@ def memory_cases(rng, path, h=MEM_HEADS):
             bias = slot_bias(cap, hw, count, torch.device(dev)).reshape(-1)
             mask = bias.to(bf).reshape(1, 1, 1, -1)
             live = count * hw
+            kern = lambda a=(q, k, v, bias): fa.flash_attention_colbias(*a)
+            plain = lambda a=(q, k, v, bias): \
+                fa.flash_attention_colbias_plain(*a)
+            # the live slots are the newest, the last count * hw keys
+            kl, vl = (x[:, -live:].transpose(1, 2) for x in (k, v))
             yield case(
                 "flash_attention_colbias",
-                f"Tq{hw} Tk{cap * hw} H{h} D{d} slots {count}/{cap}",
-                lambda a=(q, k, v, bias): fa.flash_attention_colbias(*a),
-                lambda a=(q, k, v, bias): fa.flash_attention_colbias_plain(
-                    *a),
+                f"Tq{hw} Tk{cap * hw} H{h} D{d} slots {count}/{cap}", kern,
+                plain,
                 (2 * _nbytes(q) + 2 * _nbytes(ks) * count + _nbytes(bias),
                  [(4 * h * hw * live * d, BF16_TENSOR_FLOPS)]), path,
                 library=lambda a=(q, k, v), m=mask:
                     F.scaled_dot_product_attention(
-                        *(t.transpose(1, 2) for t in a), attn_mask=m))
+                        *(t.transpose(1, 2) for t in a), attn_mask=m),
+                check=both_launches_equal(kern, plain), stages=C1_STAGES,
+                host=True, timings={
+                    "sdpa_live": lambda q=q.transpose(1, 2), kl=kl, vl=vl:
+                        F.scaled_dot_product_attention(q, kl, vl)})
 
 
 def ring_cases(rng, path, shapes=None):
@@ -1094,11 +1090,11 @@ def kernel_cases(rng):
         yield from encoder_cases(rng, "stream", k)
         yield from motion_cases(rng, "stream", k, with_a3=k == 1)
     yield from upsample_cases(rng, "stream", fusion_passes(1))
-    yield from island_cases(rng, "stream", 1, h_pass=False)
+    yield from island_cases(rng, "stream", 1)
     # the single-image path: at 518 x 518 its encoder, upsamples and island
     # are the stream's batch-1 shapes above; new are the memory attention,
     # every shape of the non-square image (pos-embed, encoder, the fusion
-    # upsamples, the island with its H pass, the final resize), and metric
+    # upsamples, the island, the final resize), and metric
     # depth's sigmoid island
     yield from memory_cases(rng, "image")
     yield from encoder_cases(rng, "image", 1,
@@ -1107,7 +1103,7 @@ def kernel_cases(rng):
         rng, "image", [pos_embed_pass(NONSQUARE_GRID)]
         + fusion_passes(1, NONSQUARE_GRID) + [FINAL_RESIZE_PASS])
     yield from island_cases(rng, "image", 1, grid=NONSQUARE_GRID)
-    yield from island_cases(rng, "metric", 1, h_pass=False, sigmoid=True)
+    yield from island_cases(rng, "metric", 1, sigmoid=True)
     # the int8 serving mode's encoder: the cached and the full window, one
     # streamed frame, the 480 x 640 image
     for path, rows in (("clip", CACHED_FRAMES * VIT_TOKENS),
@@ -1136,6 +1132,10 @@ def kernel_cases(rng):
     yield from a1_extra_cases(rng)
     # A3 and D4 at dh 64, A3 at vitg's widths at T 8 (last, as A4's above)
     yield from a3_extra_cases(rng)
+    # A6 at one frame at its widest C (above vitg's 192 the producers take
+    # the channels in groups; last, as A4's above)
+    from vdn_torch.kernels.resize_island import MAX_C
+    yield from island_cases(rng, "island_max_c", 1, c=MAX_C)
 
 
 def vitg_cases(rng):
@@ -1324,6 +1324,8 @@ def check_kernels(cases=None) -> dict:
             extra[f"{k}_ms"] = f"{v:.4f}"
         if c["host"]:
             extra["host_us"] = f"{host_us(c['kern']):.2f}"
+        for k, fn in c["timings"].items():
+            extra[f"{k}_ms"] = f"{time_ms(fn):.4f}"
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -2740,10 +2742,10 @@ def f6_video_phases(model, frames, clip_refs, stream_refs) -> dict:
 # launches per training step (v4, vitl 518, b2 t8): the encoder's 24
 # layers through A1's training forward, D1, A2 and D3; the four motion
 # modules' A3, D4 (two attention blocks each) and A4 (recompute backward);
-# A6 (composite-recompute backward); A5a / A5b forward at the four fusion
-# upsamples and A6's H pass (5 / 4), again in A6's recomputed composite
-# (1 / 1), and backward on the transposed plans there (1 / 1) and at the
-# four upsamples (4 / 4)
+# A6 (composite-recompute backward; it takes its H pass in itself); A5a /
+# A5b forward at the four fusion upsamples (4 / 4), again in A6's
+# recomputed composite (1 / 1), and backward on the transposed plans there
+# (1 / 1) and at the four upsamples (4 / 4)
 TRAIN_LAUNCHES = {"flash_attention_fused_qkv_train": 24,
                   "flash_attention_fused_qkv_bwd": 24,
                   "fused_ln_mlp_residual": 24,
@@ -2751,7 +2753,7 @@ TRAIN_LAUNCHES = {"flash_attention_fused_qkv_train": 24,
                   "temporal_attention_block": 8,
                   "temporal_attention_block_bwd": 8,
                   "fused_ln_geglu_residual": 4, "fused_resize_island": 1,
-                  "resize_rows": 11, "resize_mid_axis": 10,
+                  "resize_rows": 10, "resize_mid_axis": 10,
                   "flash_attention_fused_qkv": 0, "flash_attention": 0,
                   "flash_attention_colbias": 0, "select_rows": 0}
 METRIC_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "temporal_attention_block": 0,
@@ -2764,6 +2766,14 @@ TRAIN_WARMUP, TRAIN_STEPS = 1, 5
 # and no gradient reaches the encoder after it.  At 1e-7 the output stays
 # alive over the steps; the step's work does not depend on the LR.
 TRAIN_LR = 1e-7
+# The metric recipe's base LR is 5e-6, its head at 10x.  On random weights
+# its first AdamW step saturates the head's sigmoid, which the output bias
+# was set to keep away from its flat ends: on the H100 the step gradient
+# falls from a norm of 61 to 2e-5, and the fidelity gate after the steps
+# then compares rounding noise.  At METRIC_TRAIN_LR (the head at 10x) the
+# head stays alive over the steps; the step's work does not depend on the
+# LR.
+METRIC_TRAIN_LR = 1e-7
 METRIC_TRAIN_STEPS = 3
 GRAD_FRAMES = 4      # clip length of the gradient-fidelity step (b1)
 
@@ -3056,10 +3066,12 @@ def train_phase() -> dict:
 
 
 def metric_train_phase(frames) -> dict:
-    """MetricDepthTrainer (vitl 518, b2, bf16): METRIC_TRAIN_STEPS steps
-    after one warm-up, the launch counts set to 0 just before and read just
-    after; the per-step launches, finite losses and changed weights are
-    gated, then the gradient fidelity of one b1 step."""
+    """MetricDepthTrainer (vitl 518, b2, bf16, at METRIC_TRAIN_LR): the
+    gradient fidelity of one b1 step at the weights the model is built
+    with, then METRIC_TRAIN_STEPS steps after one warm-up, the launch
+    counts set to 0 just before and read just after; the per-step
+    launches, finite losses and changed weights are gated, then the
+    gradient fidelity of one b1 step at the weights the steps reached."""
     from vdn_torch.models.metric_depth import build_metric_depth_anything_v2
     from vdn_torch.pipelines.transform import preprocess_frame
     from vdn_torch.train.metric_depth import MetricDepthTrainer
@@ -3075,8 +3087,12 @@ def metric_train_phase(frames) -> dict:
     x = torch.from_numpy(img[:1]).to(DEVICE)
     bias = calibrate_output_bias(model.depth_head.scratch, lambda: model(x),
                                  quantile=0.5, unit_scale=True)
-    trainer = MetricDepthTrainer(model)
+    trainer = MetricDepthTrainer(model, base_lr=METRIC_TRAIN_LR)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    small = [torch.from_numpy(a[:1]).to(DEVICE)
+             for a in (img, batch["depth"], mask)]
+    gradient_fidelity("metric_train_built", model, [p for _, p in named],
+                      lambda: trainer.loss(*small))
     before = [p.detach().clone() for _, p in named]
     flips = np.random.default_rng(SEED)
     trainer.train_step(batch, flips)
@@ -3096,8 +3112,6 @@ def metric_train_phase(frames) -> dict:
         losses=json.dumps([round(x, 6) for x in losses]),
         without_gradient=json.dumps(no_grad),
         launches_per_step=json.dumps(per_step, separators=(",", ":")))
-    small = [torch.from_numpy(a[:1]).to(DEVICE)
-             for a in (img, batch["depth"], mask)]
     gradient_fidelity("metric_train", model, [p for _, p in named],
                       lambda: trainer.loss(*small))
     return counts
@@ -3604,7 +3618,7 @@ SOURCES = {
                             "vdn/ops/pallas/resize_island.py:244"),
     "flash_attention": ("vdn_torch/csrc/flash_attn_qkv.cu",
                         "vdn/ops/pallas/flash_attention.py:270"),
-    "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_bthd.cu",
+    "flash_attention_colbias": ("vdn_torch/csrc/flash_attn_qkv.cu",
                                 "vdn/ops/pallas/flash_attention.py:157"),
     "flash_attention_bwd": ("vdn_torch/csrc/flash_attn_bthd_bwd.cu",
                             "vdn/ops/pallas/flash_attention.py:366"),
@@ -3866,7 +3880,9 @@ def ab_tree(tree: str) -> dict:
     q, k, v) and at a streamed frame (also host_us), C3 at the cached
     window (f6_cases, c3_cases, with device ms), C2 (bf16) at the memory
     block's two token grids (ms, device ms, host_us, SDPA's ms) and C1
-    summed over its four cases (memory_cases), C2 in fp32 with its
+    summed over its four cases (memory_cases), A6 at the window and at
+    one frame (island_cases: ms, device ms, at a frame host_us; the
+    parent's H pass launch included), C2 in fp32 with its
     log-sum-exp at T 256 and D2 at v1's two shapes (with SDPA's backward
     alone; v1_attention_cases), the v1 step (V1Trainer b2 x s8, median of
     V1_STEPS after V1_WARMUP), the v4 training step (RefineTrainer b2 t8,
@@ -4006,6 +4022,16 @@ def ab_tree(tree: str) -> dict:
             out[f"{key}_sdpa_ms"] = time_ms(c["library"], reps=20)
         del c
         torch.cuda.empty_cache()
+        # A6 at vitl's window and at one frame (a streamed frame's, an
+        # image's at 518 x 518), its H pass included
+        for n, key in ((ISLAND_FRAMES, "a6_window"), (1, "a6_frame")):
+            c = next(island_cases(rng, "ab", n))
+            out[f"{key}_ms"] = time_ms(c["kern"], reps=20)
+            out[f"{key}_device_ms"] = sum(kernel_ms(c["kern"], {}).values())
+            if n == 1:
+                out[f"{key}_host_us"] = host_us(c["kern"])
+            del c
+            torch.cuda.empty_cache()
     # C2 in fp32 with its log-sum-exp at T 256, and D2 at v1's two shapes
     with exact_fp32():
         for c in v1_attention_cases(np.random.default_rng(SEED + 7), "ab"):

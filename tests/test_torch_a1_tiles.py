@@ -29,6 +29,16 @@ never stored).  Its replay is held to ``flash_attention_plain`` and to
 vdn's ``flash_attention`` at the memory block's (Tq, Tk) = (1369, 1369)
 and (1813, 1813), and at (90, 257), where Tq and Tk differ.
 
+C1 (``flash_attention_colbias``, the memory bank's cross-attention) is
+the same kernel in its kC1 form: kBthd with an fp32 bias per key column,
+bias * log2 e rounded to fp32 and added to S before the row max (keys past
+Tk masked after), and the key tiles whose every column is -inf skipped by
+producer and consumers alike; a row max of -inf (no finite logit yet)
+keeps O and l and shifts by 0.  Its replay is held to
+``flash_attention_colbias_plain`` and to vdn's ``flash_attention_colbias``
+at the bank's masks of 1, 3 and 6 written slots of 6 and at (90, 257),
+and walking every tile instead of the live ones changes no bit.
+
 C3 (``flash_attention_qkv``) is the same kernel in its kC3 form, on the
 same items: q is not scaled, S = q K^T in fp32, the running max m in S's
 units, alpha = exp2((m_old - m) c) and p = exp2(S c - m c) with c =
@@ -115,6 +125,46 @@ def replay_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out[bi, r, hi] = o * (1.0 / l)[:, None]
                 lse[bi, hi, r] = m + torch.log2(l)
     return out[:, :tq].to(q.dtype), lse[..., :tq]
+
+
+def replay_c1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor, scale=None, skip: bool = True):
+    """C1's out [B, Tq, H, D] by the kernel's items, tiles and order: the
+    live key tiles only (``skip``) or every tile."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    rows = fa.A1_ROWS
+    qs = _pad(q * fa._qscale(q, scale), rows).float()
+    k, v = _pad(k, rows).float(), _pad(v, rows).float()
+    bl = torch.full((k.shape[1],), -math.inf)
+    bl[:tk] = bias.float() * LOG2E            # fp32, as the producer rounds
+    tiles = [j for j in range(k.shape[1] // rows)
+             if not skip or (bias[j * rows:(j + 1) * rows] > -math.inf).any()]
+    out = torch.full(qs.shape, math.nan)
+    for block in walk(b, tq, h, SMS):
+        for bi, hi, qt in block:
+            for w in range(rows // WG_ROWS):
+                r = slice(qt * rows + w * WG_ROWS,
+                          qt * rows + (w + 1) * WG_ROWS)
+                o = torch.zeros((WG_ROWS, d))
+                m = torch.full((WG_ROWS,), -math.inf)
+                l = torch.zeros((WG_ROWS,))
+                for j in tiles:
+                    k0 = j * rows
+                    s = qs[bi, r, hi] @ k[bi, k0:k0 + rows, hi].t()
+                    s = s + bl[k0:k0 + rows]
+                    s[:, torch.arange(k0, k0 + rows) >= tk] = -math.inf
+                    m_new = torch.maximum(m, s.amax(1))
+                    none = m_new == -math.inf
+                    alpha = torch.where(none, 1.0, torch.exp2(m - m_new))
+                    m_use = torch.where(none, 0.0, m_new)
+                    o, l, m = o * alpha[:, None], l * alpha, m_new
+                    p = _bf(torch.exp2(s - m_use[:, None]))
+                    l = l + p.sum(1)
+                    o = o + p @ v[bi, k0:k0 + rows, hi]
+                out[bi, r, hi] = o * (1.0 / l)[:, None]
+    return out[:, :tq].to(q.dtype)
 
 
 def replay(qkv: torch.Tensor, scale=None):
@@ -248,4 +298,31 @@ def test_c2_replay_matches_plain_and_vdn(tq, tk):
     with pltpu.force_tpu_interpret_mode():
         want = jfa.flash_attention(*(jnp.asarray(x, jnp.bfloat16)
                                      for x in a))
+    _close(out, want, "vdn")
+
+
+@pytest.mark.parametrize("tq,tk,dead", [(90, 540, 450), (90, 540, 270),
+                                         (90, 540, 0), (90, 257, 140)])
+def test_c1_replay_matches_plain_and_vdn(tq, tk, dead):
+    """C1's replayed schedule (A1's kernel in its kC1 form: kBthd with a
+    bias per key column, and the all -inf key tiles skipped) within
+    KERNEL_ULPS bf16 ulps of flash_attention_colbias_plain and of vdn's
+    flash_attention_colbias (Pallas in interpret mode), at the bank's slot
+    masks (6 slots of Tq keys, -inf over the leading empty ones: 1, 3 and 6
+    written) and at (Tq, Tk) = (90, 257) with its first 140 keys masked (a
+    dead tile, a partly dead one, a tail of one key); walking every key
+    tile gives the same bits."""
+    rng = np.random.default_rng(tq + tk + dead)
+    a = [rng.standard_normal((1, t, 2, 64)).astype(np.float32)
+         for t in (tq, tk, tk)]
+    bias = np.zeros(tk, np.float32)
+    bias[:dead] = -np.inf
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in a)
+    tb = torch.from_numpy(bias)
+    out = replay_c1(q, k, v, tb)
+    assert torch.equal(out, replay_c1(q, k, v, tb, skip=False))
+    _close(out, fa.flash_attention_colbias_plain(q, k, v, tb), "plain")
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention_colbias(
+            *(jnp.asarray(x, jnp.bfloat16) for x in a), jnp.asarray(bias))
     _close(out, want, "vdn")

@@ -76,10 +76,11 @@ def variants(src: str) -> dict:
         "register_sums": _sub(src, [
             ("float (&m_run)[2], int key0,",
              "float (&m_run)[2], float (&lreg)[2], int key0,"),
-            ("    alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile\n"
-             "    m_run[r] = m_new;\n",
-             "    alpha[r] = ex2(m_run[r] - m_new);\n"
-             "    m_run[r] = m_new;\n    lreg[r] *= alpha[r];\n"),
+            ("      alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile\n"
+             "      m_use[r] = m_new;\n    }\n    m_run[r] = m_new;\n",
+             "      alpha[r] = ex2(m_run[r] - m_new);\n"
+             "      m_use[r] = m_new;\n    }\n    m_run[r] = m_new;\n"
+             "    lreg[r] *= alpha[r];\n"),
             ("      pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);",
              "      pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);\n"
              "      const float2 f = __bfloat1622float2(p);\n"
@@ -91,6 +92,8 @@ def variants(src: str) -> dict:
              "m_run, lreg, j * kRows + c2, Tk);\n      } else {"),
             ("m_run, j * kRows + c2, Tk);\n      }\n      prev",
              "m_run, lreg, j * kRows + c2, Tk);\n      }\n      prev"),
+            ("m_run, kt * kRows + c2, Tk,\n",
+             "m_run, lreg, kt * kRows + c2, Tk,\n"),
             ("      l[0] = o[32];\n      l[1] = o[34];",
              "      for (int r = 0; r < 2; ++r) {\n"
              "        lreg[r] += __shfl_xor_sync(0xffffffffu, lreg[r], 1);\n"
@@ -103,10 +106,10 @@ def variants(src: str) -> dict:
             ("  if (wgi == 1) named_arrive(kTurn, kConsumers);", ""),
             ("  if (wgi == 0) named_sync(kTurn, kConsumers);", "")]),
         "no_exp2": _sub(src, [
-            ("ex2(s[8 * kk + 2 * q] - m_run[r])",
-             "(s[8 * kk + 2 * q] - m_run[r])"),
-            ("ex2(s[8 * kk + 2 * q + 1] - m_run[r])",
-             "(s[8 * kk + 2 * q + 1] - m_run[r])")]),
+            ("ex2(s[8 * kk + 2 * q] - m_use[r])",
+             "(s[8 * kk + 2 * q] - m_use[r])"),
+            ("ex2(s[8 * kk + 2 * q + 1] - m_use[r])",
+             "(s[8 * kk + 2 * q + 1] - m_use[r])")]),
         "no_softmax": no_softmax,
         "skeleton": _sub(no_softmax, [(pv, none), (last, none),
                                       (first, none)]),

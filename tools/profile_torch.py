@@ -94,10 +94,11 @@ GROUPS = [
     (r"gemm_s8_wgmma_kernel.*EpiI8Residual",
      "F4 fc2 / F5 w3 int8 wgmma (two chunks, + b, x gamma, + x)"),
     # A1's kernel by its form (csrc/flash_attn_qkv.cu: kA1 0, kA1Lse 1,
-    # kC3 2, kBthd 3)
+    # kC3 2, kBthd 3, kC1 4)
     (r"a1_flash_kernel<1>", "A1-train flash attention (+ log-sum-exp)"),
     (r"a1_flash_kernel<2>", "C3 head-major fused-qkv attention"),
     (r"a1_flash_kernel<3>", "C2 memory self-attention"),
+    (r"a1_flash_kernel<4>", "C1 memory cross-attention (column bias)"),
     (r"a1_flash_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
     (r"d1_dkdv", "D1 dK / dV (wgmma)"),
@@ -128,8 +129,7 @@ GROUPS = [
     (r"EpiStore<.*D4Doh", "D4 doh = g Wo bf16 wgmma"),
     (r"d4_core_kernel", "D4 T x T core (mma.sync)"),
     (r"EpiStore<.*D4Dx", "D4 dx bf16 wgmma"),
-    (r"flash_bthd_kernel", "C1 memory cross-attention (column bias)"),
-    (r"resize_island", "A6 fused resize island"),
+    (r"island_kernel", "A6 fused resize island"),
     (r"resize_rows", "A5a resize_rows"),
     (r"mid_axis", "A5b resize_mid_axis and B1 select_rows"),
     (r"multi_tensor|[Aa]dam", "AdamW (multi-tensor)"),

@@ -6,8 +6,8 @@
 // Replaces vdn/ops/pallas/flash_attention.py flash_attention
 // (_flash_kernel via _flash_bhtd) at fp32, where vdn's math is an exact
 // full-K softmax: q * (scale * log2 e) rounded to fp32, S = q k^T, p =
-// exp2(S - rowmax), out = (p V) / rowsum(p).  The bf16 D = 64 case stays
-// in flash_attn_bthd.cu.
+// exp2(S - rowmax), out = (p V) / rowsum(p).  The bf16 D = 64 case is A1's
+// kernel in its kBthd form (flash_attn_qkv.cu).
 //
 // Bound on the H100 by its tensor-core products: 4 * B * H * Tq * Tk * D
 // FLOP, issued three times over (3xTF32, attn_f32.cuh) at the card's 495

@@ -72,8 +72,22 @@
 //     its own ([B, T, H * 64], the box at column h * 64), the q tiles
 //     counted over Tq and the key tiles over Tk, keys >= Tk masked in the
 //     tail tile, out [B, Tq, H * 64] through A1's out map.
-// Each form is a template case: A1's instructions and registers are the
-// same with or without the others.
+//   - kC1, C1: replaces flash_attention_colbias (_flash_colbias_kernel
+//     via _flash_bhtd_colbias), kBthd's attention with an additive fp32
+//     bias per key column (the memory bank's slot mask: 0 for written
+//     slots, -inf for the leading empty ones; Tk = 6 Tq): the block first
+//     marks the live key tiles (a column above -inf) from the bias and
+//     lists them in order in shared memory, and producer and consumers
+//     walk that list alone (with one slot of six written, 5/6 of the keys
+//     are never loaded).  The whole producer warp carries each stage's 128
+//     bias values, bias * log2 e rounded to fp32 (-inf past Tk), into
+//     shared memory beside its K and V tiles (each lane arrives on the
+//     stage's mbarrier); softmax_tile adds them to S before the row max
+//     and masks keys >= Tk after.  A live tile has a finite logit in every
+//     row, as the bias is one per column; the rescale is guarded all the
+//     same (a row max of -inf shifts by 0), so that -inf - (-inf) is never
+//     evaluated.
+// Each form is a template case, not a branch in another form's path.
 #include <math.h>
 
 #include "attn_wgmma.cuh"
@@ -93,40 +107,62 @@ constexpr int kBarriers = 2 * kStages + 4;
 // barriers, 1024 bytes of alignment
 constexpr int kSmem = 1024 + 2 * kTileBytes + 2 * kOutBytes +
                       kStages * 2 * kTileBytes + kTileBytes + 8 * kBarriers;
-static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
+// kC1 also: after the barriers (128 bytes from their start), each stage's
+// 128 bias values, then the live-tile flags, the live list and its length
+constexpr int kMaxKeyTiles = 4096;
+constexpr int kBiasBytes = kRows * 4;
+constexpr int kC1Smem = kSmem + (128 - 8 * kBarriers) + kStages * kBiasBytes +
+                        kMaxKeyTiles * 3 + 16;
+static_assert(kC1Smem <= 232448, "an H100 block's dynamic shared memory");
 // named barriers: kTurn + w, warpgroup w's turn at the tensor cores;
 // kOwn + w, warpgroup w's own 128 threads
 constexpr int kTurn = 1, kOwn = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 // the kernel's forms (see the note above)
-constexpr int kA1 = 0, kA1Lse = 1, kC3 = 2, kBthd = 3;
+constexpr int kA1 = 0, kA1Lse = 1, kC3 = 2, kBthd = 3, kC1 = 4;
 
 // The online softmax of one 64 x 128 tile S (accumulator layout; key0 the
-// key of this thread's first column, keys >= T masked where kMask): the
-// running max of the thread's two rows, O (and with it the row sums in its
-// columns 64-71) rescaled, and P = bf16(exp2(S - m)) as the A fragments
-// of the P V product.
-template <bool kMask>
+// key of this thread's first column, keys >= T masked where kMask): with
+// kBias first + bias * log2 e (fp32 pairs at ``bias`` in shared memory,
+// the stage's values of this thread's columns), then the running max of
+// the thread's two rows, O (and with it the row sums in its columns 64-71)
+// rescaled, and P = bf16(exp2(S - m)) as the A fragments of the P V
+// product.  With kBias a row max of -inf (no finite logit yet) keeps O
+// and shifts by 0.
+template <bool kMask, bool kBias = false>
 __device__ __forceinline__ void softmax_tile(float (&s)[64],
                                              uint32_t (&pa)[8][4],
                                              float (&o)[36],
                                              float (&m_run)[2], int key0,
-                                             int T) {
+                                             int T,
+                                             const float* bias = nullptr) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 16; ++i) {
+    float2 bv;
+    if constexpr (kBias)
+      bv = *reinterpret_cast<const float2*>(bias + 8 * i);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      if constexpr (kBias) s[4 * i + e] += (e & 1) ? bv.y : bv.x;
       if (kMask && key0 + 8 * i + (e & 1) >= T) s[4 * i + e] = -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
     }
-  float alpha[2];
+  }
+  float alpha[2], m_use[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m_run[r], mx[r]);
-    alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+    if constexpr (kBias) {
+      const bool none = m_new == -INFINITY;
+      alpha[r] = none ? 1.f : ex2(m_run[r] - m_new);
+      m_use[r] = none ? 0.f : m_new;
+    } else {
+      alpha[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+      m_use[r] = m_new;
+    }
     m_run[r] = m_new;
   }
 #pragma unroll
@@ -139,8 +175,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64],
     for (int q = 0; q < 4; ++q) {
       const int r = q & 1;
       const __nv_bfloat162 p = __floats2bfloat162_rn(
-          ex2(s[8 * kk + 2 * q] - m_run[r]),
-          ex2(s[8 * kk + 2 * q + 1] - m_run[r]));
+          ex2(s[8 * kk + 2 * q] - m_use[r]),
+          ex2(s[8 * kk + 2 * q + 1] - m_use[r]));
       pa[kk][q] = *reinterpret_cast<const uint32_t*>(&p);
     }
 }
@@ -243,19 +279,32 @@ __device__ __forceinline__ void issue(float (&o)[36], float (&s)[64],
   }
 }
 
-// qscale: kA1 / kA1Lse / kBthd bf16(scale * log2 e), folded into q; kC3
-// the softmax scale, applied to the product.  map_qkv holds q (kBthd) or
-// all of qkv; map_k and map_v, and Tk, are read by kBthd alone (the other
-// forms take their keys off map_qkv, Tk = T).
+// kC1: bias * log2 e of keys key .. key + 3 (-inf past Tk)
+__device__ __forceinline__ void load_bias(float (&v)[4],
+                                          const float* __restrict__ bias,
+                                          int key, int Tk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = key + e < Tk ? __fmul_rn(__ldg(bias + key + e), kLog2e)
+                        : -INFINITY;
+}
+
+// qscale: kA1 / kA1Lse / kBthd / kC1 bf16(scale * log2 e), folded into q;
+// kC3 the softmax scale, applied to the product.  map_qkv holds q (kBthd,
+// kC1) or all of qkv; map_k and map_v, and Tk, are read by kBthd and kC1
+// alone (the other forms take their keys off map_qkv, Tk = T); bias [Tk]
+// (natural-log units) by kC1 alone.
 template <int kForm>
 __global__ void __launch_bounds__(kThreads, 1)
 a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_out, int B, int T,
-                int Tk_bthd, int H, float qscale, float* __restrict__ lse) {
+                int Tk_bthd, int H, float qscale, float* __restrict__ lse,
+                const float* __restrict__ bias) {
   constexpr bool kLse = kForm == kA1Lse, kNat = kForm == kC3;
-  constexpr bool kSep = kForm == kBthd;
+  constexpr bool kSep = kForm == kBthd || kForm == kC1;
+  constexpr bool kBias = kForm == kC1;
   const int Tk = kSep ? Tk_bthd : T;  // keys
   // O: A1's columns 64-71 the row sums
   constexpr int kO = kNat ? 32 : 36;
@@ -272,16 +321,39 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
   uint64_t* q_empty = q_full + 2;
+  // kC1: stage s's bias * log2 e at bias_s + s * kBiasBytes; the key
+  // tiles' live flags, the live ones in order and their count
+  const uint32_t bias_s = smem_u32(full) + 128;
+  uint8_t* live = gbase + (bias_s - base) + kStages * kBiasBytes;
+  uint16_t* list = reinterpret_cast<uint16_t*>(live + kMaxKeyTiles);
+  int* n_live = reinterpret_cast<int*>(list + kMaxKeyTiles);
 
   const int C = H * kD;
   const int n_t = (T + kRows - 1) / kRows;    // q tiles
-  const int n_k = (Tk + kRows - 1) / kRows;   // key tiles
+  const int n_all = (Tk + kRows - 1) / kRows;  // key tiles
   const int items = B * H * n_t;
   const int wgi = threadIdx.x >> 7;
 
+  if constexpr (kBias) {
+    // a tile is live if any of its columns is above -inf
+    for (int j = threadIdx.x; j < n_all; j += kThreads) {
+      bool any = false;
+      if ((j + 1) * kRows <= Tk) {
+        const float4* b4 = reinterpret_cast<const float4*>(bias + j * kRows);
+#pragma unroll 8
+        for (int c = 0; c < kRows / 4; ++c) {
+          const float4 v = __ldg(b4 + c);
+          any |= fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)) > -INFINITY;
+        }
+      } else {
+        for (int c = j * kRows; c < Tk; ++c) any |= __ldg(bias + c) > -INFINITY;
+      }
+      live[j] = any;
+    }
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&full[s]), kBias ? 32 : 1);
       mbar_init(smem_u32(&empty[s]), kConsumers);
     }
     for (int i = 0; i < 2; ++i) {
@@ -295,9 +367,28 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
                  :: "r"(ones_s + 16 * c), "r"(0x3F803F80u) : "memory");
   fence_async_shared();
   __syncthreads();
+  if constexpr (kBias) {
+    // the live tiles in order, by warp 0
+    if (threadIdx.x < 32) {
+      int n = 0;
+      for (int j0 = 0; j0 < n_all; j0 += 32) {
+        const int j = j0 + threadIdx.x;
+        const bool on = j < n_all && live[j];
+        const unsigned m = __ballot_sync(0xffffffffu, on);
+        if (on) list[n + __popc(m & ((1u << threadIdx.x) - 1))] = j;
+        n += __popc(m);
+      }
+      if (threadIdx.x == 0) *n_live = n;
+    }
+    __syncthreads();
+  }
+  const int n_k = kBias ? *n_live : n_all;  // the key tiles walked
 
   if (wgi == 2) {
-    if (threadIdx.x == 256) {
+    // kC1: the whole warp (each lane 4 bias values a stage); the other
+    // forms: one thread
+    const int lane = threadIdx.x & 31;
+    if (kBias || lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
       for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
@@ -305,21 +396,42 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
         const int qb = i & 1;
         const uint32_t qbar = smem_u32(&q_full[qb]);
         mbar_wait(smem_u32(&q_empty[qb]), ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(qbar, kTileBytes);
-        tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
-                    qt * kRows, b);
+        if (lane == 0) {
+          mbar_expect_tx(qbar, kTileBytes);
+          tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
+                      qt * kRows, b);
+        }
+        float bv[4];  // kC1: this lane's values of the next tile
+        if constexpr (kBias)
+          if (n_k > 0) load_bias(bv, bias, list[0] * kRows + 4 * lane, Tk);
         for (int j = 0; j < n_k; ++j) {
+          const int kt = kBias ? list[j] : j;
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t bar = smem_u32(&full[stage]);
           const uint32_t dst = ring + stage * 2 * kTileBytes;
-          mbar_expect_tx(bar, 2 * kTileBytes);
-          if constexpr (kSep) {
-            tma_load_3d(dst, &map_k, bar, h * kD, j * kRows, b);
-            tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, j * kRows, b);
+          if constexpr (kBias) {
+            if (lane == 0) {
+              mbar_tx(bar, 2 * kTileBytes);
+              tma_load_3d(dst, &map_k, bar, h * kD, kt * kRows, b);
+              tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, kt * kRows,
+                          b);
+            }
+            asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                         :: "r"(bias_s + stage * kBiasBytes + 16 * lane),
+                            "f"(bv[0]), "f"(bv[1]), "f"(bv[2]), "f"(bv[3])
+                         : "memory");
+            mbar_arrive(bar);
+            if (j + 1 < n_k)
+              load_bias(bv, bias, list[j + 1] * kRows + 4 * lane, Tk);
+          } else if constexpr (kSep) {
+            mbar_expect_tx(bar, 2 * kTileBytes);
+            tma_load_3d(dst, &map_k, bar, h * kD, kt * kRows, b);
+            tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, kt * kRows, b);
           } else {
-            tma_load_3d(dst, &map_qkv, bar, C + h * kD, j * kRows, b);
+            mbar_expect_tx(bar, 2 * kTileBytes);
+            tma_load_3d(dst, &map_qkv, bar, C + h * kD, kt * kRows, b);
             tma_load_3d(dst + kTileBytes, &map_qkv, bar, 2 * C + h * kD,
-                        j * kRows, b);
+                        kt * kRows, b);
           }
           if (++stage == kStages) {
             stage = 0;
@@ -410,6 +522,16 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
         else
           softmax_nat<false>(s, pa, o, m_run, l_run, j * kRows + c2, Tk,
                              qscale * kLog2e);
+      } else if constexpr (kBias) {
+        const int kt = list[j];
+        const float* bias_t = reinterpret_cast<const float*>(
+            gbase + (bias_s - base) + stage * kBiasBytes) + c2;
+        if ((kt + 1) * kRows > Tk)
+          softmax_tile<true, true>(s, pa, o, m_run, kt * kRows + c2, Tk,
+                                   bias_t);
+        else
+          softmax_tile<false, true>(s, pa, o, m_run, kt * kRows + c2, Tk,
+                                    bias_t);
       } else if ((j + 1) * kRows > Tk) {
         softmax_tile<true>(s, pa, o, m_run, j * kRows + c2, Tk);
       } else {
@@ -484,13 +606,14 @@ template <int kForm>
 cudaError_t launch_maps(const CUtensorMap& map_qkv, const CUtensorMap& map_k,
                         const CUtensorMap& map_v, const CUtensorMap& map_out,
                         int B, int T, int Tk, int H, float qscale, float* lse,
-                        int grid, cudaStream_t s) {
+                        const float* bias, int grid, cudaStream_t s) {
+  constexpr int smem = kForm == kC1 ? kC1Smem : kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
       a1_flash_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      smem);
   if (attr != cudaSuccess) return attr;
-  a1_flash_kernel<kForm><<<grid, kThreads, kSmem, s>>>(
-      map_qkv, map_k, map_v, map_out, B, T, Tk, H, qscale, lse);
+  a1_flash_kernel<kForm><<<grid, kThreads, smem, s>>>(
+      map_qkv, map_k, map_v, map_out, B, T, Tk, H, qscale, lse, bias);
   return cudaGetLastError();
 }
 
@@ -506,7 +629,27 @@ cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
   if (err != cudaSuccess) return err;
   // the keys come off map_qkv: map_k and map_v are not read
   return launch_maps<kForm>(map_qkv, map_qkv, map_qkv, map_out, B, T, T, H,
-                            qscale, lse, grid, s);
+                            qscale, lse, nullptr, grid, s);
+}
+
+// C2 (kBthd) and C1 (kC1, with bias): q [B, Tq, H * 64], k / v [B, Tk,
+// H * 64] bf16 -> out [B, Tq, H * 64] bf16
+template <int kForm>
+cudaError_t launch_bthd(const void* q, const void* k, const void* v,
+                        const float* bias, int B, int Tq, int Tk, int H,
+                        float qscale, void* out, int grid, cudaStream_t s) {
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || grid < 1 ||
+      (kForm == kC1 && (Tk + kRows - 1) / kRows > kMaxKeyTiles))
+    return cudaErrorInvalidValue;
+  const int C = H * kD;
+  CUtensorMap map_q, map_k, map_v, map_out;
+  cudaError_t err = encode_rows_bf16(&map_q, q, B, Tq, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_k, k, B, Tk, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_v, v, B, Tk, C, kRows);
+  if (err == cudaSuccess) err = encode_rows_bf16(&map_out, out, B, Tq, C, 64);
+  if (err != cudaSuccess) return err;
+  return launch_maps<kForm>(map_q, map_k, map_v, map_out, B, Tq, Tk, H,
+                            qscale, nullptr, bias, grid, s);
 }
 
 }  // namespace
@@ -549,16 +692,18 @@ extern "C" int vdn_flash_attention_bthd(const void* q, const void* k,
                                         const void* v, int B, int Tq, int Tk,
                                         int H, float qscale, void* out,
                                         int grid, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || grid < 1)
-    return cudaErrorInvalidValue;
-  const int C = H * kD;
-  CUtensorMap map_q, map_k, map_v, map_out;
-  cudaError_t err = encode_rows_bf16(&map_q, q, B, Tq, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_k, k, B, Tk, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_v, v, B, Tk, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_out, out, B, Tq, C, 64);
-  if (err != cudaSuccess) return err;
-  return launch_maps<kBthd>(map_q, map_k, map_v, map_out, B, Tq, Tk, H,
-                            qscale, nullptr, grid,
-                            static_cast<cudaStream_t>(stream));
+  return launch_bthd<kBthd>(q, k, v, nullptr, B, Tq, Tk, H, qscale, out,
+                            grid, static_cast<cudaStream_t>(stream));
+}
+
+// C1: as C2, plus bias [Tk] fp32 (16-byte aligned; natural-log units, -inf
+// allowed) added to every row's logits; Tk at most 4096 key tiles of 128.
+extern "C" int vdn_flash_attention_colbias(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           int B, int Tq, int Tk, int H,
+                                           float qscale, void* out, int grid,
+                                           void* stream) {
+  return launch_bthd<kC1>(q, k, v, static_cast<const float*>(bias), B, Tq,
+                          Tk, H, qscale, out, grid,
+                          static_cast<cudaStream_t>(stream));
 }

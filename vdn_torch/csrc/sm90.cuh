@@ -39,6 +39,23 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                :: "r"(bar) : "memory");
 }
 
+// ``bytes`` more to come by TMA in the barrier's current phase, without
+// an arrival
+__device__ __forceinline__ void mbar_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// ``bytes`` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global into shared memory by the bulk-copy engine, counted on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   asm volatile(

@@ -95,7 +95,7 @@ _SIGNATURES = {
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _I,
                                  _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
-                                    _P),
+                                    _I, _P),
     "vdn_flash_attention_bthd_f32": (_P, _P, _P, _I, _I, _I, _I, _I)
     + (_L,) * 6 + (_F, _P, _P, _P),
     "vdn_flash_attention_bthd_bwd": (_P,) * 6 + (_I,) * 5 + (_L,) * 6
@@ -112,8 +112,8 @@ _SIGNATURES = {
                                    _P, _P, _P, _P, _I, _I, _I, _P),
     "vdn_resize_rows": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "vdn_resize_mid_axis": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
-    "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                          _P, _I, _F, _P, _P),
+    "vdn_resize_island": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                          _I, _P, _P, _P, _P, _I, _F, _P, _I, _P),
     "vdn_int8_ln_linear": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 6 + (_I,),
     "vdn_int8_proj_residual": (_P, _P, _I, _I) + (_P,) * 7 + (_I, _P),
     "vdn_ln_mlp_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14

@@ -15,11 +15,14 @@ C2 replaces ``flash_attention`` (``_flash_kernel``) and C1
 ``flash_attention_colbias`` (``_flash_colbias_kernel``): attention over
 separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
-In bf16 at D = 64, C2 is A1's kernel in its ``kBthd`` form (csrc/
-flash_attn_qkv.cu: q, k and v each through a tensor map of its own, Tq
-and Tk apart, on ``a1_plan``'s items over the q tiles), and C1 runs
-csrc/flash_attn_bthd.cu (A1's arithmetic on mma.sync, read through the
-[B, T, H, D] strides, with whole -inf key tiles skipped).  C2 also runs
+In bf16 at D = 64 both are forms of A1's kernel (csrc/flash_attn_qkv.cu),
+on ``a1_plan``'s items over the q tiles of Tq: C2 its ``kBthd`` form (q, k
+and v each through a tensor map of its own, Tq and Tk apart), C1 its
+``kC1`` form, kBthd's with each 128-key stage's bias values carried into
+shared memory beside its K and V tiles and added to the logits before the
+row max, and the key tiles whose every column is -inf skipped by the
+producer and the consumers alike (each block lists the live ones from the
+bias first; Tk up to MAX_KEY_TILES tiles).  C2 also runs
 fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, its products on the tensor
 cores in 3xTF32, which keeps fp32 accuracy): hieradet's global blocks on
 the v1 model, whose q, k and v it reads in place as slices of the fused
@@ -79,7 +82,7 @@ from vdn_torch.kernels import (LOG2E, check_kernel_args, launch, launches,
                                same_dispatch, save_dispatch, sm_count,
                                use_kernel, wants_grad)
 
-MAX_KEY_TILES = 2560  # C1 (csrc/flash_attn_bthd.cu): live-tile flags in smem
+MAX_KEY_TILES = 4096  # C1 (kC1, csrc/flash_attn_qkv.cu): its live-tile list
 D1_ROWS = 128         # csrc/flash_attn_qkv_bwd.cu: keys / q rows of a block
 A1_ROWS = 128         # csrc/flash_attn_qkv.cu: q rows of an item, keys a tile
 
@@ -321,11 +324,11 @@ def flash_attention_fused_qkv(qkv: torch.Tensor,
 
 
 def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
-    """C2 (``col_bias`` None: A1's kernel, kBthd) or C1 in bf16 at D = 64
-    on contiguous, 16-byte aligned q, k, v (row stride H * 64)."""
+    """C2 (``col_bias`` None: A1's kernel, kBthd) or C1 (kC1) in bf16 at
+    D = 64 on contiguous, 16-byte aligned q, k, v (row stride H * 64)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    limit = col_bias is not None and tk > 64 * MAX_KEY_TILES
+    limit = col_bias is not None and tk > A1_ROWS * MAX_KEY_TILES
     if (d != 64 or q.dtype != torch.bfloat16 or k.dtype != q.dtype
             or v.dtype != q.dtype or k.shape != (b, tk, h, d)
             or v.shape != k.shape or limit):
@@ -333,7 +336,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
             f"{name}: kernel takes bf16 q [B, Tq, H, 64] and k, v "
             f"[B, Tk, H, 64]"
             + (" (C2 also fp32 at D = 96)" if col_bias is None
-               else f" with Tk <= {64 * MAX_KEY_TILES}")
+               else f" with Tk <= {A1_ROWS * MAX_KEY_TILES}")
             + f", got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
             f"{k.dtype}, v {tuple(v.shape)} {v.dtype}")
     if wants_grad(q, k, v):
@@ -344,11 +347,11 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     # scale * log2(e) rounded to bf16, as the plain version folds it
     qscale = _kernel_qscale(scale)
     out = torch.empty_like(q)
+    grid = a1_plan(b, tq, h, sm_count(q.device.index))["grid"]
     if col_bias is None:
         check_kernel_args(name, q, k, v, out)
         launch("vdn_flash_attention_bthd", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), b, tq, tk, h, qscale, out.data_ptr(),
-               a1_plan(b, tq, h, sm_count(q.device.index))["grid"])
+               v.data_ptr(), b, tq, tk, h, qscale, out.data_ptr(), grid)
     else:
         if col_bias.shape != (tk,) or col_bias.dtype != torch.float32:
             raise ValueError(f"{name}: col_bias must be fp32 [{tk}], got "
@@ -356,7 +359,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
         check_kernel_args(name, q, k, v, col_bias, out)
         launch("vdn_flash_attention_colbias", q.data_ptr(), k.data_ptr(),
                v.data_ptr(), col_bias.data_ptr(), b, tq, tk, h, qscale,
-               out.data_ptr())
+               out.data_ptr(), grid)
     launches[name] += 1
     return out
 

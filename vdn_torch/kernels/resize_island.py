@@ -1,16 +1,21 @@
-"""A6: the fused W-resize + fp32 output island of the DPT head.
+"""A6: the fused resize + fp32 output island of the DPT head.
 
 Replaces vdn/ops/pallas/resize_island.py ``fused_resize_island``
-(``_kernel``): act(conv1x1(relu(conv3x3(resize_bilinear_ac(feat))))) ->
-[N, H, W, 1] fp32 without writing the full-resolution C-channel feature to
-memory.  The H axis runs first through ``resize_rows`` (A5a) into a
-zero-padded plan -- row 0 and the rows past h_out are zeros, the conv's
-vertical padding and the tile overrun -- then csrc/resize_island.cu does the
-W axis, the 3x3 conv, the 1x1 and the activation per band of output rows.
+(``_kernel``, with its H pass ``_padded_h_resize``):
+act(conv1x1(relu(conv3x3(resize_bilinear_ac(feat))))) -> [N, H, W, 1] fp32
+without writing the full-resolution C-channel feature, or its H-resized
+half, to memory.  One launch (csrc/resize_island.cu): persistent blocks
+walk ``island_plan``'s items (frame, run of output rows, strip of
+ISLAND_STRIP output columns); in each, producer warpgroups build the
+resized rows (the H pass, then the W pass) into a ring in shared memory
+while a consumer warpgroup runs the 3x3 conv on wgmma from the ring and
+the block's resident weights (each ring row once, against the three dy
+blocks of a dx at a time), then the 1x1 and the activation.
 
 Rounding points, vdn's kernel's (resize_island.py:132-176): H-resized rows
-in the compute dtype; W-resize weights rounded to the compute dtype, fp32
-sum, rounded; conv3x3 on compute-dtype operands with fp32 sums, + b1,
+in the compute dtype (resize_rows' fp32 sums of the merged, sorted taps,
+zero-weight taps skipped); W-resize weights rounded to the compute dtype,
+fp32 sum, rounded; conv3x3 on compute-dtype operands with fp32 sums, + b1,
 ReLU, rounded to the compute dtype; the 1x1 with compute-dtype weights,
 fp32 sum, + b2, then ReLU (or sigmoid * max_depth).  The TPU's lane packing
 (4 output columns per 128 lanes) does not carry over: the conv runs on the
@@ -37,15 +42,19 @@ import torch.nn.functional as F
 
 from vdn_torch.kernels import (check_kernel_args, grads_of_plain, launch,
                                launches, same_dispatch, save_dispatch,
-                               use_kernel, wants_grad)
-from vdn_torch.kernels.resize import (cached_on_device, dense_matrix,
-                                      dense_plan, plan_key, resize_rows,
+                               sm_count, use_kernel, wants_grad)
+from vdn_torch.kernels.resize import (_rows_plan, cached_on_device,
+                                      dense_matrix, dense_plan, plan_key,
                                       resize_rows_plain, rows_plan)
 from vdn_torch.ops.resize import plan_axis
 
-TILE_ROWS = 8   # output rows per block of the CUDA kernel (its padding)
-# the CUDA kernel's shared-memory limit: all conv weights and a band of
-# resized rows; bands of 8 rows up to C 176, of 4 rows up to C 224
+ISLAND_STRIP = 64   # output columns of an item (the kernel's wgmma M)
+ISLAND_COLS = ISLAND_STRIP + 2   # resized columns a ring row holds
+ISLAND_O = 32       # conv3x3 output channels (wgmma N)
+# the weights ([32, 9C] bf16), a ring of three resized rows and the two
+# staging rows fit a block's shared memory up to C 224 (above C 192 the
+# channels go through the staging rows in groups; the kernel picks the
+# ring and the groups, csrc/resize_island.cu pick_ring)
 MAX_C = 224
 
 
@@ -75,20 +84,11 @@ def fused_resize_island_plain(feat, w1, b1, w2, b2, out_hw: Sequence[int],
     return z[..., None]
 
 
-def padded_h_plan(hidx, hw, h_out: int, hp: int):
-    """vdn's _padded_h_resize plan: a zero-weight row on top, then the
-    h_out real rows, then zero-weight rows up to hp."""
-    taps = hidx.shape[1]
-    idx = np.concatenate([hidx[:1], hidx] + [hidx[-1:]] * (hp - h_out - 1))
-    w = np.concatenate([np.zeros((1, taps), np.float32), hw,
-                        np.zeros((hp - h_out - 1, taps), np.float32)])
-    return idx, w
-
-
 @functools.lru_cache(maxsize=64)
 def _column_plan(idx_bytes: bytes, w_bytes: bytes, shape, in_size: int):
     """The nonzeros of each row of the bf16-rounded dense W-resize matrix
-    (bilinear: one or two; a row with one gets a zero-weight second tap)."""
+    (bilinear: one or two; a row with one gets a zero-weight second tap
+    on its first column)."""
     dense = dense_matrix(idx_bytes, w_bytes, shape, in_size)
     dense = torch.from_numpy(dense).to(torch.bfloat16).float().numpy()
     cidx = np.zeros((shape[0], 2), np.int32)
@@ -99,24 +99,95 @@ def _column_plan(idx_bytes: bytes, w_bytes: bytes, shape, in_size: int):
             raise ValueError("fused_resize_island: a W-resize row has more "
                              "than two taps")
         cidx[o, :len(nz)], cw[o, :len(nz)] = nz, dense[o, nz]
+        if len(nz) == 1:
+            cidx[o, 1] = nz[0]
     return cidx, cw
 
 
-def column_plan(idx, w, in_size: int, device):
-    """(column taps [w_out, 2] int32, weights [w_out, 2] fp32) on device."""
-    key = plan_key(idx, w, in_size)
-    return cached_on_device(
-        ("island_columns",) + key,
-        lambda: map(torch.from_numpy, _column_plan(*key)), device)
+def strip_origins(w_out: int) -> Tuple[int, ...]:
+    """The first output column of each strip: ISLAND_STRIP apart, the last
+    shifted to end at w_out (or at 0 where w_out < ISLAND_STRIP)."""
+    return tuple(min(ISLAND_STRIP * s, max(0, w_out - ISLAND_STRIP))
+                 for s in range(-(-w_out // ISLAND_STRIP)))
 
 
-def island_weights(w1, b1, w2, dt) -> Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]:
-    """(conv weights [O, 9C] in dt, b1 fp32, w2 rounded to dt, as fp32)."""
+@functools.lru_cache(maxsize=256)
+def island_plan(n: int, h_out: int, w_out: int, sms: int) -> dict:
+    """A6's launch for n frames of h_out x w_out output pixels on a card
+    of ``sms`` SMs.  Items are (frame, run of output rows,
+    strip of ISLAND_STRIP output columns), strip fastest: item i is strip
+    i % strips, run (i // strips) % runs, frame i // (strips runs); the
+    last strip is shifted to end at w_out (x0), and stores only from
+    ISLAND_STRIP * its index.  The runs are the split of h_out that
+    minimises the rows of the busiest block (each item builds its rows and
+    one more above and below); the persistent blocks are min(items, sms),
+    block k taking items k, k + grid, ..."""
+    x0 = strip_origins(w_out)
+    strips = len(x0)
+    best = None
+    for want in range(1, h_out + 1):
+        run_rows = -(-h_out // want)
+        runs = -(-h_out // run_rows)
+        items = n * strips * runs
+        busiest = -(-items // min(items, sms)) * (run_rows + 2)
+        if best is None or (busiest, items) < best[0]:
+            best = ((busiest, items), runs, run_rows)
+    (_, items), runs, run_rows = best
+    return {"strips": strips, "x0": x0, "runs": runs, "run_rows": run_rows,
+            "items": items, "grid": min(items, sms)}
+
+
+@functools.lru_cache(maxsize=64)
+def _island_tables(h_in: int, w_in: int, h_out: int, w_out: int):
+    """(itab int32, ftab fp32, src_cols) of csrc/resize_island.cu: H taps
+    and weights [h_out, 2] (``rows_plan``'s, a one-tap row padded with a
+    zero-weight tap), W taps and weights [w_out, 2] (``_column_plan``'s),
+    per strip (x0, first source column); src_cols the most source columns
+    a strip reads."""
+    (hidx, hw), (widx, ww) = _plans(h_in, w_in, h_out, w_out)
+    pidx, pw = _rows_plan(*plan_key(hidx, hw))
+    if pidx.shape[1] > 2:
+        raise ValueError("fused_resize_island: an H-resize row has more "
+                         "than two taps")
+    if pidx.shape[1] == 1:
+        pidx, pw = np.repeat(pidx, 2, 1), np.pad(pw, ((0, 0), (0, 1)))
+    cidx, cw = _column_plan(*plan_key(widx, ww, w_in))
+    spans = []
+    for x in strip_origins(w_out):
+        cols = cidx[max(x - 1, 0):min(x + ISLAND_STRIP + 1, w_out)]
+        spans.append((int(cols.min()), int(cols.max())))
+    src_cols = max(hi - lo + 1 for lo, hi in spans)
+    strips = [(x, min(lo, w_in - src_cols))
+              for x, (lo, _) in zip(strip_origins(w_out), spans)]
+    itab = np.concatenate([pidx.reshape(-1), cidx.reshape(-1),
+                           np.asarray(strips, np.int32).reshape(-1)])
+    ftab = np.concatenate([pw.reshape(-1), cw.reshape(-1)])
+    return itab.astype(np.int32), ftab.astype(np.float32), src_cols
+
+
+def island_tables(h_in: int, w_in: int, h_out: int, w_out: int, device):
+    """(itab, ftab) on ``device`` and src_cols (see ``_island_tables``)."""
+    itab, ftab, src_cols = _island_tables(h_in, w_in, h_out, w_out)
+    tabs = cached_on_device(("island", h_in, w_in, h_out, w_out),
+                            lambda: (torch.from_numpy(itab),
+                                     torch.from_numpy(ftab)), device)
+    return tabs[0], tabs[1], src_cols
+
+
+def island_weights(w1, b1, w2) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(conv weights rounded to bf16 in the kernel's K-major B layout, one
+    block per dx: [3 dx, C / 8, 3 dy * O, 8], element [dx, ci // 8, dy * O
+    + o, ci % 8] = w1[dy, dx, ci, o], one copy from w1 as it is laid out;
+    b1 and w2 [O] fp32, w2 rounded to bf16 by the kernel).  The model's
+    fp32 b1 and w2 come back as they are."""
     kh, kw, c, o = w1.shape
-    wt = w1.to(dt).permute(3, 0, 1, 2).reshape(o, kh * kw * c).contiguous()
+    wt = torch.empty((kw, c // 8, kh * o, 8), dtype=torch.bfloat16,
+                     device=w1.device)
+    wt.view(kw, c // 8, kh, o, 8).copy_(
+        w1.unflatten(2, (c // 8, 8)).permute(1, 2, 0, 4, 3))
     return (wt, b1.float().contiguous(),
-            w2.reshape(-1).to(dt).float().contiguous())
+            w2.reshape(-1).float().contiguous())
 
 
 def island_composite(feat, w1, b1, w2, b2, out_hw: Sequence[int],
@@ -176,25 +247,25 @@ def _forward(feat, w1, b1, w2, b2, out_hw, sigmoid, max_depth):
     n, h, w, c = feat.shape
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
     if (feat.dtype != torch.bfloat16 or tuple(w1.shape[:2]) != (3, 3)
-            or w1.shape[2] != c or w1.shape[3] != 32 or c % 16 or c > MAX_C):
+            or w1.shape[2] != c or w1.shape[3] != ISLAND_O or c % 16
+            or c > MAX_C):
         raise ValueError(f"fused_resize_island: kernel takes bf16 feat with C "
-                         f"a multiple of 16 up to {MAX_C} and w1 [3, 3, C, 32],"
-                         f" got {tuple(feat.shape)} {feat.dtype}, w1 "
-                         f"{tuple(w1.shape)}")
-    (hidx, hw), (widx, ww) = _plans(h, w, h_out, w_out)
-    hp = -(-h_out // TILE_ROWS) * TILE_ROWS + 2
-    xh = resize_rows(feat.contiguous(), *padded_h_plan(hidx, hw, h_out, hp),
-                     hp)
-    cidx, cw = column_plan(widx, ww, w, feat.device)
-    wt, b1f, w2f = island_weights(w1, b1, w2, torch.bfloat16)
+                         f"a multiple of 16 up to {MAX_C} and w1 [3, 3, C, "
+                         f"{ISLAND_O}], got {tuple(feat.shape)} {feat.dtype}, "
+                         f"w1 {tuple(w1.shape)}")
+    itab, ftab, src_cols = island_tables(h, w, h_out, w_out, feat.device)
+    plan = island_plan(n, h_out, w_out, sm_count(feat.device.index))
+    feat = feat.contiguous()
+    wt, b1f, w2f = island_weights(w1, b1, w2)
     b2f = b2.float().reshape(1).contiguous()
     out = torch.empty((n, h_out, w_out), dtype=torch.float32,
                       device=feat.device)
-    check_kernel_args("fused_resize_island", xh, cidx, cw, wt, b1f, w2f, b2f,
-                      out)
-    launch("vdn_resize_island", xh.data_ptr(), n, hp, w, c, h_out, w_out,
-           cidx.data_ptr(), cw.data_ptr(), wt.data_ptr(), b1f.data_ptr(),
-           w2f.data_ptr(), b2f.data_ptr(), int(bool(sigmoid)),
-           float(max_depth), out.data_ptr())
+    check_kernel_args("fused_resize_island", feat, itab, ftab, wt, b1f, w2f,
+                      b2f, out)
+    launch("vdn_resize_island", feat.data_ptr(), n, h, w, c, h_out, w_out,
+           itab.data_ptr(), ftab.data_ptr(), plan["strips"], plan["runs"],
+           plan["run_rows"], src_cols, wt.data_ptr(), b1f.data_ptr(), w2f.data_ptr(), b2f.data_ptr(),
+           int(bool(sigmoid)), float(max_depth), out.data_ptr(),
+           plan["grid"])
     launches["fused_resize_island"] += 1
     return out[..., None]
