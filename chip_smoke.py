@@ -49,13 +49,15 @@ FFN), 12 frames streamed at k = 1, and 8 images through the bank, then
 
 Context parallel over the frame axis, on a world of one rank (NCCL) and a
 (1, 1, 1) mesh: E1, the ring-attention step, over a ring of 4 K / V blocks
-in one process against the plain ring and SDPA (local T 8, 32, 128); the
-32-frame vitl window through ``make_context_parallel_forward`` with
+in one process against the plain ring and SDPA (local T 8, 32, 128, 256);
+the 32-frame vitl window through ``make_context_parallel_forward`` with
 ``seq_axis="seq"`` on the main model's weights (``ring_pallas``: E1 8
 times, A3 never; ``auto``: no E1), against the plain model's window and
 its own plain run; the two CP streaming decodes (``_cached_cp`` for one
 frame, one chunk window of 8 frames) against the local ones; one backward
-through the ring of E1.
+through the ring of E1; and a 256-frame clip at 266 x 266 through the
+vitl model with temporal RoPE (temporal_max_len 256) under ``auto``,
+which takes E1 at 256 keys a block, against its plain runs.
 
 The v1 research model (dual hieradet encoders at hiera_base's width and
 the sangyu head), fp32 as vdn trains it, at 256 x 256 and b2 x s8:
@@ -212,6 +214,8 @@ F6_STAGES = {"prepass": r"quantize_qkv_kernel", "attn": r"f6_flash_kernel"}
 C3_STAGES = {"device": r"a1_flash_kernel<2>"}
 C2_STAGES = {"device": r"a1_flash_kernel<3>"}
 C1_STAGES = {"device": r"a1_flash_kernel<4>"}
+# E1's one launch (csrc/ring_step.cu: the warp or the block mode)
+E1_STAGES = {"device": r"e1_(warp|block)_kernel"}
 # A6's one launch (csrc/resize_island.cu; the old tree's too)
 A6_STAGES = {"device": r"island_kernel"}
 # D2's three launches (csrc/flash_attn_bthd_bwd.cu: delta beside the
@@ -236,6 +240,9 @@ F6_MODES = ("qk", "pv", "all")
 # context parallel: the ring of K / V blocks E1 is held over in one process
 # (the order rank 0 of a seq group of CP_RANKS sees them)
 CP_RANKS = 4
+# the long clip that ``auto`` sends to E1 on the card: the RoPE model
+# (temporal_max_len = frames) at vitl's full width, reduced spatial size
+ROPE_FRAMES, ROPE_SIZE = 256, 266
 
 
 START = time.perf_counter()
@@ -1418,13 +1425,14 @@ def calibrate_output_bias(scratch, run, quantile: float = 0.25,
     return conv[2].bias.item()
 
 
-def synthetic_clip() -> np.ndarray:
-    """54 RGB frames 518 x 518 uint8: a drifting colour gradient + noise."""
+def synthetic_clip(n: int = N_FRAMES, size: int = SIZE) -> np.ndarray:
+    """``n`` RGB frames size x size uint8 (54 of 518 x 518 by default): a
+    drifting colour gradient + noise."""
     rng = np.random.default_rng(SEED)
-    yy, xx = np.mgrid[0:SIZE, 0:SIZE].astype(np.float32) / SIZE
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     frames = []
-    for i in range(N_FRAMES):
-        ph = 2 * np.pi * i / N_FRAMES
+    for i in range(n):
+        ph = 2 * np.pi * i / n
         base = np.stack([np.sin(3 * xx + ph), np.cos(2 * yy - ph),
                          np.sin(2 * (xx + yy) + 2 * ph)], -1)
         img = 127.5 * (1 + 0.8 * base) + rng.normal(0, 12, base.shape)
@@ -1676,46 +1684,62 @@ def _zero_carry(g, t, d):
     return o, torch.full_like(l, -1e30), l
 
 
-def e1_cases(rng):
-    """E1 at the motion modules' rows, Tq = Tk = 32 (path "cp": the
-    context-parallel window at p = 1, one call per module of the window's
-    two), 8 ("cp4": p = 4 over the window) and 128 ("cplong"), bf16 from the
-    ring's first (zero) carry; and ("cpextra") one fp32 shape and one
-    non-zero incoming carry, the second step of a ring.  The kernel updates
-    a copy of the carry in place; library: SDPA over the same block (from a
-    zero carry o / l is the attention)."""
+def e1_case(rng, path, t, g, d, dt=torch.bfloat16, carry=False):
+    """E1 at G rows of Tq = Tk = t, head width d: the kernel updates a copy
+    of the carry (the ring's first, zero, or with ``carry`` a non-zero one:
+    the second step of a ring) in place; library: SDPA over the same block
+    (from a zero carry o / l is the attention); device ms from the profiler
+    (E1_STAGES)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import ring_attention as ra
     bf = torch.bfloat16
-    g0, d0 = e1_shapes()[0]
-    specs = [(path, t, g, d, bf, False)
-             for path, t in (("cp", 32), ("cp4", 8), ("cplong", 128))
-             for g, d in e1_shapes()]
-    specs += [("cpextra", 32, g0, d0, torch.float32, False),
-              ("cpextra", 32, g0, d0, bf, True)]
-    for path, t, g, d, dt, carry in specs:
-        q, k, v = (_rand(rng, (g, t, d)).to(DEVICE, dt) for _ in range(3))
-        if carry:
-            o = _rand(rng, (g, t, d), 3.0)
-            m = _rand(rng, (g, t), 1.0, 2.0)
-            l = _rand(rng, (g, t)).abs() * 4 + 1
-        else:
-            o, m, l = _zero_carry(g, t, d)
-        work = [a.clone() for a in (o, m, l)]
-        scale = d ** -0.5
-        peak = BF16_TENSOR_FLOPS if dt == bf else FP32_FLOPS
-        yield case(
-            "ring_step", f"G{g} T{t} D{d} {str(dt)[6:]}"
-            + (" carry" if carry else ""),
-            lambda a=(q, k, v, *work), s=scale: ra.ring_step(*a, s),
-            lambda a=(q, k, v, o, m, l), s=scale: ra.ring_step_plain(*a, s),
-            # q, k, v read once, the carry read and written
-            (_nbytes(q, k, v) + 2 * _nbytes(o, m, l),
-             [(4 * g * t * t * d, peak)]), path,
-            library=None if carry else (
-                lambda a=(q, k, v), s=scale:
-                    F.scaled_dot_product_attention(*a, scale=s)),
-            tol="bf16" if dt == bf else "fp32")
+    q, k, v = (_rand(rng, (g, t, d)).to(DEVICE, dt) for _ in range(3))
+    if carry:
+        o = _rand(rng, (g, t, d), 3.0)
+        m = _rand(rng, (g, t), 1.0, 2.0)
+        l = _rand(rng, (g, t)).abs() * 4 + 1
+    else:
+        o, m, l = _zero_carry(g, t, d)
+    work = [a.clone() for a in (o, m, l)]
+    scale = d ** -0.5
+    # fp32: three TF32 products each (3xTF32)
+    ops = ((4 * g * t * t * d, BF16_TENSOR_FLOPS) if dt == bf
+           else (3 * 4 * g * t * t * d, TF32_TENSOR_FLOPS))
+    return case(
+        "ring_step", f"G{g} T{t} D{d} {str(dt)[6:]}"
+        + (" carry" if carry else ""),
+        lambda a=(q, k, v, *work), s=scale: ra.ring_step(*a, s),
+        lambda a=(q, k, v, o, m, l), s=scale: ra.ring_step_plain(*a, s),
+        # q, k, v read once, the carry read and written
+        (_nbytes(q, k, v) + 2 * _nbytes(o, m, l), [ops]), path,
+        library=None if carry else (
+            lambda a=(q, k, v), s=scale:
+                F.scaled_dot_product_attention(*a, scale=s)),
+        tol="bf16" if dt == bf else "fp32", stages=E1_STAGES)
+
+
+def e1_cases(rng):
+    """E1 at the motion modules' rows, Tq = Tk = 32 (path "cp": the
+    context-parallel window at p = 1, one call per module of the window's
+    two), 8 ("cp4": p = 4 over the window), 128 ("cplong") and 256
+    ("cpxlong": the first and the last module; the two-pass block mode),
+    bf16 from the ring's first (zero) carry; and ("cpextra") one fp32
+    shape, one non-zero incoming carry and the ragged T 200 at vitg's D 48,
+    and vitg's D 192 ("cpvitg", T 32 and 128) (e1_case)."""
+    shapes = e1_shapes()
+    g0, d0 = shapes[0]
+    for path, t in (("cp", 32), ("cp4", 8), ("cplong", 128)):
+        for g, d in shapes:
+            yield e1_case(rng, path, t, g, d)
+    yield e1_case(rng, "cpextra", 32, g0, d0, torch.float32)
+    yield e1_case(rng, "cpextra", 32, g0, d0, carry=True)
+    for g, d in (shapes[0], shapes[-1]):
+        yield e1_case(rng, "cpxlong", 256, g, d)
+    bn, c = VITG_MOTION_SHAPES[2]
+    yield e1_case(rng, "cpextra", 200, bn * 8, c // 8)
+    bn, c = VITG_MOTION_SHAPES[0]
+    for t in (32, 128):
+        yield e1_case(rng, "cpvitg", t, bn * 8, c // 8)
 
 
 def e1_ring_phase(rng) -> dict:
@@ -1723,12 +1747,12 @@ def e1_ring_phase(rng) -> dict:
     rank 0 sees them (its own block, then the blocks of ranks 3, 2, 1), at
     [tokens, T_local, 8, D] (the layout the CP model hands E1, read through
     its strides) for the first and the last motion module and local T 8 /
-    32 / 128.  Gates: o / l within KERNEL_ULPS of the chained plain E1
+    32 / 128, and 256 for the first (the two-pass block mode).  Gates: o / l within KERNEL_ULPS of the chained plain E1
     steps, and no further from the plain fp32 ring (vdn's
     ring_attention recipe) than E2E_DRIFT_FACTOR times SDPA's bf16 distance
     from it (at least KERNEL_ULPS ulps): both round p to bf16.  Times the
     E1 ring against the plain ring: the card's numbers for vdn's gate at a
-    local K / V length of 128."""
+    local K / V length of 128 (``auto`` takes E1 from there on)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import ring_attention as ra
     from vdn_torch.parallel.context import ring_update_plain
@@ -1736,7 +1760,7 @@ def e1_ring_phase(rng) -> dict:
     out = {}
     for bn, c in (MOTION_SHAPES[0], MOTION_SHAPES[-1]):
         h, d = 8, c // 8
-        for t in (8, 32, 128):
+        for t in (8, 32, 128) + ((256,) if c == MOTION_SHAPES[0][1] else ()):
             q = _rand(rng, (bn, t, h, d)).to(DEVICE, bf)
             kv = [_rand(rng, (bn, CP_RANKS * t, h, d)).to(DEVICE, bf)
                   for _ in range(2)]
@@ -1994,12 +2018,93 @@ def cp_backward_phase(rng, group) -> None:
         err_sdpa_err_tol=json.dumps(errs))
 
 
+def rope_clip():
+    """cp_rope_phase's model (the context-parallel vitl model with temporal
+    RoPE, seeded random weights) and its ROPE_FRAMES-frame clip [1, T, 3,
+    ROPE_SIZE, ROPE_SIZE] on the card."""
+    from vdn_torch.models.video_depth_anything import \
+        build_video_depth_anything
+    from vdn_torch.pipelines.transform import preprocess_frame
+    model = build_video_depth_anything(
+        "vitl", compute_dtype=torch.bfloat16, device="cpu", seq_axis="seq",
+        pe="rope", num_frames=ROPE_FRAMES,
+        generator=torch.Generator().manual_seed(SEED + 9)).to(DEVICE)
+    frames = synthetic_clip(ROPE_FRAMES, ROPE_SIZE)
+    x = torch.from_numpy(np.stack([preprocess_frame(f, ROPE_SIZE)
+                                   for f in frames])[None]).to(DEVICE)
+    return model, x
+
+
+def cp_rope_phase(mesh) -> dict:
+    """A long clip under ``auto``: the context-parallel vitl model with
+    temporal RoPE (``pe="rope"``, temporal_max_len ROPE_FRAMES), seeded
+    random weights at vitl's full width, on a ROPE_FRAMES-frame clip at
+    ROPE_SIZE x ROPE_SIZE through make_context_parallel_forward at p = 1.
+    The local K / V length is ROPE_FRAMES >= 128, so ``auto`` takes E1 (the
+    two-pass block mode) once per attention block: 8, each at Tk
+    ROPE_FRAMES (a spy on ring_step records Tk), and A3 never (RoPE takes
+    the generic path); the clip's other kernels launch.  The depth within
+    the drift gate of the model's plain bf16 run (bf16's own distance from
+    the plain fp32 run, as cp_clip_phase)."""
+    from vdn_torch import kernels
+    from vdn_torch.kernels import ring_attention as ra
+    from vdn_torch.parallel.context import (make_context_parallel_forward,
+                                            set_cp_mode)
+    model, x = rope_clip()
+    fwd = make_context_parallel_forward(model, mesh)
+    set_cp_mode("auto")
+    bias = calibrate_output_bias(model.head.scratch, lambda: fwd(x))
+    step, tks = ra.ring_step, []
+
+    def spy(q, k, *rest):
+        tks.append(k.shape[1])
+        return step(q, k, *rest)
+
+    with torch.no_grad():
+        kernels.reset_launches()
+        ra.ring_step = spy
+        try:
+            t0 = time.perf_counter()
+            depth = fwd(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ra.ring_step = step
+        counts = dict(kernels.launches)
+        check_frame_launches("cp_rope", counts,
+                             {"ring_step": 8, "temporal_attention_block": 0})
+        check_launches("cp_rope", counts,
+                       [n for n in CLIP_KERNELS
+                        if n != "temporal_attention_block"])
+        if tks != [ROPE_FRAMES] * 8:
+            fail(f"cp_rope: E1's K / V lengths {tks}")
+        ms = time_ms(lambda: fwd(x), reps=3, warmup=1)
+        with kernels.plain_reference():
+            plain16 = fwd(x)
+        plain32 = plain_fp32(model, lambda: fwd(x))
+    to_np = lambda a: a.float().cpu().numpy()
+    depth = to_np(depth)
+    check_depth("cp_rope", depth[0], ROPE_FRAMES, (ROPE_SIZE, ROPE_SIZE))
+    noise = drift(to_np(plain32), to_np(plain16))["rel_l2"]
+    vs_plain = cp_gate("cp_rope vs its plain bf16 run", depth,
+                       to_np(plain16), noise)
+    log("cp_rope", mode="auto", frames=ROPE_FRAMES, size=ROPE_SIZE,
+        e1_tk=tks[0], output_bias=f"{bias:.6g}", clip_ms=f"{ms:.2f}",
+        wall_s=f"{wall:.3f}", vs_plain_bf16=json.dumps(vs_plain),
+        bf16_vs_fp32=f"{noise:.3e}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    del model, x, plain16, plain32
+    torch.cuda.empty_cache()
+    return counts
+
+
 def cp_phases(model, frames) -> dict:
     """Context parallel over the frame axis on one card: a world of one
     (NCCL), a (1, 1, 1) mesh, the seq_axis model on the main model's
-    weights; the in-process E1 ring, the CP window, the two CP decodes and
-    the ring's backward.  Returns (the CP window's launches in the modes
-    ring_pallas and auto, the E1 ring's times by shape)."""
+    weights; the in-process E1 ring, the CP window, the two CP decodes,
+    the ring's backward and the RoPE model's long clip under ``auto``.
+    Returns (the launches of the CP window in the modes ring_pallas and
+    auto and of the RoPE clip, the E1 ring's times by shape)."""
     import torch.distributed as dist
     from vdn_torch.parallel.launch import initialize_distributed
     from vdn_torch.parallel.mesh import SEQ_AXIS, make_mesh
@@ -2015,6 +2120,7 @@ def cp_phases(model, frames) -> dict:
     cp_backward_phase(rng, mesh.get_group(SEQ_AXIS))
     del cp
     torch.cuda.empty_cache()
+    counts["cp_rope_auto"] = cp_rope_phase(mesh)
     dist.destroy_process_group()
     return counts, ring
 
@@ -3849,7 +3955,8 @@ def main() -> None:
             **({"v1": summary[name]["v1"]}
                if "v1" in summary[name] and path != "v1_train" else {}),
             **({"by_t": {p: summary[name][p]
-                         for p in ("cp4", "cplong", "cpextra")},
+                         for p in ("cp4", "cplong", "cpxlong", "cpextra",
+                                   "cpvitg")},
                 "ring_of_4": cp_ring}
                if name == "ring_step" else {}),
             "launches_by_path": {p: c.get(name, 0)
@@ -3882,15 +3989,19 @@ def ab_tree(tree: str) -> dict:
     block's two token grids (ms, device ms, host_us, SDPA's ms) and C1
     summed over its four cases (memory_cases), A6 at the window and at
     one frame (island_cases: ms, device ms, at a frame host_us; the
-    parent's H pass launch included), C2 in fp32 with its
+    parent's H pass launch included), E1 at vitl's four CP shapes for
+    local T 8, 32, 128 and 256 (e1_case: ms and device ms summed over the
+    four; nan where the tree refuses the length), C2 in fp32 with its
     log-sum-exp at T 256 and D2 at v1's two shapes (with SDPA's backward
     alone; v1_attention_cases), the v1 step (V1Trainer b2 x s8, median of
     V1_STEPS after V1_WARMUP), the v4 training step (RefineTrainer b2 t8,
     median of TRAIN_STEPS after TRAIN_WARMUP), vitl's bf16 and int8_static
     windows and vitg's int8_static windows (time_windows, the int8 ones
-    on the first window's scales), and vitl's bf16 and int8_static
+    on the first window's scales), vitl's bf16 and int8_static
     streams at k = 1 (run_stream over N_STREAM frames, the median frame
-    wall after the first; int8_static calibrating on its first frame)."""
+    wall after the first; int8_static calibrating on its first frame), and
+    the CP window (build_cp_model on vitl's weights, a world of one) in
+    ``ring_pallas`` and in ``auto``."""
     sys.path.insert(0, os.path.abspath(tree))
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
@@ -4032,6 +4143,23 @@ def ab_tree(tree: str) -> dict:
                 out[f"{key}_host_us"] = host_us(c["kern"])
             del c
             torch.cuda.empty_cache()
+        # E1 at vitl's four CP shapes for each local T, summed (the
+        # parent's 128-key limit refuses T 256: nan)
+        for t in (8, 32, 128, 256):
+            total = {"ms": 0.0, "device_ms": 0.0}
+            for g, d in e1_shapes():
+                c = e1_case(rng, "ab", t, g, d)
+                try:
+                    total["ms"] += time_ms(c["kern"], reps=20)
+                    total["device_ms"] += sum(kernel_ms(c["kern"],
+                                                        {}).values())
+                except ValueError as e:
+                    print(f"e1 T {t}: {e}", flush=True)
+                    total = {k: float("nan") for k in total}
+                del c
+                torch.cuda.empty_cache()
+            for k, v in total.items():
+                out[f"e1_t{t}_{k}"] = v
     # C2 in fp32 with its log-sum-exp at T 256, and D2 at v1's two shapes
     with exact_fp32():
         for c in v1_attention_cases(np.random.default_rng(SEED + 7), "ab"):
@@ -4077,6 +4205,24 @@ def ab_tree(tree: str) -> dict:
     with torch.no_grad():
         walls = run_stream(vitl, frames[:N_STREAM], 1)[1]
     out["vitl_bf16_stream_k1_ms"] = statistics.median(walls[1:])
+    # the CP window (32 frames on a world of one) in ring_pallas (E1 8
+    # times) and in auto (the plain ring, no E1)
+    import torch.distributed as dist
+    from vdn_torch.parallel.context import (make_context_parallel_forward,
+                                            set_cp_mode)
+    from vdn_torch.parallel.launch import initialize_distributed
+    from vdn_torch.parallel.mesh import make_mesh
+    initialize_distributed(device=DEVICE)
+    cp = build_cp_model(vitl)
+    fwd = make_context_parallel_forward(cp, make_mesh(seq=1, device=DEVICE))
+    x = window_input(frames)
+    for mode in ("ring_pallas", "auto"):
+        set_cp_mode(mode)
+        out[f"cp_window_{mode}_ms"] = time_ms(lambda: fwd(x), reps=5,
+                                              warmup=1)
+    del cp, fwd, x
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
     q = quantized_model(build_video_depth_anything, vitl, "int8_static")
     del vitl
     torch.cuda.empty_cache()

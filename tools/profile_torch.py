@@ -13,7 +13,10 @@ VideoDepthAnything:
 - ``cp_window``: three full 32-frame windows of the same weights built
   with ``seq_axis="seq"`` through ``make_context_parallel_forward`` on a
   world of one rank (NCCL, a (1, 1, 1) mesh) in ``ring_pallas`` mode: the
-  motion modules' attention is E1 (8 launches per window) instead of A3.
+  motion modules' attention is E1 (8 launches per window) instead of A3;
+- ``cp_rope``: one 256-frame clip at 266 x 266 of chip_smoke.py's RoPE
+  model (vitl width, temporal RoPE, context parallel on a world of one
+  rank) under ``auto``, after a warm-up clip: E1 at 256 keys, 8 launches.
 
 - ``int8``: three cached clip windows of the same weights in the int8
   serving mode (``quantize="int8_static"``, calibrated on one full
@@ -71,7 +74,8 @@ import chip_smoke as cs  # noqa: E402
 GROUPS = [
     (r"quantize_qkv_kernel", "F6 pre-pass (q / k / v codes and scales)"),
     (r"f6_flash_kernel", "F6 int8 flash attention (wgmma)"),
-    (r"ring_step_kernel", "E1 ring-attention step (CP motion modules)"),
+    (r"e1_(warp|block)_kernel|ring_step_kernel",
+     "E1 ring-attention step (CP motion modules)"),
     (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
     (r"d2_dkdv", "D2 dK / dV (3xTF32 mma.sync, TMA)"),
     (r"d2_dq", "D2 dQ (3xTF32 mma.sync, TMA)"),
@@ -224,7 +228,7 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
 
 
 UNITS = ("cached", "int8", "int8_all", "stream_k1", "stream_k8", "cp_window",
-         "image",
+         "cp_rope", "image",
          "train", "vitg_cached", "vitg_int8", "v1_train")
 
 
@@ -296,6 +300,25 @@ def profile_cp_window(model, frames, out: str) -> None:
     fwd(x)
     res = trace(lambda: fwd(x), 3, os.path.join(out, "cp_window.json"))
     report("cp_window", res, 3, "window")
+    dist.destroy_process_group()
+
+
+def profile_cp_rope(out: str) -> None:
+    """One RoPE clip of chip_smoke.py's ``rope_clip`` under ``auto`` on a
+    world of one rank, after a warm-up clip."""
+    import torch.distributed as dist
+    from vdn_torch.parallel.context import (make_context_parallel_forward,
+                                            set_cp_mode)
+    from vdn_torch.parallel.launch import initialize_distributed
+    from vdn_torch.parallel.mesh import make_mesh
+    initialize_distributed()
+    model, x = cs.rope_clip()
+    fwd = make_context_parallel_forward(model, make_mesh(seq=1))
+    set_cp_mode("auto")
+    with torch.no_grad():
+        fwd(x)
+        res = trace(lambda: fwd(x), 1, os.path.join(out, "cp_rope.json"))
+    report("cp_rope", res, 1, "clip")
     dist.destroy_process_group()
 
 
@@ -387,6 +410,9 @@ def main() -> None:
     if set(args.units) & {"vitg_cached", "vitg_int8"}:
         torch.cuda.empty_cache()
         profile_video(args.units, args.out, "vitg")
+    if "cp_rope" in args.units:
+        torch.cuda.empty_cache()
+        profile_cp_rope(args.out)
     if "image" in args.units:
         profile_image(args.out)
     if "train" in args.units:

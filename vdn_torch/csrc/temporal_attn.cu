@@ -113,7 +113,7 @@ a3_core_kernel(const __nv_bfloat16* __restrict__ qkv, int items, int heads,
 #pragma unroll
         for (int nd = 0; nd < F::kCT; nd += 2) {
           uint32_t b[4];
-          ta::frag_b_t<LD>(b, vs, kk, c0 + nd, lane);
+          ta::frag_b_t(b, vs, LD, kk, c0 + nd, lane);
 #pragma unroll
           for (int mi = 0; mi < KT; ++mi) {
             ta::mma(o[mi][nd], pa[mi][kk], b[0], b[1]);

@@ -1,7 +1,7 @@
 // What A3 (temporal_attn.cu) and D4 (temporal_attn_bwd.cu) share: the
 // + pe row kernel, the plain store epilogue of their products on the bf16
-// wgmma + TMA core (bf16_wgmma.cuh), and the warp-level pieces of their
-// T x T cores on the tensor cores.
+// wgmma + TMA core (bf16_wgmma.cuh), and their T x T cores on the tensor
+// cores (the fragment pieces E1 shares too are in warp_mma.cuh).
 //
 // The core: one warp takes one (token, head) item, the T <= 32 frames of
 // one token and one head.  Its q, k, v (D4: and doh) rows, dh bf16 each,
@@ -28,6 +28,7 @@
 #include <math.h>
 
 #include "bf16_wgmma.cuh"
+#include "warp_mma.cuh"
 
 namespace vdn {
 namespace tattn {
@@ -60,81 +61,12 @@ struct Core {
   static_assert((DH / 8) % kCT == 0 && kCT % 2 == 0, "column passes");
 };
 
-// ldmatrix x4 (as stored / transposed), ordered against the warp's other
-// shared-memory accesses ("memory"): lane l gives the row address of
-// matrix l / 8; register i holds matrix i, thread (g, t) receiving M[g][2t
-// .. 2t + 1] (as stored) or M[2t][g], M[2t + 1][g] (transposed)
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(wg::smem_u32(row))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(wg::smem_u32(row))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  const uint32_t b[2] = {b0, b1};
-  mma_bf16_16816(d, a, b);
-}
-
-// The A fragment of rows [16 mi, 16 mi + 16) and columns [c0, c0 + 16) of
-// a row-major [rows, LD] tile (lane: row mi * 16 + l % 16, column c0 + 8
-// (l / 16))
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* s, int mi,
-                                       int c0, int lane) {
-  ldsm(a, s + (16 * mi + (lane & 15)) * LD + c0 + ((lane >> 4) << 3));
-}
-
-// The A fragment of the transpose of a row-major tile: A[m][k] = s[k][m]
-// for m in [16 mi, + 16), k in [16 kk, + 16)
-template <int LD>
-__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4],
-                                         const __nv_bfloat16* s, int mi,
-                                         int kk, int lane) {
-  ldsm_t(a, s + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * LD + 16 * mi +
-                (((lane >> 3) & 1) << 3));
-}
-
-// B fragments of n8 tiles 2p and 2p + 1 over k in [c0, c0 + 16) of an
-// operand stored [n][k] (keys as rows: S = q k^T): b[0], b[1] of tile 2p,
-// b[2], b[3] of tile 2p + 1
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* s, int p, int c0,
-                                       int lane) {
-  ldsm(b, s + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
-              (((lane >> 3) & 1) << 3));
-}
-
-// B fragments of n8 tiles nd and nd + 1 (columns 8 nd ..) over k in [16
-// kk, 16 kk + 16) of an operand stored [k][n] (P V: keys as rows)
-template <int LD>
-__device__ __forceinline__ void frag_b_t(uint32_t (&b)[4],
-                                         const __nv_bfloat16* s, int kk,
-                                         int nd, int lane) {
-  ldsm_t(b, s + (16 * kk + (lane & 15)) * LD + 8 * nd + ((lane >> 4) << 3));
-}
-
-template <int A, int B>
-__device__ __forceinline__ void zero(float (&acc)[A][B][4]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
+using msync::frag_a;
+using msync::frag_a_t;
+using msync::frag_b;
+using msync::frag_b_t;
+using msync::mma;
+using msync::zero;
 
 // acc[mi][nj] = A B^T over dh: A rows from a, B rows (keys) from b, both
 // [16 KT, LD] (S = q k^T; D4: dP = doh v^T)
@@ -148,11 +80,11 @@ __device__ __forceinline__ void rows_by_keys(float (&acc)[KT][2 * KT][4],
   for (int kk = 0; kk < DH / 16; ++kk) {
     uint32_t af[KT][4];
 #pragma unroll
-    for (int mi = 0; mi < KT; ++mi) frag_a<LD>(af[mi], a, mi, 16 * kk, lane);
+    for (int mi = 0; mi < KT; ++mi) frag_a(af[mi], a, LD, mi, 16 * kk, lane);
 #pragma unroll
     for (int p = 0; p < KT; ++p) {
       uint32_t bf[4];
-      frag_b<LD>(bf, b, p, 16 * kk, lane);
+      frag_b(bf, b, LD, p, 16 * kk, lane);
 #pragma unroll
       for (int mi = 0; mi < KT; ++mi) {
         mma(acc[mi][2 * p], af[mi], bf[0], bf[1]);
@@ -211,12 +143,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[KT][KT][4],
 #pragma unroll
   for (int mi = 0; mi < KT; ++mi)
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      a[mi][kk][0] = pack_bf16(p[mi][2 * kk][0], p[mi][2 * kk][1]);
-      a[mi][kk][1] = pack_bf16(p[mi][2 * kk][2], p[mi][2 * kk][3]);
-      a[mi][kk][2] = pack_bf16(p[mi][2 * kk + 1][0], p[mi][2 * kk + 1][1]);
-      a[mi][kk][3] = pack_bf16(p[mi][2 * kk + 1][2], p[mi][2 * kk + 1][3]);
-    }
+    for (int kk = 0; kk < KT; ++kk)
+      msync::pack_p(a[mi][kk], p[mi][2 * kk], p[mi][2 * kk + 1]);
 }
 
 // Zero rows [T, 16 KT) of ``n`` tensors of a warp's slots: no load writes

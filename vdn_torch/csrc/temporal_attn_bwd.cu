@@ -147,11 +147,11 @@ d4_core_kernel(const __nv_bfloat16* __restrict__ qkv,
         uint32_t a[KT][4];
 #pragma unroll
         for (int mj = 0; mj < KT; ++mj)
-          ta::frag_a_t<PL>(a[mj], pd_s, mj, kk, lane);
+          ta::frag_a_t(a[mj], pd_s, PL, mj, kk, lane);
 #pragma unroll
         for (int nd = 0; nd < CT; nd += 2) {
           uint32_t b[4];
-          ta::frag_b_t<LD>(b, gs, kk, c0 + nd, lane);
+          ta::frag_b_t(b, gs, LD, kk, c0 + nd, lane);
 #pragma unroll
           for (int mj = 0; mj < KT; ++mj) {
             ta::mma(acc[mj][nd], a[mj], b[0], b[1]);
@@ -171,7 +171,7 @@ d4_core_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
         for (int nd = 0; nd < CT; nd += 2) {
           uint32_t b[4];
-          ta::frag_b_t<LD>(b, ks, kk, c0 + nd, lane);
+          ta::frag_b_t(b, ks, LD, kk, c0 + nd, lane);
 #pragma unroll
           for (int mi = 0; mi < KT; ++mi) {
             ta::mma(acc[mi][nd], da[mi][kk], b[0], b[1]);
@@ -190,11 +190,11 @@ d4_core_kernel(const __nv_bfloat16* __restrict__ qkv,
         uint32_t a[KT][4];
 #pragma unroll
         for (int mj = 0; mj < KT; ++mj)
-          ta::frag_a_t<PL>(a[mj], ds_s, mj, kk, lane);
+          ta::frag_a_t(a[mj], ds_s, PL, mj, kk, lane);
 #pragma unroll
         for (int nd = 0; nd < CT; nd += 2) {
           uint32_t b[4];
-          ta::frag_b_t<LD>(b, qs, kk, c0 + nd, lane);
+          ta::frag_b_t(b, qs, LD, kk, c0 + nd, lane);
 #pragma unroll
           for (int mj = 0; mj < KT; ++mj) {
             ta::mma(acc[mj][nd], a[mj], b[0], b[1]);

@@ -121,7 +121,8 @@ _SIGNATURES = {
     "vdn_ln_swiglu_int8": (_P, _I, _I, _I, _P, _P, _F) + (_P,) * 14
     + (_I,) * 3 + (_P,),
     "vdn_ring_step": (_P, _P, _P) + (_I,) * 6 + (_L,) * 5 + (_F,)
-    + (_P,) * 4,
+    + (_P,) * 3 + (_I,) * 5 + (_P,),
+    "vdn_ring_step_fit": (_I,) * 8 + (_P,),
     "vdn_flash_attention_int8": (_P, _I, _I, _I, _I, _F, _F) + (_P,) * 8
     + (_I, _P),
     "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _I, _P),
