@@ -59,6 +59,22 @@ through the ring of E1; and a 256-frame clip at 266 x 266 through the
 vitl model with temporal RoPE (temporal_max_len 256) under ``auto``,
 which takes E1 at 256 keys a block, against its plain runs.
 
+SAM2 (sam2.1 hiera_base_plus, 1024 x 1024, d_model 256, mem_dim 64, 7
+mask memories, up to 16 object pointers; seeded random weights): C2 at
+its head widths (the trunk's [1, 4096, 8, 56] off the fused qkv, the
+memory attention's one 256-wide head, itself and its cross-attention at
+Tk 4100 and 28,736) in bf16 and fp32, A5a / A5b at its resizes (bicubic
+pos-embed, nearest FPN, bilinear masks, the antialiased mask prompt); the
+image predictor in bf16 (set_image with exactly 3 C2 launches at D 56,
+predict with a point and a box, predict_batch over 64 points, no C2 in
+the decoder), then video tracking over 10 frames, a positive point on
+frame 0 and propagate, in fp32 and bf16 (3 C2 at D 56 per encoded frame,
+8 at D 256 per tracked frame, each frame counted; ms per tracked frame
+once the 7 mask slots are full; the object-score head's output bias
+calibrated from a first run so that the logits compared are live),
+each held to its plain runs (bf16 within twice plain bf16's distance from
+plain fp32, fp32 within 1e-4).
+
 The v1 research model (dual hieradet encoders at hiera_base's width and
 the sangyu head), fp32 as vdn trains it, at 256 x 256 and b2 x s8:
 V1Trainer for 1 + 5 steps (C2 at fp32 / D 96 and its backward D2 at the
@@ -214,6 +230,11 @@ F6_STAGES = {"prepass": r"quantize_qkv_kernel", "attn": r"f6_flash_kernel"}
 C3_STAGES = {"device": r"a1_flash_kernel<2>"}
 C2_STAGES = {"device": r"a1_flash_kernel<3>"}
 C1_STAGES = {"device": r"a1_flash_kernel<4>"}
+# C2 at SAM2's widths: bf16 D 56 is A1's kernel in its kBthd form
+# (C2_STAGES), bf16 D 256 csrc/flash_attn_wide.cu, fp32 (D 56 / 96 / 256)
+# csrc/flash_attn_bthd_f32.cu
+C2_WIDE_STAGES = {"device": r"c2_wide_kernel"}
+C2_F32_STAGES = {"device": r"flash_bthd_f32_kernel"}
 # E1's one launch (csrc/ring_step.cu: the warp or the block mode)
 E1_STAGES = {"device": r"e1_(warp|block)_kernel"}
 # A6's one launch (csrc/resize_island.cu; the old tree's too)
@@ -684,14 +705,16 @@ FINAL_RESIZE_PASS = (
 def upsample_cases(rng, path, passes):
     """A5a (H pass) and A5b (W pass) of each resize in ``passes``.  The H
     pass multiplies by fp32 weights (fp32 FMA units); the W pass by weights
-    rounded to the data's dtype (bf16 tensor cores for bf16)."""
+    rounded to the data's dtype (bf16 tensor cores for bf16).  A pass may
+    end in its align_corners (by default: bilinear's True, the DPT's)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import resize as rz
     from vdn_torch.ops.resize import plan_axis
     dev = DEVICE
 
-    for label, n, r_in, r_out, wd, w_out, c, dt, method, scale in passes:
-        ac = method == "bilinear"
+    for label, n, r_in, r_out, wd, w_out, c, dt, method, scale, *ac in \
+            passes:
+        ac = ac[0] if ac else method == "bilinear"
         sh, sw = (None, None) if scale is None else scale
         idx, w = plan_axis(r_out, r_in, method, ac, sh)
         fp32 = dt == torch.float32
@@ -699,7 +722,10 @@ def upsample_cases(rng, path, passes):
         # H pass: [N, in, W, C] -> [N, out, W, C]
         x = _rand(rng, (n, r_in, wd, c)).to(dev, dt)
         y = torch.empty((n, r_out, wd, c), dtype=dt, device=dev)
-        mode = dict(mode=method, align_corners=ac)
+        mode = (dict(mode="nearest") if method == "nearest" else
+                dict(mode="bilinear", antialias=True, align_corners=False)
+                if method == "bilinear_aa" else
+                dict(mode=method, align_corners=ac))
         size_h = dict(size=(r_out, wd)) if scale is None else dict(
             scale_factor=(sh, 1.0))
         pidx, pw = rz.rows_plan(idx, w, dev)
@@ -833,6 +859,62 @@ def memory_cases(rng, path, h=MEM_HEADS):
                 host=True, timings={
                     "sdpa_live": lambda q=q.transpose(1, 2), kl=kl, vl=vl:
                         F.scaled_dot_product_attention(q, kl, vl)})
+
+
+# SAM2 (sam2.1 hiera_base_plus at 1024 x 1024): the trunk's global blocks
+# (12, 16, 20) attend over 64 x 64 tokens in 8 heads of 56, q, k, v read
+# off the fused qkv; the memory attention's one 256-wide head over the 64 x
+# 64 tokens, itself (self) or the memory (cross: 4096 m + 4 p keys for m
+# mask memories and p object pointers, 4100 after the first conditioned
+# frame, 28,736 once 7 memories and 16 pointers are in)
+SAM2_SIZE = 1024
+SAM2_TOKENS = 4096
+SAM2_TRUNK_HEADS, SAM2_TRUNK_DH = 8, 56
+SAM2_D = 256
+SAM2_CROSS_TK = (4100, 7 * 4096 + 4 * 16)
+
+
+def sam2_cases(rng, dtype=torch.bfloat16):
+    """C2 at SAM2's shapes in ``dtype`` (path ``sam2`` in bf16,
+    ``sam2_f32`` in fp32): the trunk's [1, 4096, 8, 56] off the fused qkv,
+    the memory attention's self-attention [1, 4096, 1, 256] and its
+    cross-attention at Tk 4100 and 28,736 (ragged: 4100 = 64 * 64 + 4).
+    Held to the plain version (4 bf16 ulps; fp32 FP32_RTOL of the scale),
+    timed beside SDPA on the same q, k, v, with the device time and the
+    wrapper's host time.  Bounds: the products' operations at the bf16
+    tensor-core rate, in fp32 three times over at the TF32 rate (3xTF32,
+    which the kernel runs)."""
+    import torch.nn.functional as F
+    from vdn_torch.kernels import flash_attention as fa
+    f32 = dtype == torch.float32
+    path = "sam2_f32" if f32 else "sam2"
+    tol = "fp32" if f32 else "bf16"
+    peak, times = ((TF32_TENSOR_FLOPS, 3) if f32 else (BF16_TENSOR_FLOPS, 1))
+    t, h, dh = SAM2_TOKENS, SAM2_TRUNK_HEADS, SAM2_TRUNK_DH
+    qkv = _rand(rng, (1, t, 3, h, dh)).to(dtype)
+    trunk = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    q = _rand(rng, (1, t, 1, SAM2_D)).to(dtype)
+    mem = _rand(rng, (2, SAM2_CROSS_TK[-1], 1, SAM2_D)).to(dtype)
+    shapes = [("trunk", trunk)]
+    shapes.append(("self", (q, mem[0, None, :t], mem[1, None, :t])))
+    shapes += [("cross", (q, mem[0, None, :tk].contiguous(),
+                           mem[1, None, :tk].contiguous()))
+               for tk in SAM2_CROSS_TK]
+    for label, (qq, kk, vv) in shapes:
+        b, tq, hh, d = qq.shape
+        tk = kk.shape[1]
+        stages = (C2_F32_STAGES if f32 else
+                  C2_WIDE_STAGES if d == SAM2_D else C2_STAGES)
+        yield case(
+            "flash_attention",
+            f"{label} Tq{tq} Tk{tk} H{hh} D{d} {str(dtype)[6:]}",
+            lambda a=(qq, kk, vv): fa.flash_attention(*a),
+            lambda a=(qq, kk, vv): fa.flash_attention_plain(*a),
+            (_nbytes(qq, kk, vv, qq),
+             [(times * 4 * b * hh * tq * tk * d, peak)]), path, tol=tol,
+            library=lambda a=(qq, kk, vv): F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in a)),
+            stages=stages, host=True)
 
 
 def ring_cases(rng, path, shapes=None):
@@ -3704,6 +3786,365 @@ def v1_phases() -> dict:
     return {"v1_train": train, "v1_infer": infer, "v1_mae": mae}
 
 
+# ---------------------------------------------------------------- SAM2
+# sam2.1 hiera_base_plus at 1024 x 1024 (d_model 256, mem_dim 64, 7 mask
+# memories, up to 16 object pointers), seeded random weights: the image
+# predictor in bf16, then video tracking in bf16 and in fp32 (vdn's default)
+SAM2_SEED = SEED + 20
+SAM2_FRAMES = 10           # tracked frames 1-9; all 7 mask slots full from 7
+SAM2_TIMED_FROM = 7        # ms per tracked frame over frames >= this
+SAM2_BATCH_POINTS = 64     # predict_batch's prompts (an 8 x 8 grid)
+# C2 launches by head width: the trunk's three global blocks per encoded
+# frame or image, the memory attention's four layers' two per tracked frame
+SAM2_TRUNK_C2 = {SAM2_TRUNK_DH: 3}
+SAM2_TRACK_C2 = {SAM2_TRUNK_DH: 3, SAM2_D: 8}
+SAM2_OBJ_MARGIN = 4.0      # the calibrated object score's least value
+SAM2_F32_REL_L2 = 1e-4     # the fp32 kernels against the plain fp32 run
+SAM2_KERNELS = ["flash_attention", "resize_rows", "resize_mid_axis"]
+
+
+def sam2_resize_passes():
+    """SAM2's resizes at 1024 x 1024 (fp32): the trunk's pos-embed bicubic
+    (the 14 x 14 table to the 256 x 256 stride-4 grid, 112 channels), the
+    FPN's nearest top-down 2x (32 -> 64, 256 channels), the masks' bilinear
+    256 -> 1024 (three masks; the video's one mask to the frame's size),
+    and the mask prompt's antialiased 1024 -> 256."""
+    g = SAM2_SIZE // 4
+    return [("pos-embed 14x14->256x256 bicubic", 1, 14, g, 14, g, 112,
+             torch.float32, "bicubic", None, False),
+            ("fpn 32x32->64x64 nearest", 1, 32, 64, 32, 64, SAM2_D,
+             torch.float32, "nearest", None),
+            ("masks 256x256->1024x1024 bilinear", 1, g, SAM2_SIZE, g,
+             SAM2_SIZE, 3, torch.float32, "bilinear", None, False),
+            ("mask 256x256->1024x1024 bilinear", 1, g, SAM2_SIZE, g,
+             SAM2_SIZE, 1, torch.float32, "bilinear", None, False),
+            ("mask prompt 1024x1024->256x256 bilinear_aa", 1, SAM2_SIZE, g,
+             SAM2_SIZE, g, 1, torch.float32, "bilinear_aa", None, False)]
+
+
+class c2_widths:
+    """Tallies the attention router's C2 calls by head width (D) inside
+    the block: {D: calls}."""
+
+    def __enter__(self):
+        import vdn_torch.ops.attention as ta
+        self.mod, self.real, self.tally = ta, ta.flash_attention, {}
+
+        def counted(q, *a, **kw):
+            d = q.shape[-1]
+            self.tally[d] = self.tally.get(d, 0) + 1
+            return self.real(q, *a, **kw)
+        ta.flash_attention = counted
+        return self.tally
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+
+def sam2_frames(n: int = SAM2_FRAMES) -> np.ndarray:
+    """``n`` RGB frames SAM2_SIZE square, uint8: a bright disc drifting
+    right over a colour gradient with noise (the object the point prompt
+    picks on frame 0)."""
+    rng = np.random.default_rng(SAM2_SEED)
+    size = SAM2_SIZE
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    frames = []
+    for i in range(n):
+        cx, cy = sam2_disc(i)
+        base = np.stack([0.4 + 0.3 * xx, 0.3 + 0.3 * yy, 0.5 - 0.2 * xx],
+                        -1) * 255
+        disc = ((xx * size - cx) ** 2 + (yy * size - cy) ** 2
+                < (0.12 * size) ** 2)
+        base[disc] = (235.0, 220.0, 60.0)
+        img = base + rng.normal(0, 10, base.shape)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return np.stack(frames)
+
+
+def sam2_disc(i: int) -> tuple:
+    """The disc's centre (x, y) in pixels on frame i."""
+    return (0.35 + 0.02 * i) * SAM2_SIZE, 0.5 * SAM2_SIZE
+
+
+def check_c2_widths(label: str, widths: dict, launched: int,
+                    want: dict) -> None:
+    """C2's calls by width must be ``want`` and each must have launched."""
+    if widths != want or launched != sum(want.values()):
+        fail(f"{label}: C2 calls by head width {widths}, launches "
+             f"{launched}, want {want}")
+
+
+def sam2_image_phase(frames) -> dict:
+    """The image predictor in bf16 on frame 0: set_image (3 C2 launches at
+    D 56, none else of C2), predict with a point and with a box, and
+    predict_batch over SAM2_BATCH_POINTS points (no C2 in the decoder);
+    each timed.  The point's and the batch's low-res logits are held to
+    the plain runs: within twice plain bf16's distance from plain fp32."""
+    from vdn_torch import kernels
+    from vdn_torch.models.sam2_image import (Sam2ImagePredictor,
+                                             build_sam2_image_model)
+    model = build_sam2_image_model(
+        compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(SAM2_SEED))
+    pred = Sam2ImagePredictor(model)
+    img = frames[0]
+    cx, cy = sam2_disc(0)
+    point = dict(point_coords=[[cx, cy]], point_labels=[1.0])
+    r = 0.15 * SAM2_SIZE
+    box = dict(box=[cx - r, cy - r, cx + r, cy + r], multimask_output=False)
+    grid = (np.arange(8) + 0.5) * SAM2_SIZE / 8
+    points = np.stack(np.meshgrid(grid, grid), -1).reshape(-1, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with c2_widths() as widths:
+        pred.set_image(img)
+        torch.cuda.synchronize()
+        enc = dict(kernels.launches)
+        check_c2_widths("sam2_image set_image", dict(widths),
+                        enc["flash_attention"], SAM2_TRUNK_C2)
+        widths.clear()
+        kernels.reset_launches()
+        got = [pred.predict(**point), pred.predict(**box),
+               pred.predict_batch(points)]
+        torch.cuda.synchronize()
+        dec = dict(kernels.launches)
+        if widths or dec["flash_attention"]:
+            fail(f"sam2_image: C2 in the decoder: {widths} {dec}")
+    counts = {k: enc[k] + dec[k] for k in enc}
+    check_launches("sam2_image", counts, SAM2_KERNELS)
+    masks, ious, low = got[0]
+    shapes = [tuple(masks.shape), tuple(got[1][0].shape),
+              tuple(got[2][0].shape)]
+    if shapes != [(3, SAM2_SIZE, SAM2_SIZE), (1, SAM2_SIZE, SAM2_SIZE),
+                  (SAM2_BATCH_POINTS, 3, SAM2_SIZE, SAM2_SIZE)]:
+        fail(f"sam2_image: mask shapes {shapes}")
+    outs = [low, got[2][2]]
+    if not all(torch.isfinite(o).all() for o in outs) or low.std() == 0:
+        fail("sam2_image: non-finite or constant logits")
+    peak = torch.cuda.max_memory_allocated()
+    times = {"set_image_ms": time_ms(lambda: pred.set_image(img), 5),
+             "predict_point_ms": time_ms(lambda: pred.predict(**point), 5),
+             "predict_box_ms": time_ms(lambda: pred.predict(**box), 5),
+             "predict_batch_ms": time_ms(
+                 lambda: pred.predict_batch(points), 5)}
+
+    def plain(dtype):
+        model.compute_dtype = dtype
+        try:
+            with kernels.plain_reference():
+                pred.set_image(img)
+                return [pred.predict(**point)[2],
+                        pred.predict_batch(points)[2]]
+        finally:
+            model.compute_dtype = torch.bfloat16
+    ref32, ref16 = plain(None), plain(torch.bfloat16)
+    gate = {}
+    for name, k, p16, p32 in zip(("point", "batch"), outs, ref16, ref32):
+        d_k, d_p = rel_l2(k.float(), p32), rel_l2(p16.float(), p32)
+        gate[name] = (d_k, d_p)
+        if not d_k <= E2E_DRIFT_FACTOR * d_p:
+            fail(f"sam2_image {name}: logits {d_k:.3e} from plain fp32, "
+                 f"plain bf16 {d_p:.3e}")
+    log("sam2_image", **{k: f"{v:.3f}" for k, v in times.items()},
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        mask_share=f"{float(masks[0].float().mean()):.4f}",
+        ious=[round(float(v), 4) for v in ious],
+        **{f"{n}_rel_l2": f"{d[0]:.3e}" for n, d in gate.items()},
+        **{f"{n}_plain_bf16_rel_l2": f"{d[1]:.3e}" for n, d in gate.items()},
+        launches=json.dumps(counts, separators=(",", ":")))
+    del pred, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sam2_track(model, frames, check: bool = False):
+    """The video predictor over ``frames``: a positive point on the disc
+    of frame 0, then propagate.  Returns per frame (low-res logits, IoU,
+    object score) as host arrays, the ms of each frame, and the launches;
+    with ``check``, each frame's C2 calls by width are held to the
+    path's (SAM2_TRUNK_C2 on frame 0, SAM2_TRACK_C2 after)."""
+    from vdn_torch import kernels
+    from vdn_torch.pipelines.sam2_video import Sam2VideoPredictor
+    pred = Sam2VideoPredictor(model)
+    state = pred.init_state(frames)
+    ms, total = [], {}
+    torch.cuda.synchronize()
+    with c2_widths() as widths:
+        def frame_done(label, want):
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0[0]) * 1e3)
+            if check:
+                check_c2_widths(label, dict(widths),
+                                kernels.launches["flash_attention"], want)
+            for k, v in kernels.launches.items():
+                total[k] = total.get(k, 0) + v
+            widths.clear()
+            kernels.reset_launches()
+            t0[0] = time.perf_counter()
+
+        kernels.reset_launches()
+        t0 = [time.perf_counter()]
+        pred.add_new_points(state, 0, [sam2_disc(0)], [1.0])
+        frame_done("sam2 frame 0", SAM2_TRUNK_C2)
+        it = pred.propagate(state)
+        next(it)          # frame 0: its stored mask again
+        t0[0] = time.perf_counter()
+        for t, masks in it:
+            if tuple(masks[0].shape) != (SAM2_SIZE, SAM2_SIZE):
+                fail(f"sam2 frame {t}: mask {tuple(masks[0].shape)}")
+            frame_done(f"sam2 frame {t}", SAM2_TRACK_C2)
+    obj = state["objects"][0]
+    outs = [obj["cond_outputs"][0]] + [obj["non_cond_outputs"][t]
+                                       for t in range(1, len(frames))]
+    res = {k: np.stack([o[key].float().cpu().numpy() for o in outs])
+           for k, key in (("logits", "pred_masks"), ("iou", "iou"),
+                          ("obj", "object_score_logits"))}
+    return res, ms, total
+
+
+def sam2_video_phase(model, frames, label: str, refs=None) -> tuple:
+    """Video tracking on the kernels in the model's compute dtype: the
+    launches per frame (check), ms per tracked frame from SAM2_TIMED_FROM
+    on, the peak device memory; and the plain runs (plain_reference) in
+    fp32 and, for bf16, in bf16.  Gate: bf16 within twice plain bf16's
+    distance from plain fp32 (``refs``: the plain fp32 run, when it was
+    made before), fp32 within SAM2_F32_REL_L2 of plain fp32, each on the
+    low-res logits, the IoUs and the object scores over all frames.
+    Returns (the launches, the plain fp32 run)."""
+    from vdn_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, ms, counts = sam2_track(model, frames, check=True)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(label, counts, SAM2_KERNELS)
+    if not all(np.isfinite(v).all() for v in got.values()):
+        fail(f"{label}: non-finite outputs")
+    dt = model.compute_dtype
+
+    def plain(dtype):
+        model.compute_dtype = dtype
+        try:
+            with kernels.plain_reference():
+                return sam2_track(model, frames)[0]
+        finally:
+            model.compute_dtype = dt
+    ref32 = refs if refs is not None else plain(None)
+    flips = int((np.sign(got["obj"]) != np.sign(ref32["obj"])).sum())
+    gate = {}
+    if dt is None:
+        for k in got:
+            gate[k] = (_rel_l2(got[k], ref32[k]), SAM2_F32_REL_L2)
+    else:
+        ref16 = plain(dt)
+        flips += int((np.sign(ref16["obj"]) != np.sign(ref32["obj"])).sum())
+        for k in got:
+            gate[k] = (_rel_l2(got[k], ref32[k]),
+                       E2E_DRIFT_FACTOR * _rel_l2(ref16[k], ref32[k]))
+    timed = ms[SAM2_TIMED_FROM:]
+    log(label, frames=len(frames),
+        ms_per_tracked_frame=f"{statistics.median(timed):.3f}",
+        frame_ms=[round(m, 3) for m in ms],
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        obj_scores=[round(float(v), 3) for v in got["obj"].ravel()],
+        mask_share=[round(float((v > 0).mean()), 4) for v in got["logits"]],
+        sign_flips=flips,
+        **{f"{k}_rel_l2": f"{g[0]:.3e}" for k, g in gate.items()},
+        **{f"{k}_limit": f"{g[1]:.3e}" for k, g in gate.items()},
+        launches=json.dumps(counts, separators=(",", ":")))
+    if flips:
+        fail(f"{label}: object scores changed sign between runs ({flips})")
+    for k, (d, limit) in gate.items():
+        if not d <= limit:
+            fail(f"{label}: {k} {d:.3e} from plain fp32, limit {limit:.3e}")
+    return counts, ref32
+
+
+def _rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm((a - b).ravel())
+                 / max(np.linalg.norm(b.ravel()), 1e-30))
+
+
+def calibrate_object_score(model, frames) -> float:
+    """With random weights the object score may sit below 0 on every
+    frame, and every mask is then the constant NO_OBJ_SCORE: a first run
+    on the kernels reads the scores and the object-score head's output
+    bias moves so that the least is SAM2_OBJ_MARGIN (calibrate_output_bias
+    does so for depth).  Returns the shift (0 where none was needed)."""
+    got = sam2_track(model, frames)[0]
+    shift = max(0.0, SAM2_OBJ_MARGIN - float(got["obj"].min()))
+    if shift:
+        with torch.no_grad():
+            model.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.add_(
+                shift)
+    return shift
+
+
+def check_c2_refusals() -> None:
+    """C2 on the card: a head width no kernel takes raises ValueError (bf16
+    D 48, fp32 D 64), and an input that requires grad raises RuntimeError
+    at every width but fp32 D 96 (D2's): no plain path behind either."""
+    from vdn_torch.kernels import flash_attention as fa
+
+    def qkv(d, dt, grad=False):
+        return [torch.zeros((1, 256, 1, d), dtype=dt, device=DEVICE,
+                            requires_grad=grad) for _ in range(3)]
+    cases = {"bf16 D48": (qkv(48, torch.bfloat16), ValueError),
+             "fp32 D64": (qkv(64, torch.float32), ValueError),
+             **{f"{n} D{d} grad": (qkv(d, dt, True), RuntimeError)
+                for n, dt in (("bf16", torch.bfloat16),
+                              ("fp32", torch.float32))
+                for d in (56, 256)}}
+    for label, (args, err) in cases.items():
+        try:
+            fa.flash_attention(*args)
+        except err:
+            continue
+        fail(f"C2 {label}: no {err.__name__}")
+    log("c2_refusals", raised=json.dumps(sorted(cases)))
+
+
+def sam2_kernel_checks() -> dict:
+    """SAM2's kernels on the card, with the other kernel cases at the
+    start (the profiler's device times, read late in the script's long
+    process, came back empty): C2's refusals, C2 at its widths (paths sam2,
+    sam2_f32) and A5a / A5b at its resizes.  Returns the kernel summary."""
+    rng = np.random.default_rng(SAM2_SEED)
+    check_c2_refusals()
+    summary = check_kernels(sam2_cases(rng))
+    with exact_fp32():
+        merge_summary(summary, check_kernels(
+            sam2_cases(rng, torch.float32)))
+        merge_summary(summary, check_kernels(
+            upsample_cases(rng, "sam2", sam2_resize_passes())))
+    return summary
+
+
+def sam2_phases() -> dict:
+    """SAM2 at sam2.1 hiera_base_plus, 1024 x 1024: the image predictor
+    (bf16), video tracking over SAM2_FRAMES frames in bf16 and in fp32.
+    Returns the launches by path."""
+    from vdn_torch.models.sam2_video import build_sam2_video_model
+    frames = sam2_frames()
+    out = {"sam2_image": sam2_image_phase(frames)}
+    model = build_sam2_video_model(
+        compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(SAM2_SEED))
+    shift = calibrate_object_score(model, frames)
+    log("sam2_model", obj_score_bias_shift=f"{shift:.6g}",
+        params=sum(p.numel() for p in model.parameters()))
+    with exact_fp32():
+        model.compute_dtype = None
+        out["sam2_video_f32"], ref32 = sam2_video_phase(
+            model, frames, "sam2_video_f32")
+    model.compute_dtype = torch.bfloat16
+    out["sam2_video"], _ = sam2_video_phase(model, frames, "sam2_video",
+                                            refs=ref32)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- main
 SOURCES = {
     "flash_attention_fused_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
@@ -3863,6 +4304,7 @@ def main() -> None:
     with exact_fp32():
         merge_summary(summary, check_kernels(
             v1_cases(np.random.default_rng(SEED + 7))))
+    merge_summary(summary, sam2_kernel_checks())
     check_no_backward_raises()
     model = build_model()
     frames = synthetic_clip()
@@ -3907,11 +4349,14 @@ def main() -> None:
     launches_vitg = vitg_phases(frames)
     torch.cuda.empty_cache()
     launches_v1 = v1_phases()
+    torch.cuda.empty_cache()
+    launches_sam2 = sam2_phases()
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
                 "metric_train": counts_metric_train, **launches_int8,
-                **launches_vitg, **launches_v1, **launches_cp}
+                **launches_vitg, **launches_v1, **launches_cp,
+                **launches_sam2}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
@@ -3925,7 +4370,10 @@ def main() -> None:
     # the same under "all"; C3: 0, no path calls it), and stream_ms /
     # stream_bound_ms over the stream's shapes; launches from the run of the headline path, and from every
     # path's run; ``vitg``: the numbers at vitg's widths, by path; ``v1``:
-    # C2's and A5a / A5b's at the v1 step's shapes (D2's own row: the
+    # C2's and A5a / A5b's at the v1 step's shapes; ``sam2``: C2's at
+    # SAM2's shapes in bf16 (sam2) and fp32 (sam2_f32), A5a / A5b's at its
+    # resizes (launches_by_path: sam2_image per image, sam2_video and
+    # sam2_video_f32 over the tracked clip) (D2's own row: the
     # global blocks at T 256 and the ragged 324, launches over V1_STEPS;
     # E1: the CP window's four shapes at T 32, one call of a module's two,
     # ``by_t`` at local T 8 / 128 and the fp32 / carry cases, ``ring_of_4``
@@ -3954,6 +4402,9 @@ def main() -> None:
                and name not in INT8_KERNELS else {}),
             **({"v1": summary[name]["v1"]}
                if "v1" in summary[name] and path != "v1_train" else {}),
+            **({"sam2": {p: summary[name][p] for p in ("sam2", "sam2_f32")
+                         if p in summary[name]}}
+               if "sam2" in summary[name] else {}),
             **({"by_t": {p: summary[name][p]
                          for p in ("cp4", "cplong", "cpxlong", "cpextra",
                                    "cpvitg")},

@@ -593,6 +593,21 @@ def test_clip_static_on_vdn_scales(clip, monkeypatch):
     assert rel_l2(got, want) <= CHAOS_FACTOR * floor
 
 
+def _waited(jpipe):
+    """vdn's stream pipeline with each jitted step waited for before the
+    host goes on.  Its Pallas kernels run in interpret mode, whose
+    callbacks dispatch JAX ops of their own from XLA's threads; with the
+    pipeline's next eager op (``.at[].set`` on the step's outputs)
+    dispatched while a step ran, the CPU client and the callback waited
+    on each other and the test hung (about one run in six under load).
+    The same steps and values, in order."""
+    for name in ("_first", "_first_calib", "_step_k", "_step_batched"):
+        step = getattr(jpipe, name)
+        setattr(jpipe, name,
+                lambda *a, step=step: jax.block_until_ready(step(*a)))
+    return jpipe
+
+
 def test_stream_int8_static_matches_vdn(clip, monkeypatch):
     """Three streamed frames, the encoder int8 too: the first frame
     calibrates (the same convs as vdn's), then two per-frame steps."""
@@ -602,7 +617,7 @@ def test_stream_int8_static_matches_vdn(clip, monkeypatch):
     jm, tm = _vda_pair(clip["params"], "int8_static")
     frames = np.random.default_rng(12).integers(
         0, 256, (3, SIZE, SIZE, 3), dtype=np.uint8)
-    jpipe = JStream(jm, clip["params"], input_size=SIZE)
+    jpipe = _waited(JStream(jm, clip["params"], input_size=SIZE))
     with pltpu.force_tpu_interpret_mode():
         want = np.stack([jpipe.infer_video_depth_one(f) for f in frames])
 
@@ -735,7 +750,7 @@ def test_stream_recalibration_after_reset_matches_vdn(clip, monkeypatch):
     first = np.random.default_rng(16).integers(
         0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)
     second = (112 + first[::-1] // 8).astype(np.uint8)
-    jpipe = JStream(jm, clip["params"], input_size=SIZE)
+    jpipe = _waited(JStream(jm, clip["params"], input_size=SIZE))
     with pltpu.force_tpu_interpret_mode():
         want = [jpipe.infer_video_depth_one(f) for f in first]
         jpipe.reset()

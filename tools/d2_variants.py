@@ -299,9 +299,11 @@ def main(names) -> None:
         qs = fa._kernel_qscale(64 ** -0.5)
         for grid in sorted({min(items, sms), math.ceil(items / 2),
                             math.ceil(items / 3), items}):
+            c = 16 * 64
             call = lambda grid=grid: lib.vdn_flash_attention_bthd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, t, t, 16, qs,
-                out.data_ptr(), grid, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, t, t, 16, 64,
+                c * t, c, c * t, c, c * t, c, qs, out.data_ptr(), grid,
+                stream)
             ms = [device_ms(call) for _ in range(2)]
             print(f"C2 T{t} items {items} grid {grid}: device ms "
                   + " ".join(f"{m:.4f}" for m in ms), flush=True)
@@ -320,8 +322,9 @@ def host_pieces(q, k, v, out, lib) -> None:
     qs = fa._kernel_qscale(64 ** -0.5)
     grid = fa.a1_plan(b, t, h, kernels.sm_count(0))["grid"]
     stream = torch.cuda.current_stream().cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, t, h, qs,
-            out.data_ptr(), grid)
+    c = h * 64
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, t, h, 64,
+            c * t, c, c * t, c, c * t, c, qs, out.data_ptr(), grid)
     pieces = {
         "flash_attention": lambda: fa.flash_attention(q, k, v),
         "_launch_bthd": lambda: fa._launch_bthd("flash_attention", q, k, v,

@@ -47,6 +47,15 @@ fp32):
 
 - ``v1_train``: two V1Trainer steps (b2 x s8) after a warm-up step.
 
+SAM2 (chip_smoke.py's SAM2 phases: sam2.1 hiera_base_plus at 1024 x 1024,
+the object-score bias calibrated as there):
+
+- ``sam2_image``: two set_image calls and four point prompts of the image
+  predictor, bf16 (split per image: its set_image and two predicts);
+- ``sam2_frame`` / ``sam2_frame_f32``: video tracking of chip_smoke.py's
+  clip with a point on frame 0, tracked frames 7-9 (all 7 mask slots
+  full), bf16 / fp32.
+
 For each, device time is summed from the exported chrome trace (events of
 category "kernel"), grouped by kernel name, and printed per unit (window,
 frame) beside the span of host wall time and the union of kernel intervals
@@ -76,7 +85,12 @@ GROUPS = [
     (r"f6_flash_kernel", "F6 int8 flash attention (wgmma)"),
     (r"e1_(warp|block)_kernel|ring_step_kernel",
      "E1 ring-attention step (CP motion modules)"),
-    (r"flash_bthd_f32_kernel", "C2 fp32 attention (hieradet global blocks)"),
+    (r"flash_bthd_f32_kernel",
+     "C2 fp32 attention (hieradet / SAM2 global blocks, SAM2 memory)"),
+    (r"c2_wide_kernel", "C2 bf16 D 256 (SAM2 memory attention)"),
+    (r"c2_combine_kernel|combine_f32_kernel",
+     "C2 split-key combine (D 256, bf16 / fp32)"),
+    (r"max_pool", "Hiera q-pool (max_pool2d)"),
     (r"d2_dkdv", "D2 dK / dV (3xTF32 mma.sync, TMA)"),
     (r"d2_dq", "D2 dQ (3xTF32 mma.sync, TMA)"),
     (r"d2_delta", "D2 delta (+ padded lse)"),
@@ -101,7 +115,8 @@ GROUPS = [
     # kC3 2, kBthd 3, kC1 4)
     (r"a1_flash_kernel<1>", "A1-train flash attention (+ log-sum-exp)"),
     (r"a1_flash_kernel<2>", "C3 head-major fused-qkv attention"),
-    (r"a1_flash_kernel<3>", "C2 memory self-attention"),
+    (r"a1_flash_kernel<3>",
+     "C2 bf16 D 56 / 64 (SAM2 trunk, memory self-attention)"),
     (r"a1_flash_kernel<4>", "C1 memory cross-attention (column bias)"),
     (r"a1_flash_kernel", "A1 flash attention"),
     (r"d1_prepass", "D1 pre-pass (qs, delta, padded lse)"),
@@ -229,7 +244,8 @@ def report(name: str, res: dict, units: int, unit: str) -> None:
 
 UNITS = ("cached", "int8", "int8_all", "stream_k1", "stream_k8", "cp_window",
          "cp_rope", "image",
-         "train", "vitg_cached", "vitg_int8", "v1_train")
+         "train", "vitg_cached", "vitg_int8", "v1_train", "sam2_image",
+         "sam2_frame", "sam2_frame_f32")
 
 
 def profile_cached(model, frames, out: str, name: str) -> None:
@@ -394,6 +410,44 @@ def profile_v1_train(out: str) -> None:
     report("v1_train", res, 2, "step")
 
 
+def profile_sam2(units, out: str) -> None:
+    from vdn_torch.models.sam2_image import Sam2ImagePredictor
+    from vdn_torch.models.sam2_video import build_sam2_video_model
+    from vdn_torch.pipelines.sam2_video import Sam2VideoPredictor
+    frames = cs.sam2_frames()
+    model = build_sam2_video_model(
+        compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(cs.SAM2_SEED))
+    cs.calibrate_object_score(model, frames)
+    if "sam2_image" in units:
+        pred = Sam2ImagePredictor(model)
+        point = dict(point_coords=[cs.sam2_disc(0)], point_labels=[1.0])
+
+        def image():
+            pred.set_image(frames[0])
+            pred.predict(**point)
+            pred.predict(**point)
+        image()
+        res = trace(image, 2, os.path.join(out, "sam2_image.json"))
+        report("sam2_image", res, 2, "image")
+    for name, dt in (("sam2_frame", torch.bfloat16),
+                     ("sam2_frame_f32", None)):
+        if name not in units:
+            continue
+        model.compute_dtype = dt
+        with cs.exact_fp32():
+            pred = Sam2VideoPredictor(model)
+            state = pred.init_state(frames)
+            pred.add_new_points(state, 0, [cs.sam2_disc(0)], [1.0])
+            it = pred.propagate(state)
+            for _ in range(cs.SAM2_TIMED_FROM):   # frames 0 .. 6
+                next(it)
+            n = len(frames) - cs.SAM2_TIMED_FROM
+            res = trace(lambda: next(it), n, os.path.join(out,
+                                                          f"{name}.json"))
+        report(name, res, n, "tracked frame")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/profile",
@@ -420,6 +474,9 @@ def main() -> None:
     if "v1_train" in args.units:
         torch.cuda.empty_cache()
         profile_v1_train(args.out)
+    if set(args.units) & {"sam2_image", "sam2_frame", "sam2_frame_f32"}:
+        torch.cuda.empty_cache()
+        profile_sam2(args.units, args.out)
 
 
 if __name__ == "__main__":

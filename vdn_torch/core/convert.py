@@ -38,8 +38,14 @@ The v1 model (vdn_torch.models.video_depth_v1) adds three rules:
   under ``V1_HEAD_CONVT_PATTERNS`` / ``V2_HEAD_CONVT_PATTERNS`` (the
   patterns vdn's converter takes for them).
 
-SAM2's ``embedding`` leaves come with its port; until then such a tree
-fails to load as unexpected keys.
+SAM2 (vdn_torch.models.sam2_image / sam2_video) adds one rule: the
+``embedding`` leaf of a flax ``nn.Embed`` (the prompt encoder's point,
+not-a-point and no-mask embeddings, the mask decoder's iou, mask and
+object-score tokens) becomes the torch ``nn.Embedding``'s ``weight``,
+copied verbatim (a lookup table, never transposed), as vdn's
+``DEFAULT_EMBEDDING_PATTERNS`` take it the other way.  Its buffers and
+parameters of other shapes (``positional_encoding_gaussian_matrix``,
+``no_mem_embed``, ``maskmem_tpos_enc``, ``no_obj_ptr``, ...) copy verbatim.
 
 Registered buffers that vdn recomputes (the sinusoidal ``pe``) are not in
 the flax tree; the port's modules rebuild them.
@@ -136,7 +142,7 @@ def state_dict_from_flax(params: Mapping,
             else:
                 raise ValueError(f"unhandled kernel rank for {key}: "
                                  f"{value.shape}")
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             key = _torch_key(path[:-1] + ["weight"])
         else:
             key = _torch_key(path)

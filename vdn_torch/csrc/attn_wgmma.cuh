@@ -165,4 +165,23 @@ cudaError_t encode_rows_bf16(CUtensorMap* map, const void* ptr, int B, int T,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// A [B, T, H, D] bf16 operand read through its strides (elements between
+// rows t and t + 1, and between batches; a head D elements on, elements
+// contiguous; every stride 16-byte aligned), moved as boxes of 64 of one
+// head's columns by box_rows rows of one batch in the 128-byte swizzle,
+// coordinates (column, head, row, batch).  Columns >= D and rows >= T
+// load as zeros and are not stored: a 56-wide head fills a 64-wide box.
+cudaError_t encode_heads_bf16(CUtensorMap* map, const void* ptr, int B,
+                              int T, int H, int D, long long row_stride,
+                              long long batch_stride, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)batch_stride * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 }  // namespace

@@ -66,12 +66,18 @@
 //     (m64n64k16), out = O / l, stored through a 3-D map of out as [B * H,
 //     T, 64].  No model path calls it;
 //   - kBthd, C2: replaces flash_attention (_flash_kernel via _flash_bhtd),
-//     attention over separate q [B, Tq, H * 64] and k, v [B, Tk, H * 64]
-//     (the memory block's self-attention, Tq = Tk = 1369 or 1813, H 16):
-//     A1's arithmetic unchanged, q, k and v each read through a 3-D map of
-//     its own ([B, T, H * 64], the box at column h * 64), the q tiles
+//     attention over separate q [B, Tq, H, D] and k, v [B, Tk, H, D] (the
+//     memory block's self-attention, Tq = Tk = 1369 or 1813, H 16, D 64;
+//     SAM2's hiera_base_plus global blocks, Tq = Tk = 4096, H 8, D 56):
+//     A1's arithmetic unchanged, q, k and v each read in place through a
+//     4-D map of its own ([B, T, H, D] with the operand's strides: q, k
+//     and v may be slices of one fused qkv), the box 64 columns of one
+//     head, so that a 56-wide head's columns 56-63 load as zeros (they add
+//     nothing to S, and O's columns there are not stored); the q tiles
 //     counted over Tq and the key tiles over Tk, keys >= Tk masked in the
-//     tail tile, out [B, Tq, H * 64] through A1's out map.
+//     tail tile, out [B, Tq, H, D] through a 4-D map of its own.  D = 256
+//     (SAM2's memory attention) is a kernel of its own
+//     (flash_attn_wide.cu): its O does not fit beside A1's S.
 //   - kC1, C1: replaces flash_attention_colbias (_flash_colbias_kernel
 //     via _flash_bhtd_colbias), kBthd's attention with an additive fp32
 //     bias per key column (the memory bank's slot mask: 0 for written
@@ -107,6 +113,7 @@ constexpr int kBarriers = 2 * kStages + 4;
 // barriers, 1024 bytes of alignment
 constexpr int kSmem = 1024 + 2 * kTileBytes + 2 * kOutBytes +
                       kStages * 2 * kTileBytes + kTileBytes + 8 * kBarriers;
+static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
 // kC1 also: after the barriers (128 bytes from their start), each stage's
 // 128 bias values, then the live-tile flags, the live list and its length
 constexpr int kMaxKeyTiles = 4096;
@@ -398,8 +405,12 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
         mbar_wait(smem_u32(&q_empty[qb]), ((i >> 1) & 1) ^ 1);
         if (lane == 0) {
           mbar_expect_tx(qbar, kTileBytes);
-          tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
-                      qt * kRows, b);
+          if constexpr (kSep)
+            tma_load_4d(q_s + qb * kTileBytes, &map_qkv, qbar, 0, h,
+                        qt * kRows, b);
+          else
+            tma_load_3d(q_s + qb * kTileBytes, &map_qkv, qbar, h * kD,
+                        qt * kRows, b);
         }
         float bv[4];  // kC1: this lane's values of the next tile
         if constexpr (kBias)
@@ -412,8 +423,8 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
           if constexpr (kBias) {
             if (lane == 0) {
               mbar_tx(bar, 2 * kTileBytes);
-              tma_load_3d(dst, &map_k, bar, h * kD, kt * kRows, b);
-              tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, kt * kRows,
+              tma_load_4d(dst, &map_k, bar, 0, h, kt * kRows, b);
+              tma_load_4d(dst + kTileBytes, &map_v, bar, 0, h, kt * kRows,
                           b);
             }
             asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
@@ -425,8 +436,8 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
               load_bias(bv, bias, list[j + 1] * kRows + 4 * lane, Tk);
           } else if constexpr (kSep) {
             mbar_expect_tx(bar, 2 * kTileBytes);
-            tma_load_3d(dst, &map_k, bar, h * kD, kt * kRows, b);
-            tma_load_3d(dst + kTileBytes, &map_v, bar, h * kD, kt * kRows, b);
+            tma_load_4d(dst, &map_k, bar, 0, h, kt * kRows, b);
+            tma_load_4d(dst + kTileBytes, &map_v, bar, 0, h, kt * kRows, b);
           } else {
             mbar_expect_tx(bar, 2 * kTileBytes);
             tma_load_3d(dst, &map_qkv, bar, C + h * kD, kt * kRows, b);
@@ -593,6 +604,8 @@ a1_flash_kernel(const __grid_constant__ CUtensorMap map_qkv,
     if (lt == 0 && row0 < T) {
       if constexpr (kNat)
         tma_store_3d(&map_out, stage_o, 0, row0, b * H + h);
+      else if constexpr (kSep)
+        tma_store_4d(&map_out, stage_o, 0, h, row0, b);
       else
         tma_store_3d(&map_out, stage_o, h * kD, row0, b);
       bulk_commit();
@@ -632,21 +645,32 @@ cudaError_t launch_fwd(const void* qkv, int B, int T, int H, float qscale,
                             qscale, lse, nullptr, grid, s);
 }
 
-// C2 (kBthd) and C1 (kC1, with bias): q [B, Tq, H * 64], k / v [B, Tk,
-// H * 64] bf16 -> out [B, Tq, H * 64] bf16
+// C2 (kBthd) and C1 (kC1, with bias): q [B, Tq, H, D], k / v [B, Tk, H,
+// D] bf16, each through its (row, batch) strides, D = 56 or 64 (columns
+// 56-63 of a 56-wide head load as zeros: they add nothing to q k^T, and
+// P V's columns there are not stored) -> out [B, Tq, H, D] bf16
+// contiguous
 template <int kForm>
 cudaError_t launch_bthd(const void* q, const void* k, const void* v,
                         const float* bias, int B, int Tq, int Tk, int H,
-                        float qscale, void* out, int grid, cudaStream_t s) {
+                        int D, const long long* strides, float qscale,
+                        void* out, int grid, cudaStream_t s) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || grid < 1 ||
+      (D != 56 && D != kD) ||
       (kForm == kC1 && (Tk + kRows - 1) / kRows > kMaxKeyTiles))
     return cudaErrorInvalidValue;
-  const int C = H * kD;
+  const long long C = (long long)H * D;
   CUtensorMap map_q, map_k, map_v, map_out;
-  cudaError_t err = encode_rows_bf16(&map_q, q, B, Tq, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_k, k, B, Tk, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_v, v, B, Tk, C, kRows);
-  if (err == cudaSuccess) err = encode_rows_bf16(&map_out, out, B, Tq, C, 64);
+  cudaError_t err = encode_heads_bf16(&map_q, q, B, Tq, H, D, strides[1],
+                                      strides[0], kRows);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_k, k, B, Tk, H, D, strides[3], strides[2],
+                            kRows);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_v, v, B, Tk, H, D, strides[5], strides[4],
+                            kRows);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_out, out, B, Tq, H, D, C, C * Tq, 64);
   if (err != cudaSuccess) return err;
   return launch_maps<kForm>(map_q, map_k, map_v, map_out, B, Tq, Tk, H,
                             qscale, nullptr, bias, grid, s);
@@ -684,16 +708,21 @@ extern "C" int vdn_flash_attention_qkv_heads(const void* qkv, int B, int T,
                          static_cast<cudaStream_t>(stream));
 }
 
-// C2: q [B, Tq, H * 64], k / v [B, Tk, H * 64] bf16 (contiguous, 16-byte
-// aligned) -> out [B, Tq, H * 64] bf16.  qscale is bf16(scale * log2 e);
-// grid the persistent blocks (the Python plan's, over the q tiles of Tq).
-// Head width 64 only.
-extern "C" int vdn_flash_attention_bthd(const void* q, const void* k,
-                                        const void* v, int B, int Tq, int Tk,
-                                        int H, float qscale, void* out,
-                                        int grid, void* stream) {
-  return launch_bthd<kBthd>(q, k, v, nullptr, B, Tq, Tk, H, qscale, out,
-                            grid, static_cast<cudaStream_t>(stream));
+// C2: q [B, Tq, H, D], k / v [B, Tk, H, D] bf16, D = 56 or 64, each read
+// in place through its batch and row strides in elements (sqb, sqt, skb,
+// skt, svb, svt: a head D on, elements contiguous, strides and bases
+// 16-byte aligned) -> out [B, Tq, H, D] bf16 contiguous.  qscale is
+// bf16(scale * log2 e); grid the persistent blocks (the Python plan's,
+// over the q tiles of Tq).  D = 256 is flash_attn_wide.cu.
+extern "C" int vdn_flash_attention_bthd(
+    const void* q, const void* k, const void* v, int B, int Tq, int Tk, int H,
+    int D, long long sqb, long long sqt, long long skb, long long skt,
+    long long svb, long long svt, float qscale, void* out, int grid,
+    void* stream) {
+  const long long strides[6] = {sqb, sqt, skb, skt, svb, svt};
+  return launch_bthd<kBthd>(q, k, v, nullptr, B, Tq, Tk, H, D, strides,
+                            qscale, out, grid,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // C1: as C2, plus bias [Tk] fp32 (16-byte aligned; natural-log units, -inf
@@ -703,7 +732,9 @@ extern "C" int vdn_flash_attention_colbias(const void* q, const void* k,
                                            int B, int Tq, int Tk, int H,
                                            float qscale, void* out, int grid,
                                            void* stream) {
+  const long long C = (long long)H * kD;
+  const long long strides[6] = {C * Tq, C, C * Tk, C, C * Tk, C};
   return launch_bthd<kC1>(q, k, v, static_cast<const float*>(bias), B, Tq,
-                          Tk, H, qscale, out, grid,
+                          Tk, H, kD, strides, qscale, out, grid,
                           static_cast<cudaStream_t>(stream));
 }

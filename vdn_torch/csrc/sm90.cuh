@@ -107,6 +107,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // one 2-D tile from shared memory to global memory (coordinates past a
 // dimension's end are not written), in the thread's bulk group
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -125,6 +136,16 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
          "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -252,7 +273,7 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
                               CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t steps[3] = {1, 1, 1};
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};  // rank <= 5
   const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(ptr), dims, strides, box, steps,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

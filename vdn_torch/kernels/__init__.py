@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port: build, dispatch, launch counts.
 
 The kernels (A1-A6 of the clip-depth path, B1 of streaming, C1 and C2 of
-the single-image path's memory attention and of hieradet's global blocks,
+the single-image path's memory attention and of hieradet's global blocks
+(C2 also of SAM2's trunk and memory attention),
 the training backwards D1-D4 with A1's training forward, F1-F6 of the
 int8 serving mode, E1, the ring-attention step of the context-parallel
 temporal attention, and C3, the head-major fused-qkv attention that no
@@ -92,12 +93,14 @@ _SIGNATURES = {
     "vdn_flash_attention_qkv_lse": (_P, _I, _I, _I, _F, _P, _P, _I, _P),
     "vdn_flash_attention_qkv_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
                                     _P, _P, _P),
-    "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _I,
-                                 _P),
+    "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _I)
+    + (_L,) * 6 + (_F, _P, _I, _P),
+    "vdn_flash_attention_bthd_wide": (_P, _P, _P, _I, _I, _I, _I)
+    + (_L,) * 6 + (_F, _P, _I, _P, _P, _I, _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _I, _P),
     "vdn_flash_attention_bthd_f32": (_P, _P, _P, _I, _I, _I, _I, _I)
-    + (_L,) * 6 + (_F, _P, _P, _P),
+    + (_L,) * 6 + (_F, _P, _P, _I, _P, _P, _P),
     "vdn_flash_attention_bthd_bwd": (_P,) * 6 + (_I,) * 5 + (_L,) * 6
     + (_F, _F) + (_P,) * 5,
     "vdn_ln_mlp_residual": (_P, _I, _I, _I) + (_P,) * 7 + (_F,) + (_P,) * 3

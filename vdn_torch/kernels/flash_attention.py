@@ -17,16 +17,22 @@ separate q, k, v in [B, T, H, D], C1 with an additive fp32 bias per key
 column (natural-log units, -inf allowed: the memory bank's slot mask).
 In bf16 at D = 64 both are forms of A1's kernel (csrc/flash_attn_qkv.cu),
 on ``a1_plan``'s items over the q tiles of Tq: C2 its ``kBthd`` form (q, k
-and v each through a tensor map of its own, Tq and Tk apart), C1 its
+and v each through a 4-D tensor map of its own, read in place by their
+strides, Tq and Tk apart; also at D = 56, SAM2's hiera_base_plus global
+blocks, the columns past 56 zero-filled by TMA), C1 its
 ``kC1`` form, kBthd's with each 128-key stage's bias values carried into
 shared memory beside its K and V tiles and added to the logits before the
 row max, and the key tiles whose every column is -inf skipped by the
 producer and the consumers alike (each block lists the live ones from the
-bias first; Tk up to MAX_KEY_TILES tiles).  C2 also runs
-fp32 at D = 96 (csrc/flash_attn_bthd_f32.cu, its products on the tensor
-cores in 3xTF32, which keeps fp32 accuracy): hieradet's global blocks on
-the v1 model, whose q, k and v it reads in place as slices of the fused
-qkv projection.
+bias first; Tk up to MAX_KEY_TILES tiles).  C2 in bf16 at D = 256 (SAM2's
+memory attention) is a kernel of its own (csrc/flash_attn_wide.cu,
+``c2_wide_plan``).  C2 also runs fp32 at D = 56, 96 and 256
+(csrc/flash_attn_bthd_f32.cu, its products on the tensor cores in
+3xTF32, which keeps fp32 accuracy, ``c2_f32_plan``): hieradet's global
+blocks on the v1 model and SAM2's fp32 path, q, k and v read in place
+(slices of the fused qkv projection).  At D = 256 both split each unit's
+key tiles into shares where the q tiles alone leave SMs idle, and a
+second launch combines the shares (``key_shares``).
 
 Training through C2: with grad enabled and q, k or v requiring it, C2 runs
 as an autograd Function.  Its forward also writes the base-2 row
@@ -323,20 +329,50 @@ def flash_attention_fused_qkv(qkv: torch.Tensor,
     return _fused_qkv_forward(qkv, scale, save_lse=False)
 
 
+BF16_HEAD_DIMS = (56, 64, 256)   # C2: flash_attn_qkv.cu (kBthd), _wide.cu
+WIDE_KEYS = 64   # csrc/flash_attn_wide.cu: keys of a K / V stage
+
+
+def key_shares(units: int, tiles: int, sms: int) -> int:
+    """How many shares each of ``units`` work units splits its ``tiles``
+    key tiles into: as many as fill ``sms`` SMs with one unit a share (1
+    where the units alone fill them), no share empty."""
+    shares = max(1, min(sms // units, tiles))
+    return -(-tiles // -(-tiles // shares))
+
+
+@functools.lru_cache(maxsize=256)
+def c2_wide_plan(b: int, tq: int, tk: int, h: int, sms: int) -> dict:
+    """C2's D = 256 launch (csrc/flash_attn_wide.cu) on a card of ``sms``
+    SMs: a1_plan's items (batch, head, A1_ROWS-row q tile), each split into
+    ``splits`` shares of its WIDE_KEYS-key tiles (``key_shares``: one block
+    an SM, and SAM2's one head of 4096 rows is 32 items); the persistent
+    blocks, min(units, sms).  A unit is (item, share), the share
+    fastest."""
+    items = b * h * -(-tq // A1_ROWS)
+    splits = key_shares(items, -(-tk // WIDE_KEYS), sms)
+    return {"items": items, "splits": splits,
+            "grid": min(items * splits, sms)}
+
+
 def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
-    """C2 (``col_bias`` None: A1's kernel, kBthd) or C1 (kC1) in bf16 at
-    D = 64 on contiguous, 16-byte aligned q, k, v (row stride H * 64)."""
+    """C2 (``col_bias`` None) in bf16 at D = 56 or 64 (A1's kernel, kBthd)
+    or 256 (csrc/flash_attn_wide.cu), q, k, v read in place through their
+    strides; or C1 (kC1) at D = 64 on contiguous, 16-byte aligned q, k, v
+    (row stride H * 64)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    dims = BF16_HEAD_DIMS if col_bias is None else (64,)
     limit = col_bias is not None and tk > A1_ROWS * MAX_KEY_TILES
-    if (d != 64 or q.dtype != torch.bfloat16 or k.dtype != q.dtype
+    if (d not in dims or q.dtype != torch.bfloat16 or k.dtype != q.dtype
             or v.dtype != q.dtype or k.shape != (b, tk, h, d)
             or v.shape != k.shape or limit):
         raise ValueError(
-            f"{name}: kernel takes bf16 q [B, Tq, H, 64] and k, v "
-            f"[B, Tk, H, 64]"
-            + (" (C2 also fp32 at D = 96)" if col_bias is None
-               else f" with Tk <= {A1_ROWS * MAX_KEY_TILES}")
+            f"{name}: kernel takes bf16 q [B, Tq, H, D] and k, v "
+            f"[B, Tk, H, D] with D in {dims}"
+            + (f" (C2 also fp32 with D in {F32_HEAD_DIMS})"
+               if col_bias is None
+               else f" and Tk <= {A1_ROWS * MAX_KEY_TILES}")
             + f", got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
             f"{k.dtype}, v {tuple(v.shape)} {v.dtype}")
     if wants_grad(q, k, v):
@@ -346,12 +382,22 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     scale = d ** -0.5 if scale is None else scale
     # scale * log2(e) rounded to bf16, as the plain version folds it
     qscale = _kernel_qscale(scale)
-    out = torch.empty_like(q)
-    grid = a1_plan(b, tq, h, sm_count(q.device.index))["grid"]
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    sms = sm_count(q.device.index)
     if col_bias is None:
-        check_kernel_args(name, q, k, v, out)
-        launch("vdn_flash_attention_bthd", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), b, tq, tk, h, qscale, out.data_ptr(), grid)
+        strides = [s for t in (q, k, v) for s in _strides(name, t, d)]
+        check_kernel_args(name, out)
+        if d == 256:
+            plan = c2_wide_plan(b, tq, tk, h, sms)
+            scratch = _shares_scratch(plan["splits"], b, tq, h, d, q.device)
+            launch("vdn_flash_attention_bthd_wide", q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), b, tq, tk, h, *strides,
+                   qscale, out.data_ptr(), plan["splits"], *_ptrs(scratch),
+                   plan["grid"])
+        else:
+            launch("vdn_flash_attention_bthd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), b, tq, tk, h, d, *strides, qscale,
+                   out.data_ptr(), a1_plan(b, tq, h, sms)["grid"])
     else:
         if col_bias.shape != (tk,) or col_bias.dtype != torch.float32:
             raise ValueError(f"{name}: col_bias must be fp32 [{tk}], got "
@@ -359,28 +405,35 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
         check_kernel_args(name, q, k, v, col_bias, out)
         launch("vdn_flash_attention_colbias", q.data_ptr(), k.data_ptr(),
                v.data_ptr(), col_bias.data_ptr(), b, tq, tk, h, qscale,
-               out.data_ptr(), grid)
+               out.data_ptr(), a1_plan(b, tq, h, sms)["grid"])
     launches[name] += 1
     return out
 
 
-F32_HEAD_DIMS = (96,)   # csrc/flash_attn_bthd_f32.cu, flash_attn_bthd_bwd.cu
+F32_HEAD_DIMS = (56, 96, 256)   # csrc/flash_attn_bthd_f32.cu
+D2_HEAD_DIMS = (96,)            # csrc/flash_attn_bthd_bwd.cu
 D2_ROWS = 64            # csrc/flash_attn_bthd_bwd.cu: keys / q rows of a block
 
 
-def _is_f32_case(q, k, v) -> bool:
-    """True where C2's fp32 kernel and D2 take the call."""
+def _is_f32_case(q, k, v, dims=F32_HEAD_DIMS) -> bool:
+    """True where C2's fp32 kernel (D2: ``dims=D2_HEAD_DIMS``) takes the
+    call."""
     return (q.dtype == k.dtype == v.dtype == torch.float32
-            and q.shape[-1] in F32_HEAD_DIMS)
+            and q.shape[-1] in dims)
 
 
 def _strides(name: str, t: torch.Tensor, d: int) -> tuple:
-    """(batch, row) strides of a [B, T, H, D] operand the fp32 kernels read
-    in place: a head at h * D, elements contiguous, 16-byte rows."""
+    """(batch, row) strides of a [B, T, H, D] operand the kernels read in
+    place: a head at h * D, elements contiguous, 16-byte rows and base.
+    A single batch's stride is taken as T rows (torch may give it any
+    value)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
     sb, st, sh, sd = t.stride()
-    if (sd != 1 or sh != d or st % 4 or sb % 4 or t.data_ptr() % 16
+    if t.shape[0] == 1:
+        sb = st * t.shape[1]
+    align = 16 // t.element_size()
+    if (sd != 1 or sh != d or st % align or sb % align or t.data_ptr() % 16
             or st < t.shape[2] * d):
         raise ValueError(f"{name}: [B, T, H, {d}] operand with strides "
                          f"{t.stride()} is not readable in place")
@@ -395,6 +448,39 @@ def _check_f32(name: str, q, k, v) -> None:
                          f"v {tuple(v.shape)}")
 
 
+F32_ROWS = 64            # csrc/flash_attn_bthd_f32.cu: q rows of a block
+
+
+@functools.lru_cache(maxsize=256)
+def c2_f32_plan(b: int, tq: int, tk: int, h: int, d: int, sms: int,
+                save_lse: bool = False) -> dict:
+    """C2's fp32 launch (csrc/flash_attn_bthd_f32.cu): blocks of F32_ROWS q
+    rows of a (batch, head); at D > 128 (one block an SM, TcDims) each
+    block's 32-key tiles split into ``splits`` shares (``key_shares``),
+    never with the log-sum-exp."""
+    blocks = b * h * -(-tq // F32_ROWS)
+    splits = (1 if d <= 128 or save_lse
+              else key_shares(blocks, -(-tk // 32), sms))
+    return {"blocks": blocks, "splits": splits}
+
+
+def _shares_scratch(splits: int, b: int, tq: int, h: int, d: int,
+                    device) -> list:
+    """The share scratch the C entries combine by a second launch: the
+    shares' partial O [splits, B, Tq, H, D] and (m, l) [splits, B, H, Tq,
+    2], fp32; none for one share.  The caller holds them until the
+    launch (``_ptrs``)."""
+    if splits == 1:
+        return []
+    return [torch.empty(shape, dtype=torch.float32, device=device)
+            for shape in ((splits, b, tq, h, d), (splits, b, h, tq, 2))]
+
+
+def _ptrs(scratch: list) -> tuple:
+    """The scratch's pointers, or two nulls."""
+    return tuple(t.data_ptr() for t in scratch) or (None, None)
+
+
 def _launch_f32(q, k, v, scale, save_lse: bool):
     """C2's fp32 kernel: out, or (out, lse) with ``save_lse``."""
     name = "flash_attention"
@@ -405,10 +491,13 @@ def _launch_f32(q, k, v, scale, save_lse: bool):
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if save_lse else None)
+    splits = c2_f32_plan(b, tq, tk, h, d, sm_count(q.device.index),
+                         save_lse)["splits"]
+    scratch = _shares_scratch(splits, b, tq, h, d, q.device)
     launch("vdn_flash_attention_bthd_f32", q.data_ptr(), k.data_ptr(),
            v.data_ptr(), b, tq, tk, h, d, *strides,
            _kernel_qscale(scale, torch.float32), out.data_ptr(),
-           None if lse is None else lse.data_ptr())
+           None if lse is None else lse.data_ptr(), splits, *_ptrs(scratch))
     launches[name] += 1
     return (out, lse) if save_lse else out
 
@@ -422,9 +511,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, out, dout, scale)
     name = "flash_attention_bwd"
-    if not _is_f32_case(q, k, v):
+    if not _is_f32_case(q, k, v, D2_HEAD_DIMS):
         raise ValueError(f"{name}: kernel takes fp32 q, k, v with D in "
-                         f"{F32_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}")
+                         f"{D2_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}")
     _check_f32(name, q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -461,11 +550,12 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         scale = q.shape[-1] ** -0.5 if scale is None else scale
         if use_kernel(q):
-            if not _is_f32_case(q, k, v):
+            if not _is_f32_case(q, k, v, D2_HEAD_DIMS):
                 raise RuntimeError(
                     f"flash_attention: D2 takes fp32 q, k, v with D in "
-                    f"{F32_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}; the "
-                    f"bf16 kernel runs under torch.no_grad() only")
+                    f"{D2_HEAD_DIMS}, got {q.dtype} D = {q.shape[-1]}; the "
+                    f"forward kernels at other widths and in bf16 run "
+                    f"under torch.no_grad() only")
             out, lse = _launch_f32(q, k, v, scale, save_lse=True)
         else:
             out, lse = _attention_lse_plain(q, k, v, None, scale)
@@ -484,10 +574,11 @@ class _Attention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """C2: attention over [B, T, H, D]; kernel for bf16 at D = 64
-    (contiguous inputs) and fp32 at D = 96 (read in place through their
-    strides).  Differentiable (D2, fp32 D = 96 on the card) where grad is
-    enabled and an input requires it."""
+    """C2: attention over [B, T, H, D]; kernel for bf16 with D in
+    BF16_HEAD_DIMS and fp32 with D in F32_HEAD_DIMS, q, k, v read in place
+    through their strides (a CUDA tensor at any other width raises).
+    Differentiable (D2, fp32 D = 96 on the card) where grad is enabled and
+    an input requires it."""
     if wants_grad(q, k, v):
         return _Attention.apply(q, k, v, scale)
     if not use_kernel(q):

@@ -6,13 +6,18 @@ attention at fixed block indices, and a windowed background position
 embedding.  NHWC throughout; window partitioning is a reshape + permute.
 
 Attention goes through ``dot_product_attention`` behind vdn's size gate:
-at 256 x 256 and above the global blocks of ``hiera_base`` (12, 16, 20; 4
-heads of 96 at 16 x 16 = 256 tokens) take kernel C2, read in place off the
-fused qkv projection, and in training its backward D2
-(vdn_torch.kernels.flash_attention).  Every other block stays plain: a
-window holds at most 14 x 14 = 196 tokens.  The bicubic pos-embed resize
-runs through A5a / A5b (vdn_torch.ops.resize), its backward on the
-transposed plans.
+a global block (12, 16, 20 in ``hiera_base`` and ``hiera_base_plus``)
+whose stage-3 grid holds at least 256 tokens takes kernel C2, read in
+place off the fused qkv projection (vdn_torch.kernels.flash_attention):
+
+- ``hiera_base`` at 256 x 256 (the v1 model, fp32): 4 heads of 96 over 16
+  x 16 tokens, with its backward D2 in training;
+- ``hiera_base_plus`` at 1024 x 1024 (SAM2's trunk, bf16 or fp32,
+  inference): 8 heads of 56 over 64 x 64 = 4096 tokens.
+
+Every other block stays plain: a window holds at most 14 x 14 = 196
+tokens.  The bicubic pos-embed resize runs through A5a / A5b
+(vdn_torch.ops.resize), its backward on the transposed plans.
 
 Parameter names are the reference checkpoint's (``blocks.0.attn.qkv``,
 ``blocks.0.mlp.layers.0``, ``patch_embed.proj``); ``pos_embed`` and

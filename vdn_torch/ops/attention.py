@@ -40,7 +40,10 @@ def _plain_attention(q, k, v, scale, bias=None):
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(dt)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    # mixed dtypes promote, as vdn's einsum does (SAM2's decoder: fp32
+    # tokens against bf16 image keys)
+    rt = torch.promote_types(dt, v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(rt), v.to(rt))
 
 
 def flash_enabled(tq: int, tk: int,

@@ -3,10 +3,13 @@
 The reference leans on ``F.interpolate`` on the clip path in two
 conventions: bilinear with align_corners=True (DPT fusion upsamples, the
 output island, the final depth resize) and bicubic (A = -0.75) with an
-explicit ``scale_factor`` (the ViT pos-embed, offset 0.1).  As in vdn, each
-axis gets a host-built plan -- per output index the source taps and their
-weights, computed the way torch computes them -- and the two axes run one
-after the other, each rounded to the input dtype:
+explicit ``scale_factor`` (the ViT pos-embed, offset 0.1); SAM2 adds
+``nearest`` (its FPN's top-down 2x) and ``bilinear_aa``, torch's
+antialiased bilinear (the mask prompt's 1024 -> 256 downsample: 8 nonzero
+taps a row at 4x; upsampling it is plain half-pixel bilinear).  As in
+vdn, each axis gets a host-built plan -- per output index the source taps
+and their weights, computed the way torch computes them -- and the two
+axes run one after the other, each rounded to the input dtype:
 
 - the H axis through ``resize_rows`` (A5a): fp32 tap weights and sums;
 - the W axis through ``resize_mid_axis`` (A5b): the dense weights rounded
@@ -59,12 +62,48 @@ def _cubic_weights(t: np.ndarray, a: float = -0.75) -> np.ndarray:
     return np.stack([k2(t + 1.0), k1(t), k1(1.0 - t), k2(2.0 - t)], axis=-1)
 
 
+def _antialias_plan(out_size: int, in_size: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """torch's antialiased bilinear (aten's _compute_indices_weights_aa):
+    a triangle filter widened by the downsampling factor, weights
+    normalized per output; ceil(support) * 2 + 1 taps, the unused ones 0."""
+    s = in_size / out_size
+    support = s if s > 1.0 else 1.0
+    inv = (1.0 / s) if s > 1.0 else 1.0
+    max_taps = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, max_taps), np.int64)
+    w = np.zeros((out_size, max_taps), np.float64)
+    for o in range(out_size):
+        center = s * (o + 0.5)
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        for j in range(xmax - xmin):
+            w[o, j] = max(0.0, 1.0 - abs((j + xmin - center + 0.5) * inv))
+            idx[o, j] = xmin + j
+        tot = w[o].sum()
+        if tot > 0:
+            w[o] /= tot
+    return idx.astype(np.int32), w.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=256)
 def plan_axis(out_size: int, in_size: int, method: str, align_corners: bool,
               scale: Optional[float]) -> Tuple[np.ndarray, np.ndarray]:
-    """(indices [out, taps] int32, weights [out, taps] fp32) of one axis."""
+    """(indices [out, taps] int32, weights [out, taps] fp32) of one axis:
+    "bilinear" or "bicubic" (align_corners and scale as torch's),
+    "bilinear_aa" or "nearest" (torch's floor(o * in / out); both ignore
+    align_corners and scale, as vdn's plans do)."""
+    if method == "bilinear_aa":
+        return _antialias_plan(out_size, in_size)
+    if method == "nearest":
+        src = np.floor(np.arange(out_size, dtype=np.float64) * in_size
+                       / out_size)
+        idx = np.clip(src.astype(np.int64), 0, in_size - 1)
+        return (idx.astype(np.int32)[:, None],
+                np.ones((out_size, 1), np.float32))
     if method not in ("bilinear", "bicubic"):
-        raise ValueError(f"resize method {method!r}: bilinear or bicubic")
+        raise ValueError(f"resize method {method!r}: bilinear, bicubic, "
+                         f"bilinear_aa or nearest")
     cubic = method == "bicubic"
     src = _source_coords(out_size, in_size, align_corners, scale, cubic)
     base = np.floor(src)
