@@ -59,21 +59,37 @@ through the ring of E1; and a 256-frame clip at 266 x 266 through the
 vitl model with temporal RoPE (temporal_max_len 256) under ``auto``,
 which takes E1 at 256 keys a block, against its plain runs.
 
-SAM2 (sam2.1 hiera_base_plus, 1024 x 1024, d_model 256, mem_dim 64, 7
-mask memories, up to 16 object pointers; seeded random weights): C2 at
-its head widths (the trunk's [1, 4096, 8, 56] off the fused qkv, the
-memory attention's one 256-wide head, itself and its cross-attention at
-Tk 4100 and 28,736) in bf16 and fp32, A5a / A5b at its resizes (bicubic
-pos-embed, nearest FPN, bilinear masks, the antialiased mask prompt); the
-image predictor in bf16 (set_image with exactly 3 C2 launches at D 56,
-predict with a point and a box, predict_batch over 64 points, no C2 in
-the decoder), then video tracking over 10 frames, a positive point on
+SAM2 (sam2.1, 1024 x 1024, d_model 256, mem_dim 64, 7 mask memories, up
+to 16 object pointers; seeded random weights): C2 at its head widths
+(the trunks' global blocks off the fused qkv, [1, 4096, 8, 56] at
+hiera_base_plus, [1, 4096, 8, 72] at hiera_large and [1, 4096, 4, 96] at
+hiera_tiny / small, the latter two also at a ragged Tk 4100; the memory
+attention's one 256-wide head, itself and its cross-attention at Tk 4100
+and 28,736) in bf16 and fp32, connected components at the AMG's shapes
+(64 masks of 1024 x 1024 at p 0.41 and 0.6, a spiral, an empty and a
+full mask: bit-equal to the plain version), A5a / A5b at its resizes
+(bicubic pos-embed, nearest FPN, bilinear masks, the antialiased mask
+prompt); the image predictor at hiera_base_plus in bf16 (set_image with
+exactly 3 C2 launches at D 56, predict with a point and a box,
+predict_batch over 64 points, no C2 in the decoder); set_image and a
+point at each released trunk (hiera_tiny, hiera_small, hiera_base_plus,
+hiera_large) in bf16 and fp32 (C2 launches at D 96 / 96 / 56 / 72: the 3
+global blocks, and at hiera_large also 32 windowed blocks of 256 tokens);
+video tracking at hiera_base_plus over 10 frames, a positive point on
 frame 0 and propagate, in fp32 and bf16 (3 C2 at D 56 per encoded frame,
 8 at D 256 per tracked frame, each frame counted; ms per tracked frame
 once the 7 mask slots are full; the object-score head's output bias
-calibrated from a first run so that the logits compared are live),
-each held to its plain runs (bf16 within twice plain bf16's distance from
-plain fp32, fp32 within 1e-4).
+calibrated from a first run so that the logits compared are live); the
+legacy video predictor at hiera_small, three objects (a point and a box
+on frame 0, a mask on frame 3, so that both frames carry memory-encoded
+placeholders), forward, under non_overlap_masks and in reverse from
+frame 3, in fp32 and bf16 (a new object id after tracking must raise);
+and automatic mask generation at hiera_large in bf16 (1,024 points in
+batches of 64, the thresholds from the run's own scores, the small-region
+pass through connected components on the card; its records identical to
+the plain post-processing's on the same logits).  Each is held to its
+plain runs (bf16 within twice plain bf16's distance from plain fp32,
+fp32 within 1e-4; the legacy predictor's placeholders left out).
 
 The v1 research model (dual hieradet encoders at hiera_base's width and
 the sangyu head), fp32 as vdn trains it, at 256 x 256 and b2 x s8:
@@ -435,7 +451,8 @@ def case(name, label, kern, plain, work, path, library=None, tol="bf16",
     ``stages``, where given, {stage: kernel name pattern}: the device time
     of each stage's kernels, from the profiler (kernel_ms); ``host``: also
     the wrapper's host microseconds a call (host_us); ``timings``, where
-    given, {key: call}: each call's time, logged as ``<key>_ms``."""
+    given, {key: call or (call, reps)}: each call's time, logged as
+    ``<key>_ms``."""
     return dict(name=name, label=label, kern=kern, plain=plain, work=work,
                 path=path, library=library, tol=tol, check=check, bf16=bf16,
                 stages=stages, host=host, timings=timings or {})
@@ -874,28 +891,48 @@ SAM2_D = 256
 SAM2_CROSS_TK = (4100, 7 * 4096 + 4 * 16)
 
 
+# the other released trunks' global blocks at 1024 x 1024: hiera_large 8
+# heads of 72, hiera_tiny and hiera_small 4 heads of 96 (stage 3: the
+# embedding width and the heads doubled twice)
+SAM2_WIDE_TRUNKS = (("large", 8, 72), ("tiny", 4, 96))
+
+
 def sam2_cases(rng, dtype=torch.bfloat16):
     """C2 at SAM2's shapes in ``dtype`` (path ``sam2`` in bf16,
-    ``sam2_f32`` in fp32): the trunk's [1, 4096, 8, 56] off the fused qkv,
-    the memory attention's self-attention [1, 4096, 1, 256] and its
-    cross-attention at Tk 4100 and 28,736 (ragged: 4100 = 64 * 64 + 4).
-    Held to the plain version (4 bf16 ulps; fp32 FP32_RTOL of the scale),
-    timed beside SDPA on the same q, k, v, with the device time and the
-    wrapper's host time.  Bounds: the products' operations at the bf16
-    tensor-core rate, in fp32 three times over at the TF32 rate (3xTF32,
-    which the kernel runs)."""
+    ``sam2_f32`` in fp32): the trunks' global blocks off the fused qkv,
+    [1, 4096, 8, 56] (hiera_base_plus), [1, 4096, 8, 72] (hiera_large) and
+    [1, 4096, 4, 96] (hiera_tiny / small), the latter two also against a
+    ragged Tk of 4100 (4096 + 4), and hiera_large's windowed blocks, [16,
+    256, 8, 72]; the memory attention's self-attention
+    [1, 4096, 1, 256] and its cross-attention at Tk 4100 and 28,736.  Held
+    to the plain version (4 bf16 ulps; fp32 FP32_RTOL of the scale), timed
+    beside SDPA on the same q, k, v, with the device time and the wrapper's
+    host time.  Bounds: the products' operations at the bf16 tensor-core
+    rate, in fp32 three times over at the TF32 rate (3xTF32, which the
+    kernel runs)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
     f32 = dtype == torch.float32
     path = "sam2_f32" if f32 else "sam2"
     tol = "fp32" if f32 else "bf16"
     peak, times = ((TF32_TENSOR_FLOPS, 3) if f32 else (BF16_TENSOR_FLOPS, 1))
-    t, h, dh = SAM2_TOKENS, SAM2_TRUNK_HEADS, SAM2_TRUNK_DH
-    qkv = _rand(rng, (1, t, 3, h, dh)).to(dtype)
-    trunk = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    t = SAM2_TOKENS
+    shapes = []
+    for label, h, dh in (("trunk", SAM2_TRUNK_HEADS, SAM2_TRUNK_DH),
+                         *SAM2_WIDE_TRUNKS):
+        qkv = _rand(rng, (1, t, 3, h, dh)).to(dtype)
+        shapes.append((label if label == "trunk" else f"trunk_{label}",
+                       (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])))
+        if label != "trunk":
+            kv = _rand(rng, (2, SAM2_CROSS_TK[0], h, dh)).to(dtype)
+            shapes.append((f"ragged_{label}", (qkv[:, :, 0], kv[:1],
+                                                kv[1:])))
+    # hiera_large's windowed stage-3 blocks: 16 windows of 16 x 16 tokens
+    win = _rand(rng, (t // 256, 256, 3, 8, 72)).to(dtype)
+    shapes.append(("window_large", (win[:, :, 0], win[:, :, 1],
+                                    win[:, :, 2])))
     q = _rand(rng, (1, t, 1, SAM2_D)).to(dtype)
     mem = _rand(rng, (2, SAM2_CROSS_TK[-1], 1, SAM2_D)).to(dtype)
-    shapes = [("trunk", trunk)]
     shapes.append(("self", (q, mem[0, None, :t], mem[1, None, :t])))
     shapes += [("cross", (q, mem[0, None, :tk].contiguous(),
                            mem[1, None, :tk].contiguous()))
@@ -904,7 +941,7 @@ def sam2_cases(rng, dtype=torch.bfloat16):
         b, tq, hh, d = qq.shape
         tk = kk.shape[1]
         stages = (C2_F32_STAGES if f32 else
-                  C2_WIDE_STAGES if d == SAM2_D else C2_STAGES)
+                  C2_WIDE_STAGES if d in fa.WIDE_HEAD_DIMS else C2_STAGES)
         yield case(
             "flash_attention",
             f"{label} Tq{tq} Tk{tk} H{hh} D{d} {str(dtype)[6:]}",
@@ -915,6 +952,107 @@ def sam2_cases(rng, dtype=torch.bfloat16):
             library=lambda a=(qq, kk, vv): F.scaled_dot_product_attention(
                 *(x.transpose(1, 2) for x in a)),
             stages=stages, host=True)
+
+
+# connected components (csrc/connected_components.cu) at the AMG's shapes:
+# a 64-point batch's masks at 1024 x 1024
+CC_BATCH = 64
+CC_STAGES = {"local": r"cc_local", "border": r"cc_border",
+             "flatten": r"cc_flatten", "scan": r"cc_scan",
+             "rank": r"cc_rank", "gather": r"cc_gather"}
+
+
+def spiral_mask(n: int) -> np.ndarray:
+    """An n x n square spiral one pixel wide with one-pixel gaps, walked
+    from the corner inwards: one component whose path is ~n^2 / 2 long."""
+    m = np.zeros((n, n), bool)
+    y = x = 0
+    dy, dx = 0, 1
+    m[0, 0] = True
+    while True:
+        for _ in range(2):   # straight on, else one right turn
+            ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+            if (0 <= ny < n and 0 <= nx < n and not m[ny, nx]
+                    and not (0 <= ay < n and 0 <= ax < n and m[ay, ax])):
+                y, x = ny, nx
+                m[y, x] = True
+                break
+            dy, dx = dx, -dy
+        else:
+            return m
+
+
+def exact_check(kern, plain):
+    """A check (see ``case``) for integer outputs: the kernel's, twice,
+    equal to the plain version's bit for bit (err: the largest difference
+    over all outputs, tolerance 0)."""
+    def check():
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max().item())
+                  for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        scale = float(max(int(w.max().item()) for w in want))
+        return float(err), 0.0, scale, True, equal and same, {
+            "bit_equal": same, "labels": int(want[0].max().item())}
+    return check
+
+
+def scipy_label(mask: torch.Tensor):
+    """The nearest library call: scipy.ndimage.label (8-connectivity) on
+    the host over each mask, the areas by bincount, with the copies to and
+    from the card (vdn's scipy fallback)."""
+    from scipy import ndimage
+    m = mask.cpu().numpy()
+    labels = np.zeros(m.shape, np.int32)
+    areas = np.zeros(m.shape, np.int32)
+    for i in range(m.shape[0]):
+        lab, num = ndimage.label(m[i], structure=np.ones((3, 3), np.int32))
+        labels[i] = lab
+        if num:
+            counts = np.bincount(lab.ravel())
+            counts[0] = 0
+            areas[i] = counts[lab]
+    return (torch.from_numpy(labels).to(mask.device),
+            torch.from_numpy(areas).to(mask.device))
+
+
+def cc_case(mask: torch.Tensor, label: str, path: str = "sam2",
+            scipy: bool = True):
+    """Connected components on ``mask`` [N, H, W] uint8: bit-equal to the
+    plain version (and between two launches), timed beside the plain
+    version and scipy on the host with its copies (``scipy_label_ms``; no
+    PyTorch call computes it).  Bound: the mask read once, labels and
+    areas written once."""
+    from vdn_torch.kernels import connected_components as cc
+    return case("connected_components", label,
+                lambda: cc.connected_components(mask),
+                lambda: cc.connected_components_plain(mask),
+                (mask.numel() * 9, []), path,
+                check=exact_check(lambda: cc.connected_components(mask),
+                                  lambda: cc.connected_components_plain(mask)),
+                stages=CC_STAGES,
+                timings={"scipy_label": (lambda: scipy_label(mask), 1)}
+                if scipy else None)
+
+
+def cc_cases(rng, n: int = CC_BATCH, size: int = SAM2_SIZE):
+    """Connected components at the AMG's shapes (path ``sam2``): n masks
+    of size x size drawn at p 0.41 (near the 8-neighbour percolation
+    threshold: the widest spanning components) and at 0.6, one spiral,
+    and an empty and a full mask."""
+    dev = torch.device(DEVICE)
+    for p in (0.41, 0.6):
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 62)))
+        mask = (torch.rand((n, size, size), generator=g, device=dev)
+                < p).to(torch.uint8)
+        yield cc_case(mask, f"random p{p} N{n} {size}x{size}")
+    yield cc_case(torch.from_numpy(spiral_mask(size)[None]).to(
+        dev, torch.uint8), f"spiral N1 {size}x{size}")
+    both = torch.zeros((2, size, size), dtype=torch.uint8, device=dev)
+    both[1] = 1
+    yield cc_case(both, f"empty+full N2 {size}x{size}", scipy=False)
 
 
 def ring_cases(rng, path, shapes=None):
@@ -1414,7 +1552,8 @@ def check_kernels(cases=None) -> dict:
         if c["host"]:
             extra["host_us"] = f"{host_us(c['kern']):.2f}"
         for k, fn in c["timings"].items():
-            extra[f"{k}_ms"] = f"{time_ms(fn):.4f}"
+            fn, reps = fn if isinstance(fn, tuple) else (fn, 10)
+            extra[f"{k}_ms"] = f"{time_ms(fn, reps, 1):.4f}"
         log("kernel", name=c["name"], path=c["path"], shape=repr(c["label"]),
             max_abs_err=f"{err:.3e}", max_rel_err=f"{err / scale:.3e}",
             tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -4081,37 +4220,55 @@ def calibrate_object_score(model, frames) -> float:
 
 
 def check_c2_refusals() -> None:
-    """C2 on the card: a head width no kernel takes raises ValueError (bf16
-    D 48, fp32 D 64), and an input that requires grad raises RuntimeError
-    at every width but fp32 D 96 (D2's): no plain path behind either."""
+    """C2 on the card: the widths SAM2's trunks give it run (bf16 D 72 and
+    96, fp32 D 72); a head width no kernel takes raises ValueError (bf16 D
+    48 and 80, fp32 D 64 and 80), and an input that requires grad raises
+    RuntimeError at every width but fp32 D 96 (D2's): no plain path behind
+    either."""
     from vdn_torch.kernels import flash_attention as fa
 
     def qkv(d, dt, grad=False):
         return [torch.zeros((1, 256, 1, d), dtype=dt, device=DEVICE,
                             requires_grad=grad) for _ in range(3)]
+    runs = {"bf16 D72": qkv(72, torch.bfloat16),
+            "bf16 D96": qkv(96, torch.bfloat16),
+            "fp32 D72": qkv(72, torch.float32)}
+    for label, args in runs.items():
+        out = fa.flash_attention(*args)
+        torch.cuda.synchronize()
+        if out.shape != args[0].shape or not torch.isfinite(out).all():
+            fail(f"C2 {label}: {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
     cases = {"bf16 D48": (qkv(48, torch.bfloat16), ValueError),
+             "bf16 D80": (qkv(80, torch.bfloat16), ValueError),
              "fp32 D64": (qkv(64, torch.float32), ValueError),
-             **{f"{n} D{d} grad": (qkv(d, dt, True), RuntimeError)
-                for n, dt in (("bf16", torch.bfloat16),
-                              ("fp32", torch.float32))
-                for d in (56, 256)}}
+             "fp32 D80": (qkv(80, torch.float32), ValueError),
+             **{f"bf16 D{d} grad": (qkv(d, torch.bfloat16, True),
+                                    RuntimeError)
+                for d in (56, 72, 96, 256)},
+             **{f"fp32 D{d} grad": (qkv(d, torch.float32, True),
+                                    RuntimeError)
+                for d in (56, 72, 256)}}
     for label, (args, err) in cases.items():
         try:
             fa.flash_attention(*args)
         except err:
             continue
         fail(f"C2 {label}: no {err.__name__}")
-    log("c2_refusals", raised=json.dumps(sorted(cases)))
+    log("c2_refusals", ran=json.dumps(sorted(runs)),
+        raised=json.dumps(sorted(cases)))
 
 
 def sam2_kernel_checks() -> dict:
     """SAM2's kernels on the card, with the other kernel cases at the
     start (the profiler's device times, read late in the script's long
     process, came back empty): C2's refusals, C2 at its widths (paths sam2,
-    sam2_f32) and A5a / A5b at its resizes.  Returns the kernel summary."""
+    sam2_f32), connected components at the AMG's shapes (cc_cases) and A5a
+    / A5b at its resizes.  Returns the kernel summary."""
     rng = np.random.default_rng(SAM2_SEED)
     check_c2_refusals()
     summary = check_kernels(sam2_cases(rng))
+    merge_summary(summary, check_kernels(cc_cases(rng)))
     with exact_fp32():
         merge_summary(summary, check_kernels(
             sam2_cases(rng, torch.float32)))
@@ -4120,13 +4277,494 @@ def sam2_kernel_checks() -> dict:
     return summary
 
 
+# every released SAM2 trunk: its stage-3 head width at 1024 x 1024 and the
+# C2 launches of an encoded image: the three global blocks (4096 tokens),
+# and at hiera_large also the 32 windowed stage-3 blocks whose 16 x 16
+# windows hold 256 tokens, behind vdn's size gate (the stage's first
+# block keeps stage 2's 4 x 4 windows: plain)
+SAM2_TRUNKS = {"hiera_tiny": (96, 3), "hiera_small": (96, 3),
+               "hiera_base_plus": (56, 3), "hiera_large": (72, 35)}
+
+
+def _low_res_gate(label, got, ref16, ref32, f32: bool) -> tuple:
+    """(distance from plain fp32, limit): fp32 within SAM2_F32_REL_L2 of
+    plain fp32; bf16 within twice plain bf16's distance from it."""
+    d = rel_l2(got.float(), ref32.float())
+    limit = (SAM2_F32_REL_L2 if f32
+             else E2E_DRIFT_FACTOR * rel_l2(ref16.float(), ref32.float()))
+    if not d <= limit:
+        fail(f"{label}: logits {d:.3e} from plain fp32, limit {limit:.3e}")
+    return d, limit
+
+
+def sam2_trunks_phase(frames) -> dict:
+    """set_image and one point at each released trunk (SAM2_TRUNKS), 1024
+    x 1024, seeded random weights, in bf16 and in fp32: C2's launches by
+    head width (SAM2_TRUNKS' an image at the trunk's width, nothing else
+    of C2), the
+    low-res logits gated as [sam2_image]'s (bf16 within twice plain bf16's
+    distance from plain fp32, fp32 within SAM2_F32_REL_L2), ms per
+    set_image and per point.  Returns the launches by trunk and dtype."""
+    from vdn_torch import kernels
+    from vdn_torch.models.sam2_image import (Sam2ImagePredictor,
+                                             build_sam2_image_model)
+    img = frames[0]
+    cx, cy = sam2_disc(0)
+    point = dict(point_coords=[[cx, cy]], point_labels=[1.0])
+    out = {}
+    for variant, (dh, calls) in SAM2_TRUNKS.items():
+        model = build_sam2_image_model(
+            variant, generator=torch.Generator().manual_seed(SAM2_SEED))
+        pred = Sam2ImagePredictor(model)
+
+        def low(dtype):
+            model.compute_dtype = dtype
+            pred.set_image(img)
+            return pred.predict(**point)[2]
+
+        with kernels.plain_reference(), exact_fp32():
+            ref32 = low(None)
+        with kernels.plain_reference():
+            ref16 = low(torch.bfloat16)
+        for dtype, name in ((torch.bfloat16, "bf16"), (None, "fp32")):
+            label = f"sam2_trunk {variant} {name}"
+            with exact_fp32():
+                model.compute_dtype = dtype
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                with c2_widths() as widths:
+                    pred.set_image(img)
+                    torch.cuda.synchronize()
+                    check_c2_widths(label, dict(widths),
+                                    kernels.launches["flash_attention"],
+                                    {dh: calls})
+                    widths.clear()
+                    got = pred.predict(**point)[2]
+                    torch.cuda.synchronize()
+                    if widths:
+                        fail(f"{label}: C2 in the decoder: {widths}")
+                counts = dict(kernels.launches)
+                check_launches(label, counts, SAM2_KERNELS)
+                if not torch.isfinite(got).all() or got.std() == 0:
+                    fail(f"{label}: non-finite or constant logits")
+                d, limit = _low_res_gate(label, got, ref16, ref32,
+                                         dtype is None)
+                ms_set = time_ms(lambda: pred.set_image(img), 5)
+                ms_point = time_ms(lambda: pred.predict(**point), 5)
+            out[f"sam2_trunk_{variant}_{name}"] = counts
+            log("sam2_trunks", trunk=variant, dtype=name, head_dim=dh,
+                c2_calls=calls,
+                set_image_ms=f"{ms_set:.3f}", point_ms=f"{ms_point:.3f}",
+                rel_l2=f"{d:.3e}", limit=f"{limit:.3e}",
+                params=sum(p.numel() for p in model.parameters()),
+                launches=json.dumps(counts, separators=(",", ":")))
+        del pred, model
+        torch.cuda.empty_cache()
+    return out
+
+
+SAM2_AMG_TRUNK = "hiera_large"
+SAM2_AMG_POINTS = 32         # points a side: 1,024 points
+SAM2_AMG_BATCH = 64
+SAM2_AMG_MIN_AREA = 100
+SAM2_AMG_QUANTILE = 0.25     # the thresholds: this quantile of the scores
+SAM2_AMG_MASK_QUANTILE = 0.8  # mask_threshold: this quantile of the logits
+SAM2_AMG_MIN_RECORDS = 8
+
+
+class _timed_predictor:
+    """An image predictor whose set_image and predict_batch are timed
+    (each ended by a synchronize); with ``record``, each batch's outputs
+    are also copied to the host (``outputs``), for _replayed."""
+
+    def __init__(self, pred, record: bool = False):
+        self.pred, self.record = pred, record
+        self.ms = {"set_image": 0.0, "predict_batch": 0.0}
+        self.batches, self.first, self.outputs = 0, None, []
+
+    def _run(self, key, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.ms[key] += (time.perf_counter() - t0) * 1e3
+        return res
+
+    def set_image(self, image):
+        self._run("set_image", self.pred.set_image, image)
+
+    def predict_batch(self, **kw):
+        res = self._run("predict_batch", self.pred.predict_batch, **kw)
+        self.batches += 1
+        if self.first is None:
+            self.first = res[2].clone()
+        if self.record:
+            self.outputs.append(tuple(t.cpu() for t in res))
+        return res
+
+
+class _replayed:
+    """A predictor that serves a recorded run's predict_batch outputs
+    again, on the card, in order (set_image does nothing)."""
+
+    def __init__(self, outputs):
+        self.outputs = iter(outputs)
+
+    def set_image(self, image):
+        pass
+
+    def predict_batch(self, **kw):
+        return tuple(t.to(DEVICE) for t in next(self.outputs))
+
+
+class _captured_regions:
+    """Records the masks and the changed flags of each small-region pass
+    of the AMG (vdn_torch.pipelines.sam2_amg.remove_small_regions_batch)
+    inside the block."""
+
+    def __enter__(self):
+        import vdn_torch.pipelines.sam2_amg as amg
+        self.mod, self.calls = amg, []
+        self.real = amg.remove_small_regions_batch
+
+        def recorded(masks, area, mode):
+            out, changed = self.real(masks, area, mode)
+            self.calls.append((mode, masks, changed))
+            return out, changed
+        amg.remove_small_regions_batch = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.remove_small_regions_batch = self.real
+
+
+def _amg_thresholds(pred, img, points) -> tuple:
+    """mask_threshold, pred_iou_thresh and stability_score_thresh from the
+    run's own scores.  With random weights every point's mask covers most
+    of the image at vdn's mask_threshold 0 (their boxes all span it, and
+    NMS keeps one or two), and every mask may score under the defaults
+    0.8 / 0.95: mask_threshold is SAM2_AMG_MASK_QUANTILE of the first
+    batch's logits, then pred_iou_thresh SAM2_AMG_QUANTILE of all masks'
+    predicted IoUs, and stability_score_thresh SAM2_AMG_QUANTILE of the
+    stability scores (at that mask_threshold) of the masks above it."""
+    from vdn_torch.ops.amg import batch_iterator, calculate_stability_score
+    pred.set_image(img)
+    ious, stab, mask_t = [], [], None
+    for (batch,) in batch_iterator(SAM2_AMG_BATCH, points):
+        logits, iou, _ = pred.predict_batch(point_coords=batch,
+                                            return_logits=True)
+        if mask_t is None:
+            mask_t = float(torch.quantile(logits[..., ::8, ::8].flatten(),
+                                          SAM2_AMG_MASK_QUANTILE))
+        ious.append(iou.flatten().double())
+        stab.append(calculate_stability_score(logits.flatten(0, 1), mask_t,
+                                              1.0))
+        del logits
+    ious, stab = torch.cat(ious), torch.cat(stab)
+    iou_t = float(torch.quantile(ious, SAM2_AMG_QUANTILE))
+    stab_t = float(torch.quantile(stab[ious > iou_t], SAM2_AMG_QUANTILE))
+    return mask_t, iou_t, stab_t
+
+
+def sam2_amg_phase(frames) -> dict:
+    """Sam2AutomaticMaskGenerator at hiera_large, bf16, frame 0 at 1024 x
+    1024: 32 points a side in batches of 64, min_mask_region_area 100 (the
+    small-region pass runs connected components on the card), the mask,
+    IoU and stability thresholds from the run's own scores
+    (_amg_thresholds).  Needs at least SAM2_AMG_MIN_RECORDS records and a
+    mask the small-region pass changed.  Gates: the first batch's low-res
+    logits against the plain runs (as [sam2_image]); the records of a
+    second run on the kernels identical (RLE, area, bbox, scores, point)
+    to those of the plain post-processing (plain_reference) on that run's
+    recorded outputs; connected components on the phase's own kept masks
+    bit-equal to the plain version.  Logs ms per generate, per 64-point
+    batch and for the post-processing, records, peak memory and launches
+    by kernel.  Returns the launches."""
+    from vdn_torch import kernels
+    from vdn_torch.models.sam2_image import (Sam2ImagePredictor,
+                                             build_sam2_image_model)
+    from vdn_torch.ops.amg import build_point_grid
+    from vdn_torch.pipelines.sam2_amg import Sam2AutomaticMaskGenerator
+    img = frames[0]
+    model = build_sam2_image_model(
+        SAM2_AMG_TRUNK, compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(SAM2_SEED))
+    pred = Sam2ImagePredictor(model)
+    points = build_point_grid(SAM2_AMG_POINTS) * np.array(
+        [SAM2_SIZE, SAM2_SIZE], np.float32)
+    mask_t, iou_t, stab_t = _amg_thresholds(pred, img, points)
+    kw = dict(points_per_side=SAM2_AMG_POINTS,
+              points_per_batch=SAM2_AMG_BATCH, pred_iou_thresh=iou_t,
+              stability_score_thresh=stab_t, mask_threshold=mask_t,
+              min_mask_region_area=SAM2_AMG_MIN_AREA)
+    timed = _timed_predictor(pred)
+    gen = Sam2AutomaticMaskGenerator(timed, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _captured_regions() as regions:
+        records = gen.generate(img)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sam2_amg", counts, SAM2_KERNELS
+                   + ["connected_components"])
+    if counts["connected_components"] != 2:
+        fail(f"sam2_amg: connected components launched "
+             f"{counts['connected_components']} times, want 2 (holes, "
+             f"islands)")
+    changed = sum(int(c.sum()) for _, _, c in regions)
+    if len(records) < SAM2_AMG_MIN_RECORDS or not changed:
+        fail(f"sam2_amg: {len(records)} records, {changed} masks changed "
+             f"by the small-region pass")
+    # the records of one more run on the kernels (its outputs recorded:
+    # two runs' logits need not agree in every bit) and of the plain
+    # post-processing on the same outputs
+    recorded = _timed_predictor(pred, record=True)
+    again = Sam2AutomaticMaskGenerator(recorded, **kw).generate(img)
+    with kernels.plain_reference():
+        plain_records = Sam2AutomaticMaskGenerator(
+            _replayed(recorded.outputs), **kw).generate(img)
+    if plain_records != again:
+        diff = sum(a != b for a, b in zip(plain_records, again))
+        fail(f"sam2_amg: records differ from the plain post-processing's "
+             f"({len(again)} against {len(plain_records)}, {diff} "
+             f"differ)")
+    del recorded
+    # the first batch's logits against the plain runs
+    first = points[:SAM2_AMG_BATCH]
+
+    def plain(dtype):
+        model.compute_dtype = dtype
+        try:
+            with kernels.plain_reference():
+                pred.set_image(img)
+                return pred.predict_batch(first)[2]
+        finally:
+            model.compute_dtype = torch.bfloat16
+    with exact_fp32():
+        ref32 = plain(None)
+    d, limit = _low_res_gate("sam2_amg first batch", timed.first,
+                             plain(torch.bfloat16), ref32, False)
+    batch_ms = time_ms(lambda: pred.predict_batch(first), 3, 1)
+    # connected components on the phase's own kept masks
+    kept = regions[0][1]
+    cc = check_kernels([cc_case(torch.cat([~kept, kept]).to(torch.uint8),
+                                f"amg kept N{2 * kept.shape[0]} "
+                                f"{SAM2_SIZE}x{SAM2_SIZE}", "sam2_amg",
+                                scipy=False)])
+    post_ms = total_ms - timed.ms["set_image"] - timed.ms["predict_batch"]
+    log("sam2_amg", trunk=SAM2_AMG_TRUNK, points=len(points),
+        mask_threshold=f"{mask_t:.6g}", pred_iou_thresh=f"{iou_t:.6g}",
+        stability_score_thresh=f"{stab_t:.6g}",
+        records=len(records), records_again=len(again),
+        kept_after_nms=kept.shape[0],
+        changed_by_small_regions=changed,
+        areas=[r["area"] for r in records[:8]],
+        generate_ms=f"{total_ms:.3f}",
+        set_image_ms=f"{timed.ms['set_image']:.3f}",
+        batches=timed.batches,
+        predict_batch_total_ms=f"{timed.ms['predict_batch']:.3f}",
+        batch_ms=f"{batch_ms:.3f}", postprocess_ms=f"{post_ms:.3f}",
+        cc_kept_ms=f"{cc['connected_components']['sam2_amg']['ms']:.4f}",
+        first_batch_rel_l2=f"{d:.3e}", limit=f"{limit:.3e}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    del gen, pred, model, regions
+    torch.cuda.empty_cache()
+    return counts
+
+
+SAM2_LEGACY_TRUNK = "hiera_small"
+SAM2_LEGACY_MASK_FRAME = 3
+SAM2_LEGACY_MODES = ("forward", "non_overlap", "reverse")
+
+
+def _legacy_prompts(pred, state) -> None:
+    """Object 1: a point on the disc of frame 0; 2: a box around the
+    disc's lower half on frame 0; 3: a mask on frame 3 (a square off the
+    disc), so that frame 0 carries a placeholder for object 3 and frame 3
+    placeholders for objects 1 and 2."""
+    cx, cy = sam2_disc(0)
+    r = 0.12 * SAM2_SIZE
+    pred.add_new_points_or_box(state, 0, 1, points=[[cx, cy]], labels=[1])
+    pred.add_new_points_or_box(state, 0, 2, box=[cx - r, cy, cx + r,
+                                                 cy + r])
+    mask = np.zeros((SAM2_SIZE, SAM2_SIZE), np.float32)
+    q = SAM2_SIZE // 8
+    mask[q:3 * q, 5 * q:7 * q] = 1.0
+    pred.add_new_mask(state, SAM2_LEGACY_MASK_FRAME, 3, mask)
+
+
+def sam2_legacy_run(model, frames, mode: str, check: bool = False):
+    """The legacy predictor over ``frames`` in ``mode`` (forward; forward
+    with non_overlap_masks; reverse from frame 3), the three prompts of
+    _legacy_prompts.  Returns the live stored outputs {(obj, frame):
+    (low-res logits, IoU, object score)} on the host (placeholders left
+    out), the yielded frames, the ms of each yield, the C2 calls by
+    width and the launches.  With ``check``: a new object id after
+    tracking raises, and under non_overlap_masks no pixel has two
+    objects above -10."""
+    from vdn_torch import kernels
+    from vdn_torch.pipelines.sam2_video_legacy import \
+        Sam2VideoPredictorLegacy
+    pred = Sam2VideoPredictorLegacy(model,
+                                    non_overlap_masks=mode == "non_overlap")
+    state = pred.init_state(frames)
+    kw = (dict(start_frame_idx=SAM2_LEGACY_MASK_FRAME, reverse=True)
+          if mode == "reverse" else {})
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms, yielded = [], []
+    with c2_widths() as widths:
+        _legacy_prompts(pred, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t, ids, masks in pred.propagate_in_video(state, **kw):
+            torch.cuda.synchronize()
+            ms.append((t, (time.perf_counter() - t0) * 1e3))
+            if tuple(masks.shape) != (3, 1, SAM2_SIZE, SAM2_SIZE):
+                fail(f"sam2_legacy {mode} frame {t}: {tuple(masks.shape)}")
+            if check and mode == "non_overlap" and bool(
+                    ((masks > -10.0).sum(0) > 1).any()):
+                fail(f"sam2_legacy frame {t}: objects overlap")
+            yielded.append(t)
+            t0 = time.perf_counter()
+        c2 = dict(widths)
+    counts = dict(kernels.launches)
+    if check:
+        try:
+            pred.add_new_points_or_box(state, 1, 99, points=[[10, 10]],
+                                       labels=[1])
+        except RuntimeError:
+            pass
+        else:
+            fail("sam2_legacy: a new object id after tracking was taken")
+    stores = {}
+    for i, obj in state["output_dict_per_obj"].items():
+        for bucket in obj.values():
+            for t, out in bucket.items():
+                if out.get("placeholder"):
+                    continue
+                stores[(i, t)] = tuple(out[k].float().cpu().numpy()
+                                       for k in ("pred_masks", "iou",
+                                                 "object_score_logits"))
+    return stores, yielded, ms, c2, counts
+
+
+def calibrate_legacy_object_score(model, frames) -> float:
+    """calibrate_object_score for the legacy runs' three objects: the
+    object-score head's output bias moves so that the least live object
+    score of a forward and a reverse run on the kernels is
+    SAM2_OBJ_MARGIN (0 where none was needed): a score near 0 would change
+    sign between the kernels and the plain runs by rounding alone."""
+    least = min(float(v[2].min()) for mode in ("forward", "reverse")
+                for v in sam2_legacy_run(model, frames, mode)[0].values())
+    shift = max(0.0, SAM2_OBJ_MARGIN - least)
+    if shift:
+        with torch.no_grad():
+            model.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.add_(
+                shift)
+    return shift
+
+
+def sam2_legacy_phase(model, label: str, frames, refs=None) -> tuple:
+    """The legacy predictor in the model's compute dtype in each of
+    SAM2_LEGACY_MODES on the kernels, each gated against the plain runs
+    (``refs``: the plain fp32 runs, when made before) as [sam2_video]:
+    the live objects' low-res logits, IoUs and object scores over every
+    frame, bf16 within twice plain bf16's distance from plain fp32, fp32
+    within SAM2_F32_REL_L2; the NO_OBJ_SCORE placeholders left out (their
+    -1024 fill would make any drift look small).  C2 by width: 3 at the
+    trunk's D 96 per encoded frame, 8 at D 256 per object and tracked
+    frame.  Logs ms per tracked frame and per object, peak memory and
+    sign flips.  Returns (the launches by mode, the plain fp32 runs)."""
+    from vdn_torch import kernels
+    dt = model.compute_dtype
+    dh, calls = SAM2_TRUNKS[SAM2_LEGACY_TRUNK]
+    out, refs32 = {}, refs or {}
+    for mode in SAM2_LEGACY_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, yielded, ms, c2, counts = sam2_legacy_run(model, frames, mode,
+                                                       check=True)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"{label} {mode}", counts, SAM2_KERNELS)
+        prompted = {0, SAM2_LEGACY_MASK_FRAME}
+        tracked = [t for t in yielded if t not in prompted]
+        encoded = len(set(yielded) | prompted)
+        want = {dh: calls * encoded, SAM2_D: 8 * 3 * len(tracked)}
+        check_c2_widths(f"{label} {mode}", c2, counts["flash_attention"],
+                        want)
+
+        def plain(dtype):
+            model.compute_dtype = dtype
+            try:
+                with kernels.plain_reference():
+                    return sam2_legacy_run(model, frames, mode)[0]
+            finally:
+                model.compute_dtype = dt
+        if mode not in refs32:
+            with exact_fp32():
+                refs32[mode] = plain(None)
+        ref32 = refs32[mode]
+        if set(ref32) != set(got):
+            fail(f"{label} {mode}: stored outputs {sorted(got)} against "
+                 f"{sorted(ref32)}")
+        keys = sorted(got)
+        stack = [{k: np.stack([src[key][j] for key in keys])
+                  for j, k in enumerate(("logits", "iou", "obj"))}
+                 for src in (got, ref32)]
+        flips = int((np.sign(stack[0]["obj"])
+                     != np.sign(stack[1]["obj"])).sum())
+        gate = {}
+        if dt is None:
+            for k in stack[0]:
+                gate[k] = (_rel_l2(stack[0][k], stack[1][k]),
+                           SAM2_F32_REL_L2)
+        else:
+            ref16 = plain(dt)
+            s16 = {k: np.stack([ref16[key][j] for key in keys])
+                   for j, k in enumerate(("logits", "iou", "obj"))}
+            flips += int((np.sign(s16["obj"])
+                          != np.sign(stack[1]["obj"])).sum())
+            for k in stack[0]:
+                gate[k] = (_rel_l2(stack[0][k], stack[1][k]),
+                           E2E_DRIFT_FACTOR * _rel_l2(s16[k], stack[1][k]))
+        frame_ms = [m for t, m in ms if t in tracked]
+        log(label, mode=mode, trunk=SAM2_LEGACY_TRUNK, frames=yielded,
+            ms_per_tracked_frame=f"{statistics.median(frame_ms):.3f}",
+            ms_per_object=f"{statistics.median(frame_ms) / 3:.3f}",
+            frame_ms=[round(m, 3) for _, m in ms],
+            peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+            live_outputs=len(keys), sign_flips=flips,
+            c2_by_width=json.dumps(c2),
+            **{f"{k}_rel_l2": f"{g[0]:.3e}" for k, g in gate.items()},
+            **{f"{k}_limit": f"{g[1]:.3e}" for k, g in gate.items()},
+            launches=json.dumps(counts, separators=(",", ":")))
+        if flips:
+            fail(f"{label} {mode}: object scores changed sign ({flips})")
+        for k, (d, limit) in gate.items():
+            if not d <= limit:
+                fail(f"{label} {mode}: {k} {d:.3e} from plain fp32, limit "
+                     f"{limit:.3e}")
+        out[f"{label}_{mode}"] = counts
+    return out, refs32
+
+
 def sam2_phases() -> dict:
-    """SAM2 at sam2.1 hiera_base_plus, 1024 x 1024: the image predictor
-    (bf16), video tracking over SAM2_FRAMES frames in bf16 and in fp32.
-    Returns the launches by path."""
+    """SAM2 at sam2.1, 1024 x 1024: the image predictor (hiera_base_plus,
+    bf16), every released trunk's set_image and point (bf16 and fp32),
+    video tracking over SAM2_FRAMES frames at hiera_base_plus in bf16 and
+    in fp32, the legacy predictor at hiera_small (three objects, forward,
+    non_overlap_masks and reverse, fp32 and bf16) and automatic mask
+    generation at hiera_large (bf16).  Returns the launches by path."""
     from vdn_torch.models.sam2_video import build_sam2_video_model
     frames = sam2_frames()
     out = {"sam2_image": sam2_image_phase(frames)}
+    out.update(sam2_trunks_phase(frames))
     model = build_sam2_video_model(
         compute_dtype=torch.bfloat16,
         generator=torch.Generator().manual_seed(SAM2_SEED))
@@ -4142,6 +4780,24 @@ def sam2_phases() -> dict:
                                             refs=ref32)
     del model
     torch.cuda.empty_cache()
+    model = build_sam2_video_model(
+        SAM2_LEGACY_TRUNK, compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(SAM2_SEED))
+    shift = calibrate_legacy_object_score(model, frames)
+    log("sam2_legacy_model", trunk=SAM2_LEGACY_TRUNK,
+        obj_score_bias_shift=f"{shift:.6g}",
+        params=sum(p.numel() for p in model.parameters()))
+    with exact_fp32():
+        model.compute_dtype = None
+        launches, refs32 = sam2_legacy_phase(model, "sam2_legacy_f32",
+                                             frames)
+    out.update(launches)
+    model.compute_dtype = torch.bfloat16
+    launches, _ = sam2_legacy_phase(model, "sam2_legacy", frames, refs32)
+    out.update(launches)
+    del model
+    torch.cuda.empty_cache()
+    out["sam2_amg"] = sam2_amg_phase(frames)
     return out
 
 
@@ -4196,6 +4852,9 @@ SOURCES = {
         "vdn/ops/pallas/flash_attention.py:920"),
     "flash_attention_qkv": ("vdn_torch/csrc/flash_attn_qkv.cu",
                             "vdn/ops/pallas/flash_attention.py:964"),
+    # not a TPU kernel: vdn computes it on the host in C++
+    "connected_components": ("vdn_torch/csrc/connected_components.cu",
+                             "native/connected_components.cc:43"),
 }
 INT8_KERNELS = ["int8_ln_linear", "int8_linear", "int8_proj_residual",
                 "fused_ln_mlp_residual_int8", "fused_ln_swiglu_residual_int8",
@@ -4215,7 +4874,8 @@ HEADLINE = {"select_rows": "stream_k1", "flash_attention": "image",
             **{n: "clip_int8_static" for n in INT8_KERNELS},
             "fused_ln_swiglu_residual_int8": "vitg_clip_int8_static",
             "flash_attention_int8_fused_qkv": "clip_int8_static_all",
-            "ring_step": "cp_clip"}
+            "ring_step": "cp_clip",
+            "connected_components": "sam2_amg"}
 # the kernels of each main path: the clip path (and the chunked stream)
 # never gathers a window; the per-frame stream does; the image path's are
 # the keys of IMAGE_LAUNCHES, the training paths' those of TRAIN_LAUNCHES

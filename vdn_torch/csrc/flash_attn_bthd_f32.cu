@@ -2,8 +2,10 @@
 // global blocks (vdn/nn/hiera.py:120) on the v1 model: q, k, v [b * s,
 // 256, 4, 96] fp32 (16 x 16 tokens at 256 x 256; 324 at 288), read in
 // place as slices of the block's fused qkv projection; and SAM2's fp32
-// path: hiera_base_plus's global blocks at 1024 x 1024, [1, 4096, 8, 56]
-// off the fused qkv, and the memory attention's one 256-wide head, q [1,
+// path: the trunks' global blocks at 1024 x 1024 off the fused qkv,
+// [1, 4096, 8, 56] (hiera_base_plus), [1, 4096, 8, 72] (hiera_large) and
+// [1, 4096, 4, 96] (hiera_tiny, hiera_small), and the memory attention's
+// one 256-wide head, q [1,
 // 4096, 1, 256] against 4096 keys (self) or 4096 m + 4 p (cross: m mask
 // memories, p object pointers; up to 28,736).
 //
@@ -252,7 +254,8 @@ flash_bthd_f32_kernel(const float* __restrict__ q,
       split_tf32(s[kk][3], ab[3], as[3]);
       const float* vr = vs + (8 * kk + 2 * t) * Dm::kLd + g;
       // the head's columns in groups of kG n8 tiles (registers)
-      constexpr int kG = kN % 6 == 0 ? 6 : kN % 4 == 0 ? 4 : 1;
+      constexpr int kG = kN % 6 == 0 ? 6 : kN % 4 == 0 ? 4
+                         : kN % 3 == 0 ? 3 : 1;
 #pragma unroll
       for (int n0 = 0; n0 < kN; n0 += kG) {
         uint32_t bb[kG][2], bs[kG][2];
@@ -356,8 +359,8 @@ int launch(const void* q, const void* k, const void* v, int B, int Tq,
 // splits (the Python plan's, c2_f32_plan; 1 with lse): the shares of each
 // block's key tiles, o_part [splits, B, Tq, H, D] and stats [splits, B,
 // H, Tq, 2] fp32 their scratch (null at 1).
-// D = 56 (SAM2's hiera_base_plus), 96 (hieradet) or 256 (SAM2's memory
-// attention).
+// D = 56 (SAM2's hiera_base_plus), 72 (hiera_large), 96 (hieradet,
+// hiera_tiny / small) or 256 (SAM2's memory attention).
 extern "C" int vdn_flash_attention_bthd_f32(
     const void* q, const void* k, const void* v, int B, int Tq, int Tk, int H,
     int D, long long sqb, long long sqt, long long skb, long long skt,
@@ -369,6 +372,9 @@ extern "C" int vdn_flash_attention_bthd_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 56)
     return launch<56>(q, k, v, B, Tq, Tk, H, sqb, sqt, skb, skt, svb, svt,
+                      qscale, out, lse, splits, o_part, stats, s);
+  if (D == 72)
+    return launch<72>(q, k, v, B, Tq, Tk, H, sqb, sqt, skb, skt, svb, svt,
                       qscale, out, lse, splits, o_part, stats, s);
   if (D == 96)
     return launch<96>(q, k, v, B, Tq, Tk, H, sqb, sqt, skb, skt, svb, svt,

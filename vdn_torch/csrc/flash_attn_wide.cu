@@ -1,4 +1,5 @@
-// C2 in bf16 at D = 256: SAM2's memory attention, one 256-wide head.
+// C2 in bf16 at D = 256 (SAM2's memory attention, one 256-wide head) and
+// at D = 72 / 96 (SAM2's hiera_large and hiera_tiny / small trunks).
 //
 // Replaces vdn/ops/pallas/flash_attention.py flash_attention
 // (_flash_kernel via _flash_bhtd) at the memory attention's shapes
@@ -6,8 +7,16 @@
 // 256] bf16 against 4096 keys (self-attention, four layers a tracked
 // frame) or 4096 m + 4 p (cross-attention to m mask memories and p object
 // pointers: 4100 after the first conditioned frame, up to 28,736), k and v
-// [1, Tk, 1, 256].  The D = 56 / 64 cases are A1's kernel in its kBthd form
-// (flash_attn_qkv.cu).
+// [1, Tk, 1, 256]; and at the trunks' global blocks, [1, 4096, 8, 72]
+// (hiera_large) and [1, 4096, 4, 96] (hiera_tiny, hiera_small) read in
+// place off the fused qkv.  The D = 56 / 64 cases are A1's kernel in its
+// kBthd form (flash_attn_qkv.cu).
+//
+// A row of kAtoms 64-column atoms of the 128-byte swizzle: four at D 256,
+// two at D 72 / 96 (128 columns; TMA zero-fills columns D .. 127 of q, K
+// and V, and the store writes only columns < D, as A1's 4-D maps do for a
+// 56-wide head in one atom).  The zero columns add nothing to S, and O's
+// columns past D are never stored.
 //
 // Bound on the H100 by its two tensor-core products, 4 * B * H * Tq * Tk *
 // D FLOP (120.5 GFLOP, 0.122 ms at 989 TFLOP/s, at Tk 28,736).  A1's
@@ -16,21 +25,22 @@
 // and its P (32) within the 224 a thread of 288 gets.  So:
 //   - persistent blocks walk a1_plan's items (batch, head, 128-row q tile)
 //     as A1 does; a producer warpgroup (one thread issuing, its registers
-//     given to the consumers by setmaxnreg) loads each item's q tile (128 x 256, four
-//     64-column atoms of the 128-byte swizzle, 64 KB, one buffer) and a
-//     ring of two stages of 64-key K and V tiles (32 KB each), all by TMA
-//     through 4-D maps of [B, T, H, D] (rows >= T load as zeros);
+//     given to the consumers by setmaxnreg) loads each item's q tile (128 x
+//     64 kAtoms, one 16 KB atom a 64-column slice, one buffer) and a
+//     ring of kStages stages of 64-key K and V tiles (8 KB an atom each),
+//     all by TMA through 4-D maps of [B, T, H, D] (rows >= T and columns
+//     >= D load as zeros);
 //   - two consumer warpgroups own 64 q rows each and take their turns at
 //     the tensor cores freely (no ping-pong).  Per key tile: qs = bf16(q *
 //     bf16(scale * log2 e)), scaled in place once an item, S = qs K^T as
-//     16 wgmma m64n64k16 from shared memory (32 registers), the online
+//     4 kAtoms wgmma m64n64k16 from shared memory (32 registers), the online
 //     softmax in base 2 (p = bf16(exp2(S - m)) by ex2.approx.ftz; the row
 //     sum l of the rounded p in registers: A1's column of ones would make
-//     P V m64n264, past wgmma's N of 256), then O += P V as four m64n64k16
-//     a 16-key slice, one a 64-column atom of V read MN-major (the
+//     P V m64n264, past wgmma's N of 256), then O += P V as kAtoms
+//     m64n64k16 a 16-key slice, one a 64-column atom of V read MN-major (the
 //     transpose bit), P as register A fragments;
 //   - the epilogue writes O / l in bf16 over the warpgroup's own q rows
-//     (the four atoms' 64-row halves, 1024-aligned: the swizzle matches)
+//     (the atoms' 64-row halves, 1024-aligned: the swizzle matches)
 //     and stores them by TMA; the producer refills the q tile once both
 //     warpgroups' stores have read it;
 //   - split keys: one head of 4096 q rows is 32 items, a quarter of the
@@ -49,30 +59,37 @@
 
 namespace {
 
-constexpr int kD = 256;
-constexpr int kAtoms = kD / 64;        // 64-column atoms of a row
 constexpr int kRows = 128;             // q rows of an item
 constexpr int kKeys = 64;              // keys of a stage
-constexpr int kStages = 2;
 constexpr int kQAtom = kRows * 128;    // 16 KB: one atom of the q tile
 constexpr int kKAtom = kKeys * 128;    // 8 KB: one atom of a K or V tile
-constexpr int kQBytes = kAtoms * kQAtom;  // 64 KB
-constexpr int kKBytes = kAtoms * kKAtom;  // 32 KB
 // two consumer warpgroups and a producer warpgroup (one thread of it
 // issues the loads): registers are handed out by whole warpgroups
 constexpr int kThreads = 384;
 constexpr int kConsumers = 256;
-constexpr int kBarriers = 2 * kStages + 2;
-constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kKBytes + 8 * kBarriers;
-static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
 constexpr int kOwn = 1;  // named barrier kOwn + w: warpgroup w's threads
+
+// The layout of a row of kAtoms 64-column atoms: the q tile (64 KB at D
+// 256, 32 KB at 128 columns) and kStages K / V stages (32 KB a stage at D
+// 256 in two stages; 16 KB at 128 columns, in four)
+template <int kAtoms>
+struct Wide {
+  static constexpr int kD = 64 * kAtoms;  // columns a row holds
+  static constexpr int kStages = kAtoms == 4 ? 2 : 4;
+  static constexpr int kQBytes = kAtoms * kQAtom;
+  static constexpr int kKBytes = kAtoms * kKAtom;
+  static constexpr int kBarriers = 2 * kStages + 2;
+  static constexpr int kSmem =
+      1024 + kQBytes + kStages * 2 * kKBytes + 8 * kBarriers;
+  static_assert(kSmem <= 232448, "an H100 block's dynamic shared memory");
+};
 
 // The online softmax of one 64 x 64 tile S (accumulator layout; key0 the
 // key of this thread's first column, keys >= Tk masked where kMask): the
 // running max of the thread's two rows, O and the thread's share of the
 // row sums rescaled, P = bf16(exp2(S - m)) as the A fragments of P V and
 // its rounded values added to the row sums.
-template <bool kMask>
+template <int kAtoms, bool kMask>
 __device__ __forceinline__ void softmax64(float (&s)[32],
                                           uint32_t (&pa)[4][4],
                                           float (&o)[kAtoms][32],
@@ -120,26 +137,32 @@ __device__ __forceinline__ void softmax64(float (&s)[32],
   for (int r = 0; r < 2; ++r) l_run[r] += ls[r];
 }
 
-// qscale: bf16(scale * log2 e), folded into q
+// qscale: bf16(scale * log2 e), folded into q; D the head's width (<= 64
+// kAtoms)
 // splits > 1: unit u is item u / splits, key tiles [chunk (u % splits),
-// ...) of it, written to o_part [splits, B, Tq, H, kD] fp32 (O, not
+// ...) of it, written to o_part [splits, B, Tq, H, D] fp32 (O, not
 // normalized) and stats [splits, B, H, Tq, 2] (m, l) in place of out.
-// Registers: O 128, S 32, P 16 a consumer thread.  A block's registers
-// are handed out by whole warpgroups, 168 a thread at launch (a producer
-// warp beside two consumer warpgroups got as much and spilled 844 bytes;
-// 224 a thread refused to launch), so the producer warpgroup gives its
-// registers to the consumers by setmaxnreg: 128 x kProducerRegs + 256 x
-// kConsumerRegs <= 65536.
+// Registers: O 32 kAtoms (128 at D 256), S 32, P 16 a consumer thread.
+// A block's registers are handed out by whole warpgroups, 168 a thread
+// at launch (at D 256 a producer warp beside two consumer warpgroups got
+// as much and spilled 844 bytes; 224 a thread refused to launch), so the
+// producer warpgroup gives its registers to the consumers by setmaxnreg:
+// 128 x kProducerRegs + 256 x kConsumerRegs <= 65536.
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
               "the block's registers");
+template <int kAtoms>
 __global__ void __launch_bounds__(kThreads, 1)
 c2_wide_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const __grid_constant__ CUtensorMap map_out, int B, int Tq,
-               int Tk, int H, float qscale, int splits,
+               int Tk, int H, int D, float qscale, int splits,
                float* __restrict__ o_part, float2* __restrict__ stats) {
+  using L = Wide<kAtoms>;
+  constexpr int kStages = L::kStages;
+  constexpr int kQBytes = L::kQBytes;
+  constexpr int kKBytes = L::kKBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -261,16 +284,17 @@ c2_wide_kernel(const __grid_constant__ CUtensorMap map_q,
       // S = qs K^T: 16-wide K slice kk is atom kk / 4, 32 bytes a slice
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 16; ++kk)
+      for (int kk = 0; kk < 4 * kAtoms; ++kk)
         wgmma_ss(s, desc_sw128(qw + (kk >> 2) * kQAtom + 32 * (kk & 3)),
                  desc_sw128(k_s + (kk >> 2) * kKAtom + 32 * (kk & 3)), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       if ((j + 1) * kKeys > Tk)
-        softmax64<true>(s, pa, o, m_run, l_run, j * kKeys + c2, Tk);
+        softmax64<kAtoms, true>(s, pa, o, m_run, l_run, j * kKeys + c2, Tk);
       else
-        softmax64<false>(s, pa, o, m_run, l_run, j * kKeys + c2, Tk);
+        softmax64<kAtoms, false>(s, pa, o, m_run, l_run, j * kKeys + c2,
+                                 Tk);
       // O += P V: keys 16 kk .. 16 kk + 15 are 2048 bytes into each atom
       wgmma_fence();
 #pragma unroll
@@ -306,13 +330,15 @@ c2_wide_kernel(const __grid_constant__ CUtensorMap map_q,
         const int q = row0 + row + 8 * r;
         if (q >= Tq) continue;
         const size_t at = ((size_t)split * B + b) * Tq + q;
-        float* dst = o_part + (at * H + h) * kD + c2;
+        float* dst = o_part + (at * H + h) * D + c2;
 #pragma unroll
         for (int a = 0; a < kAtoms; ++a)
 #pragma unroll
           for (int n8 = 0; n8 < 8; ++n8)
-            *reinterpret_cast<float2*>(dst + 64 * a + 8 * n8) =
-                make_float2(o[a][4 * n8 + 2 * r], o[a][4 * n8 + 2 * r + 1]);
+            if (64 * a + 8 * n8 + c2 < D)  // D % 8 == 0: both columns
+              *reinterpret_cast<float2*>(dst + 64 * a + 8 * n8) =
+                  make_float2(o[a][4 * n8 + 2 * r],
+                              o[a][4 * n8 + 2 * r + 1]);
         if ((t & 3) == 0)
           stats[(((size_t)split * B + b) * H + h) * Tq + q] =
               make_float2(m_run[r], l[r]);
@@ -342,7 +368,8 @@ c2_wide_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row0 < Tq) {
 #pragma unroll
         for (int a = 0; a < kAtoms; ++a)
-          tma_store_4d(&map_out, qw + a * kQAtom, 64 * a, h, row0, b);
+          if (64 * a < D)
+            tma_store_4d(&map_out, qw + a * kQAtom, 64 * a, h, row0, b);
         bulk_commit();
       }
       bulk_wait<true>();  // the stores have read the q tile
@@ -352,9 +379,9 @@ c2_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   if (lt == 0) bulk_wait<false>();
 }
 
-// out [B, Tq, H, kD] bf16 from the splits' partial O and (m, l): one block
-// of kD threads a (batch, row, head), thread d its column
-__global__ void __launch_bounds__(kD)
+// out [B, Tq, H, D] bf16 from the splits' partial O and (m, l): one block
+// of D threads a (batch, row, head), thread d its column
+__global__ void __launch_bounds__(256)
 c2_combine_kernel(const float* __restrict__ o_part,
                   const float2* __restrict__ stats, int splits, int B,
                   int Tq, int H, __nv_bfloat16* __restrict__ out) {
@@ -368,53 +395,72 @@ c2_combine_kernel(const float* __restrict__ o_part,
     const float2 ml = stats[(((size_t)s * B + b) * H + h) * Tq + q];
     const float w = ex2(ml.x - m);
     l = fmaf(w, ml.y, l);
-    acc = fmaf(w, o_part[((size_t)s * B * Tq * H + row) * kD + threadIdx.x],
+    acc = fmaf(w, o_part[((size_t)s * B * Tq * H + row) * blockDim.x +
+                         threadIdx.x],
                acc);
   }
-  out[(size_t)row * kD + threadIdx.x] = __float2bfloat16_rn(acc / l);
+  out[(size_t)row * blockDim.x + threadIdx.x] =
+      __float2bfloat16_rn(acc / l);
+}
+
+template <int kAtoms>
+int launch(const void* q, const void* k, const void* v, int B, int Tq,
+           int Tk, int H, int D, long long sqb, long long sqt, long long skb,
+           long long skt, long long svb, long long svt, float qscale,
+           void* out, int splits, void* o_part, void* stats, int grid,
+           cudaStream_t s) {
+  constexpr int kSmem = Wide<kAtoms>::kSmem;
+  const long long C = (long long)H * D;
+  CUtensorMap map_q, map_k, map_v, map_out;
+  cudaError_t err = encode_heads_bf16(&map_q, q, B, Tq, H, D, sqt, sqb,
+                                      kRows);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_k, k, B, Tk, H, D, skt, skb, kKeys);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_v, v, B, Tk, H, D, svt, svb, kKeys);
+  if (err == cudaSuccess)
+    err = encode_heads_bf16(&map_out, out, B, Tq, H, D, C, C * Tq, 64);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      c2_wide_kernel<kAtoms>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (attr != cudaSuccess) return attr;
+  c2_wide_kernel<kAtoms><<<grid, kThreads, kSmem, s>>>(
+      map_q, map_k, map_v, map_out, B, Tq, Tk, H, D, qscale, splits,
+      static_cast<float*>(o_part), static_cast<float2*>(stats));
+  if (splits == 1) return cudaGetLastError();
+  c2_combine_kernel<<<B * Tq * H, D, 0, s>>>(
+      static_cast<const float*>(o_part), static_cast<const float2*>(stats),
+      splits, B, Tq, H, static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C2 at D = 256: q [B, Tq, H, 256], k / v [B, Tk, H, 256] bf16, each read
-// in place through its batch and row strides in elements (a head 256 on,
-// elements contiguous, strides and bases 16-byte aligned) -> out [B, Tq,
-// H, 256] bf16 contiguous.  qscale is bf16(scale * log2 e); splits, the
+// C2 at D = 256, 96 or 72: q [B, Tq, H, D], k / v [B, Tk, H, D] bf16,
+// each read in place through its batch and row strides in elements (a head
+// D on, elements contiguous, strides and bases 16-byte aligned) -> out [B,
+// Tq, H, D] bf16 contiguous.  qscale is bf16(scale * log2 e); splits, the
 // key tiles' shares, and grid, the persistent blocks, are the Python
 // plan's (c2_wide_plan: over the 128-row q tiles of Tq, times splits);
-// with splits > 1, o_part [splits, B, Tq, H, 256] and stats [splits, B,
-// H, Tq, 2] fp32 are scratch (16-byte aligned), and a second launch
-// combines them into out.
+// with splits > 1, o_part [splits, B, Tq, H, D] and stats [splits, B, H,
+// Tq, 2] fp32 are scratch (16-byte aligned), and a second launch combines
+// them into out.
 extern "C" int vdn_flash_attention_bthd_wide(
     const void* q, const void* k, const void* v, int B, int Tq, int Tk, int H,
-    long long sqb, long long sqt, long long skb, long long skt,
+    int D, long long sqb, long long sqt, long long skb, long long skt,
     long long svb, long long svt, float qscale, void* out, int splits,
     void* o_part, void* stats, int grid, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || grid < 1 || splits < 1 ||
       (splits > 1 && (o_part == nullptr || stats == nullptr)) ||
       (Tk + kKeys - 1) / kKeys < splits)
     return cudaErrorInvalidValue;
-  const long long C = (long long)H * kD;
-  CUtensorMap map_q, map_k, map_v, map_out;
-  cudaError_t err = encode_heads_bf16(&map_q, q, B, Tq, H, kD, sqt, sqb,
-                                      kRows);
-  if (err == cudaSuccess)
-    err = encode_heads_bf16(&map_k, k, B, Tk, H, kD, skt, skb, kKeys);
-  if (err == cudaSuccess)
-    err = encode_heads_bf16(&map_v, v, B, Tk, H, kD, svt, svb, kKeys);
-  if (err == cudaSuccess)
-    err = encode_heads_bf16(&map_out, out, B, Tq, H, kD, C, C * Tq, 64);
-  if (err != cudaSuccess) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      c2_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (attr != cudaSuccess) return attr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  c2_wide_kernel<<<grid, kThreads, kSmem, s>>>(
-      map_q, map_k, map_v, map_out, B, Tq, Tk, H, qscale, splits,
-      static_cast<float*>(o_part), static_cast<float2*>(stats));
-  if (splits == 1) return cudaGetLastError();
-  c2_combine_kernel<<<B * Tq * H, kD, 0, s>>>(
-      static_cast<const float*>(o_part), static_cast<const float2*>(stats),
-      splits, B, Tq, H, static_cast<__nv_bfloat16*>(out));
-  return cudaGetLastError();
+  if (D == 256)
+    return launch<4>(q, k, v, B, Tq, Tk, H, D, sqb, sqt, skb, skt, svb, svt,
+                     qscale, out, splits, o_part, stats, grid, s);
+  if (D == 72 || D == 96)
+    return launch<2>(q, k, v, B, Tq, Tk, H, D, sqb, sqt, skb, skt, svb, svt,
+                     qscale, out, splits, o_part, stats, grid, s);
+  return cudaErrorInvalidValue;
 }

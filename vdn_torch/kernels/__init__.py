@@ -5,8 +5,9 @@ the single-image path's memory attention and of hieradet's global blocks
 (C2 also of SAM2's trunk and memory attention),
 the training backwards D1-D4 with A1's training forward, F1-F6 of the
 int8 serving mode, E1, the ring-attention step of the context-parallel
-temporal attention, and C3, the head-major fused-qkv attention that no
-path calls)
+temporal attention, C3, the head-major fused-qkv attention that no
+path calls, and connected components, SAM2's mask post-processing, which
+vdn computes on the host)
 live in ``vdn_torch/csrc/*.cu``
 with a plain C interface.  ``build()`` compiles
 them with nvcc for sm_90a into one shared library under
@@ -84,6 +85,7 @@ launches = {
     "ring_step": 0,
     "flash_attention_int8_fused_qkv": 0,
     "flash_attention_qkv": 0,
+    "connected_components": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -95,7 +97,7 @@ _SIGNATURES = {
                                     _P, _P, _P),
     "vdn_flash_attention_bthd": (_P, _P, _P, _I, _I, _I, _I, _I)
     + (_L,) * 6 + (_F, _P, _I, _P),
-    "vdn_flash_attention_bthd_wide": (_P, _P, _P, _I, _I, _I, _I)
+    "vdn_flash_attention_bthd_wide": (_P, _P, _P, _I, _I, _I, _I, _I)
     + (_L,) * 6 + (_F, _P, _I, _P, _P, _I, _P),
     "vdn_flash_attention_colbias": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                     _I, _P),
@@ -130,6 +132,7 @@ _SIGNATURES = {
     + (_I, _P),
     "vdn_flash_attention_qkv_heads": (_P, _I, _I, _I, _F, _P, _I, _P),
     "vdn_gelu_check": (_P, _P, _P),
+    "vdn_connected_components": (_P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _PLAIN = contextvars.ContextVar("vdn_torch_plain_reference", default=False)

@@ -25,8 +25,10 @@ shared memory beside its K and V tiles and added to the logits before the
 row max, and the key tiles whose every column is -inf skipped by the
 producer and the consumers alike (each block lists the live ones from the
 bias first; Tk up to MAX_KEY_TILES tiles).  C2 in bf16 at D = 256 (SAM2's
-memory attention) is a kernel of its own (csrc/flash_attn_wide.cu,
-``c2_wide_plan``).  C2 also runs fp32 at D = 56, 96 and 256
+memory attention) and at D = 72 / 96 (the hiera_large and hiera_tiny /
+small trunks' global blocks: a 128-column row, TMA zero-filling the
+columns past D) is a kernel of its own (csrc/flash_attn_wide.cu,
+``c2_wide_plan``).  C2 also runs fp32 at D = 56, 72, 96 and 256
 (csrc/flash_attn_bthd_f32.cu, its products on the tensor cores in
 3xTF32, which keeps fp32 accuracy, ``c2_f32_plan``): hieradet's global
 blocks on the v1 model and SAM2's fp32 path, q, k and v read in place
@@ -329,7 +331,10 @@ def flash_attention_fused_qkv(qkv: torch.Tensor,
     return _fused_qkv_forward(qkv, scale, save_lse=False)
 
 
-BF16_HEAD_DIMS = (56, 64, 256)   # C2: flash_attn_qkv.cu (kBthd), _wide.cu
+# C2 in bf16: csrc/flash_attn_qkv.cu (kBthd) at D 56 / 64, and
+# csrc/flash_attn_wide.cu at WIDE_HEAD_DIMS
+BF16_HEAD_DIMS = (56, 64, 72, 96, 256)
+WIDE_HEAD_DIMS = (72, 96, 256)
 WIDE_KEYS = 64   # csrc/flash_attn_wide.cu: keys of a K / V stage
 
 
@@ -343,11 +348,11 @@ def key_shares(units: int, tiles: int, sms: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def c2_wide_plan(b: int, tq: int, tk: int, h: int, sms: int) -> dict:
-    """C2's D = 256 launch (csrc/flash_attn_wide.cu) on a card of ``sms``
-    SMs: a1_plan's items (batch, head, A1_ROWS-row q tile), each split into
-    ``splits`` shares of its WIDE_KEYS-key tiles (``key_shares``: one block
-    an SM, and SAM2's one head of 4096 rows is 32 items); the persistent
-    blocks, min(units, sms).  A unit is (item, share), the share
+    """C2's D = 72 / 96 / 256 launch (csrc/flash_attn_wide.cu) on a card of
+    ``sms`` SMs: a1_plan's items (batch, head, A1_ROWS-row q tile), each
+    split into ``splits`` shares of its WIDE_KEYS-key tiles (``key_shares``:
+    one block an SM, and SAM2's one head of 4096 rows is 32 items); the
+    persistent blocks, min(units, sms).  A unit is (item, share), the share
     fastest."""
     items = b * h * -(-tq // A1_ROWS)
     splits = key_shares(items, -(-tk // WIDE_KEYS), sms)
@@ -357,9 +362,9 @@ def c2_wide_plan(b: int, tq: int, tk: int, h: int, sms: int) -> dict:
 
 def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     """C2 (``col_bias`` None) in bf16 at D = 56 or 64 (A1's kernel, kBthd)
-    or 256 (csrc/flash_attn_wide.cu), q, k, v read in place through their
-    strides; or C1 (kC1) at D = 64 on contiguous, 16-byte aligned q, k, v
-    (row stride H * 64)."""
+    or 72, 96 and 256 (csrc/flash_attn_wide.cu), q, k, v read in place
+    through their strides; or C1 (kC1) at D = 64 on contiguous, 16-byte
+    aligned q, k, v (row stride H * 64)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dims = BF16_HEAD_DIMS if col_bias is None else (64,)
@@ -387,11 +392,11 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     if col_bias is None:
         strides = [s for t in (q, k, v) for s in _strides(name, t, d)]
         check_kernel_args(name, out)
-        if d == 256:
+        if d in WIDE_HEAD_DIMS:
             plan = c2_wide_plan(b, tq, tk, h, sms)
             scratch = _shares_scratch(plan["splits"], b, tq, h, d, q.device)
             launch("vdn_flash_attention_bthd_wide", q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), b, tq, tk, h, *strides,
+                   k.data_ptr(), v.data_ptr(), b, tq, tk, h, d, *strides,
                    qscale, out.data_ptr(), plan["splits"], *_ptrs(scratch),
                    plan["grid"])
         else:
@@ -410,7 +415,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     return out
 
 
-F32_HEAD_DIMS = (56, 96, 256)   # csrc/flash_attn_bthd_f32.cu
+F32_HEAD_DIMS = (56, 72, 96, 256)   # csrc/flash_attn_bthd_f32.cu
 D2_HEAD_DIMS = (96,)            # csrc/flash_attn_bthd_bwd.cu
 D2_ROWS = 64            # csrc/flash_attn_bthd_bwd.cu: keys / q rows of a block
 
