@@ -41,6 +41,22 @@ vitg's int8 clip; and one cached vitl window each in "qk" and "pv"; each
 with F6 in place of A1 in the launches per encoder pass, the clip, stream
 and images held to the plain int8 runs in the same mode.
 
+The serving and evaluation CLIs (``vdn_torch.cli``), each through its
+own builder on the weights of the phase's model saved to a temporary
+``.pth`` (``torch.save`` of the state_dict, read back by
+``vdn_torch.core.checkpoint``), on the phase's frames (the CLIs' file IO
+needs cv2, so their device functions are driven): ``run_video``'s clip
+(54 frames), its stream (``--streaming --chunk-size 8``, 24 frames) and
+``--int8`` (int8_static, calibrating afresh) beside the clip phases;
+``eval_depthcrafter``'s main on ``.npy`` files of the CLI's clip against
+the plain fp32 clip (its delta1 and AbsRel printed); ``run``'s pipeline
+over the 10 images and the 480 x 640 ones, ``eval_da2k``'s per-image
+closure and ``app``'s demo pipeline beside the image phase; and
+``run_metric``'s pipeline with its point cloud beside the metric phase.
+Each equals its library path's depth on the same weights bit for bit
+(should two runs of a kernel differ in bits, it meets that path's gate
+instead, and says so), with the same launches.
+
 vitg (DINOv2 ViT-g/14 with its SwiGLU FFN, Depth Anything V2 Giant) at
 full width: the clip in bf16, int8_static and int8 (F5 carries the int8
 FFN), 12 frames streamed at k = 1, and 8 images through the bank, then
@@ -1827,7 +1843,7 @@ def stream_phase(model, frames, n=N_STREAM, chunk=STREAM_CHUNK,
     stream and the chunked stream may each sit no further from the plain
     bf16 (resp. the k = 1) stream than E2E_DRIFT_FACTOR times bf16's own
     distance from fp32.  Returns (launches k = 1, launches chunked or None,
-    (plain bf16, plain fp32))."""
+    (plain bf16, plain fp32), the chunked depth or None)."""
     from vdn_torch import kernels
     frames = frames[:n]
     torch.cuda.synchronize()
@@ -1842,7 +1858,7 @@ def stream_phase(model, frames, n=N_STREAM, chunk=STREAM_CHUNK,
     check_depth(f"{label} k=1", d1, n)
     if not len(pipe1.slots) < n + 32:
         fail(f"{label}: no eviction ({len(pipe1.slots)} logical entries)")
-    counts_k, chunked = None, {}
+    counts_k, dk, chunked = None, None, {}
     if chunk is not None:
         kernels.reset_launches()
         dk, walls_k, pipe_k = run_stream(model, frames, chunk)
@@ -1889,7 +1905,7 @@ def stream_phase(model, frames, n=N_STREAM, chunk=STREAM_CHUNK,
              f"{tol}")
     if k_vs_1 is not None and not k_vs_1["rel_l2"] <= tol:
         fail(f"{label} k={chunk} vs k=1: rel_l2 {k_vs_1['rel_l2']} > {tol}")
-    return counts1, counts_k, (plain_bf16, plain_fp32)
+    return counts1, counts_k, (plain_bf16, plain_fp32), dk
 
 
 # ------------------------------------------------------- phase 6b: CP
@@ -2378,13 +2394,18 @@ def nonsquare_images(frames) -> list:
 def run_images(pipe, images):
     """``infer_image`` over BGR images.  Returns (depths, wall ms of each
     call, the launches of each call); fetching the depth ends a call."""
+    return timed_calls(lambda img: pipe.infer_image(img, SIZE), images)
+
+
+def timed_calls(fn, images):
+    """``fn(image)`` over images, as run_images."""
     from vdn_torch import kernels
     out, walls, per_call = [], [], []
     before = dict(kernels.launches)
     for img in images:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out.append(pipe.infer_image(img, SIZE))
+        out.append(fn(img))
         walls.append((time.perf_counter() - t0) * 1e3)
         after = dict(kernels.launches)
         per_call.append({k: after[k] - before[k] for k in after})
@@ -2410,7 +2431,8 @@ def image_phase(model, frames, n_image=N_IMAGE, launches=None,
     bank must matter: frame MEMORY_PROBE's depth with the bank differs from
     the same frame after clear_memory() by more than E2E_DRIFT_FACTOR times
     its distance to the plain bf16 run's (the bf16 noise between two
-    runs)."""
+    runs).  Returns (launches, (plain bf16, plain fp32) of the square
+    images, (the kernels' square depths, non-square depths))."""
     from vdn_torch import kernels
     from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
     steady = launches or IMAGE_LAUNCHES
@@ -2491,14 +2513,15 @@ def image_phase(model, frames, n_image=N_IMAGE, launches=None,
     if not effect > E2E_DRIFT_FACTOR * noise:
         fail(f"{label}: the memory bank does not reach the depth: frame "
              f"{probe} moves {effect} without it, bf16 noise {noise}")
-    return counts, (p16, p32)
+    return counts, (p16, p32), (d, dw)
 
 
 # ---------------------------------------------------------------- phase 8
-def metric_phase(frames) -> dict:
+def metric_phase(frames) -> tuple:
     """MetricDepthAnythingV2 vitl, bf16, one 518 x 518 image: A6 runs with
     the sigmoid; the depth lies in (0, max_depth]; gated as the others
-    against the plain bf16 and fp32 runs."""
+    against the plain bf16 and fp32 runs.  Returns (launches, the model,
+    its depth [1, SIZE, SIZE], the gate's tolerance)."""
     from vdn_torch import kernels
     from vdn_torch.models.metric_depth import build_metric_depth_anything_v2
     from vdn_torch.pipelines.transform import preprocess_frame
@@ -2546,7 +2569,7 @@ def metric_phase(frames) -> dict:
         launches=json.dumps(counts, separators=(",", ":")))
     if not vs_plain["rel_l2"] <= tol:
         fail(f"metric vs plain bf16: rel_l2 {vs_plain['rel_l2']} > {tol}")
-    return counts
+    return counts, model, depth, tol
 
 
 # ---------------------------------------------------------------- phase 8b
@@ -2763,7 +2786,8 @@ def int8_clip_phase(q, frames, refs, mode, label="clip",
     """The clip path of ``q`` (quantized in ``mode``): infer_video_depth
     over the clip (for int8_static the first window calibrates), launches
     per window (``encoder``, INT8_ENCODER by default) and int8 convs
-    asserted; ms per window; fidelity against the plain int8 runs."""
+    asserted; ms per window; fidelity against the plain int8 runs.
+    Returns (launches, the depth, the fidelity gate's tolerance)."""
     from vdn_torch import kernels
     from vdn_torch.pipelines.infer_video import INFER_LEN, OVERLAP
     from vdn_torch.pipelines.infer_video import infer_video_depth
@@ -2804,8 +2828,8 @@ def int8_clip_phase(q, frames, refs, mode, label="clip",
             q.forward_window(window_input(frames))
     time_windows(q, frames, f"windows_{label.replace('clip', '')}{mode}")
     clear_quant_stats(q)
-    int8_fidelity(f"{label}_{mode}", run, q, depth, refs)
-    return counts
+    tol = int8_fidelity(f"{label}_{mode}", run, q, depth, refs)
+    return counts, depth, tol
 
 
 def fresh_stream(q, frames, k):
@@ -2870,22 +2894,24 @@ def int8_stream_phase(q, frames, refs, mode, encoder=None,
     return out[1][1], out[STREAM_CHUNK][1]
 
 
-def int8_video_phases(model, frames, clip_refs, stream_refs) -> dict:
+def int8_video_phases(model, frames, clip_refs, stream_refs) -> tuple:
     """For each mode, ``model``'s weights in a quantized VideoDepthAnything
     through the clip and the stream, held with the float path's plain runs
-    (bf16, fp32) of each; returns the launches by path."""
+    (bf16, fp32) of each.  Returns (the launches by path, {mode: (clip
+    depth, its gate's tolerance)})."""
     from vdn_torch.models.video_depth_anything import \
         build_video_depth_anything
-    out = {}
+    out, clips = {}, {}
     for mode in INT8_MODES:
         q = quantized_model(build_video_depth_anything, model, mode)
-        out[f"clip_{mode}"] = int8_clip_phase(q, frames, clip_refs, mode)
+        out[f"clip_{mode}"], *clips[mode] = int8_clip_phase(q, frames,
+                                                            clip_refs, mode)
         k1, kc = int8_stream_phase(q, frames, stream_refs, mode)
         out[f"stream_{mode}_k1"] = k1
         out[f"stream_{mode}_k{STREAM_CHUNK}"] = kc
         del q
         torch.cuda.empty_cache()
-    return out
+    return out, clips
 
 
 def int8_image_phase(model, frames, refs, mode, launches=None,
@@ -3049,7 +3075,7 @@ def f6_video_phases(model, frames, clip_refs, stream_refs) -> dict:
     q = quantized_model(build_video_depth_anything, model, "int8_static")
     out = {}
     with flash_int8("all"):
-        out["clip_int8_static_all"] = int8_clip_phase(
+        out["clip_int8_static_all"], _, _ = int8_clip_phase(
             q, frames, clip_refs, "int8_static", "all_clip", F6_ENCODER)
         out["clip_uncached_int8_static_all"] = uncached_window_phase(q,
                                                                      frames)
@@ -3063,6 +3089,268 @@ def f6_video_phases(model, frames, clip_refs, stream_refs) -> dict:
     del q
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------- phase 8c
+# The serving and evaluation CLIs (vdn_torch/cli) at vitl 518, bf16: each
+# builder loads its weights from a .pth of the phase's model, and the CLI's
+# device function runs on the phase's frames (the file IO needs cv2, which
+# this machine may lack).  Each result is held equal to the library path's
+# on the same weights (same kernels, same bytes), or, if two runs of a
+# kernel differ in bits, to that path's own gate (cli_match).
+@contextlib.contextmanager
+def saved_checkpoint(model, name: str):
+    """``model``'s state_dict saved as ``name`` in a temporary directory;
+    yields (the path, the save's seconds)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        torch.save(model.state_dict(), path)
+        yield path, time.perf_counter() - t0
+
+
+def timed_build(build):
+    """(build(), its seconds): a CLI builder's model build and checkpoint
+    load, up to the weights on the card."""
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cli_match(name: str, got: np.ndarray, want: np.ndarray,
+              tol: float) -> dict:
+    """A CLI's result ``got`` against the library path's ``want`` on the same
+    weights: equal bits, or, where two runs of a kernel differ in bits,
+    within ``tol`` rel L2 (the library path's own gate against its plain
+    bf16 run: two kernel runs are two draws of one rounding noise).
+    Returns the fields to log."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{name}: {got.shape} against {want.shape}, finite "
+             f"{np.isfinite(got).all()}")
+    if np.array_equal(got, want):
+        return {"equal_to_library": True}
+    dist = drift(want, got)["rel_l2"]
+    log(f"{name}_bits", equal_to_library=False,
+        max_abs_diff=f"{np.abs(got - want).max():.3e}",
+        rel_l2_to_library=f"{dist:.3e}", rel_l2_tol=f"{tol:.3e}")
+    if not dist <= tol:
+        fail(f"{name}: the CLI's result vs the library path's: rel_l2 "
+             f"{dist} > {tol}")
+    return {"equal_to_library": False}
+
+
+def drift_tol(plain) -> float:
+    """The fidelity gates' tolerance from (plain bf16, plain fp32)."""
+    return E2E_DRIFT_FACTOR * drift(plain[1], plain[0])["rel_l2"]
+
+
+def cli_video_phase(model, frames, refs) -> tuple:
+    """``run_video``'s ``build_model`` + ``infer_frames`` on ``model``'s
+    weights saved to a .pth: the cached clip over the 54 frames, the stream
+    (``--streaming --chunk-size 8``) over N_STREAM frames, and ``--int8``
+    (int8_static: its first window calibrates afresh) over the clip.
+    ``refs``: path -> (the library path's depth, its launches, its gate's
+    tolerance).  Each path's launches equal the library path's.  Returns
+    (the launches by path, the CLI clip's depth)."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import run_video
+    out, clip = {}, None
+    with saved_checkpoint(model, "video_depth_anything_vitl.pth") as (
+            ckpt, save_s):
+        for path, quantize, n, streaming in (
+                ("cli_video", None, N_FRAMES, False),
+                (f"cli_stream_k{STREAM_CHUNK}", None, N_STREAM, True),
+                ("cli_video_int8", "int8_static", N_FRAMES, False)):
+            if path != f"cli_stream_k{STREAM_CHUNK}":
+                cli_model, load_s = timed_build(
+                    lambda: run_video.build_model(model.encoder, ckpt,
+                                                  "bf16", quantize))
+            want, want_counts, tol = refs[path]
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            depth, _ = run_video.infer_frames(cli_model, frames[:n], 30.0,
+                                              SIZE, streaming, STREAM_CHUNK)
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+            peak = torch.cuda.max_memory_allocated()
+            check_depth(path, depth, n)
+            if counts != want_counts:
+                fail(f"{path}: launches {counts}, the library path's "
+                     f"{want_counts}")
+            fields = cli_match(path, depth, want, tol)
+            log(path, checkpoint_save_s=f"{save_s:.3f}",
+                checkpoint_load_s=f"{load_s:.3f}", frames=n,
+                ms_per_frame=f"{wall / n * 1e3:.3f}",
+                peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+                launches=json.dumps(counts, separators=(",", ":")), **fields)
+            out[path] = counts
+            if path == "cli_video":
+                clip = depth
+    del cli_model
+    torch.cuda.empty_cache()
+    return out, clip
+
+
+def cli_eval_phase(pred: np.ndarray, gt: np.ndarray) -> None:
+    """``eval_depthcrafter``'s main over .npy files: the CLI clip's depth
+    against the plain fp32 clip's, both disparity (``--domain disp``, the
+    GT's range as the depth range).  Its JSON must equal ``eval_sequence``
+    on the same arrays; prints its delta1 and AbsRel."""
+    import io
+    import tempfile
+    from vdn_torch.cli import eval_depthcrafter
+    from vdn_torch.eval.protocol import eval_sequence
+    max_depth = float(gt.max()) + 1.0
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("pred.npy", "gt.npy")]
+        for p, a in zip(paths, (pred, gt)):
+            np.save(p, a)
+        rows = os.path.join(tmp, "rows.csv")
+        with open(rows, "w") as f:
+            f.write(",".join(paths) + "\n")
+        t0 = time.perf_counter()
+        # the metrics divide over every pixel before masking, as vdn's
+        with contextlib.redirect_stdout(buf), np.errstate(divide="ignore",
+                                                          invalid="ignore"):
+            eval_depthcrafter.main(["--csv", rows, "--domain", "disp",
+                                    "--max-depth", repr(max_depth)])
+        wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = eval_sequence(pred.astype(np.float32), gt.astype(np.float32),
+                             domain="disp", dataset_max_depth=max_depth)
+    got = {k: v for k, v in lines[0].items() if k != "pred"}
+    if got != want or lines[-1] != {"mean": want, "sequences": 1}:
+        fail(f"cli_eval: {lines} against eval_sequence's {want}")
+    if not (np.isfinite(list(want.values())).all()
+            and 0.0 <= want["delta1_acc"] <= 1.0):
+        fail(f"cli_eval: metrics {want}")
+    log("cli_eval", frames=len(pred), wall_s=f"{wall:.3f}",
+        delta1=f"{want['delta1_acc']:.6f}",
+        absrel=f"{want['abs_relative_difference']:.6e}",
+        metrics=json.dumps(want, separators=(",", ":")))
+
+
+def cli_image_phase(model, frames, d, dw, tol) -> dict:
+    """``run``'s ``build_pipeline`` on ``model``'s weights saved to a .pth:
+    one pipeline over the N_IMAGE images (the bank carrying, as over a
+    directory), then a fresh bank over the non-square images, against
+    image_phase's kernels' depths ``d`` / ``dw``; ``eval_da2k``'s
+    per-image closure and ``app``'s ``_DemoPipeline`` (its own builder)
+    over the N_IMAGE images, each image against a fresh library
+    pipeline's first image.  Launches per image as image_phase's.  ``tol``
+    (the square images' gate) applies only should two runs differ in
+    bits.  Returns the launches by path."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import app, eval_da2k, run
+    from vdn_torch.pipelines.infer_image import DepthAnythingV2Pipeline
+    images = [np.ascontiguousarray(f[..., ::-1]) for f in frames[:N_IMAGE]]
+    wide = nonsquare_images(frames)
+    first = {**IMAGE_LAUNCHES, **IMAGE_FIRST}
+    out = {}
+    with saved_checkpoint(model, "depth_anything_v2_vitl.pth") as (
+            ckpt, save_s):
+        pipe, load_s = timed_build(
+            lambda: run.build_pipeline(model.encoder, ckpt, "bf16"))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        got, walls, per = run_images(pipe, images)
+        pipe.clear_memory()
+        got_w, walls_w, per_w = run_images(pipe, wide)
+        out["cli_image"] = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        for i, c in enumerate(per):
+            check_frame_launches(f"cli_image {i}", c,
+                                 first if i == 0 else IMAGE_LAUNCHES)
+        for i, c in enumerate(per_w):
+            check_frame_launches(f"cli_image non-square {i}", c, {
+                **(first if i == 0 else IMAGE_LAUNCHES), **IMAGE_NONSQUARE})
+        square = cli_match("cli_image", got, d, tol)
+        nonsquare = cli_match("cli_image non-square", got_w, dw, tol)
+        log("cli_image", checkpoint_save_s=f"{save_s:.3f}",
+            checkpoint_load_s=f"{load_s:.3f}", images=len(images),
+            steady_ms_per_image=f"{statistics.median(walls[MEMORY_PROBE:]):.3f}",
+            nonsquare_ms=json.dumps([round(w, 2) for w in walls_w]),
+            peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+            launches=json.dumps(out["cli_image"], separators=(",", ":")),
+            equal_to_library=square["equal_to_library"],
+            nonsquare_equal_to_library=nonsquare["equal_to_library"])
+
+        fresh = np.stack([DepthAnythingV2Pipeline(model).infer_image(im, SIZE)
+                          for im in images])
+        demo, demo_load_s = timed_build(
+            lambda: app.build_pipeline(model.encoder, ckpt, SIZE))
+        for path, infer, build_s in (
+                ("cli_da2k", eval_da2k.make_infer(pipe, SIZE), 0.0),
+                ("cli_app", demo.infer_image, demo_load_s)):
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            got, walls, per = timed_calls(infer, images)
+            out[path] = dict(kernels.launches)
+            peak = torch.cuda.max_memory_allocated()
+            for i, c in enumerate(per):
+                check_frame_launches(f"{path} {i}", c, first)
+            fields = cli_match(path, got, fresh, tol)
+            log(path, checkpoint_load_s=f"{build_s:.3f}",
+                images=len(images),
+                ms_per_image=f"{statistics.median(walls):.3f}",
+                peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+                launches=json.dumps(out[path], separators=(",", ":")),
+                **fields)
+    del pipe, demo
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_metric_phase(model, frames, depth, tol) -> dict:
+    """``run_metric``'s ``build_metric_pipeline`` on ``model``'s weights
+    saved to a .pth over metric_phase's image (as BGR), against
+    metric_phase's depth (the launches and the depth of the first call; a
+    second call timed apart); then ``depth_to_pointcloud`` of both (the
+    ``pointcloud`` CLI's points).  Returns the launches by path."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import run_metric
+    from vdn_torch.utils.pointcloud import depth_to_pointcloud
+    raw = np.ascontiguousarray(frames[0][..., ::-1])
+    with saved_checkpoint(model, "depth_anything_v2_metric_vitl.pth") as (
+            ckpt, save_s):
+        infer, load_s = timed_build(lambda: run_metric.build_metric_pipeline(
+            model.encoder, ckpt, model.max_depth, "bf16"))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = infer(raw, SIZE)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        infer(raw, SIZE)
+        wall = (time.perf_counter() - t0) * 1e3
+    check_frame_launches("cli_metric", counts, METRIC_LAUNCHES)
+    fields = cli_match("cli_metric", got, depth[0], tol)
+    t0 = time.perf_counter()
+    points, colors = depth_to_pointcloud(got, 470.4, 470.4, rgb=frames[0])
+    cloud_ms = (time.perf_counter() - t0) * 1e3
+    want_points, want_colors = depth_to_pointcloud(depth[0], 470.4, 470.4,
+                                                   rgb=frames[0])
+    if (points.shape != (SIZE * SIZE, 3) or not np.isfinite(points).all()
+            or not np.array_equal(colors, want_colors)):
+        fail(f"cli_metric: point cloud {points.shape}")
+    if fields["equal_to_library"] and not np.array_equal(points,
+                                                         want_points):
+        fail("cli_metric: the point cloud of equal depths differs")
+    log("cli_metric", checkpoint_save_s=f"{save_s:.3f}",
+        checkpoint_load_s=f"{load_s:.3f}", first_image_ms=f"{first_ms:.3f}",
+        ms_per_image=f"{wall:.3f}", points=len(points), pointcloud_ms=f"{cloud_ms:.3f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")), **fields)
+    del infer
+    torch.cuda.empty_cache()
+    return {"cli_metric": counts}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -4916,16 +5204,16 @@ def vitg_phases(frames) -> dict:
     time_windows(model, frames, "vitg_windows")
     clip_plain = reference_runs(model, frames, depth, "vitg_reference")
     int8_conv_phase(convs=VITG_INT8_CONVS)
-    k1, _, _ = stream_phase(model, frames, N_VITG_STREAM, None,
+    k1, _, _, _ = stream_phase(model, frames, N_VITG_STREAM, None,
                             "vitg_stream", VITG_ABSENT)
     out = {"vitg_clip": counts, "vitg_stream_k1": k1}
     for mode in INT8_MODES:
         q = quantized_model(build_video_depth_anything, model, mode, "vitg")
-        out[f"vitg_clip_{mode}"] = int8_clip_phase(
+        out[f"vitg_clip_{mode}"], _, _ = int8_clip_phase(
             q, frames, clip_plain, mode, "vitg_clip", VITG_INT8_ENCODER)
         if mode == "int8":
             with flash_int8("all"):
-                out["vitg_clip_int8_all"] = int8_clip_phase(
+                out["vitg_clip_int8_all"], _, _ = int8_clip_phase(
                     q, frames, clip_plain, mode, "vitg_all_clip",
                     VITG_F6_ENCODER)
         del q
@@ -4937,8 +5225,8 @@ def vitg_phases(frames) -> dict:
     bias = calibrate_output_bias(image_model.depth_head.scratch,
                                  lambda: image_model(x0))
     log("vitg_image_model", output_bias=f"{bias:.6g}")
-    out["vitg_image"], _ = image_phase(image_model, frames, N_VITG_IMAGE,
-                                       VITG_IMAGE_LAUNCHES, "vitg_image")
+    out["vitg_image"], _, _ = image_phase(
+        image_model, frames, N_VITG_IMAGE, VITG_IMAGE_LAUNCHES, "vitg_image")
     del image_model
     torch.cuda.empty_cache()
     return out
@@ -4974,13 +5262,22 @@ def main() -> None:
     depth, counts = run_main_path(model, frames)
     time_windows(model, frames)
     clip_plain = reference_runs(model, frames, depth)
-    counts_k1, counts_k8, stream_plain = stream_phase(model, frames)
+    counts_k1, counts_k8, stream_plain, depth_k8 = stream_phase(model,
+                                                                frames)
     launches_cp, cp_ring = cp_phases(model, frames)
     int8_conv_phase()
-    launches_int8 = int8_video_phases(model, frames, clip_plain,
-                                      stream_plain)
+    launches_int8, int8_clips = int8_video_phases(model, frames, clip_plain,
+                                                  stream_plain)
     launches_int8.update(f6_video_phases(model, frames, clip_plain,
                                          stream_plain))
+    launches_cli, cli_clip = cli_video_phase(model, frames, {
+        "cli_video": (depth, counts, drift_tol(clip_plain)),
+        f"cli_stream_k{STREAM_CHUNK}": (depth_k8, counts_k8,
+                                        drift_tol(stream_plain)),
+        "cli_video_int8": (int8_clips["int8_static"][0],
+                           launches_int8["clip_int8_static"],
+                           int8_clips["int8_static"][1])})
+    cli_eval_phase(cli_clip, clip_plain[1])
     del model
     torch.cuda.empty_cache()
     image_model = build_image_model()
@@ -4988,7 +5285,10 @@ def main() -> None:
     bias = calibrate_output_bias(image_model.depth_head.scratch,
                                  lambda: image_model(x0))
     log("image_model", output_bias=f"{bias:.6g}")
-    counts_image, image_plain = image_phase(image_model, frames)
+    counts_image, image_plain, image_depths = image_phase(image_model,
+                                                          frames)
+    launches_cli.update(cli_image_phase(image_model, frames, *image_depths,
+                                        drift_tol(image_plain)))
     for mode in INT8_MODES:
         launches_int8[f"image_{mode}"] = int8_image_phase(
             image_model, frames, image_plain, mode)
@@ -5000,7 +5300,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     del image_model
     torch.cuda.empty_cache()
-    counts_metric = metric_phase(frames)
+    counts_metric, metric_model, metric_depth, metric_tol = metric_phase(
+        frames)
+    launches_cli.update(cli_metric_phase(metric_model, frames, metric_depth,
+                                         metric_tol))
+    del metric_model
     torch.cuda.empty_cache()
     counts_train = train_phase()
     torch.cuda.empty_cache()
@@ -5015,6 +5319,7 @@ def main() -> None:
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
                 "metric": counts_metric, "train": counts_train,
                 "metric_train": counts_metric_train, **launches_int8,
+                **launches_cli,
                 **launches_vitg, **launches_v1, **launches_cp,
                 **launches_sam2}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,

@@ -284,9 +284,10 @@ def test_preprocess_frame_matches_cv2(hw):
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """Every module of vdn_torch, chip_smoke.py and tools/profile_torch.py,
-    imported in a fresh interpreter, pull in nothing of jax, flax, optax,
-    orbax, cv2 or vdn."""
+    """Every module of vdn_torch (the CLIs included), chip_smoke.py and
+    tools/profile_torch.py, imported in a fresh interpreter, pull in
+    nothing of jax, flax, optax, orbax, cv2, matplotlib, yaml or vdn: the
+    card's machine has neither cv2, matplotlib nor PyYAML."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vdn_torch\n"
@@ -297,7 +298,8 @@ def test_port_imports_no_jax_flax_or_cv2():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
-        "                                    'cv2', 'vdn'))\n"
+        "                                    'cv2', 'matplotlib', 'yaml',\n"
+        "                                    'vdn'))\n"
         "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -1,7 +1,9 @@
 """vdn_torch: the PyTorch / CUDA (H100) port of vdn.
 
-Imports torch and numpy only (never jax, flax, optax, orbax or cv2).  Entry points, each
-on the card unless the caller passes ``device="cpu"``:
+Imports torch and numpy only (never jax, flax, optax or orbax; cv2 and
+matplotlib only inside the functions that read or write image and video
+files).  Entry points, each on the card unless the caller passes
+``device="cpu"``:
 
 - clips: ``vdn_torch.models.video_depth_anything.
   build_video_depth_anything`` with ``vdn_torch.pipelines.infer_video.
@@ -20,7 +22,11 @@ on the card unless the caller passes ``device="cpu"``:
   with ``seq_axis="seq"``, ``vdn_torch.parallel.launch.
   initialize_distributed``, ``vdn_torch.parallel.mesh.make_mesh`` and
   ``vdn_torch.parallel.context.make_context_parallel_forward`` (a world
-  of one on the card by default; torchrun's environment for more).
+  of one on the card by default; torchrun's environment for more);
+- the command-line tools ``python -m vdn_torch.cli.<name>`` (``run``,
+  ``run_video``, ``run_metric``, ``pointcloud``, ``app``, ``eval_da2k``,
+  ``eval_depthcrafter``; ``--device cpu`` for the CPU), loading weights
+  through ``vdn_torch.core.checkpoint.load_checkpoint``.
 
 The hand-written CUDA kernels and their build live in
 ``vdn_torch.kernels``.
