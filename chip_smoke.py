@@ -115,6 +115,23 @@ parameters move by the weight decay alone), the gradient fidelity at b1 x
 s4 against the plain fp32 run, the model under no_grad on one clip, and
 the MAE Hiera's published hiera_base_224 at 224 x 224 (no kernel there).
 
+The training and evaluation CLIs (``vdn_torch.cli.train``, ``evaluate``,
+``train_metric``, ``train_v1``) on a synthetic dataset registered in the
+port's DATASET_REGISTRY (seeded smooth fields at 256 x 320 that the
+random crop cuts to the recipe's 224 x 224; .json configs, no file, no
+cv2): ``train.main`` at vitl v4 bf16, b2 x 16, two epochs of 3 steps
+from a ``.pth`` of a calibrated random model, saving each epoch, then
+``--resume`` to a third (every step's launches; epoch 1's checkpoint
+equal bit for bit to the state cloned at its save, read after epoch 2
+ran); ``evaluate`` on a ``.pth`` of the trained model over the val split
+(metrics equal to the library forward's); ``train_metric``'s epoch at
+vitl 518 bf16, b2, 3 steps (launches as the metric phase's);
+``train_v1.main`` at its defaults (hiera_base_224, b6 x 16, fp32, 224),
+3 steps; and ``train_v1`` with SAM2's hiera_base_plus and hiera_large
+trunks at 256 x 256, b2 x 8, 3 steps each (C2 and its backward D2 at fp32
+D 56 and D 72, launches by width, and v1_train's gradient fidelity), with
+D2's kernel cases at those widths.
+
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of the path never launched.  Depth must
 be finite and not degenerate, and sit no further from the same run through
@@ -141,6 +158,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1490,17 +1508,17 @@ def d3_case(rng, path, b, t, c):
         check=both_launches_equal(kern, plain), stages=D3_STAGES)
 
 
-def d1_cases(rng, path="train"):
-    """D1 at the v4 step's shape (B 16, T 1370, 16 heads) and at B 2 with
-    the ragged T of D1_RAGGED (path ``d1_ragged``): held to the plain
-    version and to its own second launch bit for bit; the device time of
-    its three launches by stage (D1_STAGES); library: SDPA's backward
-    alone on the same q, k, v and cotangent."""
+def d1_cases(rng, path="train", b=TRAIN_FRAMES, t=VIT_TOKENS,
+             ragged=D1_RAGGED):
+    """D1 at the v4 step's shape (B 16, T 1370, 16 heads; or b x t) and at
+    B 2 with the ragged T of ``ragged`` (path ``d1_ragged``): held to the
+    plain version and to its own second launch bit for bit; the device
+    time of its three launches by stage (D1_STAGES); library: SDPA's
+    backward alone on the same q, k, v and cotangent."""
     from vdn_torch.kernels import flash_attention as fa
     dev, bf = DEVICE, torch.bfloat16
     h, d = 16, 64
-    for b, t, p in ((TRAIN_FRAMES, VIT_TOKENS, path),
-                    *((2, tt, "d1_ragged") for tt in D1_RAGGED)):
+    for b, t, p in ((b, t, path), *((2, tt, "d1_ragged") for tt in ragged)):
         qkv = _rand(rng, (b, t, 3, h, d)).to(dev, bf)
         with torch.no_grad():
             o, lse = fa._fused_qkv_forward(qkv, None, True)
@@ -3787,10 +3805,12 @@ def all_launches(want: dict) -> dict:
     return {**{n: 0 for n in kernels.launches}, **want}
 
 
-def v1_attention_cases(rng, path="v1"):
-    """C2 at fp32 / D 96 and D2 on hieradet's global blocks: q, k, v read
-    in place off the fused qkv [16, T, 3, 4, 96] fp32, at T = 256 (256 px)
-    and 324 (288 px: ragged tiles); D2's device time by launch
+def v1_attention_cases(rng, path="v1", b=V1_FRAMES, h=V1_HEADS, d=V1_DH,
+                       tokens=V1_TOKENS):
+    """C2 at fp32 and D2 on hieradet's global blocks: q, k, v read in place
+    off the fused qkv [b, T, 3, h, d] fp32 (hiera_base: [16, T, 3, 4, 96];
+    V1_WIDE_HEADS gives hiera_base_plus' and hiera_large's), at T = 256
+    (256 px) and 324 (288 px: ragged tiles); D2's device time by launch
     (D2_STAGES).  Library calls: SDPA's forward, and its backward alone
     (``sdpa_backward``), in fp32.
     Bounds: three times the products' operations at the TF32 tensor-core
@@ -3798,8 +3818,7 @@ def v1_attention_cases(rng, path="v1"):
     (3xTF32, which C2 runs)."""
     import torch.nn.functional as F
     from vdn_torch.kernels import flash_attention as fa
-    b, h, d = V1_FRAMES, V1_HEADS, V1_DH
-    for t in V1_TOKENS:
+    for t in tokens:
         qkv = _rand(rng, (b, t, 3, h, d))
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         o, lse = fa._attention_lse_plain(q, k, v, None, d ** -0.5)
@@ -3970,25 +3989,20 @@ def head_positive_share(model, inputs) -> float:
     return round(seen[0], 4)
 
 
-def v1_fidelity(model, trainer, small, cot) -> dict:
-    """One b1 x s4 step's gradients with the kernels (C2 / D2 must launch)
-    and through the plain versions, both fp32, rel L2 over every tensor
-    that gets one.  Gated: the model's outputs (V1_INFER_REL_L2) and its
-    VJP under the fixed cotangent ``cot`` (see V1_VJP_REL_L2), which hold
-    C2, D2 and A5a / A5b.  Logged: the loss's gradient against the plain
-    one, beside the plain one's own distances when the input depths or
-    frames move by 1e-6 (the trimmed and median terms send their
-    cotangent to the pixels that hold the selected values, and a rounding
-    can move those pixels)."""
+def v1_fidelity(model, trainer, clips, label: str = "v1_train") -> dict:
+    """The gradients of b1 x s4 clips with the kernels (C2 / D2 must
+    launch) and through the plain versions, both fp32, rel L2 over every
+    tensor that gets one, pooled over ``clips`` ([(small, cot), ...]: the
+    clips' gradients concatenated).  Gated: the model's outputs
+    (V1_INFER_REL_L2, the worst clip) and its VJP under each clip's fixed
+    cotangent ``cot`` (see V1_VJP_REL_L2), which hold C2, D2 and A5a /
+    A5b.  Logged: the loss's gradient against the plain one, beside the
+    plain one's own distances when the input depths or frames move by
+    1e-6 (the trimmed and median terms send their cotangent to the pixels
+    that hold the selected values, and a rounding can move those pixels),
+    and the VJP's distances clip by clip."""
     from vdn_torch import kernels
-    inputs = small[:2]
-
-    def vjp(x=inputs):
-        d, n = model(*x)
-        return (d * cot[0]).sum() + (n * cot[1]).sum()
-
-    def loss(x=inputs):
-        return trainer.loss(*x, *small[2:])["total_loss"]
+    whats = ("outputs", "vjp", "loss_grad")
 
     def grads(fn):
         model.zero_grad(set_to_none=True)
@@ -4000,44 +4014,75 @@ def v1_fidelity(model, trainer, small, cot) -> dict:
         return g
 
     tensors = [0]
+    outputs = {"kernels": 0.0, "depth": 0.0, "rgb": 0.0}
+    sq = {}       # (who, what): [sum |g - plain|^2, sum |plain|^2]
+    per_clip = []
 
-    kernels.reset_launches()
-    with torch.no_grad():
-        out_k = model(*inputs)
-    g_vjp, g_loss = grads(vjp), grads(loss)
-    if not kernels.launches["flash_attention_bwd"]:
-        fail("v1_train: the kernels' gradient step launched no D2")
-    kernels.reset_launches()
-    floor = {}
-    with kernels.plain_reference():
+    def pool(who, what, g, ref):
+        d, n = sq.setdefault((who, what), [0.0, 0.0])
+        sq[who, what] = [d + float((g - ref).norm()) ** 2,
+                         n + float(ref.norm()) ** 2]
+        return rel_l2(g, ref)
+
+    for small, cot in clips:
+        inputs = small[:2]
+
+        def vjp(x=inputs):
+            d, n = model(*x)
+            return (d * cot[0]).sum() + (n * cot[1]).sum()
+
+        def loss(x=inputs):
+            return trainer.loss(*x, *small[2:])["total_loss"]
+
+        kernels.reset_launches()
         with torch.no_grad():
-            out_p = model(*inputs)
-        p_vjp, p_loss = grads(vjp), grads(loss)
-        # the plain run's own distance when one input moves by 1e-6
-        for i, name in enumerate(("depth", "rgb")):
-            nudged = list(inputs)
-            nudged[i] = nudged[i] * (1 + 1e-6)
+            out_k = model(*inputs)
+        g_vjp, g_loss = grads(vjp), grads(loss)
+        if not kernels.launches["flash_attention_bwd"]:
+            fail(f"{label}: the kernels' gradient step launched no D2")
+        kernels.reset_launches()
+        with kernels.plain_reference():
             with torch.no_grad():
-                out_n = model(*nudged)
-            floor[name] = (
-                max(rel_l2(a, b) for a, b in zip(out_n, out_p)),
-                rel_l2(grads(lambda: vjp(nudged)), p_vjp),
-                rel_l2(grads(lambda: loss(nudged)), p_loss))
-    if any(kernels.launches.values()):
-        fail(f"kernels launched inside plain_reference: {kernels.launches}")
-    res = {"outputs": max(rel_l2(a, b) for a, b in zip(out_k, out_p)),
-           "vjp": rel_l2(g_vjp, p_vjp), "loss_grad": rel_l2(g_loss, p_loss),
-           **{f"plain_nudged_{k}_{what}": v[i] for k, v in floor.items()
-              for i, what in enumerate(("outputs", "vjp", "loss_grad"))}}
+                out_p = model(*inputs)
+            p_vjp, p_loss = grads(vjp), grads(loss)
+            if not (bool(torch.isfinite(p_vjp).all())
+                    and float(p_vjp.norm()) > 0):
+                fail(f"{label}: the plain VJP is zero or not finite")
+            # the plain run's own distance when one input moves by 1e-6
+            for i, name in enumerate(("depth", "rgb")):
+                nudged = list(inputs)
+                nudged[i] = nudged[i] * (1 + 1e-6)
+                with torch.no_grad():
+                    out_n = model(*nudged)
+                outputs[name] = max(outputs[name], max(
+                    rel_l2(a, b) for a, b in zip(out_n, out_p)))
+                pool(name, "vjp", grads(lambda: vjp(nudged)), p_vjp)
+                pool(name, "loss_grad", grads(lambda: loss(nudged)), p_loss)
+        if any(kernels.launches.values()):
+            fail(f"kernels launched inside plain_reference: "
+                 f"{kernels.launches}")
+        outputs["kernels"] = max(outputs["kernels"], max(
+            rel_l2(a, b) for a, b in zip(out_k, out_p)))
+        per_clip.append(pool("kernels", "vjp", g_vjp, p_vjp))
+        pool("kernels", "loss_grad", g_loss, p_loss)
+        del g_vjp, g_loss, p_vjp, p_loss
+    dist = {(who, what): (d / n) ** 0.5 for (who, what), (d, n) in sq.items()}
+    for who, v in outputs.items():
+        dist[who, "outputs"] = v
+    res = {what: dist["kernels", what] for what in whats}
+    res.update({f"plain_nudged_{who}_{what}": dist[who, what]
+                for who in ("depth", "rgb") for what in whats})
     vjp_tol = max(V1_VJP_REL_L2, E2E_DRIFT_FACTOR * max(
-        v[1] for v in floor.values()))
-    log("v1_train_grads", **{k: f"{v:.4e}" for k, v in res.items()},
-        tensors=tensors[0], vjp_norm=f"{float(p_vjp.norm()):.6g}",
-        outputs_tol=f"{V1_INFER_REL_L2:.0e}", vjp_tol=f"{vjp_tol:.4e}")
-    if not (bool(torch.isfinite(p_vjp).all()) and float(p_vjp.norm()) > 0):
-        fail("v1_train: the plain VJP is zero or not finite")
+        dist[who, "vjp"] for who in ("depth", "rgb")))
+    log(f"{label}_grads", **{k: f"{v:.4e}" for k, v in res.items()},
+        clips=len(clips),
+        vjp_by_clip=json.dumps([float(f"{v:.4e}") for v in per_clip]),
+        tensors=tensors[0],
+        vjp_norm=f"{sq['kernels', 'vjp'][1] ** 0.5:.6g}",
+        outputs_tol=f"{V1_INFER_REL_L2:.0e}",
+        vjp_tol=f"{vjp_tol:.4e}")
     if res["outputs"] > V1_INFER_REL_L2 or res["vjp"] > vjp_tol:
-        fail(f"v1_train: kernels vs plain fp32 {res}, VJP tolerance "
+        fail(f"{label}: kernels vs plain fp32 {res}, VJP tolerance "
              f"{vjp_tol}")
     return res
 
@@ -4084,9 +4129,9 @@ def v1_train_phase() -> dict:
                         weight_decay=V1_WEIGHT_DECAY)
     small = trainer._batch({k: v[:1, :V1_GRAD_S] for k, v in batch.items()})
     alive = [head_positive_share(model, small[:2])]
-    v1_fidelity(model, trainer, small,
-                [_rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE)),
-                 _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE, 3))])
+    v1_fidelity(model, trainer, [(small, [
+        _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE)),
+        _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE, 3))])])
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     lrs = []
     for _ in range(V1_WARMUP):
@@ -4211,6 +4256,671 @@ def v1_phases() -> dict:
         mae = v1_mae_phase()
         torch.cuda.empty_cache()
     return {"v1_train": train, "v1_infer": infer, "v1_mae": mae}
+
+
+# ---------------------------------------------------------- training CLIs
+# The training and evaluation CLIs (vdn_torch.cli.train, evaluate,
+# train_metric, train_v1) on a synthetic dataset registered in the port's
+# DATASET_REGISTRY: seeded smooth fields at CLI_FRAME_HW that the random
+# crop cuts to the recipe's size, so no file and no cv2 are involved; the
+# dataset configs are .json (the card has no PyYAML).  The recipe's
+# dataset_common (configs/train_dataset_config.yaml): 16 frames a window,
+# 224 x 224, random crop.
+CLI_FRAME_HW = (256, 320)
+CLI_SIZE, CLI_T = 224, 16
+CLI_WINDOWS, CLI_SPLIT = 8, 0.75   # 6 train windows (3 steps of b2), 2 val
+CLI_EPOCHS = 2                      # then --resume to CLI_EPOCHS + 1
+# per training step: the library [train] phase's launches; at 224 px the
+# ViT's pos-embed is resized (37 x 37 table -> 16 x 16 tokens; at 518 the
+# grid is the table's and the resize is skipped), forward and backward
+CLI_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "resize_rows": 12,
+                      "resize_mid_axis": 12}
+CLI_MOTION_SHAPES = [(256, 1024), (64, 1024), (256, 256), (1024, 256)]
+# train_v1 at its defaults (hiera_base_224, 16 frames, levels 2 and 3,
+# fp32, batch 6) at 224 px: 3 steps
+CLI_V1_B, CLI_V1_WINDOWS, CLI_V1_SIZE = 6, 24, CLI_SIZE
+# train_v1 with SAM2's hieradet trunks at 256 px, b2 x 8, 3 steps: C2 and
+# D2 per step by head width (both encoders: hiera_base_plus' 3 global
+# blocks; hiera_large's 3 global and 32 windowed blocks of 16 x 16 tokens)
+CLI_V1_WIDE = {"hiera_base_plus": {56: 6}, "hiera_large": {72: 70}}
+CLI_V1_WIDE_SIZE = 256
+# their gradient fidelity pools the VJPs of this many b1 x s4 clips: the
+# state after the epoch differs run to run (the loader's threads order
+# the draws), and one clip's distance, kernels' or nudged, is the sum of
+# a few max-pool and ReLU switches that a rounding flips
+CLI_V1_WIDE_CLIPS = 4
+# train_metric's validation image (518 x 686, a multiple of 14) and its GT
+# at its own 480 x 640
+CLI_METRIC_VAL_HW = ((518, 686), (480, 640))
+
+
+def synthetic_dataset() -> str:
+    """Registers ``SyntheticDataset`` (a SequenceFolderDataset) in the
+    port's DATASET_REGISTRY; returns its factory name.  ``scan`` lists
+    ``windows`` windows of ``sequence_length`` frames; ``read_frame``
+    draws, from (SEED, window, frame), the refinement / v1 batch contract
+    at CLI_FRAME_HW: RGB in 0-1, input depths in 0-65,535 and GT depths in
+    0.5-10.5 (a smooth field of the window, drifting over its frames),
+    masks with 5% invalid pixels and an invalid band."""
+    import functools
+
+    from vdn_torch.data.base import SequenceFolderDataset
+    from vdn_torch.data.datasets import DATASET_REGISTRY
+    if "SyntheticDataset" in DATASET_REGISTRY:
+        return "Synthetic"
+
+    @functools.lru_cache(maxsize=64)
+    def window_field(w: int) -> np.ndarray:
+        return smooth_field(np.random.default_rng((SEED, w)), 1,
+                            CLI_FRAME_HW)[0]
+
+    class SyntheticDataset(SequenceFolderDataset):
+        def scan(self):
+            return [{dt: [f"{w}:{i}" for i in range(self.sequence_length)]
+                     for dt in self.data_types}
+                    for w in range(self.extra.get("windows", CLI_WINDOWS))]
+
+        def read_frame(self, path, data_type):
+            w, i = (int(v) for v in path.split(":"))
+            hw = CLI_FRAME_HW
+            base = window_field(w)
+            rng = np.random.default_rng((SEED, w, i))
+            drift = smooth_field(rng, 1, hw)[0]
+            if data_type == "rgb":
+                return np.stack([smooth_field(rng, 1, hw)[0]
+                                 for _ in range(3)], -1)
+            if data_type == "depth_anything_v2":
+                return 65535.0 * np.clip(0.8 * base + 0.2 * drift, 0, 1)
+            if data_type == "depth":
+                return 0.5 + 10.0 * (1.0 - base) * (0.9 + 0.2 * drift)
+            if data_type == "mask":
+                mask = (rng.random(hw) > 0.05).astype(np.float32)
+                mask[:, :20] = 0.0
+                return mask
+            raise ValueError(data_type)
+
+    DATASET_REGISTRY["SyntheticDataset"] = SyntheticDataset
+    return "Synthetic"
+
+
+def synthetic_config(tmp: str, name: str, size: int = 0, t: int = 0,
+                     windows: int = 0) -> str:
+    """A factory config (.json) of the synthetic dataset under ``tmp``
+    (CLI_SIZE, CLI_T and CLI_WINDOWS unless given)."""
+    size, t = size or CLI_SIZE, t or CLI_T
+    windows = windows or CLI_WINDOWS
+    root = os.path.join(tmp, "synthetic_root")
+    os.makedirs(root, exist_ok=True)
+    cfg = {"dataset_common": {"sequence_length": t, "sequence_stride": t,
+                              "output_size": [size, size],
+                              "use_random_crop": True},
+           "datasets": {synthetic_dataset(): {
+               "train_split": CLI_SPLIT,
+               "data_types": ["rgb", "depth", "depth_anything_v2", "mask"],
+               "params": {"root_dir": root, "windows": windows}}}}
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+class step_watch:
+    """Inside the block, each call of ``cls.method`` (a trainer's
+    train_step) is timed between two synchronizes and its launches
+    counted: ``steps`` lists (wall ms, {kernel: launches})."""
+
+    def __init__(self, cls, method: str = "train_step"):
+        self.cls, self.method, self.steps = cls, method, []
+
+    def __enter__(self):
+        from vdn_torch import kernels
+        real = self.real = getattr(self.cls, self.method)
+
+        def watched(obj, *a, **kw):
+            torch.cuda.synchronize()
+            before = dict(kernels.launches)
+            t0 = time.perf_counter()
+            out = real(obj, *a, **kw)
+            torch.cuda.synchronize()
+            self.steps.append(((time.perf_counter() - t0) * 1e3, {
+                k: v - before.get(k, 0) for k, v in kernels.launches.items()}))
+            return out
+        setattr(self.cls, self.method, watched)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.real)
+
+
+def _tensors_of(tree, prefix=""):
+    """{path: tensor} of a nested dict / list state (a state dict, an
+    optimizer's)."""
+    out = {}
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_tensors_of(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_tensors_of(v, f"{prefix}/{i}"))
+    return out
+
+
+class save_watch:
+    """Inside the block, TrainCheckpointer.save of ``step`` also keeps a
+    clone of the state's tensors on the card taken at the call (``clone``),
+    and the seconds of every save call, close (the writes' wait) and
+    restore are kept."""
+
+    def __init__(self, step: int):
+        self.step, self.clone = step, None
+        self.save_s, self.close_s, self.restore_s = [], [], []
+
+    def __enter__(self):
+        from vdn_torch.core.checkpoint import TrainCheckpointer
+        self.cls = TrainCheckpointer
+        self.real = (TrainCheckpointer.save, TrainCheckpointer.restore_latest,
+                     TrainCheckpointer.close)
+        save, restore, close = self.real
+
+        def watched_save(obj, step, state):
+            if step == self.step:
+                self.clone = {k: v.detach().clone() for k, v in _tensors_of(
+                    {k: (v.state_dict() if hasattr(v, "state_dict") else v)
+                     for k, v in state.items()}).items()}
+            t0 = time.perf_counter()
+            save(obj, step, state)
+            self.save_s.append(time.perf_counter() - t0)
+
+        def watched_restore(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = restore(obj, *a, **kw)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.perf_counter() - t0)
+            return out
+
+        def watched_close(obj):
+            t0 = time.perf_counter()
+            close(obj)
+            self.close_s.append(time.perf_counter() - t0)
+        TrainCheckpointer.save = watched_save
+        TrainCheckpointer.restore_latest = watched_restore
+        TrainCheckpointer.close = watched_close
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls.save, self.cls.restore_latest, self.cls.close) = self.real
+
+
+def read_records(log_dir: str, run: str) -> list:
+    with open(os.path.join(log_dir, f"{run}.metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_step_watch(name: str, steps: list, n: int, want: dict) -> dict:
+    """``n`` steps, each with the launches ``want`` (every other kernel 0);
+    returns the per-step launches and times to log."""
+    if len(steps) != n:
+        fail(f"{name}: {len(steps)} training steps, want {n}")
+    full = all_launches(want)
+    for i, (_, counts) in enumerate(steps):
+        if counts != full:
+            diff = {k: (counts.get(k, 0), v) for k, v in full.items()
+                    if counts.get(k, 0) != v}
+            fail(f"{name}: step {i} launches (got, want) {diff}")
+    walls = [w for w, _ in steps]
+    return {"ms_per_step": f"{statistics.median(walls):.3f}",
+            "step_ms": json.dumps([round(w, 2) for w in walls]),
+            "launches_per_step": json.dumps(
+                {k: v for k, v in steps[0][1].items() if v},
+                separators=(",", ":"))}
+
+
+def check_records(name: str, records: list, epochs: list,
+                  validation: bool = True) -> None:
+    """One log record an epoch, every loss finite."""
+    if [r["epoch"] for r in records] != epochs:
+        fail(f"{name}: logged epochs {[r['epoch'] for r in records]}")
+    for r in records:
+        keys = [k for k in r if k.startswith(("training/", "validation/"))]
+        if ("training/total_loss" not in r
+                or (validation and "validation/total_loss" not in r)
+                or not np.isfinite([r[k] for k in keys]).all()):
+            fail(f"{name}: record {r}")
+
+
+def cli_train_cases(rng):
+    """The refinement CLI's step at vitl 224, b2 x 16 (32 frames of 257
+    tokens; the motion modules at 2 x their 224 px tokens, T 16): A1's
+    training forward, D1, A2, D3, A3, D4 and A4, A5a / A5b at the head's
+    fusion upsamples and the pos-embed resize, A6 (path ``cli_train``)."""
+    path, n = "cli_train", TRAIN_B * CLI_T
+    grid = CLI_SIZE // 14
+    tokens = grid * grid + 1
+    yield a1_case(rng, path, n, tokens, lse=True)
+    yield from d1_cases(rng, path, n, tokens, ragged=())
+    yield a2_case(rng, path, (n, tokens), 1024)
+    yield d3_case(rng, path, n, tokens, 1024)
+    shapes = [(bn * TRAIN_B, c) for bn, c in CLI_MOTION_SHAPES]
+    for bn, c in shapes:
+        yield d4_case(rng, path, bn, c, tt=CLI_T)
+    yield from motion_cases(rng, path, CLI_T, shapes=shapes)
+    yield from upsample_cases(rng, path, fusion_passes(n, (grid, grid))
+                              + [pos_embed_pass((grid, grid))])
+    yield from island_cases(rng, path, n, grid=(grid, grid))
+
+
+def cli_train_phase(tmp: str) -> tuple:
+    """``vdn_torch.cli.train.main`` at vitl v4 bf16, batch 2, on the
+    synthetic dataset at the recipe's 224 px and 16 frames: CLI_EPOCHS
+    epochs of 3 steps, saving each, from a ``.pth`` of a calibrated random
+    model (``--from-pretrained``; build_refine_model's zero convs and
+    output bias), then ``--resume`` to one more epoch.  Gates: one finite
+    record an epoch, every step's launches (CLI_TRAIN_LAUNCHES), epoch 1's
+    checkpoint equal bit for bit to the state cloned at its save (read
+    after epoch 2 ran: an asynchronous copy that raced the next steps'
+    in-place updates would differ).  Returns (the launches of the first
+    main, the checkpoint directory, the config)."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import train as cli
+    from vdn_torch.train.trainer import RefineTrainer
+    cfg = synthetic_config(tmp, "cli_train")
+    ds = cli.build_loaders([synthetic_dataset()], cfg, TRAIN_B, SEED)[0]
+    calib = {"depth_anything_v2": ds.datasets[0][0]["depth_anything_v2"][
+        None].astype(np.float32)}
+    model, bias, alive = build_refine_model(calib)
+    pth = os.path.join(tmp, "refine_v4_vitl.pth")
+    t0 = time.perf_counter()
+    torch.save(model.state_dict(), pth)
+    pth_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+    argv = ["--dataset-config", cfg, "--datasets", synthetic_dataset(),
+            "--encoder", "vitl", "--model-version", "4",
+            "--from-pretrained", pth, "--batch-size", str(TRAIN_B),
+            "--initial-lr", str(TRAIN_LR), "--seed", str(SEED),
+            "--checkpoint-dir", ckpt_dir, "--log-dir", log_dir,
+            "--run-name", "cli_train"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with step_watch(RefineTrainer) as steps, save_watch(1) as saves:
+        cli.main(argv + ["--epochs", str(CLI_EPOCHS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("cli_train", counts, [k for k, v in
+                                         CLI_TRAIN_LAUNCHES.items() if v])
+    fields = check_step_watch("cli_train", steps.steps, 3 * CLI_EPOCHS,
+                              CLI_TRAIN_LAUNCHES)
+    check_records("cli_train", read_records(log_dir, "cli_train"),
+                  list(range(1, CLI_EPOCHS + 1)))
+    # epoch 1's file against the state at its save, after epoch 2 ran
+    saved = _tensors_of(torch.load(
+        os.path.join(ckpt_dir, "refine_v4", "1.pt"), map_location="cpu",
+        weights_only=True))
+    clone = {k: v.cpu() for k, v in saves.clone.items()}
+    if sorted(saved) != sorted(clone) or len(clone) < 100:
+        fail(f"cli_train: saved tensors {len(saved)}, cloned {len(clone)}")
+    torn = [k for k in clone if not torch.equal(saved[k], clone[k])]
+    if torn:
+        fail(f"cli_train: epoch 1's checkpoint differs from the state at "
+             f"its save in {len(torn)} tensors: {torn[:4]}")
+    del saved, clone, saves.clone
+    # --resume to one more epoch
+    with step_watch(RefineTrainer) as more, save_watch(0) as resumed:
+        t1 = time.perf_counter()
+        cli.main(argv + ["--epochs", str(CLI_EPOCHS + 1), "--resume"])
+        resume_wall = time.perf_counter() - t1
+    check_step_watch("cli_train_resume", more.steps, 3, CLI_TRAIN_LAUNCHES)
+    records = read_records(log_dir, "cli_train")
+    check_records("cli_train", records, list(range(1, CLI_EPOCHS + 2)))
+    if len(resumed.restore_s) != 1:
+        fail(f"cli_train: restores {resumed.restore_s}")
+    log("cli_train", batch=f"b{TRAIN_B}xt{CLI_T}", size=CLI_SIZE,
+        epochs=f"{CLI_EPOCHS}+1", output_bias=f"{bias:.6g}",
+        head_positive_share=json.dumps(alive), pth_save_s=f"{pth_s:.2f}",
+        wall_s=f"{wall:.2f}", resume_wall_s=f"{resume_wall:.2f}",
+        save_call_s=json.dumps([round(x, 3) for x in
+                                saves.save_s + resumed.save_s]),
+        close_s=json.dumps([round(x, 3) for x in
+                            saves.close_s + resumed.close_s]),
+        restore_s=f"{resumed.restore_s[0]:.3f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}", checkpoint_bit_equal=True,
+        losses=json.dumps([float(f"{r['training/total_loss']:.9g}")
+                           for r in records]),
+        val_losses=json.dumps([float(f"{r['validation/total_loss']:.9g}")
+                               for r in records]), **fields)
+    return counts, ckpt_dir, cfg
+
+
+def cli_evaluate_phase(tmp: str, ckpt_dir: str, cfg: str) -> dict:
+    """``evaluate``'s model build and run on a ``.pth`` of the trained
+    model (the last checkpoint's model state, the reference's names) over
+    the synthetic val split: its metrics equal to the library refine
+    forward's scored by the same protocol on the same weights, launches
+    equal to the library forward's times the sequences."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import evaluate as cli
+    from vdn_torch.data.factory import create_datasets
+    from vdn_torch.eval.protocol import eval_sequence
+    state = torch.load(os.path.join(ckpt_dir, "refine_v4",
+                                    f"{CLI_EPOCHS + 1}.pt"),
+                       map_location="cpu", weights_only=True)["model"]
+    pth = os.path.join(tmp, "trained.pth")
+    torch.save(state, pth)
+    del state
+    model, load_s = timed_build(lambda: cli.build_model("vitl", pth))
+    datasets = create_datasets([synthetic_dataset()], cfg, "val")
+    items = [ds[i] for ds in datasets for i in range(len(ds))]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = cli.evaluate(model, datasets)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want, lib = [], {}
+    with torch.no_grad():
+        for item in items:
+            x = torch.from_numpy(item["depth_anything_v2"][None].astype(
+                np.float32)).to(DEVICE)
+            kernels.reset_launches()
+            pred = model(x).float().cpu().numpy()[0]
+            lib = dict(kernels.launches)
+            want.append(eval_sequence(pred, item["depth"],
+                                      mask=item.get("mask")))
+    want = {k: float(np.mean([m[k] for m in want])) for k in want[0]}
+    per = {k: v * len(items) for k, v in lib.items()}
+    check_frame_launches("cli_evaluate", counts, per)
+    check_launches("cli_evaluate", counts, [k for k, v in lib.items() if v])
+    if got["frames"] != len(items) * CLI_T:
+        fail(f"cli_evaluate: frames {got['frames']}")
+    if not np.isfinite(list(got["metrics"].values())).all():
+        fail(f"cli_evaluate: metrics {got['metrics']}")
+    equal = got["metrics"] == want
+    if not equal:
+        worst = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in want.items())
+        if worst > 1e-3:
+            fail(f"cli_evaluate: metrics {got['metrics']} vs the library "
+                 f"forward's {want}")
+    log("cli_evaluate", sequences=len(items), frames=got["frames"],
+        tpf_ms=got["TPF(msec)"], load_s=f"{load_s:.2f}",
+        metrics=json.dumps({k: round(v, 6) for k, v in
+                            got["metrics"].items()}),
+        equal_to_library=equal,
+        launches=json.dumps({k: v for k, v in counts.items() if v},
+                            separators=(",", ":")))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+class SyntheticMetricSet:
+    """The metric datasets' contract ({image [h, w, 3] ImageNet-normalized,
+    depth [H, W] m, valid_mask [H, W]}): ``n`` seeded smooth scenes, the
+    image at ``hw``; in val the GT at ``gt_hw`` (the network's input stays
+    a multiple of 14, the GT at its own size, as Hypersim's val)."""
+
+    def __init__(self, n: int, hw, gt_hw=None, seed: int = SEED):
+        self.n, self.hw, self.gt_hw, self.seed = n, hw, gt_hw or hw, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        from vdn_torch.pipelines.transform import IMAGENET_MEAN, IMAGENET_STD
+        rng = np.random.default_rng((self.seed, i))
+        rgb = np.stack([smooth_field(rng, 1, self.hw)[0] for _ in range(3)],
+                       -1)
+        depth = 0.5 + 15.0 * smooth_field(rng, 1, self.gt_hw)[0]
+        return {"image": ((rgb - IMAGENET_MEAN) / IMAGENET_STD).astype(
+                    np.float32),
+                "depth": depth.astype(np.float32),
+                "valid_mask": rng.random(self.gt_hw) > 0.05}
+
+
+def cli_train_metric_phase(tmp: str) -> dict:
+    """``train_metric``'s model build and epoch function (``run_epoch``)
+    at vitl 518 bf16, batch 2, 3 steps on a synthetic set in the file-list
+    contract, validation on one 480 x 640 GT (the prediction at 518 x 686
+    resized to it on the card), the epoch's weights saved under vdn's name
+    stem.  Gates: every step's launches (METRIC_TRAIN_LAUNCHES), a finite
+    loss and metrics, the saved weights equal to the model's."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import train_metric as cli
+    from vdn_torch.data.factory import BatchLoader
+    from vdn_torch.train.metric_depth import MetricDepthTrainer
+    from vdn_torch.utils.logging import MetricWriter
+    args = cli.build_parser().parse_args([
+        "--train-list", "synthetic", "--encoder", "vitl", "--epochs", "1",
+        "--batch-size", str(TRAIN_B), "--lr", str(METRIC_TRAIN_LR),
+        "--seed", str(SEED), "--checkpoint-dir", os.path.join(tmp, "metric"),
+        "--log-dir", os.path.join(tmp, "metric_logs"),
+        "--run-name", "cli_metric"])
+    model, build_s = timed_build(lambda: cli.build_model(args))
+    train_ds = SyntheticMetricSet(3 * TRAIN_B, (SIZE, SIZE))
+    val_ds = SyntheticMetricSet(1, *CLI_METRIC_VAL_HW, SEED + 1)
+    loader = BatchLoader(train_ds, TRAIN_B, shuffle=True, seed=SEED)
+    trainer = cli.build_trainer(model, args, len(loader))
+    logger = MetricWriter(args.log_dir, project="vdn-metric",
+                          run_name=args.run_name)
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with step_watch(MetricDepthTrainer) as steps:
+        metrics = cli.run_epoch(trainer, loader, val_ds, logger,
+                                np.random.default_rng(SEED), 0, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    logger.finish()
+    check_launches("cli_train_metric", counts, [
+        k for k, v in METRIC_TRAIN_LAUNCHES.items() if v])
+    fields = check_step_watch("cli_train_metric", steps.steps, 3,
+                              METRIC_TRAIN_LAUNCHES)
+    if not np.isfinite(list(metrics.values())).all() or "val/d1" not in \
+            metrics:
+        fail(f"cli_train_metric: metrics {metrics}")
+    path = os.path.join(args.checkpoint_dir,
+                        "cli_metric_metric_vitl_epoch_1.pth")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    bad = [k for k, v in model.state_dict().items()
+           if not torch.equal(saved[k], v.cpu())]
+    if bad:
+        fail(f"cli_train_metric: saved weights differ: {bad[:4]}")
+    log("cli_train_metric", batch=f"b{TRAIN_B}", steps=len(steps.steps),
+        build_s=f"{build_s:.2f}", epoch_wall_s=f"{wall:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
+        metrics=json.dumps({k: round(v, 6) for k, v in metrics.items()}),
+        **fields)
+    del model, trainer, saved
+    torch.cuda.empty_cache()
+    return counts
+
+
+def cli_train_v1_phase(tmp: str) -> dict:
+    """``train_v1.main`` at its defaults (hiera_base_224, 16 frames, levels
+    2 and 3, fp32, batch CLI_V1_B) at the recipe's 224 px: one epoch of 3
+    steps and a validation batch, fp32 throughout.  The MAE Hiera's
+    mask-unit attention is plain (as in vdn): C2 and D2 never launch; the
+    head's resizes do.  Gates: 3 steps with the same launches, finite
+    losses."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import train_v1 as cli
+    from vdn_torch.train.trainer import V1Trainer
+    cfg = synthetic_config(tmp, "cli_train_v1", size=CLI_V1_SIZE,
+                           windows=CLI_V1_WINDOWS)
+    log_dir = os.path.join(tmp, "v1_logs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with exact_fp32(), step_watch(V1Trainer) as steps:
+        cli.main(["--dataset-config", cfg, "--datasets",
+                  synthetic_dataset(), "--epochs", "1",
+                  "--batch-size", str(CLI_V1_B), "--seed", str(SEED),
+                  "--checkpoint-dir", os.path.join(tmp, "v1_ckpt"),
+                  "--log-dir", log_dir, "--run-name", "cli_v1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    check_launches("cli_train_v1", counts, ["resize_rows", "resize_mid_axis"])
+    check_absent("cli_train_v1", counts, ["flash_attention",
+                                          "flash_attention_bwd"])
+    first = {k: v for k, v in steps.steps[0][1].items() if v}
+    fields = check_step_watch("cli_train_v1", steps.steps, 3, first)
+    check_records("cli_train_v1", read_records(log_dir, "cli_v1"), [1])
+    log("cli_train_v1", encoder="hiera_base_224", size=CLI_V1_SIZE,
+        batch=f"b{CLI_V1_B}xs{CLI_T}", wall_s=f"{wall:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
+        losses=json.dumps([float(f"{r['training/total_loss']:.9g}")
+                           for r in read_records(log_dir, "cli_v1")]),
+        **fields)
+    torch.cuda.empty_cache()
+    return counts
+
+
+class d2_widths:
+    """Tallies D2's calls by head width inside the block: {D: calls}."""
+
+    def __enter__(self):
+        from vdn_torch.kernels import flash_attention as fa
+        self.mod, self.real, self.tally = fa, fa.flash_attention_bwd, {}
+
+        def counted(q, *a, **kw):
+            d = q.shape[-1]
+            self.tally[d] = self.tally.get(d, 0) + 1
+            return self.real(q, *a, **kw)
+        fa.flash_attention_bwd = counted
+        return self.tally
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention_bwd = self.real
+
+
+def check_width_calls(path: str, c2: dict, d2: dict, counts: dict,
+                      per_step: dict, steps: int = 3) -> None:
+    """C2's calls by head width over ``steps`` training steps and one
+    validation batch, D2's over the steps, each call launched."""
+    want_c2 = {d: (steps + 1) * n for d, n in per_step.items()}
+    want_d2 = {d: steps * n for d, n in per_step.items()}
+    if c2 != want_c2 or d2 != want_d2 or counts[
+            "flash_attention"] != sum(want_c2.values()) or counts[
+            "flash_attention_bwd"] != sum(want_d2.values()):
+        fail(f"{path}: C2 by width {c2}, D2 {d2}, launches "
+             f"{counts['flash_attention']} / {counts['flash_attention_bwd']}"
+             f"; want per step {per_step}")
+
+
+def cli_train_v1_wide_phase(tmp: str) -> dict:
+    """``train_v1``'s ``train`` with SAM2's hieradet trunks (CLI_V1_WIDE)
+    at 256 px, b2 x 8, levels 2 and 3, fp32: one epoch of 3 steps on a
+    model built as ``build_v1_model`` (random pos-embed tables), then the
+    gradient fidelity of v1_train (the VJP within twice the plain run's
+    move) on it, pooled over CLI_V1_WIDE_CLIPS clips.  Gates: C2 and D2 launches per step by width, every other
+    launch as the first step's, finite losses, the fidelity.  Returns the
+    launches by path."""
+    from vdn_torch import kernels
+    from vdn_torch.cli import train_v1 as cli
+    from vdn_torch.cli._common import parse_with_master_config
+    from vdn_torch.train.trainer import V1Trainer
+    cfg = synthetic_config(tmp, "cli_train_v1_wide", size=CLI_V1_WIDE_SIZE,
+                           t=V1_S)
+    out = {}
+    for encoder, per_step in CLI_V1_WIDE.items():
+        path = f"cli_train_v1_{encoder}"
+        log_dir = os.path.join(tmp, f"{path}_logs")
+        args = parse_with_master_config(cli.build_parser(), [
+            "--dataset-config", cfg, "--datasets", synthetic_dataset(),
+            "--encoder", encoder, "--sequence-length", str(V1_S),
+            "--epochs", "1", "--batch-size", str(V1_B),
+            "--seed", str(SEED), "--log-dir", log_dir,
+            "--checkpoint-dir", os.path.join(tmp, f"{path}_ckpt"),
+            "--run-name", path], "v1")
+        with exact_fp32():
+            model = build_v1_model(encoder, SEED + 9)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with step_watch(V1Trainer) as steps, c2_widths() as c2, \
+                    d2_widths() as d2:
+                cli.train(args, model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+            peak = torch.cuda.max_memory_allocated()
+            check_width_calls(path, c2, d2, counts, per_step)
+            first = {k: v for k, v in steps.steps[0][1].items() if v}
+            fields = check_step_watch(path, steps.steps, 3, first)
+            records = read_records(log_dir, path)
+            check_records(path, records, [1])
+            rng = np.random.default_rng(SEED + 9)
+            trainer = V1Trainer(model)
+            clips = []
+            for _ in range(CLI_V1_WIDE_CLIPS):
+                batch = v1_batch(rng)
+                clips.append((trainer._batch({k: v[:1, :V1_GRAD_S]
+                                              for k, v in batch.items()}), [
+                    _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE)),
+                    _rand(rng, (1, V1_GRAD_S, V1_SIZE, V1_SIZE, 3))]))
+            res = v1_fidelity(model, trainer, clips, path)
+        log(path, encoder=encoder, size=CLI_V1_WIDE_SIZE,
+            batch=f"b{V1_B}xs{V1_S}", wall_s=f"{wall:.2f}",
+            peak_mem_gib=f"{peak / 2 ** 30:.3f}",
+            c2_by_width=json.dumps(c2), d2_by_width=json.dumps(d2),
+            vjp_rel_l2=f"{res['vjp']:.4e}",
+            losses=json.dumps([float(f"{r['training/total_loss']:.9g}")
+                               for r in records]), **fields)
+        out[path] = counts
+        del model, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_v1_wide_cases(rng):
+    """C2 (with and without lse) and D2 at hiera_base_plus' and
+    hiera_large's stage-3 attention on the v1 step at 256 px: [16, 256, 8,
+    D] fp32, D 56 and 72, q, k, v read in place off the fused qkv."""
+    for encoder, per_step in CLI_V1_WIDE.items():
+        (d,) = per_step
+        yield from v1_attention_cases(rng, f"cli_v1_wide_d{d}", V1_FRAMES,
+                                      8, d, tokens=(V1_TOKENS[0],))
+
+
+def train_cli_kernel_checks() -> dict:
+    """The training CLIs' kernel cases (path ``cli_train``: the refinement
+    step at 224 px and T 16; ``cli_v1_wide_d56`` / ``_d72``: C2 and D2 at
+    the hieradet trunks' widths), run early beside the other cases."""
+    summary = check_kernels(cli_train_cases(np.random.default_rng(SEED + 23)))
+    with exact_fp32():
+        merge_summary(summary, check_kernels(
+            cli_v1_wide_cases(np.random.default_rng(SEED + 24))))
+    return summary
+
+
+def train_cli_phases() -> dict:
+    """The training and evaluation CLIs' phases, in one temporary
+    directory: [cli_train], [cli_evaluate], [cli_train_metric],
+    [cli_train_v1], [cli_train_v1_wide].  Returns the launches by path."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli_train"], ckpt_dir, cfg = cli_train_phase(tmp)
+        torch.cuda.empty_cache()
+        out["cli_evaluate"] = cli_evaluate_phase(tmp, ckpt_dir, cfg)
+        shutil.rmtree(ckpt_dir)
+        out["cli_train_metric"] = cli_train_metric_phase(tmp)
+        out["cli_train_v1"] = cli_train_v1_phase(tmp)
+        out.update(cli_train_v1_wide_phase(tmp))
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- SAM2
@@ -4509,10 +5219,12 @@ def calibrate_object_score(model, frames) -> float:
 
 def check_c2_refusals() -> None:
     """C2 on the card: the widths SAM2's trunks give it run (bf16 D 72 and
-    96, fp32 D 72); a head width no kernel takes raises ValueError (bf16 D
-    48 and 80, fp32 D 64 and 80), and an input that requires grad raises
-    RuntimeError at every width but fp32 D 96 (D2's): no plain path behind
-    either."""
+    96, fp32 D 72), and fp32 D 56 and 72 with grad run forward and D2
+    backward (hiera_base_plus' and hiera_large's global blocks in
+    train_v1); a head width no kernel takes raises ValueError (bf16 D 48
+    and 80, fp32 D 64 and 80), and an input that requires grad raises
+    RuntimeError at fp32 D 256 and every bf16 width (D2 takes fp32 D 56,
+    72 and 96): no plain path behind either."""
     from vdn_torch.kernels import flash_attention as fa
 
     def qkv(d, dt, grad=False):
@@ -4527,6 +5239,19 @@ def check_c2_refusals() -> None:
         if out.shape != args[0].shape or not torch.isfinite(out).all():
             fail(f"C2 {label}: {tuple(out.shape)}, finite "
                  f"{bool(torch.isfinite(out).all())}")
+    trained = {f"fp32 D{d} grad": qkv(d, torch.float32, True)
+               for d in (56, 72)}
+    for label, args in trained.items():
+        launched = fa.launches["flash_attention_bwd"]
+        fa.flash_attention(*args).sum().backward()
+        torch.cuda.synchronize()
+        if (fa.launches["flash_attention_bwd"] != launched + 1
+                or not all(bool(torch.isfinite(a.grad).all())
+                           for a in args)):
+            fail(f"C2 {label}: D2 launched "
+                 f"{fa.launches['flash_attention_bwd'] - launched}, finite "
+                 f"grads {[bool(torch.isfinite(a.grad).all()) for a in args]}")
+    runs.update(trained)
     cases = {"bf16 D48": (qkv(48, torch.bfloat16), ValueError),
              "bf16 D80": (qkv(80, torch.bfloat16), ValueError),
              "fp32 D64": (qkv(64, torch.float32), ValueError),
@@ -4534,9 +5259,8 @@ def check_c2_refusals() -> None:
              **{f"bf16 D{d} grad": (qkv(d, torch.bfloat16, True),
                                     RuntimeError)
                 for d in (56, 72, 96, 256)},
-             **{f"fp32 D{d} grad": (qkv(d, torch.float32, True),
-                                    RuntimeError)
-                for d in (56, 72, 256)}}
+             "fp32 D256 grad": (qkv(256, torch.float32, True),
+                                RuntimeError)}
     for label, (args, err) in cases.items():
         try:
             fa.flash_attention(*args)
@@ -5253,6 +5977,7 @@ def main() -> None:
         merge_summary(summary, check_kernels(
             v1_cases(np.random.default_rng(SEED + 7))))
     merge_summary(summary, sam2_kernel_checks())
+    merge_summary(summary, train_cli_kernel_checks())
     check_no_backward_raises()
     model = build_model()
     frames = synthetic_clip()
@@ -5314,6 +6039,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches_v1 = v1_phases()
     torch.cuda.empty_cache()
+    launches_train_cli = train_cli_phases()
+    torch.cuda.empty_cache()
     launches_sam2 = sam2_phases()
     launches = {"clip": counts, "stream_k1": counts_k1,
                 f"stream_k{STREAM_CHUNK}": counts_k8, "image": counts_image,
@@ -5321,7 +6048,7 @@ def main() -> None:
                 "metric_train": counts_metric_train, **launches_int8,
                 **launches_cli,
                 **launches_vitg, **launches_v1, **launches_cp,
-                **launches_sam2}
+                **launches_train_cli, **launches_sam2}
     # Per kernel: max_abs_err over all its shapes in check_kernels; ms,
     # plain_ms, library_ms and bound_ms summed over the shapes of its
     # headline path (one clip window; B1: one streamed frame's rings; C1 and
@@ -5370,6 +6097,10 @@ def main() -> None:
             **({"sam2": {p: summary[name][p] for p in ("sam2", "sam2_f32")
                          if p in summary[name]}}
                if "sam2" in summary[name] else {}),
+            **({"cli": {p: v for p, v in summary[name].items()
+                        if p.startswith("cli_")}}
+               if any(p.startswith("cli_") for p in summary[name])
+               else {}),
             **({"by_t": {p: summary[name][p]
                          for p in ("cp4", "cplong", "cpxlong", "cpextra",
                                    "cpvitg")},

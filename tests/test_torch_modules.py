@@ -284,22 +284,31 @@ def test_preprocess_frame_matches_cv2(hw):
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """Every module of vdn_torch (the CLIs included), chip_smoke.py and
-    tools/profile_torch.py, imported in a fresh interpreter, pull in
-    nothing of jax, flax, optax, orbax, cv2, matplotlib, yaml or vdn: the
-    card's machine has neither cv2, matplotlib nor PyYAML."""
+    """Every module of vdn_torch (the CLIs, the training CLIs, the data
+    layer, the config, the logger and the visualization included),
+    chip_smoke.py and tools/profile_torch.py, imported in a fresh
+    interpreter, pull in nothing of jax, flax, optax, orbax, cv2,
+    matplotlib, yaml, h5py, wandb or vdn: the card's machine has neither
+    cv2, matplotlib, PyYAML, h5py nor wandb."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vdn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    vdn_torch.__path__, 'vdn_torch.')]\n"
         "assert len(names) > 30, names\n"
+        "new = {'vdn_torch.cli.' + n for n in ('_common', 'train',\n"
+        "       'train_metric', 'train_v1', 'evaluate')} | {\n"
+        "       'vdn_torch.core.config', 'vdn_torch.data.base',\n"
+        "       'vdn_torch.data.datasets', 'vdn_torch.data.factory',\n"
+        "       'vdn_torch.data.metric_datasets', 'vdn_torch.utils.logging',\n"
+        "       'vdn_torch.utils.visualization'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names + ['chip_smoke', 'tools.profile_torch']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
         "                                    'cv2', 'matplotlib', 'yaml',\n"
-        "                                    'vdn'))\n"
+        "                                    'h5py', 'wandb', 'vdn'))\n"
         "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -57,14 +57,16 @@ def test_flash_attention_new_widths_match_vdn(d, h, tq, tk, dtype):
 
 def test_c2_widths_table():
     """The widths C2 takes on the card, and those it still refuses:
-    bf16 56 / 64 / 72 / 96 / 256, fp32 56 / 72 / 96 / 256, D2 fp32 96."""
+    bf16 56 / 64 / 72 / 96 / 256, fp32 56 / 72 / 96 / 256, D2 fp32 56 /
+    72 / 96 (every released trunk's global blocks train on the card)."""
     from vdn_torch.kernels import flash_attention as tfa
     assert tfa.BF16_HEAD_DIMS == (56, 64, 72, 96, 256)
     assert tfa.F32_HEAD_DIMS == (56, 72, 96, 256)
     assert tfa.WIDE_HEAD_DIMS == (72, 96, 256)
-    assert tfa.D2_HEAD_DIMS == (96,)
+    assert tfa.D2_HEAD_DIMS == (56, 72, 96)
     for variant, dh in RELEASED.items():
         assert dh in tfa.BF16_HEAD_DIMS and dh in tfa.F32_HEAD_DIMS, variant
+        assert dh in tfa.D2_HEAD_DIMS, variant
 
 
 def _cut(cfg):

@@ -1,9 +1,10 @@
 // D2: the backward of C2 (attention over [B, T, H, D]) in fp32, for
-// hieradet's global blocks on the v1 training path: q, k, v [b * s, T, 4,
-// 96] fp32 (T 256 at 256 px, 324 at 288; read in place as slices of the
-// fused qkv projection), the forward's out and dO [B, Tq, H, D], its base-2
-// row log-sum-exp lse [B, H, Tq] -> dq [B, Tq, H, D], dk and dv [B, Tk, H,
-// D], fp32.
+// hieradet's global blocks on the v1 training path: q, k, v [b * s, T, H,
+// D] fp32 with D 96 (hiera_tiny / small / base, H 4 or 8), 56
+// (hiera_base_plus, H 8) or 72 (hiera_large, H 8) (T 256 at 256 px, 324 at
+// 288; read in place as slices of the fused qkv projection), the forward's
+// out and dO [B, Tq, H, D], its base-2 row log-sum-exp lse [B, H, Tq] -> dq
+// [B, Tq, H, D], dk and dv [B, Tk, H, D], fp32.
 //
 // Replaces vdn/ops/pallas/flash_attention.py _flash_bwd_bhtd
 // (_flash_bwd_kernel), the VJP of flash_attention: P recomputed, delta =
@@ -52,12 +53,18 @@
 // kernel loads its K and V tiles once and streams q, dO and their stats
 // rows through a ring of two 32-row stages; the dQ kernel loads q, dO and
 // the stats once and streams 32-key K / V stages.  Every tile is fp32 in
-// TMA's 128-byte swizzle, a 96-wide row as three 32-float atoms (chunk c of
+// TMA's 128-byte swizzle, a row as ceil(D / 32) 32-float atoms (chunk c of
 // row r at c ^ (r % 8)), which keeps the fragment reads (rows g and columns
 // t, or rows 2t / 2t + 1 and columns g) free of bank conflicts as the
-// forward's padded rows do.  The maps keep the frame as a dimension of its
-// own with q, k and v's own row strides (4,608 bytes off the fused qkv):
-// no copy, and rows past T load as zeros.  About 98 KB of shared memory and
+// forward's padded rows do.  The maps are 4-D over [B, T, H, D] with q, k
+// and v's own row strides (4,608 bytes off hiera_base's fused qkv): no
+// copy, rows past T load as zeros, and so do the columns past D of a
+// narrow head's last atom (D 56: columns 56-63, D 72: 72-95): a 3-D map
+// over H * D would read the next head's columns there.  Zero columns add
+// nothing to S = q K^T or dP = dO V^T; the products over the head take
+// D / 8 steps, the accumulators' 8-wide tiles past D are skipped, and only
+// D columns of dq, dk and dv are stored.  At D 96 about 98 KB of shared
+// memory and
 // 168 registers a thread (ptxas's cap for two blocks of five warps: the dK
 // / dV kernel spills 548 bytes) a block, two blocks an SM, two consumer
 // warps on each of its four sub-partitions.  The kernels are bound by the
@@ -80,31 +87,40 @@ namespace {
 using namespace vdn::attn_f32;
 using namespace vdn::wg;
 
-constexpr int kD = 96;                 // head width
-constexpr int kK8 = kD / 8;            // 8-deep steps along the head
 constexpr int kBlockRows = 64;         // keys (dK / dV) or q rows (dQ)
 constexpr int kStage = 32;             // rows of a streamed stage
 constexpr int kStages = 2;
 constexpr int kConsumers = 128;        // four warps of 16 block rows
 constexpr int kThreads = kConsumers + 32;  // and a producer warp
 constexpr int kBox = 32;               // a TMA box: 32 floats x 32 rows
-constexpr int kBlockTile = kBlockRows * kD * 4;  // 24 KB
-constexpr int kStageTile = kStage * kD * 4;      // 12 KB
 constexpr int kStatBytes = 2 * kStage * 4;       // lse, then delta
 constexpr int kG = 4;                  // n8 tiles of a head-wide product at once
-// the dK / dV kernel: K, V, then the ring's q / dO tiles, their stats, the
-// barriers; the dQ kernel: q, dO, then the ring's K / V tiles, the q
-// tile's stats, the barriers (both with 1024 bytes of alignment)
-constexpr int kRingOff = 2 * kBlockTile;
-constexpr int kStatOff = kRingOff + kStages * 2 * kStageTile;
-constexpr int kBarOff = kStatOff + kStages * kStatBytes;
-constexpr int kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
-static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
-static_assert(kStages * kStatBytes >= 2 * kBlockRows * 4,
-              "the dQ tile's stats fit the stats area");
 constexpr int kPad = 64;               // stats rows: Tq up to a multiple
 
-// a tile of kR rows x 96 fp32 in TMA's 128-byte swizzle: atom a (columns
+// The layout at head width D (56, 72 or 96): the dK / dV kernel holds K,
+// V, then the ring's q / dO tiles, their stats, the barriers; the dQ
+// kernel q, dO, then the ring's K / V tiles, the q tile's stats, the
+// barriers (both with 1024 bytes of alignment)
+template <int kD>
+struct Cfg {
+  static_assert(kD % 8 == 0 && kD <= 96, "D a multiple of 8 up to 96");
+  static constexpr int kAtoms = (kD + kBox - 1) / kBox;  // 32-float atoms
+  static constexpr int kDP = kAtoms * kBox;   // the row's padded width
+  static constexpr int kSteps = kD / 8;       // 8-deep steps along the head
+  static constexpr int kN8 = kD / 8;          // 8-wide output tiles
+  static constexpr int kNP = (kN8 + kG - 1) / kG * kG;  // in groups of kG
+  static constexpr int kBlockTile = kBlockRows * kDP * 4;  // 24 KB at D 96
+  static constexpr int kStageTile = kStage * kDP * 4;      // 12 KB
+  static constexpr int kRingOff = 2 * kBlockTile;
+  static constexpr int kStatOff = kRingOff + kStages * 2 * kStageTile;
+  static constexpr int kBarOff = kStatOff + kStages * kStatBytes;
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
+  static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+  static_assert(kStages * kStatBytes >= 2 * kBlockRows * 4,
+                "the dQ tile's stats fit the stats area");
+};
+
+// a tile of kR rows x kDP fp32 in TMA's 128-byte swizzle: atom a (columns
 // 32a .. 32a + 31) at a * kR * 128, row r at r * 128 within it, 16-byte
 // chunk c of the row at (c ^ (r % 8)) * 16.  Two lane offsets address a
 // warp's fragments (g = lane / 4, t = lane % 4): offA the element (g, t)
@@ -179,51 +195,59 @@ __device__ __forceinline__ void acc_to_a(const float (&y)[4],
   split_tf32(y[3], ab[3], as[3]);
 }
 
-// Y[12][4] += A X over the head's 96 columns (12 n8 tiles, kG at a time):
-// A the fragment of one 8-deep step, X's rows r0 .. r0 + 7 of a tile
-// (times mul where kMul)
-template <int kR, bool kMul>
-__device__ __forceinline__ void acc_head(float (&y)[kK8][4],
+// Y[kNP][4] += A X over the head's D columns (kN8 n8 tiles, kG at a time;
+// the group's tiles past D neither loaded nor multiplied): A the fragment
+// of one 8-deep step, X's rows r0 .. r0 + 7 of a tile (times mul where
+// kMul)
+template <int kD, int kR, bool kMul>
+__device__ __forceinline__ void acc_head(float (&y)[Cfg<kD>::kNP][4],
                                          const uint32_t (&ab)[4],
                                          const uint32_t (&as)[4],
                                          const uint8_t* tile, int r0,
                                          uint32_t offB0, uint32_t offB1,
                                          float mul) {
+  constexpr int kN8 = Cfg<kD>::kN8;
 #pragma unroll
-  for (int n0 = 0; n0 < kK8; n0 += kG) {
+  for (int n0 = 0; n0 < Cfg<kD>::kNP; n0 += kG) {
     uint32_t bb[kG][2], bs[kG][2];
 #pragma unroll
     for (int n = 0; n < kG; ++n)
-      frag_b_cols<kR, kMul>(tile, r0, n0 + n, offB0, offB1, mul, bb[n],
-                            bs[n]);
-    mma_3xtf32(y, n0, ab, as, bb, bs);
+      if (n0 + n < kN8)
+        frag_b_cols<kR, kMul>(tile, r0, n0 + n, offB0, offB1, mul, bb[n],
+                              bs[n]);
+    mma_3xtf32(y, n0, ab, as, bb, bs, kN8 - n0 < kG ? kN8 - n0 : kG);
   }
 }
 
-// rows [row0, row0 + kR) of a [B, T, H * 96] map at head h into a tile
-template <int kR>
+// rows [row0, row0 + kR) of a [B, T, H, D] map at head h into a tile, the
+// columns past D of the last atom zero
+template <int kD, int kR>
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int h, int row0,
                                           int b) {
 #pragma unroll
-  for (int a = 0; a < kD / kBox; ++a)
+  for (int a = 0; a < Cfg<kD>::kAtoms; ++a)
 #pragma unroll
     for (int r = 0; r < kR / kBox; ++r)
-      tma_load_3d(dst + a * kR * 128 + r * kBox * 128, map, bar,
-                  h * kD + a * kBox, row0 + r * kBox, b);
+      tma_load_4d(dst + a * kR * 128 + r * kBox * 128, map, bar, a * kBox,
+                  h, row0 + r * kBox, b);
 }
 
-__device__ __forceinline__ void store_acc(float* dst, const float (&y)[kK8][4],
+// the D columns of an accumulator's row r (0: g, 1: g + 8), times mul
+template <int kD>
+__device__ __forceinline__ void store_acc(float* dst,
+                                          const float (&y)[Cfg<kD>::kNP][4],
                                           int r, float mul, int t) {
 #pragma unroll
-  for (int n = 0; n < kK8; ++n)
+  for (int n = 0; n < Cfg<kD>::kN8; ++n)
     *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) =
         make_float2(y[n][2 * r] * mul, y[n][2 * r + 1] * mul);
 }
 
 // stats[0][b, h, t] = lse[b, h, t], stats[1][b, h, t] = sum_d dO * O
-// (dout and out contiguous [B, T, H, 96]); rows Tq <= t < Tp: +inf and 0.
+// (dout and out contiguous [B, T, H, D]); rows Tq <= t < Tp: +inf and 0.
 // One warp per row.
+template <int kD>
 __global__ void __launch_bounds__(128)
 d2_delta_kernel(const float* __restrict__ dout, const float* __restrict__ out,
                 const float* __restrict__ lse, int B, int T, int H, int Tp,
@@ -271,6 +295,7 @@ __device__ __forceinline__ Lanes lanes(int lane) {
 }
 
 // dK, dV of one 64-key tile over every q row
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 2)
 d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
@@ -279,12 +304,13 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_st, int Tq, int Tk,
                int H, float qscale, float dk_scale, float* __restrict__ dk,
                float* __restrict__ dv) {
+  using C = Cfg<kD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint8_t* sm = smem_raw + (base - raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + (base - raw) +
-                                               kBarOff);
+                                               C::kBarOff);
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
 
@@ -305,19 +331,19 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp == kConsumers / 32) {  // the producer
     if (lane == 0) {
       const uint32_t kb = smem_u32(kv_full);
-      mbar_expect_tx(kb, 2 * kBlockTile);
-      load_rows<kBlockRows>(base, &map_k, kb, h, k0, b);
-      load_rows<kBlockRows>(base + kBlockTile, &map_v, kb, h, k0, b);
+      mbar_expect_tx(kb, 2 * C::kBlockTile);
+      load_rows<kD, kBlockRows>(base, &map_k, kb, h, k0, b);
+      load_rows<kD, kBlockRows>(base + C::kBlockTile, &map_v, kb, h, k0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int i = 0; i < n_q; ++i) {
         mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
         const uint32_t bar = smem_u32(&full[stage]);
-        const uint32_t dst = base + kRingOff + stage * 2 * kStageTile;
-        mbar_expect_tx(bar, 2 * kStageTile + kStatBytes);
-        load_rows<kStage>(dst, &map_q, bar, h, i * kStage, b);
-        load_rows<kStage>(dst + kStageTile, &map_do, bar, h, i * kStage, b);
-        tma_load_3d(base + kStatOff + stage * kStatBytes, &map_st, bar,
+        const uint32_t dst = base + C::kRingOff + stage * 2 * C::kStageTile;
+        mbar_expect_tx(bar, 2 * C::kStageTile + kStatBytes);
+        load_rows<kD, kStage>(dst, &map_q, bar, h, i * kStage, b);
+        load_rows<kD, kStage>(dst + C::kStageTile, &map_do, bar, h, i * kStage, b);
+        tma_load_3d(base + C::kStatOff + stage * kStatBytes, &map_st, bar,
                     i * kStage, b * H + h, 0);
         if (++stage == kStages) {
           stage = 0;
@@ -332,23 +358,23 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t = lane & 3, r_k = 16 * warp;
   const Lanes ln = lanes(lane);
   const bool active = k0 + r_k < Tk;
-  float adv[kK8][4], adk[kK8][4];
+  float adv[C::kNP][4], adk[C::kNP][4];
 #pragma unroll
-  for (int n = 0; n < kK8; ++n)
+  for (int n = 0; n < C::kNP; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) adv[n][i] = adk[n][i] = 0.f;
   mbar_wait(smem_u32(kv_full), 0);
   const uint8_t* Ks = sm;
-  const uint8_t* Vs = sm + kBlockTile;
+  const uint8_t* Vs = sm + C::kBlockTile;
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < n_q; ++i) {
     mbar_wait(smem_u32(&full[stage]), phase);
     if (active) {
-      const uint8_t* Qs = sm + kRingOff + stage * 2 * kStageTile;
-      const uint8_t* Gs = Qs + kStageTile;  // dO
+      const uint8_t* Qs = sm + C::kRingOff + stage * 2 * C::kStageTile;
+      const uint8_t* Gs = Qs + C::kStageTile;  // dO
       const float* st =
-          reinterpret_cast<const float*>(sm + kStatOff + stage * kStatBytes);
+          reinterpret_cast<const float*>(sm + C::kStatOff + stage * kStatBytes);
       // 8-row steps of the stage that hold a q row < Tq
       const int steps = min(kStage / 8, (Tq - i * kStage + 7) / 8);
       // S^T = K (q qscale)^T, dP^T = V dO^T: keys x 32 q rows
@@ -358,7 +384,7 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kK8; ++kk) {
+      for (int kk = 0; kk < C::kSteps; ++kk) {
         uint32_t ab[4], as[4], bb[kStage / 8][2], bs[kStage / 8][2];
         frag_a<kBlockRows>(Ks, r_k, kk, ln.a, 1.f, ab, as);
 #pragma unroll
@@ -392,9 +418,9 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
         if (j >= steps) break;
         uint32_t ab[4], as[4];
         acc_to_a(s[j], ab, as);
-        acc_head<kStage, false>(adv, ab, as, Gs, 8 * j, ln.b0, ln.b1, 1.f);
+        acc_head<kD, kStage, false>(adv, ab, as, Gs, 8 * j, ln.b0, ln.b1, 1.f);
         acc_to_a(dp[j], ab, as);
-        acc_head<kStage, true>(adk, ab, as, Qs, 8 * j, ln.b0, ln.b1,
+        acc_head<kD, kStage, true>(adk, ab, as, Qs, 8 * j, ln.b0, ln.b1,
                                qscale);
       }
     }
@@ -411,12 +437,13 @@ d2_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     const int key = k0 + r_k + (lane >> 2) + 8 * r;
     if (key >= Tk) continue;
     const size_t off = (((size_t)b * Tk + key) * H + h) * kD;
-    store_acc(dv + off, adv, r, 1.f, t);
-    store_acc(dk + off, adk, r, dk_scale, t);
+    store_acc<kD>(dv + off, adv, r, 1.f, t);
+    store_acc<kD>(dk + off, adk, r, dk_scale, t);
   }
 }
 
 // dQ of one 64-row q tile over every key
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 2)
 d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
@@ -424,12 +451,13 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_do,
              const __grid_constant__ CUtensorMap map_st, int Tq, int Tk,
              int H, float qscale, float scale, float* __restrict__ dq) {
+  using C = Cfg<kD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint8_t* sm = smem_raw + (base - raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + (base - raw) +
-                                               kBarOff);
+                                               C::kBarOff);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
@@ -450,21 +478,21 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp == kConsumers / 32) {  // the producer
     if (lane == 0) {
       const uint32_t qb = smem_u32(q_full);
-      mbar_expect_tx(qb, 2 * kBlockTile + 2 * kStatBytes);
-      load_rows<kBlockRows>(base, &map_q, qb, h, q0, b);
-      load_rows<kBlockRows>(base + kBlockTile, &map_do, qb, h, q0, b);
+      mbar_expect_tx(qb, 2 * C::kBlockTile + 2 * kStatBytes);
+      load_rows<kD, kBlockRows>(base, &map_q, qb, h, q0, b);
+      load_rows<kD, kBlockRows>(base + C::kBlockTile, &map_do, qb, h, q0, b);
       for (int r = 0; r < kBlockRows / kStage; ++r)
-        tma_load_3d(base + kStatOff + r * kStatBytes, &map_st, qb,
+        tma_load_3d(base + C::kStatOff + r * kStatBytes, &map_st, qb,
                     q0 + r * kStage, b * H + h, 0);
       int stage = 0;
       uint32_t phase = 0;
       for (int i = 0; i < n_k; ++i) {
         mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
         const uint32_t bar = smem_u32(&full[stage]);
-        const uint32_t dst = base + kRingOff + stage * 2 * kStageTile;
-        mbar_expect_tx(bar, 2 * kStageTile);
-        load_rows<kStage>(dst, &map_k, bar, h, i * kStage, b);
-        load_rows<kStage>(dst + kStageTile, &map_v, bar, h, i * kStage, b);
+        const uint32_t dst = base + C::kRingOff + stage * 2 * C::kStageTile;
+        mbar_expect_tx(bar, 2 * C::kStageTile);
+        load_rows<kD, kStage>(dst, &map_k, bar, h, i * kStage, b);
+        load_rows<kD, kStage>(dst + C::kStageTile, &map_v, bar, h, i * kStage, b);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -478,21 +506,21 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int g = lane >> 2, t = lane & 3, r_q = 16 * warp;
   const Lanes ln = lanes(lane);
   const bool active = q0 + r_q < Tq;
-  float adq[kK8][4];
+  float adq[C::kNP][4];
 #pragma unroll
-  for (int n = 0; n < kK8; ++n)
+  for (int n = 0; n < C::kNP; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) adq[n][i] = 0.f;
   mbar_wait(smem_u32(q_full), 0);
   const uint8_t* Qs = sm;
-  const uint8_t* Gs = sm + kBlockTile;  // dO
+  const uint8_t* Gs = sm + C::kBlockTile;  // dO
   // the thread's rows r_q + g and r_q + g + 8: lse (+inf past Tq), delta
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r_q + g + 8 * r;
     const float* st = reinterpret_cast<const float*>(
-        sm + kStatOff + (row / kStage) * kStatBytes);
+        sm + C::kStatOff + (row / kStage) * kStatBytes);
     lr[r] = st[row % kStage];
     dr[r] = st[kStage + row % kStage];
   }
@@ -501,8 +529,8 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < n_k; ++i) {
     mbar_wait(smem_u32(&full[stage]), phase);
     if (active) {
-      const uint8_t* Ks = sm + kRingOff + stage * 2 * kStageTile;
-      const uint8_t* Vs = Ks + kStageTile;
+      const uint8_t* Ks = sm + C::kRingOff + stage * 2 * C::kStageTile;
+      const uint8_t* Vs = Ks + C::kStageTile;
       const int kbase = i * kStage;
       // 8-key steps of the stage that hold a key < Tk
       const int steps = min(kStage / 8, (Tk - kbase + 7) / 8);
@@ -513,7 +541,7 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kK8; ++kk) {
+      for (int kk = 0; kk < C::kSteps; ++kk) {
         uint32_t ab[4], as[4], bb[kStage / 8][2], bs[kStage / 8][2];
         frag_a<kBlockRows, true>(Qs, r_q, kk, ln.a, qscale, ab, as);
 #pragma unroll
@@ -542,7 +570,7 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         if (j >= steps) break;
         uint32_t ab[4], as[4];
         acc_to_a(dp[j], ab, as);
-        acc_head<kStage, false>(adq, ab, as, Ks, 8 * j, ln.b0, ln.b1, 1.f);
+        acc_head<kD, kStage, false>(adq, ab, as, Ks, 8 * j, ln.b0, ln.b1, 1.f);
       }
     }
     mbar_arrive(smem_u32(&empty[stage]));
@@ -557,20 +585,22 @@ d2_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r_q + g + 8 * r;
     if (row >= Tq) continue;
-    store_acc(dq + (((size_t)b * Tq + row) * H + h) * kD, adq, r, scale, t);
+    store_acc<kD>(dq + (((size_t)b * Tq + row) * H + h) * kD, adq, r, scale, t);
   }
 }
 
-// [B, T, H * 96] fp32 rows with their own row and batch strides (elements),
-// moved as boxes of 32 floats (128 bytes) by 32 rows of one frame in the
-// 128-byte swizzle: rows >= T load as zeros
+// [B, T, H, D] fp32 rows with their own row and batch strides (elements),
+// moved as boxes of 32 floats (128 bytes, one atom of a head) by 32 rows of
+// one frame in the 128-byte swizzle: rows >= T and columns >= D load as
+// zeros
 cudaError_t encode_rows_f32(CUtensorMap* map, const void* ptr, int B, int T,
-                            int H, long long row, long long batch) {
-  const cuuint64_t dims[3] = {(cuuint64_t)H * kD, (cuuint64_t)T,
+                            int H, int D, long long row, long long batch) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)row * 4, (cuuint64_t)batch * 4};
-  const cuuint32_t box[3] = {kBox, kBox, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims,
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)row * 4,
+                                 (cuuint64_t)batch * 4};
+  const cuuint32_t box[4] = {kBox, 1, kBox, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -583,57 +613,77 @@ cudaError_t encode_stats(CUtensorMap* map, const void* ptr, int BH, int Tp) {
                     strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const void* lse, int B, int Tq, int Tk, int H,
+           long long sqb, long long sqt, long long skb, long long skt,
+           long long svb, long long svt, float qscale, float scale,
+           void* stats, void* dq, void* dk, void* dv, cudaStream_t s) {
+  using C = Cfg<kD>;
+  const int Tp = (Tq + kPad - 1) / kPad * kPad;
+  CUtensorMap map_q, map_k, map_v, map_do, map_st;
+  cudaError_t err = encode_rows_f32(&map_q, q, B, Tq, H, kD, sqt, sqb);
+  if (err == cudaSuccess)
+    err = encode_rows_f32(&map_k, k, B, Tk, H, kD, skt, skb);
+  if (err == cudaSuccess)
+    err = encode_rows_f32(&map_v, v, B, Tk, H, kD, svt, svb);
+  if (err == cudaSuccess)
+    err = encode_rows_f32(&map_do, dout, B, Tq, H, kD, (long long)H * kD,
+                          (long long)Tq * H * kD);
+  if (err == cudaSuccess) err = encode_stats(&map_st, stats, B * H, Tp);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t attr_kv =
+      allow_smem(d2_dkdv_kernel<kD>, C::kSmem);
+  static const cudaError_t attr_q = allow_smem(d2_dq_kernel<kD>, C::kSmem);
+  if (attr_kv != cudaSuccess) return attr_kv;
+  if (attr_q != cudaSuccess) return attr_q;
+
+  const int rows = B * H * Tp;
+  float* st = static_cast<float*>(stats);
+  d2_delta_kernel<kD><<<(rows + 3) / 4, 128, 0, s>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(out),
+      static_cast<const float*>(lse), B, Tq, H, Tp, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  d2_dkdv_kernel<kD><<<dim3((Tk + kBlockRows - 1) / kBlockRows, H, B),
+                       kThreads, C::kSmem, s>>>(
+      map_q, map_k, map_v, map_do, map_st, Tq, Tk, H, qscale, scale / qscale,
+      static_cast<float*>(dk), static_cast<float*>(dv));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  d2_dq_kernel<kD><<<dim3((Tq + kBlockRows - 1) / kBlockRows, H, B),
+                     kThreads, C::kSmem, s>>>(map_q, map_k, map_v, map_do,
+                                              map_st, Tq, Tk, H, qscale,
+                                              scale, static_cast<float*>(dq));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q [B, Tq, H, 96], k / v [B, Tk, H, 96] fp32 with their own batch and row
+// q [B, Tq, H, D], k / v [B, Tk, H, D] fp32 with their own batch and row
 // strides in elements (as vdn_flash_attention_bthd_f32 reads them; rows
-// and bases 16-byte aligned); out and dout [B, Tq, H, 96] and lse [B, H,
+// and bases 16-byte aligned); out and dout [B, Tq, H, D] and lse [B, H,
 // Tq] fp32 contiguous -> stats [2, B, H, Tp] (scratch, Tp = Tq up to a
-// multiple of 64), dq [B, Tq, H, 96], dk / dv [B, Tk, H, 96] fp32
+// multiple of 64), dq [B, Tq, H, D], dk / dv [B, Tk, H, D] fp32
 // contiguous.  qscale is fp32(scale * log2 e) as the forward took it.
-// D = 96 only.
+// D = 56, 72 or 96.
 extern "C" int vdn_flash_attention_bthd_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, int B, int Tq, int Tk, int H, int D,
     long long sqb, long long sqt, long long skb, long long skt, long long svb,
     long long svt, float qscale, float scale, void* stats, void* dq, void* dk,
     void* dv, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 || H > 65535 ||
-      D != kD)
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Tp = (Tq + kPad - 1) / kPad * kPad;
-  CUtensorMap map_q, map_k, map_v, map_do, map_st;
-  cudaError_t err = encode_rows_f32(&map_q, q, B, Tq, H, sqt, sqb);
-  if (err == cudaSuccess) err = encode_rows_f32(&map_k, k, B, Tk, H, skt, skb);
-  if (err == cudaSuccess) err = encode_rows_f32(&map_v, v, B, Tk, H, svt, svb);
-  if (err == cudaSuccess)
-    err = encode_rows_f32(&map_do, dout, B, Tq, H, (long long)H * kD,
-                          (long long)Tq * H * kD);
-  if (err == cudaSuccess) err = encode_stats(&map_st, stats, B * H, Tp);
-  if (err != cudaSuccess) return err;
-  static const cudaError_t attr_kv =
-      allow_smem(d2_dkdv_kernel, kSmem);
-  static const cudaError_t attr_q = allow_smem(d2_dq_kernel, kSmem);
-  if (attr_kv != cudaSuccess) return attr_kv;
-  if (attr_q != cudaSuccess) return attr_q;
-
-  const int rows = B * H * Tp;
-  float* st = static_cast<float*>(stats);
-  d2_delta_kernel<<<(rows + 3) / 4, 128, 0, s>>>(
-      static_cast<const float*>(dout), static_cast<const float*>(out),
-      static_cast<const float*>(lse), B, Tq, H, Tp, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  d2_dkdv_kernel<<<dim3((Tk + kBlockRows - 1) / kBlockRows, H, B), kThreads,
-                   kSmem, s>>>(map_q, map_k, map_v, map_do, map_st, Tq, Tk,
-                               H, qscale, scale / qscale,
-                               static_cast<float*>(dk),
-                               static_cast<float*>(dv));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  d2_dq_kernel<<<dim3((Tq + kBlockRows - 1) / kBlockRows, H, B), kThreads,
-                 kSmem, s>>>(map_q, map_k, map_v, map_do, map_st, Tq, Tk, H,
-                             qscale, scale, static_cast<float*>(dq));
-  return cudaGetLastError();
+  if (D == 56)
+    return launch<56>(q, k, v, out, dout, lse, B, Tq, Tk, H, sqb, sqt, skb,
+                      skt, svb, svt, qscale, scale, stats, dq, dk, dv, s);
+  if (D == 72)
+    return launch<72>(q, k, v, out, dout, lse, B, Tq, Tk, H, sqb, sqt, skb,
+                      skt, svb, svt, qscale, scale, stats, dq, dk, dv, s);
+  if (D == 96)
+    return launch<96>(q, k, v, out, dout, lse, B, Tq, Tk, H, sqb, sqt, skb,
+                      skt, svb, svt, qscale, scale, stats, dq, dk, dv, s);
+  return cudaErrorInvalidValue;
 }

@@ -42,7 +42,8 @@ log-sum-exp [B, H, Tq]; its backward is D2 (csrc/flash_attn_bthd_bwd.cu),
 vdn's ``_flash_bwd_bhtd``: delta = rowsum(dO * O), dV = P^T dO, dS = P (dP
 - delta), dQ = dS K * scale, dK = dS^T q * scale, with P recomputed from
 the saved log-sum-exp, its products in 3xTF32 on the tensor cores
-(mma.sync) from tiles that TMA streams in.  D2 covers fp32 at D = 96; C1
+(mma.sync) from tiles that TMA streams in.  D2 covers fp32 at D = 56, 72
+and 96 (hieradet's global blocks at every released trunk); C1
 and C2's bf16 kernel are inference kernels, and on the card an input that
 requires grad raises there.
 
@@ -383,7 +384,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
     if wants_grad(q, k, v):
         raise RuntimeError(
             f"{name}: the bf16 kernel has no backward (D2 takes fp32 at "
-            f"D = 96); run under torch.no_grad()")
+            f"D in {D2_HEAD_DIMS}); run under torch.no_grad()")
     scale = d ** -0.5 if scale is None else scale
     # scale * log2(e) rounded to bf16, as the plain version folds it
     qscale = _kernel_qscale(scale)
@@ -416,7 +417,7 @@ def _launch_bthd(name: str, q, k, v, col_bias, scale) -> torch.Tensor:
 
 
 F32_HEAD_DIMS = (56, 72, 96, 256)   # csrc/flash_attn_bthd_f32.cu
-D2_HEAD_DIMS = (96,)            # csrc/flash_attn_bthd_bwd.cu
+D2_HEAD_DIMS = (56, 72, 96)     # csrc/flash_attn_bthd_bwd.cu
 D2_ROWS = 64            # csrc/flash_attn_bthd_bwd.cu: keys / q rows of a block
 
 
@@ -511,8 +512,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, scale: Optional[float] = None):
     """D2: (dq, dk, dv) of C2 from the forward's out and base-2 lse
-    [B, H, Tq]; kernel for fp32 at D = 96 (q, k, v read in place through
-    tensor maps: rows and bases 16-byte aligned)."""
+    [B, H, Tq]; kernel for fp32 with D in D2_HEAD_DIMS (q, k, v read in
+    place through 4-D tensor maps: rows and bases 16-byte aligned)."""
     if not use_kernel(q):
         return flash_attention_bwd_plain(q, k, v, out, dout, scale)
     name = "flash_attention_bwd"
@@ -582,8 +583,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """C2: attention over [B, T, H, D]; kernel for bf16 with D in
     BF16_HEAD_DIMS and fp32 with D in F32_HEAD_DIMS, q, k, v read in place
     through their strides (a CUDA tensor at any other width raises).
-    Differentiable (D2, fp32 D = 96 on the card) where grad is enabled and
-    an input requires it."""
+    Differentiable (D2, fp32 with D in D2_HEAD_DIMS on the card) where grad
+    is enabled and an input requires it."""
     if wants_grad(q, k, v):
         return _Attention.apply(q, k, v, scale)
     if not use_kernel(q):
